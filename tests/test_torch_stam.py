@@ -1,0 +1,200 @@
+"""Each function of the port's 3D step against its JAX counterpart
+(tpufluids.grid.stam) on the same seeded float32 inputs, on the CPU.
+
+Tolerance: atol = 1e-6 * max|reference| (rtol 0).  The two packages
+sum in different orders and use different BLAS, so results agree to
+float32 rounding, not bit for bit; set_bnd3d only copies and negates,
+so it must agree exactly.  The DCT solve is the exception: its small
+eigenvalues (about 0.04 at n = 16) amplify float32 rounding, and each
+package lands about 1.5e-6 * max|p| from a float64 solve, in different
+directions.  So the solve and the projection are held to 3e-6 of a
+float64 solve each and to DCT_TOL = 5e-6 of each other."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpufluids.grid import stam as jstam
+from tpufluids_torch.grid import mac as tmac
+from tpufluids_torch.grid import stam as tstam
+
+TOL = 1e-6
+DCT_TOL = 5e-6
+
+
+def _fields(seed, n, count, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(0, scale, (n + 2,) * 3).astype(np.float32)
+            for _ in range(count)]
+
+
+def _close(got, ref, tol=TOL):
+    ref = np.asarray(ref)
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=tol * float(np.abs(ref).max()))
+
+
+J = jnp.asarray
+
+
+def T(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("b", [0, 1, 2, 3])
+def test_set_bnd3d_matches(b):
+    (x,) = _fields(0, 12, 1)
+    np.testing.assert_array_equal(tstam.set_bnd3d(b, T(x)).numpy(),
+                                  np.asarray(jstam.set_bnd3d(b, J(x))))
+
+
+def test_set_bnd3d_closed_form():
+    """A ghost cell is the product of the signs of its out-of-range axes
+    times the value at the clamped interior index (what the CUDA kernels
+    compute), for every b."""
+    n = 5
+    (x,) = _fields(1, n, 1)
+    idx = np.clip(np.arange(n + 2), 1, n)
+    out = np.arange(n + 2) != idx
+    for b in range(4):
+        sign = np.ones((n + 2,) * 3, np.float32)
+        for a in range(3):
+            if b == a + 1:
+                flip = out.reshape([-1 if c == a else 1 for c in range(3)])
+                sign = np.where(flip, -sign, sign)
+        want = sign * x[np.ix_(idx, idx, idx)]
+        np.testing.assert_array_equal(tstam.set_bnd3d(b, T(x)).numpy(), want)
+
+
+def test_divergence_and_poisson_residual_match():
+    u, v, w, p, d = _fields(2, 12, 5)
+    _close(tstam.divergence3d(T(u), T(v), T(w)),
+           jstam.divergence3d(J(u), J(v), J(w)))
+    _close(tstam.poisson_residual3d(T(p), T(d)),
+           jstam.poisson_residual3d(J(p), J(d)))
+
+
+def test_buoyancy_and_vorticity_confinement_match():
+    u, v, w = _fields(3, 12, 3, scale=0.4)
+    d, t = (np.abs(f) for f in _fields(4, 12, 2))
+    kw = dict(n=12, dt=0.02, vorticity_eps=3.0, buoyancy_alpha=0.05,
+              buoyancy_beta=1.0, ambient_temp=0.2)
+    tcfg, jcfg = tstam.StamConfig(**kw), jstam.StamConfig(**kw)
+    _close(tstam.buoyancy3d(T(w), T(d), T(t), tcfg),
+           jstam.buoyancy3d(J(w), J(d), J(t), jcfg))
+    for got, ref in zip(tstam.vorticity_confinement3d(T(u), T(v), T(w), tcfg),
+                        jstam.vorticity_confinement3d(J(u), J(v), J(w),
+                                                      jcfg)):
+        _close(got, ref)
+
+
+@pytest.mark.parametrize("b", [0, 1, 2, 3])
+def test_advect3d_stencil_matches(b):
+    # velocities up to 1.5 cells per step, so both clamps are exercised
+    rng = np.random.default_rng(5)
+    n = 12
+    shape = (n + 2,) * 3
+    u, v, w = (rng.uniform(-1.5, 1.5, shape).astype(np.float32) / (0.03 * n)
+               for _ in range(3))
+    q = rng.uniform(0, 1, shape).astype(np.float32)
+    kw = dict(n=n, dt=0.03, advect_mode="stencil")
+    _close(tstam.advect3d_stencil(b, T(q), T(u), T(v), T(w),
+                                  tstam.StamConfig(**kw)),
+           jstam.advect3d_stencil(b, J(q), J(u), J(v), J(w),
+                                  jstam.StamConfig(**kw)))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(dct_radix_min=0),
+    dict(dct_radix_min=16, dct_radix_levels=1),
+    dict(dct_radix_min=16, dct_radix_levels=2),
+    dict(dct_precision="default"),
+], ids=["direct", "radix1", "radix2", "default-tier"])
+def test_dct_solve3d_matches(kw):
+    (x,) = _fields(6, 16, 1)
+    x = np.asarray(jstam.set_bnd3d(0, J(x)))
+    kw = dict(n=16, projection="dct", **kw)
+    got = tstam.dct_solve3d(T(x), tstam.StamConfig(**kw)).numpy()
+    ref = np.asarray(jstam.dct_solve3d(J(x), jstam.StamConfig(**kw)))
+    _close(got, ref, DCT_TOL)
+    exact = _dct_solve_float64(x)
+    for p in (got, ref):
+        np.testing.assert_allclose(p[1:-1, 1:-1, 1:-1], exact, rtol=0,
+                                   atol=3e-6 * np.abs(exact).max())
+
+
+def _dct_solve_float64(x):
+    """The interior of the Neumann-Poisson solve, direct DCT in float64."""
+    n = x.shape[0] - 2
+    i = np.arange(n, dtype=np.float64)
+    C = np.cos(np.pi / n * i[:, None] * (i[None, :] + 0.5))
+    Ci = C.T * (np.where(i == 0, 1.0, 2.0) / n)
+    lam1 = 2.0 - 2.0 * np.cos(np.pi * i / n)
+    a = x[1:-1, 1:-1, 1:-1].astype(np.float64)
+    for ax in range(3):
+        a = np.moveaxis(np.tensordot(C, a, axes=([1], [ax])), 0, ax)
+    lam = lam1[:, None, None] + lam1[None, :, None] + lam1[None, None, :]
+    a = a / np.where(lam == 0.0, 1.0, lam)
+    a[0, 0, 0] = 0.0
+    for ax in range(3):
+        a = np.moveaxis(np.tensordot(Ci, a, axes=([1], [ax])), 0, ax)
+    return a
+
+
+@pytest.mark.parametrize("final", [True, False])
+def test_project3d_dct_matches(final):
+    u, v, w = (np.asarray(jstam.set_bnd3d(b, J(f)))
+               for b, f in zip((1, 2, 3), _fields(7, 16, 3)))
+    kw = dict(n=16, projection="dct", dct_precision_first="default",
+              solver_backend="xla")
+    got = tstam.project3d(T(u), T(v), T(w), tstam.StamConfig(**kw),
+                          with_residual=True, final=final)
+    ref = jstam.project3d(J(u), J(v), J(w), jstam.StamConfig(**kw),
+                          with_residual=True, final=final)
+    for g, r in zip(got[:3], ref[:3]):
+        _close(g, r, DCT_TOL)
+    assert float(got[3]) < 1e-5 and float(ref[3]) < 1e-5
+
+
+def test_matmul_precision_pins_tf32_per_tier():
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    before = torch.get_float32_matmul_precision()
+    for tier, device, want in (("highest", cuda, "highest"),
+                               ("default", cuda, "high"),
+                               ("high", cuda, "high"),
+                               ("default", cpu, "highest")):
+        with tstam._matmul_precision(tier, device):
+            assert torch.get_float32_matmul_precision() == want
+            assert torch.backends.cuda.matmul.allow_tf32 == (want == "high")
+        assert torch.get_float32_matmul_precision() == before
+    with pytest.raises(ValueError):
+        with tstam._matmul_precision("bogus", cpu):
+            pass
+
+
+@pytest.mark.parametrize("kw", [
+    dict(advect_mode="gather"),
+    dict(projection="jacobi"),
+    dict(projection="multigrid"),
+    dict(visc=1e-5),
+    dict(diff=1e-5),
+    dict(temp_diff=1e-5),
+    dict(solver_dtype="bfloat16"),
+], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def test_configs_outside_the_slice_raise(kw):
+    base = dict(n=8, advect_mode="stencil", projection="dct")
+    cfg = tstam.StamConfig(**{**base, **kw})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tstam.step3d(tstam.make_grid3d(cfg), cfg)
+
+
+@pytest.mark.parametrize("entry", [tstam.step2d, tstam.run2d_python,
+                                   tmac.make_mac3d, tmac.run3d_python],
+                         ids=["step2d", "run2d_python", "make_mac3d",
+                              "mac.run3d_python"])
+def test_entry_points_outside_the_slice_raise(entry):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        entry(None, None)
