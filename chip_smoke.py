@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py
 
-1. Builds the four CUDA kernels from tpufluids_torch/csrc and prints
-   nvcc's register, spill and shared-memory lines.
+1. Builds the five CUDA kernels from tpufluids_torch/csrc (one nvcc
+   per source, in parallel) and prints nvcc's register, spill and
+   shared-memory lines.
 2. Holds each kernel against its plain PyTorch version at 256^3, on
    seeded inputs with set_bnd-consistent ghosts, and times both with
    CUDA events.
@@ -14,6 +15,17 @@
    against one step through the plain versions, then 3 warm-up and 30
    timed steps.  Checks shape, finiteness, the final Poisson residual
    and the kernel launches per step.
+5. Holds the SPH force kernel (base_forces_rowblock) against its plain
+   version at the base_dam scene and at a 262144-particle uniform fill,
+   on seeded dens, press and vel, and times both with CUDA events.
+6. Runs 10 base_dam steps on the card and on the CPU (plain version)
+   and compares them by particle id; runs 10 steps of the fill twice
+   on the card and requires bitwise-equal results.
+7. Drives the SPH base step through tpufluids_torch.step.run_python:
+   base_dam for 3 warm-up and 300 timed steps, the fill for 3 and 10,
+   with no host sync allowed in the timed steps.  Checks finiteness,
+   the alive count, the mass, the bin overflow, that the dam column
+   falls, and one kernel launch per step.
 
 Prints the kernels' JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}.  Exits non-zero, without
@@ -53,6 +65,22 @@ KERNELS = {
     "gradsub3d": ("tpufluids_torch/csrc/divgrad.cu",
                   "tpufluids/grid/pallas_kernels.py:1057", 1e-6),
 }
+# the SPH base step: 1e-5 * max|plain| for sum_w and each dpress column
+SPH_KERNELS = {
+    "base_forces_rowblock": ("tpufluids_torch/csrc/sph_forces.cu",
+                             "tpufluids/sph_pallas.py:1438", 1e-5),
+}
+SPH_FILL = 262144             # step.ROWBLOCK_MAX_POOL
+# (warm-up, timed) steps.  The random fill is not a stable scene: in
+# both packages its close pairs drive the max speed up about tenfold
+# every 3 steps from step ~12, to overflow by step ~25, so it is timed
+# over its first 13 steps, where it is finite.
+SPH_STEPS = {"base_dam": (3, 300), "fill": (3, 10)}
+SPH_CHECK_STEPS = 10
+# card against CPU, by particle id: tests/test_forces_vs_oracle.py's
+# multi-step tolerances, with atol 1e-5 * max(1, max|CPU|)
+SPH_TOLS = (("pos", 2e-4), ("vel", 2e-3), ("dens", 1e-4), ("press", 2e-3),
+            ("acc", 2e-3))
 
 
 class SmokeFailure(RuntimeError):
@@ -239,13 +267,164 @@ def run_main_path(stam, kernels, dev):
     return counts
 
 
+def sph_scene(sph, name, device):
+    """base_dam (8000 particles), or the 262144-particle uniform fill of
+    verify/bench_sph_scaling_ab.py, under BASE_CONFIG."""
+    if name == "base_dam":
+        return sph.scenes.base_dam(sph.cfg, device=device)
+    pos = np.random.default_rng(SEED).uniform(-0.9, 0.9, (SPH_FILL, 3))
+    return sph.state.make_state(pos.astype(np.float32), cfg=sph.cfg,
+                                device=device)
+
+
+def randomised(st, seed):
+    """dens, press and vel drawn from ``seed``: at a scene's first step
+    press = 0 and vel = 0, so dpress would be 0."""
+    rng = np.random.default_rng(seed)
+    n = st.capacity
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(st.pos.device)
+
+    return st.replace(dens=t(rng.uniform(9300.0, 9900.0, n)),
+                      press=t(rng.normal(0.0, 3e4, n)),
+                      vel=t(rng.normal(0.0, 0.5, (n, 3))))
+
+
+def check_sph_kernel(sph, dev):
+    """The force kernel against its plain version at both scenes; returns
+    {"max_abs_err", "ms", "plain_ms"}, the times at the fill."""
+    kern = sph.sph_kernels.base_forces_rowblock
+    plain = sph.sph_kernels.base_forces_rowblock_plain
+    tol = SPH_KERNELS["base_forces_rowblock"][2]
+    worst = 0.0
+    for name in SPH_STEPS:
+        st = randomised(sph_scene(sph, name, dev), SEED + 1)
+        order, bt = sph.binning.sort_tables(st, sph.cfg)
+        got = kern(st, bt, sph.cfg, order)
+        want = plain(st, bt, sph.cfg, order)
+        torch.cuda.synchronize()
+        check(got[0].shape == want[0].shape and
+              got[1].shape == want[1].shape, "base_forces_rowblock shapes")
+        e, r = rel_err([got[0], *got[1].unbind(1)],
+                       [want[0], *want[1].unbind(1)])
+        check(float(want[1].abs().max()) > 0.0, "dpress is 0: no check")
+        ms = time_ms(lambda: kern(st, bt, sph.cfg, order))
+        plain_ms = time_ms(lambda: plain(st, bt, sph.cfg, order))
+        pack_ms = time_ms(lambda: sph.forces.pack_rows(st, order,
+                                                       bt.in_dom))
+        log(f"kernel base_forces_rowblock @ {name} ({st.capacity} "
+            f"particles): max_abs_err {e:.3e} (relative {r:.3e}, tolerance "
+            f"{tol:.0e}); ms per call: kernel {ms:.4f} (of which the row "
+            f"pack {pack_ms:.4f}), plain {plain_ms:.4f}")
+        check(r <= tol, f"base_forces_rowblock disagrees with its plain "
+                        f"version at {name} ({r:.3e} > {tol:.0e})")
+        worst = max(worst, e)
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+
+
+def state_by_pid(sph, st):
+    d = sph.convert.state_to_numpy(st)
+    rows = np.argsort(d["pid"])
+    return {k: v[rows] for k, v in d.items()}
+
+
+def check_sph_against_cpu(sph, dev):
+    """10 base_dam steps on the card (kernel) against the CPU (plain
+    version), by particle id."""
+    gpu, gm = sph.step.run_python(sph_scene(sph, "base_dam", dev), sph.cfg,
+                                  SPH_CHECK_STEPS)
+    cpu, cm = sph.step.run_python(sph_scene(sph, "base_dam", "cpu"),
+                                  sph.cfg, SPH_CHECK_STEPS)
+    g, c = state_by_pid(sph, gpu), state_by_pid(sph, cpu)
+    check(np.array_equal(g["pid"], c["pid"]), "base_dam particle ids")
+    for key, rtol in SPH_TOLS:
+        a, b = g[key].astype(np.float64), c[key].astype(np.float64)
+        atol = 1e-5 * max(1.0, float(np.abs(b).max()))
+        excess = float((np.abs(a - b) - rtol * np.abs(b) - atol).max())
+        log(f"base_dam, {SPH_CHECK_STEPS} steps, card vs CPU, {key}: "
+            f"max_abs_err {float(np.abs(a - b).max()):.3e} (rtol {rtol:.0e},"
+            f" atol {atol:.1e}); finite {bool(np.isfinite(a).all())}")
+        check(np.isfinite(a).all() and excess <= 0.0,
+              f"base_dam {key}: card and CPU disagree")
+    check(int(gm.n_alive) == int(cm.n_alive) == 8000, "base_dam n_alive")
+    check(float(gm.total_mass) == float(cm.total_mass), "base_dam mass")
+
+
+def check_sph_determinism(sph, dev):
+    """Two 10-step card runs of the fill must be bitwise equal."""
+    runs = [sph.step.run_python(sph_scene(sph, "fill", dev), sph.cfg,
+                                SPH_CHECK_STEPS)[0] for _ in range(2)]
+    same = all(torch.equal(getattr(runs[0], f), getattr(runs[1], f))
+               for f in sph.state.FIELDS)
+    log(f"fill, {SPH_CHECK_STEPS} steps, two card runs bitwise equal: "
+        f"{same}")
+    check(same, "two card runs of the fill differ")
+
+
+def run_sph_main_path(sph, dev):
+    """Drive run_python on base_dam and on the fill; the counts are
+    reset before and read after each timed run.  Returns the summed
+    launch counts."""
+    total = {}
+    for name, (warm, timed) in SPH_STEPS.items():
+        st = sph_scene(sph, name, dev)
+        n0, mass0 = int(st.alive.sum()), float(st.mass.sum())
+        zmin0 = float(st.pos[:, 2].min())
+        st, _ = sph.step.run_python(st, sph.cfg, warm)
+        torch.cuda.synchronize()
+        sph.sph_kernels.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            st, m = sph.step.run_python(st, sph.cfg, timed)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = sph.sph_kernels.launch_counts()
+        ms = seconds / timed * 1e3
+        finite = all(bool(torch.isfinite(getattr(st, f)).all())
+                     for f in ("pos", "vel", "acc", "dens", "press",
+                               "delpress"))
+        zmin = float(st.pos[:, 2].min())
+        log(f"SPH {name} ({n0} particles), {timed} timed steps after "
+            f"{warm} warm-up: {ms:.4f} ms/step, "
+            f"{n0 * timed / seconds:.4e} particle-steps/s; n_alive "
+            f"{int(m.n_alive)}, total_mass {float(m.total_mass)}, "
+            f"bin_overflow {int(m.bin_overflow)}, max_speed "
+            f"{float(m.max_speed):.4e}, dens_residual "
+            f"{float(m.dens_residual):.4e}, min z {zmin0:.4f} -> "
+            f"{zmin:.4f}, finite {finite}; launches {counts}")
+        check(finite, f"SPH {name}: state not finite")
+        check(int(m.n_alive) == n0, f"SPH {name}: n_alive changed")
+        check(float(m.total_mass) == mass0, f"SPH {name}: mass changed")
+        check(int(m.bin_overflow) == 0, f"SPH {name}: bin overflow")
+        check(counts == {"base_forces_rowblock": timed},
+              f"SPH {name}: launches {counts} != one per step")
+        if name == "base_dam":
+            check(zmin < zmin0, "base_dam: the column did not fall")
+        for k, c in counts.items():
+            total[k] = total.get(k, 0) + c
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port is only measured on "
               "the card", file=sys.stderr)
         return 2
-    from tpufluids_torch import _build
+    import types
+
+    from tpufluids_torch import (_build, binning, convert, forces, scenes,
+                                 sph_kernels, state, step)
+    from tpufluids_torch.config import BASE_CONFIG
     from tpufluids_torch.grid import kernels, stam
+
+    sph = types.SimpleNamespace(binning=binning, convert=convert,
+                                forces=forces, scenes=scenes,
+                                sph_kernels=sph_kernels, state=state,
+                                step=step, cfg=BASE_CONFIG)
 
     dev = torch.device("cuda")
     log(f"card (name, power limit): {card_line()}")
@@ -264,8 +443,13 @@ def main():
     check_small_against_cpu(stam, dev)
     counts = run_main_path(stam, kernels, dev)
 
+    checked["base_forces_rowblock"] = check_sph_kernel(sph, dev)
+    check_sph_against_cpu(sph, dev)
+    check_sph_determinism(sph, dev)
+    counts.update(run_sph_main_path(sph, dev))
+
     rows = []
-    for name, (source, replaces, _) in KERNELS.items():
+    for name, (source, replaces, _) in {**KERNELS, **SPH_KERNELS}.items():
         check(counts[name] > 0, f"{name} was not launched on the main path")
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": counts[name],

@@ -26,7 +26,8 @@ def _imported_roots(path):
 def test_port_has_sources():
     names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
     assert {"tpufluids_torch/grid/stam.py", "tpufluids_torch/grid/kernels.py",
-            "tpufluids_torch/grid/convert.py"} <= names
+            "tpufluids_torch/grid/convert.py", "tpufluids_torch/step.py",
+            "tpufluids_torch/sph_kernels.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -41,6 +42,11 @@ def test_importing_the_port_loads_no_jax():
         "before = set(sys.modules)\n"
         "import tpufluids_torch.grid.stam, tpufluids_torch.grid.kernels\n"
         "import tpufluids_torch.grid.convert, tpufluids_torch.grid.mac\n"
+        "import tpufluids_torch.config, tpufluids_torch.kernels\n"
+        "import tpufluids_torch.state, tpufluids_torch.convert\n"
+        "import tpufluids_torch.binning, tpufluids_torch.forces\n"
+        "import tpufluids_torch.integrate, tpufluids_torch.sph_kernels\n"
+        "import tpufluids_torch.step, tpufluids_torch.scenes\n"
         f"bad = sorted(m for m in set(sys.modules) - before\n"
         f"             if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "print(bad)\n"

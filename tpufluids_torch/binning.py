@@ -1,0 +1,140 @@
+"""Cell-grid neighbour binning: the sort tables of ``tpufluids.binning``
+in PyTorch.
+
+Per step the pool is sorted by linear cell id (z fastest).  The pool
+itself is never permuted: ``sort_tables`` returns the permutation
+``order`` and the sorted tables, and the force pass gathers what it
+needs by ``order``.  Dead and out-of-domain particles get the sentinel
+id ``num_cells`` and sort to the end, so no neighbour run holds them.
+
+Cell coordinates truncate toward zero, like the reference's ``int()``
+cast (FluidGPU.cu:419) and the JAX package's binning.  (The JAX
+row-block Pallas kernel floors instead; the two differ only in the
+one-cell band just below a low face, ROADMAP Queue 3.)
+
+Nothing here synchronises the host with the device: the tables stay
+device tensors of static shape.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from tpufluids_torch.config import SPHConfig
+from tpufluids_torch.state import ParticleState
+
+# The 9 (dx, dy) run offsets of the 27-cell stencil.
+RUN_OFFSETS = [(dx, dy) for dx in (-1, 0, 1) for dy in (-1, 0, 1)]
+
+
+class GridSpec(NamedTuple):
+    """Binning-grid extent: the full cube, or an x-slab under domain
+    decomposition (not ported: ROADMAP Queue 1 item 8)."""
+    g: int          # y/z extent (= cfg.grid_size)
+    x_planes: int   # number of x planes covered
+    x_offset: int   # global cx of local plane 0
+
+    @property
+    def num_cells(self) -> int:
+        return self.x_planes * self.g * self.g
+
+
+def full_grid(cfg: SPHConfig) -> GridSpec:
+    return GridSpec(g=cfg.grid_size, x_planes=cfg.grid_size, x_offset=0)
+
+
+def _check_grid(cfg: SPHConfig, grid: Optional[GridSpec]) -> GridSpec:
+    full = full_grid(cfg)
+    if grid is not None and tuple(grid) != tuple(full):
+        raise NotImplementedError(
+            "a binning grid other than the full cube (x-slab sharding) is "
+            "not ported to tpufluids_torch yet (ROADMAP.md Queue 1 item 8)")
+    return full
+
+
+def cell_coords(pos: torch.Tensor, cfg: SPHConfig) -> torch.Tensor:
+    """(N, 3) int32 cell coordinates, truncated toward zero like
+    ``int((x - XMIN)/CELLSIZE)`` (FluidGPU.cu:419)."""
+    shifted = torch.stack([pos[:, 0] - cfg.xmin, pos[:, 1] - cfg.ymin,
+                           pos[:, 2] - cfg.zmin], dim=1)
+    # divide by a device scalar: on CUDA, torch turns a division by a
+    # Python number into a multiplication by its reciprocal, which can
+    # move a particle on a cell face into the next cell
+    cs = torch.full((), cfg.cell_size, dtype=pos.dtype, device=pos.device)
+    return torch.trunc(shifted / cs).to(torch.int32)
+
+
+def cell_id(pos: torch.Tensor, alive: torch.Tensor, cfg: SPHConfig,
+            grid: Optional[GridSpec] = None):
+    """(linear cell id, in_dom): int32 ids, z fastest; dead or
+    out-of-domain particles get the sentinel ``num_cells``."""
+    grid = _check_grid(cfg, grid)
+    g = grid.g
+    c = cell_coords(pos, cfg)
+    in_dom = ((c >= 0) & (c < g)).all(dim=1)
+    lin = (c[:, 0] * g + c[:, 1]) * g + c[:, 2]
+    return torch.where(in_dom & alive, lin, grid.num_cells), in_dom
+
+
+class BinTable(NamedTuple):
+    """Sorted-order binning tables for one step."""
+    order: torch.Tensor       # (N,) int64: pool row of each sorted row
+    cid: torch.Tensor         # (N,) int32 sorted ids (sentinel num_cells)
+    in_dom: torch.Tensor      # (N,) bool, sorted: alive and in the domain
+    cell_start: torch.Tensor  # (num_cells + 2,) int32 first row of cell c
+
+
+def sort_tables(state: ParticleState, cfg: SPHConfig,
+                grid: Optional[GridSpec] = None):
+    """Sorted-order binning tables without permuting the pool; returns
+    (order, BinTable), as ``tpufluids.binning.sort_tables``.
+
+    The sort key is the int64 ``cid * n + row``: keys are unique, so the
+    order is the stable order by cell id, which both branches of the JAX
+    package give (its int32 packed key below 33554 rows, its stable
+    argsort above).  ``cell_start[c]`` is the number of sorted ids
+    below c, from a binary search of the sorted ids (equal to the JAX
+    package's histogram and cumsum; ``torch.bincount`` would synchronise
+    the host on a CUDA device)."""
+    grid = _check_grid(cfg, grid)
+    cid, _ = cell_id(state.pos, state.alive, cfg, grid)
+    n = cid.shape[0]
+    rows = torch.arange(n, dtype=torch.int64, device=cid.device)
+    _, order = torch.sort(cid.to(torch.int64) * n + rows)
+    scid = cid[order]
+    cells = torch.arange(grid.num_cells + 2, dtype=torch.int32,
+                         device=cid.device)
+    cell_start = torch.searchsorted(scid, cells, out_int32=True)
+    bt = BinTable(order=order, cid=scid, in_dom=scid < grid.num_cells,
+                  cell_start=cell_start)
+    return order, bt
+
+
+def run_table(bt: BinTable, cfg: SPHConfig):
+    """(run_start, run_len), each (N, 9) int64 in sorted order: the 9
+    (dx, dy) neighbour runs of cells (z-1, z, z+1) of every sorted row,
+    in RUN_OFFSETS order, as ``tpufluids.binning.build_bins`` builds
+    them but without its ``3 * max_per_cell`` clip.  Rows outside the
+    domain have runs of length 0.  Used by the plain force version."""
+    g = cfg.grid_size
+    num_cells = g ** 3
+    cid = bt.cid.to(torch.int64)
+    valid_home = cid < num_cells
+    cc = torch.clamp(cid, max=num_cells - 1)
+    cz = cc % g
+    cy = (cc // g) % g
+    cx = cc // (g * g)
+    off = torch.tensor(RUN_OFFSETS, dtype=torch.int64, device=cid.device)
+    nx = cx[:, None] + off[:, 0]
+    ny = cy[:, None] + off[:, 1]
+    valid = ((nx >= 0) & (nx < g) & (ny >= 0) & (ny < g)
+             & valid_home[:, None])
+    base = nx * (g * g) + ny * g
+    zlo = torch.clamp(cz - 1, min=0)[:, None]
+    zhi = torch.clamp(cz + 1, max=g - 1)[:, None]
+    cs = bt.cell_start.to(torch.int64)
+    lo = cs[torch.clamp(base + zlo, 0, num_cells)]
+    hi = cs[torch.clamp(base + zhi + 1, 0, num_cells + 1)]
+    return lo, torch.where(valid, hi - lo, 0)

@@ -1,0 +1,147 @@
+// Pair-force pass of the base SPH variant: per home particle, the
+// density sum sum_w and the pressure-gradient sum dpress over its
+// exact 27-cell stencil (FluidGPU.cu:224-281).
+//
+// Replaces base_forces_rowblock / _base_rowblock_kernel
+// (tpufluids/sph_pallas.py).  The TPU kernel streams 128-row home
+// blocks and chunked candidate windows through VMEM with a DMA double
+// buffer; here one thread owns one cell-sorted row and walks its
+// candidates straight from device memory.  Consecutive threads hold
+// rows of the same or adjacent cells, so a warp reads largely the same
+// candidate rows and those reads hit L1/L2; the 40e6 pairs of a
+// 262144-particle uniform fill are a few GFLOP, so the kernel is bound
+// by those candidate loads and by the latency of its serial loop.
+//
+// Candidates are the 9 (dx, dy) runs [cell_start[base + zlo],
+// cell_start[base + zhi + 1]) in the order of binning.RUN_OFFSETS, j
+// ascending within a run: the runs hold exactly the 27 stencil cells,
+// so no per-pair cell mask is needed.  Cell coordinates come from the
+// sorted cell id, which the binning truncated toward zero.
+//
+// Each thread writes its own output row at its pool index order[i]
+// (a permutation), with no atomics, so results are bitwise identical
+// from run to run.  Built with -fmad=false, with the operations per pair
+// of the plain version (tpufluids_torch/forces.py, _chunk_sums).
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+
+struct PairConsts {
+  float h, two_h;
+  float w_norm;    // PI_REF h^3
+  float spiky;     // -45 / (PI_REF h^6)
+  float mu_eps;    // 0.01 h^2
+  float visc_a;    // alpha_fluid * sound
+  float visc_q;    // visc_quadratic / sound
+  float alpha_b;   // alpha_boundary
+  float bdens;     // bdensfactor
+};
+
+// Sums of sorted row i over its 27-cell stencil; c is its cell id,
+// below the sentinel, so row i is alive and in the domain.
+// rows: n x 12 floats as 3 float4 per row: (x, y, z, vx),
+// (vy, vz, dens, press), (boundary, alive, 0, 0); see forces.pack_rows.
+__device__ float4 home_sums(const float4* __restrict__ rows,
+                            const int* __restrict__ cell_start, int i, int c,
+                            int g, const PairConsts& k) {
+  const int cz = c % g, cy = (c / g) % g, cx = c / (g * g);
+  const int zlo = cz > 0 ? cz - 1 : 0;
+  const int zhi = cz < g - 1 ? cz + 1 : g - 1;
+  const float4 ha = rows[3 * i], hb = rows[3 * i + 1], hc = rows[3 * i + 2];
+  const float di = hb.z, pi_term = hb.w / (hb.z * hb.z);
+  const bool fluid_i = !(hc.x > 0.5f);
+  float sw = 0.f, px = 0.f, py = 0.f, pz = 0.f;
+  for (int dx = -1; dx <= 1; ++dx) {
+    const int nx = cx + dx;
+    if (nx < 0 || nx >= g) continue;
+    for (int dy = -1; dy <= 1; ++dy) {
+      const int ny = cy + dy;
+      if (ny < 0 || ny >= g) continue;
+      const int base = (nx * g + ny) * g;
+      const int j1 = cell_start[base + zhi + 1];
+      for (int j = cell_start[base + zlo]; j < j1; ++j) {
+        const float4 ja = rows[3 * j], jb = rows[3 * j + 1];
+        const float4 jc = rows[3 * j + 2];
+        if (!(jc.y > 0.5f)) continue;
+        const float rx = ha.x - ja.x, ry = ha.y - ja.y, rz = ha.z - ja.z;
+        const float ds = sqrtf(rx * rx + ry * ry + rz * rz);
+        if (!(ds > 0.f && ds <= k.two_h)) continue;
+        const float vx = ha.w - ja.w, vy = hb.x - jb.x, vz = hb.y - jb.y;
+
+        // w_cubic (FluidGPU.cu:11-21) and grad_w_spiky (:35-43)
+        const float q = ds / k.h;
+        float w;
+        if (q <= 1.f) {
+          w = 1.f - 1.5f * q * q + 0.75f * q * q * q;
+        } else if (q < 2.f) {
+          const float t = 2.f - q;
+          w = 0.25f * (t * t * t);
+        } else {
+          w = 0.f;
+        }
+        w = w / k.w_norm;
+        const float hr = k.h - ds;
+        const float dw = ds < k.h ? k.spiky * (hr * hr) : 0.f;
+        const float dkf = dw / ds;
+
+        // inline Monaghan viscosity with its quadratic term (:255)
+        const float dj = jb.z, pj = jb.w;
+        const float nb = (fluid_i && jc.x > 0.5f) ? 1.f : 0.f;
+        const float d = vx * rx + vy * ry + vz * rz;
+        const float mu = k.h * (d / (ds * ds + k.mu_eps));
+        const float rho_bar = (di + dj) / 2.f;
+        const float s = k.visc_a * (mu + k.visc_q * mu * mu) / rho_bar
+                        * (d < 0.f ? 1.f : 0.f) * (1.f + nb * k.alpha_b);
+        const float p_term = pj / (dj * dj) + pi_term + s;
+
+        sw += w * (1.f + nb * k.bdens);
+        px += p_term * (dkf * rx);
+        py += p_term * (dkf * ry);
+        pz += p_term * (dkf * rz);
+      }
+    }
+  }
+  return make_float4(sw, px, py, pz);
+}
+
+// One thread per sorted row; dead and out-of-domain rows carry the
+// sentinel id num_cells, sort last and get zeros.
+__global__ void base_forces_kernel(const float4* __restrict__ rows,
+                                   const int* __restrict__ cid,
+                                   const int* __restrict__ cell_start,
+                                   const long long* __restrict__ order,
+                                   float* __restrict__ sum_w,
+                                   float* __restrict__ dpress, int n, int g,
+                                   PairConsts k) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int c = cid[i];
+  const float4 r = c < g * g * g ? home_sums(rows, cell_start, i, c, g, k)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+  const long long p = order[i];
+  sum_w[p] = r.x;
+  dpress[3 * p] = r.y;
+  dpress[3 * p + 1] = r.z;
+  dpress[3 * p + 2] = r.w;
+}
+
+}  // namespace
+
+extern "C" int tf_sph_base_forces(const float* rows, const int* cid,
+                                  const int* cell_start,
+                                  const long long* order, float* sum_w,
+                                  float* dpress, int n, int g, float h,
+                                  float two_h, float w_norm, float spiky,
+                                  float mu_eps, float visc_a, float visc_q,
+                                  float alpha_b, float bdens, void* stream) {
+  if (n == 0) return 0;
+  const PairConsts k{h, two_h, w_norm, spiky, mu_eps,
+                     visc_a, visc_q, alpha_b, bdens};
+  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+  base_forces_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      reinterpret_cast<const float4*>(rows), cid, cell_start, order, sum_w,
+      dpress, n, g, k);
+  return (int)cudaGetLastError();
+}

@@ -19,49 +19,10 @@ second boundary pass is needed.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from tpufluids_torch import _build
 from tpufluids_torch.grid import stam
-
-_P, _INT, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {
-    "tf_advect3d": [_P] * 9 + [_INT] * 5 + [_F, _P],
-    "tf_forcing_a": [_P] * 7 + [_INT] * 3 + [_F] * 5 + [_P],
-    "tf_forcing_b": [_P] * 7 + [_INT] + [_F] * 3 + [_P],
-    "tf_div3d": [_P] * 4 + [_INT, _F, _P],
-    "tf_gradsub3d": [_P] * 7 + [_INT, _F, _P],
-}
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load()
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.tf_error_string.argtypes = [ctypes.c_int]
-    lib.tf_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _launch(name: str, *args):
-    """Call C entry ``name`` on the current stream of the tensors'
-    device; tensors pass as their data pointers, None as NULL."""
-    device = next(a.device for a in args if isinstance(a, torch.Tensor))
-    lib = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, name)(
-            *(a.data_ptr() if isinstance(a, torch.Tensor) else a
-              for a in args), stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc} "
-                           f"({lib.tf_error_string(rc).decode()})")
 
 
 def _on_cuda(*tensors) -> bool:
@@ -116,8 +77,8 @@ def advect3d_multi(fields, bnds, u, v, w, dt0: float):
     k = len(fields)
     outs = tuple(torch.empty_like(u) for _ in fields)
     pad = (None,) * (3 - k)
-    _launch("tf_advect3d", u, v, w, *fields, *pad, *outs, *pad, k,
-            *bnds, *(0,) * (3 - k), u.shape[0] - 2, dt0)
+    _build.launch("tf_advect3d", u, v, w, *fields, *pad, *outs, *pad, k,
+                  *bnds, *(0,) * (3 - k), u.shape[0] - 2, dt0)
     advect3d_multi.launches += 1
     return outs
 
@@ -157,15 +118,15 @@ def forcing3d(u, v, w, dens, temp, cfg: stam.StamConfig):
     h = 1.0 / n
     w1 = torch.empty_like(w) if buoy else None
     mag = torch.empty_like(u) if vort else None
-    _launch("tf_forcing_a", u, v, w, dens, temp, w1, mag, n, buoy, vort,
-            cfg.dt, cfg.buoyancy_alpha, cfg.buoyancy_beta, cfg.ambient_temp,
-            h)
+    _build.launch("tf_forcing_a", u, v, w, dens, temp, w1, mag, n, buoy,
+                  vort, cfg.dt, cfg.buoyancy_alpha, cfg.buoyancy_beta,
+                  cfg.ambient_temp, h)
     if buoy:
         w = w1
     if vort:
         outs = tuple(torch.empty_like(u) for _ in range(3))
-        _launch("tf_forcing_b", u, v, w, mag, *outs, n, cfg.dt,
-                cfg.vorticity_eps * h, h)
+        _build.launch("tf_forcing_b", u, v, w, mag, *outs, n, cfg.dt,
+                      cfg.vorticity_eps * h, h)
         u, v, w = outs
     forcing3d.launches += 1
     return u, v, w
@@ -194,7 +155,7 @@ def div3d(u, v, w):
         return div3d_plain(u, v, w)
     n = u.shape[0] - 2
     out = torch.empty_like(u)
-    _launch("tf_div3d", u, v, w, out, n, -0.5 * (1.0 / n))
+    _build.launch("tf_div3d", u, v, w, out, n, -0.5 * (1.0 / n))
     div3d.launches += 1
     return out
 
@@ -227,7 +188,7 @@ def gradsub3d(p, u, v, w):
         return gradsub3d_plain(p, u, v, w)
     n = u.shape[0] - 2
     outs = tuple(torch.empty_like(u) for _ in range(3))
-    _launch("tf_gradsub3d", p, u, v, w, *outs, n, 1.0 / n)
+    _build.launch("tf_gradsub3d", p, u, v, w, *outs, n, 1.0 / n)
     gradsub3d.launches += 1
     return outs
 
