@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-1. Builds the five CUDA kernels from tpufluids_torch/csrc (one nvcc
+1. Builds the CUDA kernels from tpufluids_torch/csrc (one nvcc
    per source, in parallel) and prints nvcc's register, spill and
    shared-memory lines.
 2. Holds each kernel against its plain PyTorch version at 256^3, on
@@ -26,6 +26,21 @@
    with no host sync allowed in the timed steps.  Checks finiteness,
    the alive count, the mass, the bin overflow, that the dam column
    falls, and one kernel launch per step.
+8. Holds the unidyn force kernels (unidyn_forces_resident and
+   unidyn_forces_rowblock, csrc/sph_unidyn.cu) against their plain
+   versions on mixed-phase inputs: the reference's 14040-particle tank
+   and a 46656-particle uniform fill at the tank's lattice density,
+   with merging on at the fill.  Every output column must be nonzero.
+   Times both with CUDA events.
+9. Runs 10 steps of the tank cut to 2808 particles on the card and on
+   the CPU, and 3 steps of a merging mixed-phase blob, and compares
+   them by particle id.
+10. Drives the unidyn step through run_python on the full tank: 3
+    warm-up and 300 timed steps with no host sync allowed, one resident
+    kernel call per step.  Checks the alive count, the mass, the bin
+    overflow, finiteness, that the fluid stays inside the walls and
+    falls.  Then 20 steps through the row-block kernel must equal 20
+    resident steps bitwise, and two resident runs each other.
 
 Prints the kernels' JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}.  Exits non-zero, without
@@ -81,6 +96,26 @@ SPH_CHECK_STEPS = 10
 # multi-step tolerances, with atol 1e-5 * max(1, max|CPU|)
 SPH_TOLS = (("pos", 2e-4), ("vel", 2e-3), ("dens", 1e-4), ("press", 2e-3),
             ("acc", 2e-3))
+# the unidyn step: 1e-5 * max|plain| for every output column
+UNIDYN_KERNELS = {
+    "unidyn_forces_resident": ("tpufluids_torch/csrc/sph_unidyn.cu",
+                               "tpufluids/sph_pallas.py:1592", 1e-5),
+    "unidyn_forces_rowblock": ("tpufluids_torch/csrc/sph_unidyn.cu",
+                               "tpufluids/sph_pallas.py:1656", 1e-5),
+}
+UNIDYN_FIELDS = ("sum_w", "dpress", "diffusion", "vel_grad", "stress_accel",
+                 "solid_drift", "fluid_drift", "mixture_accel", "delsolid",
+                 "delfluid")
+# a uniform fill of [-0.9, 0.9]^3 at the tank's lattice density, 8000 per
+# unit volume
+UNIDYN_FILL = 46656
+UNIDYN_STEPS = (3, 300)
+UNIDYN_BITWISE_STEPS = 20
+# card against CPU: test_unidyn_step_matches_oracle's multi-step
+# tolerances, with atol 1e-5 * max(1, max|CPU|)
+UNIDYN_TOLS = (("pos", 2e-4), ("vel", 2e-3), ("dens", 1e-4),
+               ("press", 2e-3), ("solid", 1e-3), ("fluid", 1e-3),
+               ("stress", 2e-3))
 
 
 class SmokeFailure(RuntimeError):
@@ -400,13 +435,204 @@ def run_sph_main_path(sph, dev):
         check(int(m.n_alive) == n0, f"SPH {name}: n_alive changed")
         check(float(m.total_mass) == mass0, f"SPH {name}: mass changed")
         check(int(m.bin_overflow) == 0, f"SPH {name}: bin overflow")
-        check(counts == {"base_forces_rowblock": timed},
+        check(sph.sph_kernels.launch_counts("base_forces_rowblock")
+              == {"base_forces_rowblock": timed},
               f"SPH {name}: launches {counts} != one per step")
         if name == "base_dam":
             check(zmin < zmin0, "base_dam: the column did not fall")
         for k, c in counts.items():
             total[k] = total.get(k, 0) + c
     return total
+
+
+def unidyn_scene(sph, name, device, cfg=None):
+    """The reference's tank (14040 particles, or cut to 2808), the
+    46656-particle fill, or a 150-particle mixed-phase blob (the pure
+    tank's drift, velocity gradient, stress acceleration and mixture
+    terms are exactly 0, so the kernel checks mix its phases)."""
+    cfg = cfg or sph.ucfg
+    if name == "tank":
+        return sph.scenes.unidyn_tank(cfg, device=device)
+    if name == "small_tank":
+        return sph.scenes.unidyn_tank(cfg, nf=2000, nb=808, device=device)
+    if name == "fill":
+        pos = np.random.default_rng(SEED).uniform(-0.9, 0.9,
+                                                  (UNIDYN_FILL, 3))
+        return sph.state.make_state(pos.astype(np.float32), cfg=cfg,
+                                    device=device)
+    st = sph.scenes.random_blob(150, seed=7, cfg=cfg, span=0.15,
+                                boundary_frac=0.15, device=device)
+    return sph.scenes.mixed_phase(st, SEED + 3)
+
+
+def check_unidyn_kernels(sph, dev):
+    """Both unidyn wrappers against their plain versions on the mixed
+    tank (the preset: sub-binning, no merging) and the mixed fill (with
+    merging); returns per-kernel {"max_abs_err", "ms", "plain_ms"}, the
+    times at the tank."""
+    results = {}
+    for scene, merge in (("tank", -10.0), ("fill", 0.03)):
+        cfg = sph.ucfg.replace(merge_dist=merge)
+        st = sph.scenes.mixed_phase(unidyn_scene(sph, scene, dev, cfg),
+                                    SEED + 2)
+        order, bt = sph.binning.sort_tables(st, cfg)
+        for name, (_, _, tol) in UNIDYN_KERNELS.items():
+            kern = getattr(sph.sph_kernels, name)
+            plain = getattr(sph.sph_kernels, name + "_plain")
+
+            def call(fn):
+                return fn(st, bt, cfg, order,
+                          subbin_threshold=cfg.subbin_threshold)
+
+            got, want = call(kern), call(plain)
+            torch.cuda.synchronize()
+            worst = err = 0.0
+            for k in UNIDYN_FIELDS:
+                g = got[k].reshape(st.capacity, -1)
+                w = want[k].reshape(st.capacity, -1)
+                check(g.shape == w.shape, f"{name} {k}: shapes")
+                for c in range(w.shape[1]):
+                    scale = float(w[:, c].abs().max())
+                    e = float((g[:, c] - w[:, c]).abs().max())
+                    check(scale > 0.0, f"{name} {k}[{c}] is 0 at {scene}: "
+                                       f"no check")
+                    worst, err = max(worst, e / scale), max(err, e)
+            same = (torch.equal(got["has_pair"], want["has_pair"])
+                    and torch.equal(got["merge_partner"],
+                                    want["merge_partner"]))
+            partners = int((got["merge_partner"] >= 0).sum())
+            ms = time_ms(lambda: call(kern))
+            plain_ms = time_ms(lambda: call(plain))
+            log(f"kernel {name} @ {scene} ({st.capacity} particles, mixed "
+                f"phases, merge_dist {merge}): max_abs_err {err:.3e} "
+                f"(worst column relative {worst:.3e}, tolerance {tol:.0e}); "
+                f"pair counts and merge partners equal: {same} "
+                f"({partners} partners); ms per call: kernel {ms:.4f}, "
+                f"plain {plain_ms:.4f}")
+            check(worst <= tol, f"{name} disagrees with its plain version "
+                                f"at {scene} ({worst:.3e} > {tol:.0e})")
+            check(same, f"{name}: pair counts or merge partners differ")
+            check((partners > 0) == (merge > 0), f"{name}: merge partners")
+            if scene == "tank":
+                results[name] = {"max_abs_err": err, "ms": ms,
+                                 "plain_ms": plain_ms}
+            else:
+                results[name]["max_abs_err"] = max(
+                    results[name]["max_abs_err"], err)
+    return results
+
+
+def compare_by_pid(sph, gpu, cpu, tols, what):
+    """Alive rows of the card's and the CPU's states, by particle id."""
+    g, c = state_by_pid(sph, gpu), state_by_pid(sph, cpu)
+    g = {k: v[g["alive"]] for k, v in g.items()}
+    c = {k: v[c["alive"]] for k, v in c.items()}
+    check(np.array_equal(g["pid"], c["pid"]), f"{what}: particle ids")
+    for key, rtol in tols:
+        a, b = g[key].astype(np.float64), c[key].astype(np.float64)
+        atol = 1e-5 * max(1.0, float(np.abs(b).max()))
+        excess = float((np.abs(a - b) - rtol * np.abs(b) - atol).max())
+        log(f"{what}, card vs CPU, {key}: max_abs_err "
+            f"{float(np.abs(a - b).max()):.3e} (rtol {rtol:.0e}, atol "
+            f"{atol:.1e}); finite {bool(np.isfinite(a).all())}")
+        check(np.isfinite(a).all() and excess <= 0.0,
+              f"{what} {key}: card and CPU disagree")
+    check(np.array_equal(g["mass"], c["mass"]), f"{what}: masses differ")
+
+
+def check_unidyn_against_cpu(sph, dev):
+    """10 steps of the cut tank, and 3 steps of the merging blob, on the
+    card (kernels) against the CPU (plain versions)."""
+    cfg = sph.ucfg
+    gpu, gm = sph.step.run_python(unidyn_scene(sph, "small_tank", dev),
+                                  cfg, SPH_CHECK_STEPS)
+    cpu, cm = sph.step.run_python(unidyn_scene(sph, "small_tank", "cpu"),
+                                  cfg, SPH_CHECK_STEPS)
+    compare_by_pid(sph, gpu, cpu, UNIDYN_TOLS,
+                   f"unidyn tank (2808), {SPH_CHECK_STEPS} steps")
+    check(int(gm.n_alive) == int(cm.n_alive) == 2808, "tank n_alive")
+    check(int(gm.bin_overflow) == 0, "tank bin overflow")
+
+    cfg = cfg.replace(merge_dist=0.03)
+    gpu, cpu = (unidyn_scene(sph, "blob", d, cfg) for d in (dev, "cpu"))
+    alive = [150]
+    for _ in range(3):
+        gpu, gm = sph.step.run_python(gpu, cfg, 1)
+        cpu, cm = sph.step.run_python(cpu, cfg, 1)
+        check(int(gm.n_alive) == int(cm.n_alive), "merging blob: n_alive")
+        alive.append(int(gm.n_alive))
+    log(f"merging blob (merge_dist 0.03), alive per step: {alive}")
+    check(alive[1] < alive[0] and alive[3] <= alive[1],
+          "merging blob: nothing merged")
+    compare_by_pid(sph, gpu, cpu, UNIDYN_TOLS, "merging blob, 3 steps")
+
+
+def run_unidyn_main_path(sph, dev):
+    """Drive run_python on the full tank (the resident kernel), then the
+    row-block kernel for the bitwise comparison; each kernel's count is
+    reset before and read after its own run.  Returns the counts."""
+    cfg = sph.ucfg
+    warm, timed = UNIDYN_STEPS
+    st = unidyn_scene(sph, "tank", dev)
+    n0, mass0 = int(st.alive.sum()), float(st.mass.sum())
+    fluid = ~st.boundary
+    z0 = float(st.pos[fluid, 2].mean())
+    st, _ = sph.step.run_python(st, cfg, warm)
+    torch.cuda.synchronize()
+    sph.sph_kernels.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        st, m = sph.step.run_python(st, cfg, timed)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = sph.sph_kernels.launch_counts(*UNIDYN_KERNELS)
+    ms = seconds / timed * 1e3
+    finite = all(bool(torch.isfinite(getattr(st, f)).all())
+                 for f in sph.state.FIELDS if f != "pid")
+    inside = float(st.pos[fluid].abs().max())
+    z1 = float(st.pos[fluid, 2].mean())
+    log(f"unidyn tank ({n0} particles), {timed} timed steps after {warm} "
+        f"warm-up: {ms:.4f} ms/step, {n0 * timed / seconds:.4e} "
+        f"particle-steps/s; n_alive {int(m.n_alive)}, total_mass "
+        f"{float(m.total_mass)}, bin_overflow {int(m.bin_overflow)}, "
+        f"max_speed {float(m.max_speed):.4e}, dens_residual "
+        f"{float(m.dens_residual):.4e}, fluid mean z {z0:.4f} -> {z1:.4f}, "
+        f"fluid max |coordinate| {inside:.4f}, finite {finite}; launches "
+        f"{counts}")
+    check(finite, "unidyn tank: state not finite")
+    check(int(m.n_alive) == n0 == 14040, "unidyn tank: n_alive changed")
+    check(float(m.total_mass) == mass0, "unidyn tank: mass changed")
+    check(int(m.bin_overflow) == 0, "unidyn tank: bin overflow")
+    check(inside < 1.0, "unidyn tank: fluid left the tank")
+    check(z1 < z0, "unidyn tank: the fluid did not fall")
+    check(counts == {"unidyn_forces_resident": timed,
+                     "unidyn_forces_rowblock": 0},
+          f"unidyn tank: launches {counts} != one resident call per step")
+
+    runs = {}
+    for kernel in ("resident", "rowblock", "resident again"):
+        sph.sph_kernels.reset_launches()
+        runs[kernel], _ = sph.step.run_python(
+            unidyn_scene(sph, "tank", dev),
+            cfg.replace(pallas_kernel=kernel.split()[0]),
+            UNIDYN_BITWISE_STEPS)
+        torch.cuda.synchronize()
+        if kernel == "rowblock":
+            counts.update(sph.sph_kernels.launch_counts(
+                "unidyn_forces_rowblock"))
+    for other in ("rowblock", "resident again"):
+        same = all(torch.equal(getattr(runs["resident"], f),
+                               getattr(runs[other], f))
+                   for f in sph.state.FIELDS)
+        log(f"unidyn tank, {UNIDYN_BITWISE_STEPS} steps, {other} bitwise "
+            f"equal to resident: {same}")
+        check(same, f"unidyn tank: {other} differs from resident")
+    check(counts["unidyn_forces_rowblock"] == UNIDYN_BITWISE_STEPS,
+          "unidyn tank: the row-block run did not launch its kernel")
+    return counts
 
 
 def main():
@@ -418,13 +644,14 @@ def main():
 
     from tpufluids_torch import (_build, binning, convert, forces, scenes,
                                  sph_kernels, state, step)
-    from tpufluids_torch.config import BASE_CONFIG
+    from tpufluids_torch.config import BASE_CONFIG, UNIDYN_CONFIG
     from tpufluids_torch.grid import kernels, stam
 
     sph = types.SimpleNamespace(binning=binning, convert=convert,
                                 forces=forces, scenes=scenes,
                                 sph_kernels=sph_kernels, state=state,
-                                step=step, cfg=BASE_CONFIG)
+                                step=step, cfg=BASE_CONFIG,
+                                ucfg=UNIDYN_CONFIG)
 
     dev = torch.device("cuda")
     log(f"card (name, power limit): {card_line()}")
@@ -448,8 +675,13 @@ def main():
     check_sph_determinism(sph, dev)
     counts.update(run_sph_main_path(sph, dev))
 
+    checked.update(check_unidyn_kernels(sph, dev))
+    check_unidyn_against_cpu(sph, dev)
+    counts.update(run_unidyn_main_path(sph, dev))
+
     rows = []
-    for name, (source, replaces, _) in {**KERNELS, **SPH_KERNELS}.items():
+    for name, (source, replaces, _) in {**KERNELS, **SPH_KERNELS,
+                                        **UNIDYN_KERNELS}.items():
         check(counts[name] > 0, f"{name} was not launched on the main path")
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": counts[name],

@@ -27,7 +27,8 @@ def test_port_has_sources():
     names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
     assert {"tpufluids_torch/grid/stam.py", "tpufluids_torch/grid/kernels.py",
             "tpufluids_torch/grid/convert.py", "tpufluids_torch/step.py",
-            "tpufluids_torch/sph_kernels.py"} <= names
+            "tpufluids_torch/sph_kernels.py",
+            "tpufluids_torch/adapt.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -47,6 +48,7 @@ def test_importing_the_port_loads_no_jax():
         "import tpufluids_torch.binning, tpufluids_torch.forces\n"
         "import tpufluids_torch.integrate, tpufluids_torch.sph_kernels\n"
         "import tpufluids_torch.step, tpufluids_torch.scenes\n"
+        "import tpufluids_torch.adapt\n"
         f"bad = sorted(m for m in set(sys.modules) - before\n"
         f"             if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "print(bad)\n"

@@ -274,14 +274,15 @@ def test_update_matches_jax():
 
 
 @pytest.mark.parametrize("cfg,kw,match", [
-    (config.UNIDYN_CONFIG, {}, "Queue 1 item 4"),
+    (config.UNIDYN_CONFIG.replace(pallas_kernel="column"), {}, "#14"),
     (CFG.replace(sort_every=2), {}, "Queue 1 item 4"),
     (CFG.replace(subbin_parity=True), {}, "Queue 1 item 4"),
     (CFG, dict(subbin_parity=True), "Queue 1 item 4"),
     (CFG.replace(pallas_kernel="column"), {}, "#13"),
     (CFG.replace(pallas_kernel="resident"), {}, "#13"),
+    (config.UNIDYN_CONFIG.replace(sort_every=3), {}, "Queue 1 item 4"),
 ], ids=["unidyn", "sort_every", "subbin_cfg", "subbin_call", "column",
-        "resident"])
+        "resident", "unidyn_sort_every"])
 def test_outside_the_slice_raises(cfg, kw, match):
     st = scenes.random_blob(20, seed=0)
     with pytest.raises(NotImplementedError, match=match):
@@ -296,16 +297,28 @@ def test_auto_above_rowblock_pool_and_slabs_raise():
     assert step.resolve_kernel_family(CFG, big.capacity) == "column"
     with pytest.raises(NotImplementedError, match="#13"):
         step.sph_step(big, CFG)
+    # unidyn: above the resident budget and the row-block pool, and a
+    # "resident" request above the budget, go to the column family
+    unidyn = config.UNIDYN_CONFIG
+    assert step.resolve_unidyn_kernel(unidyn, 14040) == "resident"
+    assert step.resolve_unidyn_kernel(
+        unidyn.replace(pallas_kernel="rowblock"), 14040) == "rowblock"
+    assert step.resolve_unidyn_kernel(unidyn, 200000) == "rowblock"
+    assert step.resolve_unidyn_kernel(
+        unidyn.replace(pallas_kernel="resident"), 200000) == "column"
+    with pytest.raises(NotImplementedError, match="#14"):
+        step.sph_step(big, unidyn)
+    with pytest.raises(NotImplementedError, match="#14"):
+        step.sph_step(state.make_state(np.zeros((1, 3), np.float32),
+                                       capacity=200000),
+                      unidyn.replace(pallas_kernel="resident"))
     st = scenes.random_blob(20, seed=0)
     slab = binning.GridSpec(g=CFG.grid_size, x_planes=10, x_offset=5)
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         binning.sort_tables(st, CFG, grid=slab)
     _, bt = binning.sort_tables(st, CFG, grid=binning.full_grid(CFG))
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        forces.compute_forces(st, bt, config.UNIDYN_CONFIG)
-    acc = forces.compute_forces(st, bt, CFG)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        integrate.update(st, acc, config.UNIDYN_CONFIG)
+        forces.compute_forces(st, bt, CFG, subbin_parity=True)
 
 
 def test_kernel_wrapper_rejects_other_devices():
@@ -316,3 +329,5 @@ def test_kernel_wrapper_rejects_other_devices():
         sph_kernels.base_forces_rowblock(meta, bt, CFG, order)
     with pytest.raises(ValueError, match="order"):
         sph_kernels.base_forces_rowblock(st, bt, CFG, order.to(torch.int32))
+    with pytest.raises(ValueError, match="base variant"):
+        sph_kernels.base_forces_rowblock(st, bt, config.UNIDYN_CONFIG, order)

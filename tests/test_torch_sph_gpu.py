@@ -81,7 +81,8 @@ def test_fill_steps_are_bitwise_repeatable(cuda):
         sph_kernels.reset_launches()
         st, m = step.run_python(_scene("fill", cuda), BASE_CONFIG, 3)
         runs.append(st)
-        assert sph_kernels.launch_counts() == {"base_forces_rowblock": 3}
+        assert sph_kernels.launch_counts("base_forces_rowblock") == {
+            "base_forces_rowblock": 3}
         assert int(m.n_alive) == FILL and int(m.bin_overflow) == 0
     for f in ("pos", "vel", "acc", "dens", "press", "delpress"):
         assert torch.equal(getattr(runs[0], f), getattr(runs[1], f)), f

@@ -43,6 +43,8 @@ SIGNATURES = {
     "tf_div3d": [_P] * 4 + [_INT, _F, _P],
     "tf_gradsub3d": [_P] * 7 + [_INT, _F, _P],
     "tf_sph_base_forces": [_P] * 6 + [_INT] * 2 + [_F] * 9 + [_P],
+    "tf_unidyn_pass_a": [_P] * 10 + [_INT] * 3 + [_F] * 19 + [_P],
+    "tf_unidyn_pass_b": [_P] * 7 + [_INT] * 3 + [_F] * 3 + [_P],
 }
 
 

@@ -10,7 +10,13 @@ id ``num_cells`` and sort to the end, so no neighbour run holds them.
 Cell coordinates truncate toward zero, like the reference's ``int()``
 cast (FluidGPU.cu:419) and the JAX package's binning.  (The JAX
 row-block Pallas kernel floors instead; the two differ only in the
-one-cell band just below a low face, ROADMAP Queue 3.)
+one-cell band just below a low face, ROADMAP Queue 3.)  A NaN
+coordinate becomes cell 0, as XLA's and CUDA's float-to-int casts make
+it.
+
+The unidyn variant also gets each sorted row's home-cell population
+and sub-bin octant (``home_count``, ``octant``), which its two-level
+binning reads; the base step computes neither.
 
 Nothing here synchronises the host with the device: the tables stay
 device tensors of static shape.
@@ -54,16 +60,39 @@ def _check_grid(cfg: SPHConfig, grid: Optional[GridSpec]) -> GridSpec:
     return full
 
 
+def _shifted(pos: torch.Tensor, cfg: SPHConfig):
+    """(pos - domain minimum, the cell size as a device scalar).  Divide
+    by the device scalar: on CUDA, torch turns a division by a Python
+    number into a multiplication by its reciprocal, which can move a
+    particle on a cell face into the next cell."""
+    shifted = torch.stack([pos[:, 0] - cfg.xmin, pos[:, 1] - cfg.ymin,
+                           pos[:, 2] - cfg.zmin], dim=1)
+    return shifted, torch.full((), cfg.cell_size, dtype=pos.dtype,
+                               device=pos.device)
+
+
 def cell_coords(pos: torch.Tensor, cfg: SPHConfig) -> torch.Tensor:
     """(N, 3) int32 cell coordinates, truncated toward zero like
     ``int((x - XMIN)/CELLSIZE)`` (FluidGPU.cu:419)."""
-    shifted = torch.stack([pos[:, 0] - cfg.xmin, pos[:, 1] - cfg.ymin,
-                           pos[:, 2] - cfg.zmin], dim=1)
-    # divide by a device scalar: on CUDA, torch turns a division by a
-    # Python number into a multiplication by its reciprocal, which can
-    # move a particle on a cell face into the next cell
-    cs = torch.full((), cfg.cell_size, dtype=pos.dtype, device=pos.device)
-    return torch.trunc(shifted / cs).to(torch.int32)
+    shifted, cs = _shifted(pos, cfg)
+    c = torch.trunc(shifted / cs)
+    if c.device.type == "cpu":
+        # torch's CPU cast turns NaN into INT_MIN; XLA's, and CUDA's
+        # (so the card's step, with no op added), turn it into 0
+        c = torch.nan_to_num(c, nan=0.0)
+    return c.to(torch.int32)
+
+
+def octant(pos: torch.Tensor, cfg: SPHConfig) -> torch.Tensor:
+    """(N,) int32 sub-bin octant id (FluidGPU-unidyn.cu:182-184), as
+    ``tpufluids.binning.octant``: bit0 = x in the upper half of its cell,
+    bit1 = y upper half, bit2 = z *lower* half (the reference's inverted
+    z test).  Divides, like ``cell_coords``, and adds the float32 half
+    cell, as the JAX package does op by op."""
+    shifted, cs = _shifted(pos, cfg)
+    upper = torch.trunc(shifted / cs) != torch.trunc((shifted + cs / 2) / cs)
+    return (upper[:, 0].to(torch.int32) + 2 * upper[:, 1].to(torch.int32)
+            + 4 * (~upper[:, 2]).to(torch.int32))
 
 
 def cell_id(pos: torch.Tensor, alive: torch.Tensor, cfg: SPHConfig,
@@ -84,6 +113,9 @@ class BinTable(NamedTuple):
     cid: torch.Tensor         # (N,) int32 sorted ids (sentinel num_cells)
     in_dom: torch.Tensor      # (N,) bool, sorted: alive and in the domain
     cell_start: torch.Tensor  # (num_cells + 2,) int32 first row of cell c
+    # unidyn only (None for the base variant), sorted:
+    home_count: Optional[torch.Tensor] = None  # (N,) int32 own-cell rows
+    octant: Optional[torch.Tensor] = None      # (N,) int32, see octant()
 
 
 def sort_tables(state: ParticleState, cfg: SPHConfig,
@@ -97,7 +129,8 @@ def sort_tables(state: ParticleState, cfg: SPHConfig,
     argsort above).  ``cell_start[c]`` is the number of sorted ids
     below c, from a binary search of the sorted ids (equal to the JAX
     package's histogram and cumsum; ``torch.bincount`` would synchronise
-    the host on a CUDA device)."""
+    the host on a CUDA device).  ``home_count`` and ``octant`` are
+    filled for the unidyn variant only."""
     grid = _check_grid(cfg, grid)
     cid, _ = cell_id(state.pos, state.alive, cfg, grid)
     n = cid.shape[0]
@@ -107,8 +140,15 @@ def sort_tables(state: ParticleState, cfg: SPHConfig,
     cells = torch.arange(grid.num_cells + 2, dtype=torch.int32,
                          device=cid.device)
     cell_start = torch.searchsorted(scid, cells, out_int32=True)
-    bt = BinTable(order=order, cid=scid, in_dom=scid < grid.num_cells,
+    in_dom = scid < grid.num_cells
+    bt = BinTable(order=order, cid=scid, in_dom=in_dom,
                   cell_start=cell_start)
+    if cfg.variant != "base":
+        cc = torch.clamp(scid, max=grid.num_cells).to(torch.int64)
+        home_count = torch.where(in_dom, cell_start[cc + 1] - cell_start[cc],
+                                 0)
+        bt = bt._replace(home_count=home_count,
+                         octant=octant(state.pos, cfg)[order])
     return order, bt
 
 

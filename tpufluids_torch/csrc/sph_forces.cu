@@ -24,6 +24,8 @@
 // of the plain version (tpufluids_torch/forces.py, _chunk_sums).
 #include <cuda_runtime.h>
 
+#include "sph_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -70,21 +72,8 @@ __device__ float4 home_sums(const float4* __restrict__ rows,
         if (!(ds > 0.f && ds <= k.two_h)) continue;
         const float vx = ha.w - ja.w, vy = hb.x - jb.x, vz = hb.y - jb.y;
 
-        // w_cubic (FluidGPU.cu:11-21) and grad_w_spiky (:35-43)
-        const float q = ds / k.h;
-        float w;
-        if (q <= 1.f) {
-          w = 1.f - 1.5f * q * q + 0.75f * q * q * q;
-        } else if (q < 2.f) {
-          const float t = 2.f - q;
-          w = 0.25f * (t * t * t);
-        } else {
-          w = 0.f;
-        }
-        w = w / k.w_norm;
-        const float hr = k.h - ds;
-        const float dw = ds < k.h ? k.spiky * (hr * hr) : 0.f;
-        const float dkf = dw / ds;
+        const float w = tf_sph::w_cubic(ds, k.h, k.w_norm);
+        const float dkf = tf_sph::spiky_over_ds(ds, k.h, k.spiky);
 
         // inline Monaghan viscosity with its quadratic term (:255)
         const float dj = jb.z, pj = jb.w;

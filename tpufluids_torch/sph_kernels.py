@@ -1,16 +1,24 @@
-"""The hand-written CUDA kernel of the SPH base step, beside its plain
-PyTorch version: the counterpart of ``tpufluids/sph_pallas.py`` for the
-row-block family.
+"""The hand-written CUDA kernels of the SPH step, beside their plain
+PyTorch versions: the counterpart of ``tpufluids/sph_pallas.py`` for the
+row-block and resident families.
 
-``base_forces_rowblock`` replaces the Pallas kernel of the same name
-(``_base_rowblock_kernel``): ``sum_w`` and ``dpress`` of every particle
-over its exact 27-cell stencil, with no capacity cap, in pool order.
-The wrapper packs the sorted rows with one gather by ``order``
-(``forces.pack_rows``), launches ``csrc/sph_forces.cu`` (one thread per
-sorted row, which writes its results at its pool index) and counts the
-launch in ``base_forces_rowblock.launches``.  It runs the plain version
-when its tensors lie on the CPU; any other device raises, and so does a
-failed build or launch: nothing falls back from the kernel.
+* ``base_forces_rowblock`` replaces the Pallas kernel of the same name
+  (``_base_rowblock_kernel``): ``sum_w`` and ``dpress`` of every particle
+  over its exact 27-cell stencil, with no capacity cap, in pool order.
+  The wrapper packs the sorted rows with one gather by ``order``
+  (``forces.pack_rows``) and launches ``csrc/sph_forces.cu`` (one thread
+  per sorted row, which writes its results at its pool index).
+* ``unidyn_forces_resident`` and ``unidyn_forces_rowblock`` replace the
+  Pallas kernels of the same names: the two unidyn pair passes, as the
+  pair of kernels of ``csrc/sph_unidyn.cu``.  The resident wrapper
+  launches pass B right after pass A, which leaves the drift velocities
+  in sorted order for it; the row-block wrapper runs the ``drift_fix``
+  hook on pass A's drifts in pool order and gathers them by ``order``
+  for pass B, as ``tpufluids/sph_pallas.py:1674-1684`` does.
+
+Each wrapper counts its launches in ``<wrapper>.launches``.  It runs the
+plain version when its tensors lie on the CPU; any other device raises,
+and so does a failed build or launch: nothing falls back from the kernel.
 """
 
 from __future__ import annotations
@@ -24,11 +32,10 @@ from tpufluids_torch.state import ParticleState
 
 
 def _on_cuda(state: ParticleState, bt: BinTable, order: torch.Tensor,
-             cfg: SPHConfig) -> bool:
-    """Validate the arguments; True for CUDA tensors, False for CPU
-    tensors (the plain version runs)."""
-    if cfg.variant != "base":
-        raise ValueError("base_forces_rowblock takes the base variant")
+             cfg: SPHConfig, extra=()) -> bool:
+    """Validate the arguments (and the (name, tensor, dtype, shape) of
+    ``extra``); True for CUDA tensors, False for CPU tensors (the plain
+    version runs)."""
     n = state.capacity
     dev = state.pos.device
     if dev.type not in ("cpu", "cuda"):
@@ -39,7 +46,7 @@ def _on_cuda(state: ParticleState, bt: BinTable, order: torch.Tensor,
             ("bt.cid", bt.cid, torch.int32, (n,)),
             ("bt.in_dom", bt.in_dom, torch.bool, (n,)),
             ("bt.cell_start", bt.cell_start, torch.int32,
-             (cfg.num_cells + 2,))):
+             (cfg.num_cells + 2,)), *extra):
         if t.device != dev:
             raise ValueError(f"{name} on {t.device}, the pool on {dev}")
         if t.dtype != dtype or tuple(t.shape) != shape:
@@ -47,9 +54,9 @@ def _on_cuda(state: ParticleState, bt: BinTable, order: torch.Tensor,
                              f"{t.dtype} {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if dev.type == "cuda" and 3 * n >= 2 ** 31:
-        raise ValueError("the kernel indexes rows with int32: the pool "
-                         "must hold fewer than 2^31 / 3 rows")
+    if dev.type == "cuda" and 4 * n >= 2 ** 31:
+        raise ValueError("the kernels index rows with int32: the pool "
+                         "must hold fewer than 2^31 / 4 rows")
     return dev.type == "cuda"
 
 
@@ -76,6 +83,8 @@ def base_forces_rowblock(state: ParticleState, bt: BinTable,
     9 neighbour runs from device memory, and the loads of neighbouring
     threads, which share most of their candidates, hit the caches
     (csrc/sph_forces.cu)."""
+    if cfg.variant != "base":
+        raise ValueError("base_forces_rowblock takes the base variant")
     if not _on_cuda(state, bt, order, cfg):
         return base_forces_rowblock_plain(state, bt, cfg, order)
     n = state.capacity
@@ -94,9 +103,139 @@ def base_forces_rowblock(state: ParticleState, bt: BinTable,
                                       device=rows.device)
 
 
-base_forces_rowblock.launches = 0
+def _unidyn_on_cuda(state: ParticleState, bt: BinTable, order, cfg,
+                    subbin_threshold) -> bool:
+    if cfg.variant == "base":
+        raise ValueError("the unidyn force kernels take the unidyn variant")
+    n = state.capacity
+    extra = [("delpress", state.delpress, torch.float32, (n, 3)),
+             ("stress", state.stress, torch.float32, (n, 3, 3))]
+    if subbin_threshold is not None:
+        if bt.octant is None:
+            raise ValueError("sub-binning needs the unidyn tables of "
+                             "binning.sort_tables (bt.octant)")
+        extra.append(("bt.octant", bt.octant, torch.int32, (n,)))
+    return _on_cuda(state, bt, order, cfg, extra)
 
-KERNELS = (base_forces_rowblock,)
+
+def _unidyn_pass_a(state: ParticleState, bt: BinTable, cfg: SPHConfig,
+                   order, subbin_threshold, drift_sorted):
+    """Launch pass A; returns (rows, out_a (N, A_COLS) in pool order,
+    merge partner (N,) pool rows or -1).  ``drift_sorted`` (N, 8) or None
+    receives the drift velocities in sorted order."""
+    n = state.capacity
+    dev = state.pos.device
+    h = cfg.cutoff
+    rows = forces.pack_unidyn_rows(state, order, bt.in_dom, cfg)
+    out_a = torch.empty((n, forces.A_COLS), dtype=torch.float32, device=dev)
+    merge = cfg.merge_dist > 0
+    partner = (torch.empty(n, dtype=torch.int64, device=dev) if merge
+               else torch.full((n,), -1, dtype=torch.int64, device=dev))
+    sub = subbin_threshold is not None
+    _build.launch(
+        "tf_unidyn_pass_a", rows, state.delpress, state.stress, bt.cid,
+        bt.cell_start, order, bt.octant if sub else None, out_a,
+        partner if merge else None, drift_sorted, n, cfg.grid_size,
+        subbin_threshold if sub else -1, h, 2 * h, PI_REF * h ** 3,
+        -45.0 / (PI_REF * h ** 6), 0.01 * h * h, cfg.alpha_fluid, cfg.sound,
+        cfg.visc_quadratic / cfg.sound, cfg.alpha_sand_boundary,
+        cfg.bdensfactor, cfg.mixfactor_reg, cfg.rho0, cfg.rho0_sand,
+        cfg.mix_frac_min, cfg.mix_frac_max, cfg.mixpressure,
+        cfg.mixbrownian, cfg.gravity, cfg.merge_dist)
+    return rows, out_a, partner
+
+
+def _unidyn_pass_b(rows, drift_sorted, bt: BinTable, cfg: SPHConfig, order,
+                   subbin_threshold):
+    """Launch pass B; returns out_b (N, B_COLS) in pool order."""
+    n = rows.shape[0]
+    h = cfg.cutoff
+    sub = subbin_threshold is not None
+    out_b = torch.empty((n, forces.B_COLS), dtype=torch.float32,
+                        device=rows.device)
+    _build.launch("tf_unidyn_pass_b", rows, drift_sorted, bt.cid,
+                  bt.cell_start, order, bt.octant if sub else None, out_b, n,
+                  cfg.grid_size, subbin_threshold if sub else -1, h, 2 * h,
+                  -45.0 / (PI_REF * h ** 6))
+    return out_b
+
+
+def unidyn_forces_resident_plain(state: ParticleState, bt: BinTable,
+                                 cfg: SPHConfig, order: torch.Tensor,
+                                 subbin_threshold=None) -> dict:
+    """The plain version: ``forces.unidyn_pair_pass`` on the tables of
+    ``order``."""
+    return forces.unidyn_pair_pass(state, bt._replace(order=order), cfg,
+                                   subbin_threshold)
+
+
+def unidyn_forces_resident(state: ParticleState, bt: BinTable,
+                           cfg: SPHConfig, order: torch.Tensor,
+                           subbin_threshold=None) -> dict:
+    """Both unidyn pair passes, as the JAX package's
+    ``unidyn_forces_resident``: ``state`` in pool order, ``bt`` and
+    ``order`` from ``binning.sort_tables`` (unidyn); returns the result
+    dict of ``forces.unidyn_result`` in pool order (overflow 0).
+
+    Replaces unidyn_forces_resident (tpufluids/sph_pallas.py), which
+    keeps the whole pool in VMEM and splices pass A's drifts into it for
+    pass B.  On the card pass A (one thread per sorted row) writes the
+    drifts in sorted order and pass B, launched right after it on the
+    same stream, reads them there (csrc/sph_unidyn.cu)."""
+    if not _unidyn_on_cuda(state, bt, order, cfg, subbin_threshold):
+        return unidyn_forces_resident_plain(state, bt, cfg, order,
+                                            subbin_threshold)
+    drift = torch.empty((state.capacity, 8), dtype=torch.float32,
+                        device=state.pos.device)
+    rows, out_a, partner = _unidyn_pass_a(state, bt, cfg, order,
+                                          subbin_threshold, drift)
+    out_b = _unidyn_pass_b(rows, drift, bt, cfg, order, subbin_threshold)
+    unidyn_forces_resident.launches += 1
+    return forces.unidyn_result(
+        out_a, out_b, partner, state.dens,
+        out_a[:, forces.A_SDV:forces.A_SDV + 3],
+        out_a[:, forces.A_FDV:forces.A_FDV + 3])
+
+
+def unidyn_forces_rowblock_plain(state: ParticleState, bt: BinTable,
+                                 cfg: SPHConfig, order: torch.Tensor,
+                                 drift_fix=None,
+                                 subbin_threshold=None) -> dict:
+    """The plain version: ``forces.unidyn_pair_pass`` on the tables of
+    ``order``, with ``drift_fix`` between the passes."""
+    return forces.unidyn_pair_pass(state, bt._replace(order=order), cfg,
+                                   subbin_threshold, drift_fix)
+
+
+def unidyn_forces_rowblock(state: ParticleState, bt: BinTable,
+                           cfg: SPHConfig, order: torch.Tensor,
+                           drift_fix=None, subbin_threshold=None) -> dict:
+    """The unidyn pair passes as two calls with ``drift_fix`` between
+    them, as the JAX package's ``unidyn_forces_rowblock``: ``drift_fix``
+    maps (solid_drift, fluid_drift), (N, 3) each in pool order, to the
+    drifts pass B reads.  Returns what ``unidyn_forces_resident`` does.
+
+    Replaces unidyn_forces_rowblock (tpufluids/sph_pallas.py): the same
+    two kernels of csrc/sph_unidyn.cu, with the drifts taken back to pool
+    order for the hook and gathered by ``order`` for pass B."""
+    if not _unidyn_on_cuda(state, bt, order, cfg, subbin_threshold):
+        return unidyn_forces_rowblock_plain(state, bt, cfg, order, drift_fix,
+                                            subbin_threshold)
+    n = state.capacity
+    rows, out_a, partner = _unidyn_pass_a(state, bt, cfg, order,
+                                          subbin_threshold, None)
+    sdv = out_a[:, forces.A_SDV:forces.A_SDV + 3]
+    fdv = out_a[:, forces.A_FDV:forces.A_FDV + 3]
+    if drift_fix is not None:
+        sdv, fdv = drift_fix(sdv, fdv)
+    drift = torch.cat([sdv, fdv, sdv.new_zeros((n, 2))], dim=1)[order]
+    out_b = _unidyn_pass_b(rows, drift, bt, cfg, order, subbin_threshold)
+    unidyn_forces_rowblock.launches += 1
+    return forces.unidyn_result(out_a, out_b, partner, state.dens, sdv, fdv)
+
+
+KERNELS = (base_forces_rowblock, unidyn_forces_resident,
+           unidyn_forces_rowblock)
 
 
 def reset_launches():
@@ -104,5 +243,10 @@ def reset_launches():
         fn.launches = 0
 
 
-def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in KERNELS}
+reset_launches()
+
+
+def launch_counts(*names) -> dict:
+    """Launch counts of the named wrappers (all of them by default)."""
+    return {fn.__name__: fn.launches for fn in KERNELS
+            if not names or fn.__name__ in names}
