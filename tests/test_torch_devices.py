@@ -1,0 +1,43 @@
+"""The port's entry points make their state on the card unless the
+caller asks for the CPU: ``device`` defaults to "cuda", with no
+fallback, so on a machine without a card a call that names no device
+raises instead of running on the CPU."""
+
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+from tpufluids_torch import convert, scenes, state
+from tpufluids_torch.grid import convert as grid_convert
+from tpufluids_torch.grid import stam
+
+ENTRY_POINTS = {
+    "grid.stam.make_grid3d": stam.make_grid3d,
+    "grid.convert.state_from_numpy": grid_convert.state_from_numpy,
+    "state.make_state": state.make_state,
+    "scenes.base_dam": scenes.base_dam,
+    "scenes.unidyn_tank": scenes.unidyn_tank,
+    "scenes.random_blob": scenes.random_blob,
+    "convert.state_from_numpy": convert.state_from_numpy,
+}
+
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
+def test_entry_point_defaults_to_the_card(name):
+    fn = ENTRY_POINTS[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_no_card_raises_instead_of_running_on_the_cpu():
+    cfg = stam.StamConfig(n=4)
+    calls = [lambda: stam.make_grid3d(cfg).u,
+             lambda: scenes.random_blob(20, seed=0).pos,
+             lambda: state.make_state(np.zeros((2, 3), np.float32)).pos]
+    for call in calls:
+        if torch.cuda.is_available():
+            assert call().device.type == "cuda"
+            continue
+        with pytest.raises((AssertionError, RuntimeError)):
+            call()

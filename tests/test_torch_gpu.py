@@ -9,7 +9,9 @@ use):
 The kernels are built with -fmad=false, so they round like their plain
 versions; the tolerances (relative to max|plain output|) are those of
 the JAX package's Pallas tests: 3e-6 for advection and forcing, 1e-6
-for divergence and gradient subtraction, 1e-5 for whole steps."""
+for divergence, gradient subtraction and the Jacobi solves, 1e-5 for
+whole steps.  The whole tier (one cooperative launch) must equal the
+streamed kernels bit for bit."""
 
 import numpy as np
 import pytest
@@ -102,8 +104,10 @@ def test_step_launches_residual_and_plain_agreement(cuda, monkeypatch):
     kernels.reset_launches()
     out, res = stam.run3d_python(state, cfg, 2)
     torch.cuda.synchronize()
-    assert kernels.launch_counts() == {"advect3d_multi": 4, "forcing3d": 2,
-                                       "div3d": 4, "gradsub3d": 4}
+    assert kernels.launch_counts() == {
+        "advect3d_multi": 4, "forcing3d": 2, "div3d": 4, "gradsub3d": 4,
+        "lin_solve3d": 0, "lin_solve3d_rb": 0, "diffuse3d_multi": 0,
+        "project3d_whole": 0, "step3d_whole": 0}
     # the final solve runs TF32-free: the residual stays at float32 level
     assert float(res[0]) <= 1e-8
     for name in ("advect3d_multi", "forcing3d", "div3d", "gradsub3d"):
@@ -122,3 +126,120 @@ def test_card_matches_cpu_over_four_steps(cuda):
     cpu, _ = stam.run3d_python(_seeded(cfg, "cpu"), cfg, 4)
     for f in ("u", "v", "w", "dens", "temp"):
         _close((getattr(gpu, f).cpu(),), (getattr(cpu, f),), 1e-5)
+
+
+def _raw(dev, n, seed, count):
+    """Random fields whose ghosts are not set_bnd-consistent: the solves
+    read the stored ghosts on their first sweep."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(0, 1, (n + 2,) * 3).astype(
+        np.float32)).to(dev) for _ in range(count)]
+
+
+@pytest.mark.parametrize("red_black", [False, True], ids=["jacobi", "rb"])
+@pytest.mark.parametrize("n", [15, 16, 64])
+def test_solve_kernels_match_plain(cuda, n, red_black):
+    """Every b, pressure and diffusion coefficients, zero, consistent
+    and raw initial guesses; odd n puts both parities on each face."""
+    kern = kernels.lin_solve3d_rb if red_black else kernels.lin_solve3d
+    plain = (kernels.lin_solve3d_rb_plain if red_black
+             else kernels.lin_solve3d_plain)
+    x, x0 = _raw(cuda, n, 6, 2)
+    a = 0.05 * 1e-5 * n * n
+    for b in range(4):
+        for guess in (None, stam.set_bnd3d(b, x), x):
+            for coeffs in ((1.0, 6.0), (a, 1 + 6 * a)):
+                got = kern(b, guess, x0, *coeffs, 5)
+                _close((got,), (plain(b, guess, x0, *coeffs, 5),), 1e-6)
+
+
+@pytest.mark.parametrize("n", [16, 64])
+def test_whole_tier_matches_plain_and_streamed(cuda, n):
+    u, v, w = _fields(cuda, n, 7, (1, 2, 3), -1.0, 1.0)
+    a = 0.05 * 1e-5 * n * n
+    params = ((1, a, 1 + 6 * a), (2, 2 * a, 1 + 12 * a), (0, a, 1 + 6 * a))
+    got = kernels.diffuse3d_multi((u, v, w), params, 20)
+    _close(got, kernels.diffuse3d_multi_plain((u, v, w), params, 20), 1e-6)
+    for g, q, (b, a_, c) in zip(got, (u, v, w), params):
+        assert torch.equal(g, kernels.lin_solve3d(b, q, q, a_, c, 20))
+    for red_black in (False, True):
+        got = kernels.project3d_whole(u, v, w, 20, red_black)
+        _close(got, kernels.project3d_whole_plain(u, v, w, 20, red_black),
+               1e-6)
+        solve = kernels.lin_solve3d_rb if red_black else kernels.lin_solve3d
+        div = kernels.div3d(u, v, w)
+        streamed = kernels.gradsub3d(solve(0, None, div, 1.0, 6.0, 20), u,
+                                     v, w)
+        for g, r in zip(got, streamed):
+            assert torch.equal(g, r)
+
+
+def _config(n, plume):
+    """BASELINE config 2, or config 4 with ``plume`` (bench.py:323-329)."""
+    kw = (dict(buoyancy_alpha=0.05, buoyancy_beta=1.0, vorticity_eps=2.0)
+          if plume else {})
+    return stam.StamConfig(n=n, dt=0.05, diff=1e-5, visc=1e-5,
+                           jacobi_iters=20, red_black=True,
+                           advect_mode="stencil", **kw)
+
+
+def _seeded_plume(cfg, dev):
+    """bench.py:330-333 at 64^3, scaled to n."""
+    s = stam.make_grid3d(cfg, dev)
+    lo, hi, top = 3 * cfg.n // 8, 5 * cfg.n // 8, max(cfg.n // 8, 2) + 1
+    s.dens[lo:hi, lo:hi, 1:top] = 1.0
+    s.temp[lo:hi, lo:hi, 1:top] = 3.0
+    return s
+
+
+@pytest.mark.parametrize("plume", [False, True], ids=["config2", "config4"])
+def test_jacobi_configs_card_match_cpu(cuda, plume):
+    cfg = _config(16, plume)
+    gpu, gres = stam.run3d_python(_seeded_plume(cfg, cuda), cfg, 4)
+    cpu, cres = stam.run3d_python(_seeded_plume(cfg, "cpu"), cfg, 4)
+    for f in ("u", "v", "w", "dens", "temp"):
+        _close((getattr(gpu, f).cpu(),), (getattr(cpu, f),), 1e-5)
+    assert abs(float(gres[0]) - float(cres[0])) <= 1e-3 * float(cres[0])
+
+
+@pytest.mark.parametrize("case", [
+    dict(plume=False),
+    dict(plume=True),
+    dict(plume=True, red_black=False),
+    dict(plume=True, vorticity_eps=0.0, temp_diff=2e-5),
+    dict(plume=True, buoyancy_alpha=0.0, buoyancy_beta=0.0, diff=0.0),
+    dict(plume=False, visc=0.0, temp_diff=2e-5),
+], ids=["config2", "config4", "config4_jacobi", "buoyancy", "vorticity",
+        "no_visc"])
+@pytest.mark.parametrize("n", [16, 64])
+def test_whole_step_matches_plain_and_separate_calls(cuda, n, case):
+    """The whole step (one cooperative launch) against its plain version,
+    and bit for bit against the separate kernels of stam.step3d_multi,
+    on a moving state."""
+    case = dict(case)
+    cfg = _config(n, case.pop("plume")).replace(**case)
+    u, v, w = _fields(cuda, n, 8, (1, 2, 3), -1.0, 1.0)
+    d, t = _fields(cuda, n, 9, (0, 0), 0.0, 1.0)
+    before = kernels.step3d_whole.launches
+    got = kernels.step3d_whole(u, v, w, d, t, cfg)
+    assert kernels.step3d_whole.launches == before + 1
+    _close(got, kernels.step3d_whole_plain(u, v, w, d, t, cfg), 1e-5)
+    multi = stam.step3d_multi(stam.GridState3D(u, v, w, d, t), cfg)
+    for g, f in zip(got, ("u", "v", "w", "dens", "temp")):
+        assert torch.equal(g, getattr(multi, f)), f
+
+
+def test_jacobi_step_launches(cuda):
+    """Config 4 at 64^3: one whole-step launch a step; the last step
+    reports the residual, so it runs the separate kernels: a forcing, two
+    whole-tier diffusions, a fused projection, two advections, and the
+    streamed final projection (div, red-black solve, gradsub)."""
+    cfg = _config(64, True)
+    kernels.reset_launches()
+    out, res = stam.run3d_python(_seeded_plume(cfg, cuda), cfg, 3)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {
+        "advect3d_multi": 2, "forcing3d": 1, "div3d": 1, "gradsub3d": 1,
+        "lin_solve3d": 0, "lin_solve3d_rb": 1, "diffuse3d_multi": 2,
+        "project3d_whole": 1, "step3d_whole": 2}
+    assert bool(torch.isfinite(out.w).all()) and 0.0 < float(res[0]) < 1e-2

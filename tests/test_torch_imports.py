@@ -29,6 +29,11 @@ def test_port_has_sources():
             "tpufluids_torch/grid/convert.py", "tpufluids_torch/step.py",
             "tpufluids_torch/sph_kernels.py",
             "tpufluids_torch/adapt.py"} <= names
+    csrc = {p.name for p in (REPO / "tpufluids_torch" / "csrc").iterdir()}
+    assert {"grid_common.cuh", "advect.cuh", "advect.cu", "forcing.cuh",
+            "forcing.cu", "divgrad.cuh", "divgrad.cu", "jacobi.cuh",
+            "jacobi.cu", "step.cu", "sph_common.cuh", "sph_forces.cu",
+            "sph_unidyn.cu"} <= csrc
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

@@ -50,8 +50,8 @@ def test_port_matches_jax_over_four_bench_steps(kw):
     seed = _bench_seed(jcfg)
     jstate = jstam.GridState3D(**{f: jnp.asarray(a) for f, a in seed.items()})
     jstate, jres = jstam.run3d_python(jstate, jcfg, STEPS)
-    tstate, tres = tstam.run3d_python(convert.state_from_numpy(seed), tcfg,
-                                      STEPS)
+    tstate, tres = tstam.run3d_python(
+        convert.state_from_numpy(seed, device="cpu"), tcfg, STEPS)
     got = convert.state_to_numpy(tstate)
     for f in convert.FIELDS:
         ref = np.asarray(getattr(jstate, f))
@@ -68,9 +68,9 @@ def test_port_matches_jax_over_four_bench_steps(kw):
 
 def test_state_round_trips_through_numpy():
     seed = _bench_seed(_bench_config())
-    back = convert.state_to_numpy(convert.state_from_numpy(seed))
+    back = convert.state_to_numpy(convert.state_from_numpy(seed, device="cpu"))
     for f in convert.FIELDS:
         np.testing.assert_array_equal(back[f], seed[f])
     with pytest.raises(ValueError, match="temp"):
         convert.state_from_numpy({f: a for f, a in seed.items()
-                                  if f != "temp"})
+                                  if f != "temp"}, device="cpu")

@@ -63,7 +63,7 @@ def _randomised(jst, seed):
 def _both(d):
     """(JAX ParticleState, port ParticleState) holding ``d``."""
     return (jstate.ParticleState(**{k: jnp.asarray(v) for k, v in d.items()}),
-            convert.state_from_numpy(d))
+            convert.state_from_numpy(d, device="cpu"))
 
 
 def _blob(n, seed, **kw):
@@ -106,9 +106,10 @@ def test_smoothing_kernels_match():
 
 def test_make_state_and_scenes_match():
     pairs = [
-        (scenes.base_dam(CFG, nb=60, capacity=8100),
+        (scenes.base_dam(CFG, nb=60, capacity=8100, device="cpu"),
          jscenes.base_dam(jconfig.BASE_CONFIG, nb=60, capacity=8100)),
-        (scenes.random_blob(200, seed=3, boundary_frac=0.3, capacity=256),
+        (scenes.random_blob(200, seed=3, boundary_frac=0.3, capacity=256,
+                            device="cpu"),
          jscenes.random_blob(200, seed=3, boundary_frac=0.3, capacity=256)),
     ]
     for tst, jst in pairs:
@@ -123,9 +124,10 @@ def test_make_state_and_scenes_match():
 def test_state_conversion_rejects_bad_fields():
     d = state_to_dict(jscenes.random_blob(20, seed=0))
     with pytest.raises(ValueError, match="pid"):
-        convert.state_from_numpy({k: v for k, v in d.items() if k != "pid"})
+        convert.state_from_numpy({k: v for k, v in d.items() if k != "pid"},
+                                 device="cpu")
     with pytest.raises(ValueError, match="extra"):
-        convert.state_from_numpy({**d, "extra": d["mass"]})
+        convert.state_from_numpy({**d, "extra": d["mass"]}, device="cpu")
 
 
 # --- binning ---------------------------------------------------------------
@@ -138,7 +140,7 @@ def test_state_conversion_rejects_bad_fields():
 ], ids=["padded", "outside", "40000"])
 def test_sort_tables_equal_jax(n, span, capacity):
     jst = jscenes.random_blob(n, seed=5, span=span, capacity=capacity)
-    tst = convert.state_from_numpy(state_to_dict(jst))
+    tst = convert.state_from_numpy(state_to_dict(jst), device="cpu")
     jorder, jbt = jbinning.sort_tables(jst, jconfig.BASE_CONFIG)
     order, bt = binning.sort_tables(tst, CFG)
     assert order is bt.order
@@ -156,8 +158,8 @@ def test_run_table_matches_build_bins():
     jcfg = jconfig.BASE_CONFIG.replace(max_per_cell=64)
     _, jbt = jbinning.sort_by_cell(jst, jcfg)
     assert int(jbt.overflow) == 0
-    _, bt = binning.sort_tables(convert.state_from_numpy(state_to_dict(jst)),
-                                CFG)
+    _, bt = binning.sort_tables(
+        convert.state_from_numpy(state_to_dict(jst), device="cpu"), CFG)
     start, length = binning.run_table(bt, CFG)
     np.testing.assert_array_equal(length.numpy(), np.asarray(jbt.run_len))
     live = length.numpy() > 0
@@ -284,7 +286,7 @@ def test_update_matches_jax():
 ], ids=["unidyn", "sort_every", "subbin_cfg", "subbin_call", "column",
         "resident", "unidyn_sort_every"])
 def test_outside_the_slice_raises(cfg, kw, match):
-    st = scenes.random_blob(20, seed=0)
+    st = scenes.random_blob(20, seed=0, device="cpu")
     with pytest.raises(NotImplementedError, match=match):
         step.sph_step(st, cfg, **kw)
     with pytest.raises(NotImplementedError, match=match):
@@ -293,7 +295,7 @@ def test_outside_the_slice_raises(cfg, kw, match):
 
 def test_auto_above_rowblock_pool_and_slabs_raise():
     big = state.make_state(np.zeros((1, 3), np.float32),
-                           capacity=step.ROWBLOCK_MAX_POOL + 1)
+                           capacity=step.ROWBLOCK_MAX_POOL + 1, device="cpu")
     assert step.resolve_kernel_family(CFG, big.capacity) == "column"
     with pytest.raises(NotImplementedError, match="#13"):
         step.sph_step(big, CFG)
@@ -310,9 +312,9 @@ def test_auto_above_rowblock_pool_and_slabs_raise():
         step.sph_step(big, unidyn)
     with pytest.raises(NotImplementedError, match="#14"):
         step.sph_step(state.make_state(np.zeros((1, 3), np.float32),
-                                       capacity=200000),
+                                       capacity=200000, device="cpu"),
                       unidyn.replace(pallas_kernel="resident"))
-    st = scenes.random_blob(20, seed=0)
+    st = scenes.random_blob(20, seed=0, device="cpu")
     slab = binning.GridSpec(g=CFG.grid_size, x_planes=10, x_offset=5)
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         binning.sort_tables(st, CFG, grid=slab)
@@ -322,7 +324,7 @@ def test_auto_above_rowblock_pool_and_slabs_raise():
 
 
 def test_kernel_wrapper_rejects_other_devices():
-    st = scenes.random_blob(20, seed=0)
+    st = scenes.random_blob(20, seed=0, device="cpu")
     order, bt = binning.sort_tables(st, CFG)
     meta = st.replace(**{f: getattr(st, f).to("meta") for f in state.FIELDS})
     with pytest.raises(ValueError, match="meta"):

@@ -29,7 +29,8 @@ def test_base_dam_matches_jax_over_ten_steps():
     cfg = convert.config_from_dict(dataclasses.asdict(BASE_CONFIG))
     jst, jm = jstep.run_python(jscenes.base_dam(BASE_CONFIG), BASE_CONFIG,
                                STEPS)
-    tst, tm = step.run_python(scenes.base_dam(cfg), cfg, STEPS)
+    tst, tm = step.run_python(scenes.base_dam(cfg, device="cpu"), cfg,
+                               STEPS)
     got, ref = convert.state_to_numpy(tst), state_to_dict(jst)
     gi, ri = np.argsort(got["pid"]), np.argsort(ref["pid"])
     np.testing.assert_array_equal(got["pid"][gi], ref["pid"][ri])

@@ -175,20 +175,52 @@ def test_matmul_precision_pins_tf32_per_tier():
             pass
 
 
+_CONFIG_IDS = dict(ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+
+
 @pytest.mark.parametrize("kw", [
     dict(advect_mode="gather"),
-    dict(projection="jacobi"),
     dict(projection="multigrid"),
-    dict(visc=1e-5),
-    dict(diff=1e-5),
-    dict(temp_diff=1e-5),
     dict(solver_dtype="bfloat16"),
-], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+], **_CONFIG_IDS)
 def test_configs_outside_the_slice_raise(kw):
     base = dict(n=8, advect_mode="stencil", projection="dct")
     cfg = tstam.StamConfig(**{**base, **kw})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tstam.step3d(tstam.make_grid3d(cfg), cfg)
+        tstam.step3d(tstam.make_grid3d(cfg, device="cpu"), cfg)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(projection="jacobi"),
+    dict(visc=1e-5),
+    dict(diff=1e-5),
+    dict(temp_diff=1e-5),
+], **_CONFIG_IDS)
+def test_configs_once_outside_the_slice_match_jax(kw):
+    """The Jacobi projection and the three diffusions, which raised
+    before the Jacobi slice: one step with a residual from a seeded
+    moving state, against the JAX dense path (fields at 1e-5 * max, as
+    tests/test_torch_jacobi.py holds whole steps)."""
+    n = 8
+    base = dict(n=n, dt=0.05, advect_mode="stencil", projection="dct",
+                jacobi_iters=6, buoyancy_beta=0.5)
+    tcfg = tstam.StamConfig(**{**base, **kw})
+    jcfg = jstam.StamConfig(solver_backend="xla", **{**base, **kw})
+    fields = dict(zip(("u", "v", "w", "dens", "temp"),
+                      (np.asarray(jstam.set_bnd3d(b, J(f))) for b, f in
+                       zip((1, 2, 3, 0, 0), _fields(8, n, 5, scale=0.3)))))
+    got, gres = tstam.step3d(tstam.GridState3D(**{k: T(a) for k, a in
+                                                  fields.items()}),
+                             tcfg, with_residual=True)
+    ref, rres = jstam.step3d(jstam.GridState3D(**{k: J(a) for k, a in
+                                                  fields.items()}),
+                             jcfg, with_residual=True)
+    for f in fields:
+        _close(getattr(got, f), getattr(ref, f), 1e-5)
+    if tcfg.projection == "jacobi":
+        np.testing.assert_allclose(float(gres), float(rres), rtol=1e-3)
+    else:   # a DCT residual is rounding: hold both to its level
+        assert float(gres) < 1e-6 and float(rres) < 1e-6
 
 
 @pytest.mark.parametrize("entry", [tstam.step2d, tstam.run2d_python,

@@ -61,7 +61,7 @@ def _force_close(got, ref, name):
 def _both(d):
     """(JAX ParticleState, port ParticleState) holding the arrays ``d``."""
     return (jstate.ParticleState(**{k: jnp.asarray(v) for k, v in d.items()}),
-            convert.state_from_numpy(d))
+            convert.state_from_numpy(d, device="cpu"))
 
 
 def _mixed(n, seed, span, heavy=False, capacity=None):
@@ -110,7 +110,7 @@ def _face_blob(seed):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_octant_and_home_count_equal_jax(seed):
     jst = jstate.make_state(_face_blob(seed), cfg=JCFG, capacity=320)
-    tst = convert.state_from_numpy(state_to_dict(jst))
+    tst = convert.state_from_numpy(state_to_dict(jst), device="cpu")
     jorder, jbt = jbinning.sort_tables(jst, JCFG)
     order, bt = binning.sort_tables(tst, CFG)
     np.testing.assert_array_equal(order.numpy(), np.asarray(jorder))
@@ -132,7 +132,7 @@ def test_octant_divides_where_jitted_jax_multiplies():
     float32(1 / cell_size) instead, which moves the tank lattice's
     particles on half-cell planes to the other octant (ROADMAP Queue 3)."""
     jst = jscenes.unidyn_tank(JCFG, nf=2000, nb=808)
-    tst = convert.state_from_numpy(state_to_dict(jst))
+    tst = convert.state_from_numpy(state_to_dict(jst), device="cpu")
     port = binning.octant(tst.pos, CFG).numpy()
     np.testing.assert_array_equal(port, np.asarray(
         jbinning.octant(jst.pos, JCFG)))
@@ -151,7 +151,7 @@ def test_nan_particle_bins_like_jax(name):
     pos[17] = np.nan
     pos[90, 1] = np.nan
     jst = jstate.make_state(pos.astype(np.float32), cfg=jcfg)
-    tst = convert.state_from_numpy(state_to_dict(jst))
+    tst = convert.state_from_numpy(state_to_dict(jst), device="cpu")
     jorder, jbt = jbinning.sort_tables(jst, jcfg)
     order, bt = binning.sort_tables(tst, tcfg)
     np.testing.assert_array_equal(order.numpy(), np.asarray(jorder))
@@ -276,7 +276,7 @@ def test_pure_tank_zeroes_the_mixture_terms_and_mixed_phase_does_not():
     """Why the kernel checks run on ``scenes.mixed_phase``: the tank's
     fluid is pure (solid 0) and its walls pure sand, so its drift,
     velocity gradient, stress acceleration and mixture terms are 0."""
-    tank = scenes.unidyn_tank(CFG, nf=2000, nb=808)
+    tank = scenes.unidyn_tank(CFG, nf=2000, nb=808, device="cpu")
     for st, pure in ((tank, True), (scenes.mixed_phase(tank, 1), False)):
         order, bt = binning.sort_tables(st, CFG)
         r = sph_kernels.unidyn_forces_resident(st, bt, CFG, order,
@@ -405,7 +405,7 @@ def test_apply_merges_matches_jax():
         np.testing.assert_array_equal(got[f], ref[f], err_msg=f)
     assert got["alive"].sum() <= d["alive"].sum() - 4
     assert (got["mass"] == CFG.merge_mass_new).sum() >= 4
-    assert int(adapt.count_alive(convert.state_from_numpy(got))) == int(
+    assert int(adapt.count_alive(convert.state_from_numpy(got, device="cpu"))) == int(
         jadapt.count_alive(jstate.ParticleState(**{
             k: jnp.asarray(v) for k, v in ref.items()})))
 

@@ -70,7 +70,7 @@ def test_tank_matches_jax_over_ten_steps():
             jscenes.unidyn_tank(UNIDYN_CONFIG, nf=NF, nb=NB), UNIDYN_CONFIG,
             10)
     sph_kernels.reset_launches()
-    start = scenes.unidyn_tank(cfg, nf=NF, nb=NB)
+    start = scenes.unidyn_tank(cfg, nf=NF, nb=NB, device="cpu")
     tst, tm = step.run_python(start, cfg, 10)
     # the resident kernel's plain version ran: no launch on the CPU
     assert step.resolve_unidyn_kernel(cfg, tst.capacity) == "resident"
@@ -90,7 +90,8 @@ def test_tank_reaches_the_25_step_anchors():
     """The anchors of tests/test_trajectories.py:36-53 (CPU golden of the
     JAX package), reached by the port alone."""
     cfg = convert.config_from_dict(dataclasses.asdict(UNIDYN_CONFIG))
-    st, m = step.run_python(scenes.unidyn_tank(cfg, nf=NF, nb=NB), cfg, 25)
+    st, m = step.run_python(
+        scenes.unidyn_tank(cfg, nf=NF, nb=NB, device="cpu"), cfg, 25)
     d = convert.state_to_numpy(st)
     alive = d["alive"]
     pos, vel = d["pos"][alive], d["vel"][alive]
@@ -108,7 +109,7 @@ def test_merging_blob_matches_jax():
     jcfg = UNIDYN_CONFIG.replace(merge_dist=0.03, max_per_cell=64)
     cfg = convert.config_from_dict(dataclasses.asdict(jcfg))
     blob = mixed_blob(150, 7, jcfg, span=0.15)
-    jst, tst = blob, convert.state_from_numpy(state_to_dict(blob))
+    jst, tst = blob, convert.state_from_numpy(state_to_dict(blob), device="cpu")
     counts = [150]
     for _ in range(3):
         jst, jm = jstep.run_python(jst, jcfg, 1)
@@ -137,7 +138,7 @@ def test_split_reinjection_matches_jax():
          for k, v in state_to_dict(blob).items()}
     d["pid"][120:] = -1
     jst = type(blob)(**{k: jax.numpy.asarray(v) for k, v in d.items()})
-    tst = convert.state_from_numpy(d)
+    tst = convert.state_from_numpy(d, device="cpu")
     jst, jm = jstep.run_python(jst, jcfg, 1)
     tst, tm = step.run_python(tst, cfg, 1)
     assert 120 < int(tm.n_alive) == int(jm.n_alive) < 250

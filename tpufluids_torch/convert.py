@@ -21,7 +21,7 @@ def _check_keys(d: dict, names, what: str):
         raise ValueError(f"unknown {what} fields: {sorted(unknown)}")
 
 
-def state_from_numpy(fields: dict, device="cpu") -> ParticleState:
+def state_from_numpy(fields: dict, device="cuda") -> ParticleState:
     """A ParticleState holding copies of ``fields`` (every name in
     state.FIELDS, and no other) on ``device``, with the JAX package's
     dtypes: bool for the flags, int32 for pid, float32 for the rest."""

@@ -5,26 +5,19 @@
 // device-memory bytes: one pass that reads three (div) or four
 // (gradsub) fields and writes one or three, a few flops per cell.  One
 // thread per output cell; the neighbour taps come through L1/L2, and
-// ghost outputs follow grid_common.cuh.
-#include "grid_common.cuh"
+// ghost outputs follow grid_common.cuh.  The cell bodies live in
+// divgrad.cuh, which the fused projection of jacobi.cu shares.
+#include "divgrad.cuh"
 
 namespace {
 
-// out = set_bnd3d(0, -0.5 h (central divergence)), in the association
-// order of stam.divergence3d.
 __global__ void div3d_kernel(const float* __restrict__ u,
                              const float* __restrict__ v,
                              const float* __restrict__ w,
                              float* __restrict__ out, int n, float coef) {
-  tf::Cell cell;
-  if (!tf::cell_at(blockIdx.x * blockDim.x + threadIdx.x, n, cell)) return;
-  const int N = n + 2, c = cell.c;
-  const float s = u[c + N * N] - u[c - N * N] + v[c + N] - v[c - N]
-                  + w[c + 1] - w[c - 1];
-  out[(cell.i * N + cell.j) * N + cell.k] = coef * s;
+  tf::div_cell(blockIdx.x * blockDim.x + threadIdx.x, u, v, w, out, n, coef);
 }
 
-// q_a += -0.5 (p[+1] - p[-1]) / h along axis a, then set_bnd3d(a + 1).
 __global__ void gradsub3d_kernel(const float* __restrict__ p,
                                  const float* __restrict__ u,
                                  const float* __restrict__ v,
@@ -32,13 +25,8 @@ __global__ void gradsub3d_kernel(const float* __restrict__ p,
                                  float* __restrict__ uo,
                                  float* __restrict__ vo,
                                  float* __restrict__ wo, int n, float h) {
-  tf::Cell cell;
-  if (!tf::cell_at(blockIdx.x * blockDim.x + threadIdx.x, n, cell)) return;
-  const int N = n + 2, c = cell.c;
-  const int o = (cell.i * N + cell.j) * N + cell.k;
-  uo[o] = cell.sign[1] * (u[c] + -0.5f * (p[c + N * N] - p[c - N * N]) / h);
-  vo[o] = cell.sign[2] * (v[c] + -0.5f * (p[c + N] - p[c - N]) / h);
-  wo[o] = cell.sign[3] * (w[c] + -0.5f * (p[c + 1] - p[c - 1]) / h);
+  tf::gradsub_cell(blockIdx.x * blockDim.x + threadIdx.x, p, u, v, w, uo, vo,
+                   wo, n, h);
 }
 
 }  // namespace

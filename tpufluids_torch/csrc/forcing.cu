@@ -8,56 +8,12 @@
 // w' = buoyancy(w) with its b = 3 ghosts and |curl| on the interior
 // (zero ghosts, as stam.vorticity_confinement3d leaves them); launch B
 // writes the confined u, v, w.  Each launch is one pass over at most
-// five fields, bound by device-memory bytes.  Arithmetic follows
-// stam.buoyancy3d and stam.vorticity_confinement3d operation by
-// operation.
-#include <math.h>
-
-#include "grid_common.cuh"
+// five fields, bound by device-memory bytes.  The cell bodies live in
+// forcing.cuh, which the whole step of step.cu shares.
+#include "forcing.cuh"
 
 namespace {
 
-struct Buoyancy {
-  float dt, alpha, beta, t_amb;
-};
-
-// w + dt (-alpha dens + beta (temp - t_amb)) at an interior cell.
-__device__ __forceinline__ float buoyant_w(const float* __restrict__ w,
-                                           const float* __restrict__ dens,
-                                           const float* __restrict__ temp,
-                                           int c, Buoyancy b) {
-  const float f = -b.alpha * dens[c] + b.beta * (temp[c] - b.t_amb);
-  return w[c] + b.dt * f;
-}
-
-// w' at any cell (ghosts by the set_bnd3d(3) closed form): the w the
-// curl reads.  Without buoyancy w' is w itself, stored ghosts included.
-__device__ __forceinline__ float w_prime(const float* __restrict__ w,
-                                         const float* __restrict__ dens,
-                                         const float* __restrict__ temp,
-                                         int i, int j, int k, int n,
-                                         bool buoy, Buoyancy b) {
-  const int N = n + 2;
-  if (!buoy) return w[(i * N + j) * N + k];
-  const int ck = tf::clamp_interior(k, n);
-  const int c = (tf::clamp_interior(i, n) * N + tf::clamp_interior(j, n)) * N
-                + ck;
-  return (ck != k ? -1.0f : 1.0f) * buoyant_w(w, dens, temp, c, b);
-}
-
-// The three curl components at interior cell (i, j, k).
-__device__ __forceinline__ void curl_at(const float* __restrict__ u,
-                                        const float* __restrict__ v,
-                                        float w_jp, float w_jm, float w_ip,
-                                        float w_im, int c, int N, float h,
-                                        float& cx, float& cy, float& cz) {
-  cx = 0.5f * (w_jp - w_jm) / h - 0.5f * (v[c + 1] - v[c - 1]) / h;
-  cy = 0.5f * (u[c + 1] - u[c - 1]) / h - 0.5f * (w_ip - w_im) / h;
-  cz = 0.5f * (v[c + N * N] - v[c - N * N]) / h
-       - 0.5f * (u[c + N] - u[c - N]) / h;
-}
-
-// Launch A: w_out = w' (if buoy), mag_out = |curl(u, v, w')| (if vort).
 __global__ void forcing_a_kernel(const float* __restrict__ u,
                                  const float* __restrict__ v,
                                  const float* __restrict__ w,
@@ -65,30 +21,12 @@ __global__ void forcing_a_kernel(const float* __restrict__ u,
                                  const float* __restrict__ temp,
                                  float* __restrict__ w_out,
                                  float* __restrict__ mag_out, int n,
-                                 int buoy, int vort, Buoyancy b, float h) {
-  tf::Cell cell;
-  if (!tf::cell_at(blockIdx.x * blockDim.x + threadIdx.x, n, cell)) return;
-  const int N = n + 2;
-  const int o = (cell.i * N + cell.j) * N + cell.k;
-  if (buoy) w_out[o] = cell.sign[3] * buoyant_w(w, dens, temp, cell.c, b);
-  if (!vort) return;
-  if (!tf::is_interior(cell, N)) {
-    mag_out[o] = 0.0f;
-    return;
-  }
-  const int i = cell.i, j = cell.j, k = cell.k;
-  float cx, cy, cz;
-  curl_at(u, v, w_prime(w, dens, temp, i, j + 1, k, n, buoy, b),
-          w_prime(w, dens, temp, i, j - 1, k, n, buoy, b),
-          w_prime(w, dens, temp, i + 1, j, k, n, buoy, b),
-          w_prime(w, dens, temp, i - 1, j, k, n, buoy, b), cell.c, N, h, cx,
-          cy, cz);
-  mag_out[o] = sqrtf(cx * cx + cy * cy + cz * cz);
+                                 int buoy, int vort, tf::Buoyancy b,
+                                 float h) {
+  tf::forcing_a_cell(blockIdx.x * blockDim.x + threadIdx.x, u, v, w, dens,
+                     temp, w_out, mag_out, n, buoy, vort, b, h);
 }
 
-// Launch B: the confinement force eps h (N x curl) added to u, v, w'
-// (w' read from launch A's output, or w without buoyancy), then
-// set_bnd3d(1 / 2 / 3).
 __global__ void forcing_b_kernel(const float* __restrict__ u,
                                  const float* __restrict__ v,
                                  const float* __restrict__ w,
@@ -97,23 +35,8 @@ __global__ void forcing_b_kernel(const float* __restrict__ u,
                                  float* __restrict__ vo,
                                  float* __restrict__ wo, int n, float dt,
                                  float eps_h, float h) {
-  tf::Cell cell;
-  if (!tf::cell_at(blockIdx.x * blockDim.x + threadIdx.x, n, cell)) return;
-  const int N = n + 2, c = cell.c;
-  float cx, cy, cz;
-  curl_at(u, v, w[c + N], w[c - N], w[c + N * N], w[c - N * N], c, N, h, cx,
-          cy, cz);
-  float gx = 0.5f * (mag[c + N * N] - mag[c - N * N]) / h;
-  float gy = 0.5f * (mag[c + N] - mag[c - N]) / h;
-  float gz = 0.5f * (mag[c + 1] - mag[c - 1]) / h;
-  const float norm = sqrtf(gx * gx + gy * gy + gz * gz) + 1e-5f;
-  gx = gx / norm;
-  gy = gy / norm;
-  gz = gz / norm;
-  const int o = (cell.i * N + cell.j) * N + cell.k;
-  uo[o] = cell.sign[1] * (u[c] + dt * (eps_h * (gy * cz - gz * cy)));
-  vo[o] = cell.sign[2] * (v[c] + dt * (eps_h * (gz * cx - gx * cz)));
-  wo[o] = cell.sign[3] * (w[c] + dt * (eps_h * (gx * cy - gy * cx)));
+  tf::forcing_b_cell(blockIdx.x * blockDim.x + threadIdx.x, u, v, w, mag, uo,
+                     vo, wo, n, dt, eps_h, h);
 }
 
 }  // namespace
@@ -126,7 +49,7 @@ extern "C" int tf_forcing_a(const float* u, const float* v, const float* w,
   forcing_a_kernel<<<tf::blocks_for(n), tf::kThreads, 0,
                      (cudaStream_t)stream>>>(
       u, v, w, dens, temp, w_out, mag_out, n, buoy, vort,
-      Buoyancy{dt, alpha, beta, t_amb}, h);
+      tf::Buoyancy{dt, alpha, beta, t_amb}, h);
   return tf::launch_status();
 }
 

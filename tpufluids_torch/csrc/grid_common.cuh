@@ -30,13 +30,13 @@ __device__ __forceinline__ int clamp_interior(int i, int n) {
   return i < 1 ? 1 : (i > n ? n : i);
 }
 
-// Decodes the flat output index; false past the end of the grid.
-__device__ __forceinline__ bool cell_at(int idx, int n, Cell& cell) {
+// Fills ``cell`` for output cell (i, j, k).
+__device__ __forceinline__ void cell_from(int i, int j, int k, int n,
+                                          Cell& cell) {
   const int N = n + 2;
-  if (idx >= N * N * N) return false;
-  cell.i = idx / (N * N);
-  cell.j = (idx / N) % N;
-  cell.k = idx % N;
+  cell.i = i;
+  cell.j = j;
+  cell.k = k;
   const int ci = clamp_interior(cell.i, n);
   const int cj = clamp_interior(cell.j, n);
   const int ck = clamp_interior(cell.k, n);
@@ -45,7 +45,20 @@ __device__ __forceinline__ bool cell_at(int idx, int n, Cell& cell) {
   cell.sign[1] = ci != cell.i ? -1.0f : 1.0f;
   cell.sign[2] = cj != cell.j ? -1.0f : 1.0f;
   cell.sign[3] = ck != cell.k ? -1.0f : 1.0f;
+}
+
+// Decodes the flat output index; false past the end of the grid.
+__device__ __forceinline__ bool cell_at(int idx, int n, Cell& cell) {
+  const int N = n + 2;
+  if (idx >= N * N * N) return false;
+  cell_from(idx / (N * N), (idx / N) % N, idx % N, n, cell);
   return true;
+}
+
+// The flat index of the output cell.
+__device__ __forceinline__ int out_index(const Cell& cell, int n) {
+  const int N = n + 2;
+  return (cell.i * N + cell.j) * N + cell.k;
 }
 
 __device__ __forceinline__ bool is_interior(const Cell& cell, int N) {

@@ -14,7 +14,7 @@ from tpufluids_torch.grid.stam import GridState3D, StamConfig
 FIELDS = tuple(f.name for f in dataclasses.fields(GridState3D))
 
 
-def state_from_numpy(fields: dict, device="cpu") -> GridState3D:
+def state_from_numpy(fields: dict, device="cuda") -> GridState3D:
     """A GridState3D holding float32 copies of ``fields`` (one (n+2)^3
     array per name in FIELDS) on ``device``."""
     missing = set(FIELDS) - set(fields)

@@ -10,11 +10,16 @@ raises.  A launch that fails raises too: no wrapper falls back from its
 kernel to the plain version.  Each wrapper counts its launches in its
 ``launches`` attribute.
 
-All four kernels are single passes over a few (n+2)^3 float32 fields,
-so device-memory bytes bound them.  They run one thread per output
-cell, ghosts included; a ghost output is the interior value at its
-clamped index times the set_bnd sign (csrc/grid_common.cuh), so no
-second boundary pass is needed.
+Device-memory bytes bound every kernel here.  The four stencil stages
+(advection, forcing, divergence, gradient subtraction) are single
+passes over a few (n+2)^3 float32 fields, one thread per output cell,
+ghosts included; a ghost output is the interior value at its clamped
+index times the set_bnd sign (csrc/grid_common.cuh), so no second
+boundary pass is needed.  The solvers (csrc/jacobi.cu) stream one pass
+per Jacobi sweep or red-black half-sweep; the whole tier (the
+multi-field diffusion, the fused projection and the whole step) runs a
+whole solve, or a whole step, in one cooperative launch, for grids whose
+fields stay in the card's L2 (``whole_ok``).
 """
 
 from __future__ import annotations
@@ -195,7 +200,250 @@ def gradsub3d(p, u, v, w):
 
 gradsub3d.launches = 0
 
-KERNELS = (advect3d_multi, forcing3d, div3d, gradsub3d)
+
+# ---------------------------------------------------------------------------
+# linear solves: Jacobi, red-black, and the whole tier
+
+# The whole tier's cooperative launch keeps its fields in the card's 50 MB
+# L2: up to nine for a solve, nineteen for a whole step.  64^3 (1.15 MB a
+# field) takes both, 256^3 (68.7 MB) streams.
+WHOLE_MAX_FIELD_BYTES = 4 * 1024 * 1024
+STEP_MAX_FIELD_BYTES = 2 * 1024 * 1024
+
+
+def whole_ok(x: torch.Tensor) -> bool:
+    """True when fields shaped like ``x`` take the whole tier's solves
+    (diffuse3d_multi, project3d_whole)."""
+    return x.numel() * x.element_size() <= WHOLE_MAX_FIELD_BYTES
+
+
+def step_whole_ok(x: torch.Tensor) -> bool:
+    """True when fields shaped like ``x`` take the whole step
+    (step3d_whole)."""
+    return x.numel() * x.element_size() <= STEP_MAX_FIELD_BYTES
+
+
+def _check_solve(b: int, iters: int):
+    if b not in (0, 1, 2, 3):
+        raise ValueError(f"set_bnd mode must be 0..3, got {b}")
+    if not isinstance(iters, int) or iters < 1:
+        raise ValueError(f"iters must be an int >= 1, got {iters!r}")
+
+
+def _solve_on_cuda(b, x, x0, iters) -> bool:
+    _check_solve(b, iters)
+    return _on_cuda(x0) if x is None else _on_cuda(x, x0)
+
+
+def lin_solve3d_plain(b, x, x0, a, c, iters):
+    return stam.lin_solve3d(b, x, x0, a, c, iters)
+
+
+def lin_solve3d(b, x, x0, a, c, iters):
+    """``iters`` Jacobi sweeps of (x0 + a * sum of neighbours) / c, each
+    followed by set_bnd3d(b); as stam.lin_solve3d.  ``x`` None is a zero
+    initial guess.
+
+    Replaces lin_solve3d_pallas (tpufluids/grid/pallas_kernels.py).
+    Bound by bytes: x, x0 in and the result out, once per sweep here.
+    One launch per sweep, out of place between two buffers, one thread
+    per output cell (csrc/jacobi.cu)."""
+    if not _solve_on_cuda(b, x, x0, iters):
+        return lin_solve3d_plain(b, x, x0, a, c, iters)
+    out, tmp = torch.empty_like(x0), torch.empty_like(x0)
+    _build.launch("tf_lin_solve3d", x, x0, out, tmp, b, x0.shape[0] - 2,
+                  iters, a, 1.0 / c)
+    lin_solve3d.launches += 1
+    return out
+
+
+lin_solve3d.launches = 0
+
+
+def lin_solve3d_rb_plain(b, x, x0, a, c, iters):
+    return stam.lin_solve3d(b, x, x0, a, c, iters, red_black=True)
+
+
+def lin_solve3d_rb(b, x, x0, a, c, iters):
+    """``iters`` red-black Gauss-Seidel iterations, each two half-sweeps
+    (parity 0, then 1) followed by set_bnd3d(b); as
+    stam.lin_solve3d(red_black=True).  ``x`` None is a zero initial
+    guess.
+
+    Replaces lin_solve3d_rb_packed (tpufluids/grid/pallas_kernels.py).
+    Bound by bytes.  One launch per half-sweep over the active cells
+    only, in place, then one launch that writes the ghosts
+    (csrc/jacobi.cu; the header says how ghost taps avoid a race)."""
+    if not _solve_on_cuda(b, x, x0, iters):
+        return lin_solve3d_rb_plain(b, x, x0, a, c, iters)
+    out = torch.empty_like(x0)
+    _build.launch("tf_lin_solve3d_rb", x, x0, out, b, x0.shape[0] - 2,
+                  iters, a, 1.0 / c)
+    lin_solve3d_rb.launches += 1
+    return out
+
+
+lin_solve3d_rb.launches = 0
+
+
+def diffuse3d_multi_plain(xs, params, iters):
+    return tuple(stam.lin_solve3d(b, x, x, a, c, iters)
+                 for x, (b, a, c) in zip(xs, params))
+
+
+def diffuse3d_multi(xs, params, iters):
+    """Diffuse each field of ``xs`` (1 to 3) by ``iters`` Jacobi sweeps
+    with its own (b, a, c) from ``params``, x0 being the field itself;
+    as lin_solve3d(b, x, x, a, c, iters) per field.
+
+    Replaces diffuse3d_whole_multi (tpufluids/grid/pallas_kernels.py).
+    One cooperative launch runs every sweep of every field, with a
+    grid-wide barrier between sweeps (csrc/jacobi.cu); only for fields
+    that pass ``whole_ok``."""
+    xs, params = tuple(xs), tuple(params)
+    if not 1 <= len(xs) <= 3 or len(params) != len(xs):
+        raise ValueError("diffuse3d_multi takes 1 to 3 fields, one "
+                         "(b, a, c) each")
+    for b, _, _ in params:
+        _check_solve(b, iters)
+    if not _on_cuda(*xs):
+        return diffuse3d_multi_plain(xs, params, iters)
+    if not whole_ok(xs[0]):
+        raise ValueError(f"{tuple(xs[0].shape)} fields are outside the "
+                         f"whole tier (whole_ok)")
+    k, pad = len(xs), (None,) * (3 - len(xs))
+    outs = tuple(torch.empty_like(x) for x in xs)
+    tmps = tuple(torch.empty_like(x) for x in xs)
+    bs, as_, cs = zip(*params)
+    _build.launch("tf_diffuse3d_multi", *xs, *pad, *outs, *pad, *tmps, *pad,
+                  k, *bs, *(0,) * (3 - k), xs[0].shape[0] - 2, iters, *as_,
+                  *(0.0,) * (3 - k), *(1.0 / c for c in cs),
+                  *(0.0,) * (3 - k))
+    diffuse3d_multi.launches += 1
+    return outs
+
+
+diffuse3d_multi.launches = 0
+
+
+def project3d_whole_plain(u, v, w, iters, red_black):
+    p = stam.lin_solve3d(0, None, div3d_plain(u, v, w), 1.0, 6.0, iters,
+                         red_black=red_black)
+    return gradsub3d_plain(p, u, v, w)
+
+
+def project3d_whole(u, v, w, iters, red_black):
+    """The Jacobi projection: divergence, ``iters`` Jacobi or red-black
+    sweeps of the pressure solve from a zero guess (a = 1, c = 6, b =
+    0), gradient subtraction; as div3d, lin_solve3d(_rb) and gradsub3d
+    in turn.
+
+    Replaces project3d_whole_pallas (tpufluids/grid/pallas_kernels.py).
+    One cooperative launch runs the three phases with the cell bodies of
+    the three-launch path (csrc/jacobi.cu, csrc/divgrad.cuh); only for
+    fields that pass ``whole_ok``."""
+    _check_solve(0, iters)
+    if not _on_cuda(u, v, w):
+        return project3d_whole_plain(u, v, w, iters, red_black)
+    if not whole_ok(u):
+        raise ValueError(f"{tuple(u.shape)} fields are outside the whole "
+                         f"tier (whole_ok)")
+    n = u.shape[0] - 2
+    outs = tuple(torch.empty_like(u) for _ in range(3))
+    div, p = torch.empty_like(u), torch.empty_like(u)
+    p2 = None if red_black else torch.empty_like(u)
+    _build.launch("tf_project3d_whole", u, v, w, *outs, div, p, p2, n, iters,
+                  bool(red_black), -0.5 * (1.0 / n), 1.0 / n, 1.0 / 6.0)
+    project3d_whole.launches += 1
+    return outs
+
+
+project3d_whole.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the whole step
+
+# scratch fields of the whole step: two velocity trios and one for |curl|,
+# the diffusion's second buffers and the projection's div and p
+STEP_SCRATCH = 9
+
+
+def _check_step(cfg: stam.StamConfig):
+    if cfg.projection != "jacobi" or cfg.solver_dtype != "float32":
+        raise ValueError(f"the whole step runs the float32 Jacobi projection"
+                         f", not projection={cfg.projection!r}, "
+                         f"solver_dtype={cfg.solver_dtype!r}")
+    _check_solve(0, cfg.jacobi_iters)
+
+
+def step3d_whole_plain(u, v, w, dens, temp, cfg: stam.StamConfig):
+    n = u.shape[0] - 2
+    dt0 = cfg.dt * n
+    iters, rb = cfg.jacobi_iters, cfg.red_black
+
+    def diffuse(fields, bnds, coeff):
+        params = tuple((b, *stam._diffusion_ac(cfg, coeff, n)) for b in bnds)
+        return diffuse3d_multi_plain(fields, params, iters)
+
+    u, v, w = forcing3d_plain(u, v, w, dens, temp, cfg)
+    if cfg.visc:
+        u, v, w = diffuse((u, v, w), (1, 2, 3), cfg.visc)
+    u, v, w = project3d_whole_plain(u, v, w, iters, rb)
+    u, v, w = advect3d_multi_plain((u, v, w), (1, 2, 3), u, v, w, dt0)
+    u, v, w = project3d_whole_plain(u, v, w, iters, rb)
+    if cfg.diff:
+        (dens,) = diffuse((dens,), (0,), cfg.diff)
+    if cfg.temp_diff:
+        (temp,) = diffuse((temp,), (0,), cfg.temp_diff)
+    dens, temp = advect3d_multi_plain((dens, temp), (0, 0), u, v, w, dt0)
+    return u, v, w, dens, temp
+
+
+def step3d_whole(u, v, w, dens, temp, cfg: stam.StamConfig):
+    """One step of the Jacobi path without the residual: forcing,
+    velocity diffusion, projection, self-advection, projection, dens/temp
+    diffusion, dens/temp advection; as stam.step3d_multi (each stage
+    through its own kernel) and returning (u, v, w, dens, temp).
+
+    Replaces step3d_whole_pallas (tpufluids/grid/pallas_kernels.py).
+    One cooperative launch runs every phase with the cell bodies of the
+    separate kernels and a grid-wide barrier between phases and sweeps
+    (csrc/step.cu); only for fields that pass ``step_whole_ok``."""
+    _check_step(cfg)
+    if not _on_cuda(u, v, w, dens, temp):
+        return step3d_whole_plain(u, v, w, dens, temp, cfg)
+    if not step_whole_ok(u):
+        raise ValueError(f"{tuple(u.shape)} fields are outside the whole "
+                         f"step (step_whole_ok)")
+    n = u.shape[0] - 2
+    h = 1.0 / n
+    outs = tuple(torch.empty_like(u) for _ in range(5))
+    scratch = torch.empty((STEP_SCRATCH, *u.shape), dtype=u.dtype,
+                          device=u.device)
+
+    def ac(coeff):
+        a, c = stam._diffusion_ac(cfg, coeff, n)
+        return a, 1.0 / c
+
+    # the constants the separate wrappers pass, computed as they do
+    _build.launch("tf_step3d_whole", u, v, w, dens, temp, *outs, scratch, n,
+                  cfg.jacobi_iters, bool(cfg.red_black),
+                  bool(cfg.buoyancy_alpha or cfg.buoyancy_beta),
+                  bool(cfg.vorticity_eps), bool(cfg.visc), bool(cfg.diff),
+                  bool(cfg.temp_diff), cfg.dt, cfg.buoyancy_alpha,
+                  cfg.buoyancy_beta, cfg.ambient_temp, h,
+                  cfg.vorticity_eps * h, -0.5 * (1.0 / n), 1.0 / 6.0,
+                  cfg.dt * n, *ac(cfg.visc), *ac(cfg.diff),
+                  *ac(cfg.temp_diff))
+    step3d_whole.launches += 1
+    return outs
+
+
+step3d_whole.launches = 0
+
+KERNELS = (advect3d_multi, forcing3d, div3d, gradsub3d, lin_solve3d,
+           lin_solve3d_rb, diffuse3d_multi, project3d_whole, step3d_whole)
 
 
 def reset_launches():

@@ -1,13 +1,15 @@
 """Stam-style stable-fluids solver in PyTorch: the 3D step of
-``tpufluids.grid.stam`` with the spectral (DCT) projection.
+``tpufluids.grid.stam`` with the spectral (DCT) or the Jacobi
+(plain or red-black) projection, and diffusion.
 
 Fields are dense (n+2)^3 float32 tensors with one ghost layer, z
 contiguous, on any device.  The functions are pure: they return new
-tensors and never write into their arguments.  The four stencil stages
-of the step (forcing, divergence, gradient subtraction, advection) go
-through ``tpufluids_torch.grid.kernels``, which launches a CUDA kernel
-for a CUDA tensor and runs the plain PyTorch version for a CPU tensor;
-the DCT solve is dense matrix products (``torch.tensordot``).
+tensors and never write into their arguments.  The stencil stages of
+the step (forcing, divergence, gradient subtraction, advection) and the
+Jacobi solves go through ``tpufluids_torch.grid.kernels``, which
+launches a CUDA kernel for a CUDA tensor and runs the plain PyTorch
+version for a CPU tensor; the DCT solve is dense matrix products
+(``torch.tensordot``).
 
 The port keeps the reference's dense ghosted layout and reads stored
 ghosts, so it reproduces the reference's dense XLA path
@@ -33,10 +35,10 @@ from tpufluids_torch.grid import kernels
 class StamConfig:
     """Same fields and defaults as ``tpufluids.grid.stam.StamConfig``.
 
-    The port runs ``advect_mode="stencil"`` with ``projection="dct"``
-    and no diffusion; ``solver_backend`` is ignored (the device of the
-    fields decides), and ``jacobi_iters``, ``red_black`` and
-    ``mg_cycles`` only matter to projections the port does not run yet.
+    The port runs ``advect_mode="stencil"`` with the "dct" or "jacobi"
+    projection, with or without diffusion; ``solver_backend`` is ignored
+    (the device of the fields decides), and ``mg_cycles`` only matters
+    to the multigrid projection, which the port does not run yet.
     """
     n: int = 128                 # interior cells per axis
     dt: float = 0.1
@@ -77,7 +79,7 @@ class GridState3D:
     temp: torch.Tensor
 
 
-def make_grid3d(cfg: StamConfig, device="cpu") -> GridState3D:
+def make_grid3d(cfg: StamConfig, device="cuda") -> GridState3D:
     shape = (cfg.n + 2,) * 3
 
     def zeros():
@@ -88,33 +90,30 @@ def make_grid3d(cfg: StamConfig, device="cpu") -> GridState3D:
                                        dtype=torch.float32, device=device))
 
 
-_ROADMAP_GRID = "ROADMAP.md Queue 1, 'Rest of the grid'"
-
-
-def _not_ported(what: str):
+def _not_ported(what: str, item: str):
     return NotImplementedError(
-        f"{what} is not ported to tpufluids_torch yet ({_ROADMAP_GRID})")
+        f"{what} is not ported to tpufluids_torch yet (ROADMAP.md Queue 1 "
+        f"item 5, {item!r})")
 
 
 def _check_slice(cfg: StamConfig):
-    """Raise for a configuration outside the ported main path."""
+    """Raise for a configuration outside the ported slices."""
     if cfg.advect_mode != "stencil":
-        raise _not_ported(f"advect_mode={cfg.advect_mode!r}")
-    if cfg.projection != "dct":
-        raise _not_ported(f"projection={cfg.projection!r}")
-    for name in ("visc", "diff", "temp_diff"):
-        if getattr(cfg, name) > 0:
-            raise _not_ported(f"diffusion ({name} > 0)")
+        raise _not_ported(f"advect_mode={cfg.advect_mode!r}",
+                          "gather advection")
+    if cfg.projection == "multigrid":
+        raise _not_ported("projection='multigrid'", "multigrid")
     if cfg.solver_dtype != "float32":
-        raise _not_ported(f"solver_dtype={cfg.solver_dtype!r}")
+        raise _not_ported(f"solver_dtype={cfg.solver_dtype!r}",
+                          "bfloat16 solver")
 
 
 def step2d(*args, **kwargs):
-    raise _not_ported("the 2D step")
+    raise _not_ported("the 2D step", "2D step")
 
 
 def run2d_python(*args, **kwargs):
-    raise _not_ported("the 2D step")
+    raise _not_ported("the 2D step", "2D step")
 
 
 # ---------------------------------------------------------------------------
@@ -145,6 +144,83 @@ def _set_bnd3d_(b: int, x: torch.Tensor) -> torch.Tensor:
 
 def set_bnd3d(b: int, x: torch.Tensor) -> torch.Tensor:
     return _set_bnd3d_(b, x.clone())
+
+
+# ---------------------------------------------------------------------------
+# linear solvers (diffusion and the Jacobi pressure projection)
+
+
+def _jacobi_new(x, x0, a, c_inv):
+    """(x0 + a * sum of the six neighbours) * c_inv on the interior, the
+    neighbours summed in the reference's order."""
+    nb = (x[:-2, 1:-1, 1:-1] + x[2:, 1:-1, 1:-1]
+          + x[1:-1, :-2, 1:-1] + x[1:-1, 2:, 1:-1]
+          + x[1:-1, 1:-1, :-2] + x[1:-1, 1:-1, 2:])
+    return (x0[_I] + a * nb) * c_inv
+
+
+def _checker(n: int, parity: int, device) -> torch.Tensor:
+    """The red-black mask of the n^3 interior: the reference's _checker
+    sums the 0-based interior indices, so cell (1, 1, 1) of the ghosted
+    field has parity 0."""
+    i = torch.arange(n, device=device)
+    return (i[:, None, None] + i[None, :, None] + i[None, None, :]) % 2 \
+        == parity
+
+
+def lin_solve3d(b, x, x0, a, c, iters, red_black=False):
+    """``iters`` Jacobi sweeps of (x0 + a * sum of neighbours) / c on the
+    interior, or red-black iterations of two half-sweeps (parity 0, then
+    1), each sweep and half-sweep followed by set_bnd3d(b); as the
+    reference's lin_solve3d.  ``x`` None is a zero initial guess; the
+    first sweep reads the stored ghosts of ``x``."""
+    c_inv = 1.0 / c
+    x = torch.zeros_like(x0) if x is None else x.clone()
+    if red_black:
+        m0 = _checker(x.shape[0] - 2, 0, x.device)
+    for _ in range(iters):
+        if not red_black:
+            x[_I] = _jacobi_new(x, x0, a, c_inv)
+            _set_bnd3d_(b, x)
+            continue
+        for m in (m0, ~m0):
+            x[_I] = torch.where(m, _jacobi_new(x, x0, a, c_inv), x[_I])
+            _set_bnd3d_(b, x)
+    return x
+
+
+def _lin_solve3d(b, x, x0, a, c, iters, red_black=False):
+    """lin_solve3d through its kernel: red-black to lin_solve3d_rb, plain
+    Jacobi to lin_solve3d."""
+    solve = kernels.lin_solve3d_rb if red_black else kernels.lin_solve3d
+    return solve(b, x, x0, a, c, iters)
+
+
+def _diffusion_ac(cfg: StamConfig, coeff: float, n: int):
+    """(a, c) of the implicit diffusion solve: a = dt coeff n^2,
+    c = 1 + 6a."""
+    a = cfg.dt * coeff * n * n
+    return a, 1 + 6 * a
+
+
+def diffuse3d(b, x, cfg: StamConfig, coeff):
+    """Implicit diffusion of ``x`` by ``coeff``: ``cfg.jacobi_iters``
+    plain Jacobi sweeps always (red_black applies to the pressure
+    projection only), x0 = x."""
+    a, c = _diffusion_ac(cfg, coeff, x.shape[0] - 2)
+    return _lin_solve3d(b, x, x, a, c, cfg.jacobi_iters)
+
+
+def _diffuse_fields(fields, bnds, coeffs, cfg: StamConfig):
+    """diffuse3d of each field with its b and coefficient: one whole-tier
+    call for fields that fit it, else one solve per field."""
+    if not kernels.whole_ok(fields[0]):
+        return tuple(diffuse3d(b, q, cfg, coeff)
+                     for q, b, coeff in zip(fields, bnds, coeffs))
+    n = fields[0].shape[0] - 2
+    params = tuple((b, *_diffusion_ac(cfg, coeff, n))
+                   for b, coeff in zip(bnds, coeffs))
+    return kernels.diffuse3d_multi(fields, params, cfg.jacobi_iters)
 
 
 # ---------------------------------------------------------------------------
@@ -406,12 +482,23 @@ def dct_solve3d(x0, cfg=None, final=True):
 
 def project3d(u, v, w, cfg: StamConfig, with_residual: bool = False,
               final=True):
-    """Pressure projection (DCT solve); ``with_residual`` also returns
-    the max-norm residual of the Poisson system it solved."""
-    if cfg.projection != "dct":
-        raise _not_ported(f"projection={cfg.projection!r}")
+    """Pressure projection: the DCT solve, or ``cfg.jacobi_iters``
+    Jacobi or red-black sweeps from a zero guess; ``with_residual`` also
+    returns the max-norm residual of the Poisson system it solved.  A
+    Jacobi projection of fields inside the whole tier, without the
+    residual, is one fused call (kernels.project3d_whole)."""
+    if cfg.projection == "multigrid":
+        raise _not_ported("projection='multigrid'", "multigrid")
+    jacobi = cfg.projection != "dct"
+    if jacobi and not with_residual and kernels.whole_ok(u):
+        return kernels.project3d_whole(u, v, w, cfg.jacobi_iters,
+                                       cfg.red_black)
     div = kernels.div3d(u, v, w)
-    p = dct_solve3d(div, cfg, final=final)
+    if jacobi:
+        p = _lin_solve3d(0, None, div, 1.0, 6.0, cfg.jacobi_iters,
+                         red_black=cfg.red_black)
+    else:
+        p = dct_solve3d(div, cfg, final=final)
     u, v, w = kernels.gradsub3d(p, u, v, w)
     if with_residual:
         return u, v, w, poisson_residual3d(p, div)
@@ -466,10 +553,15 @@ def buoyancy3d(w, dens, temp, cfg: StamConfig):
 
 def step3d(state: GridState3D, cfg: StamConfig,
            sources: Optional[dict] = None, with_residual: bool = False):
-    """One 3D step with set_bnd walls: forcing, projection (first solve),
-    velocity self-advection, projection (final solve), dens/temp
-    advection.  ``sources`` maps field names ("fu", "fv", "fw", "dens",
-    "temp") to tensors added times dt first."""
+    """One 3D step with set_bnd walls: forcing, velocity diffusion
+    (visc), projection (first solve), velocity self-advection,
+    projection (final solve), dens/temp diffusion (diff, temp_diff),
+    dens/temp advection.  ``sources`` maps field names ("fu", "fv",
+    "fw", "dens", "temp") to tensors added times dt first.
+
+    A Jacobi step of fields inside the whole step's gate that does not
+    report the residual is one fused call (kernels.step3d_whole), as the
+    reference's step3d_whole_pallas; every other step is step3d_multi."""
     _check_slice(cfg)
     u, v, w, dens, temp = state.u, state.v, state.w, state.dens, state.temp
     if sources:
@@ -478,15 +570,37 @@ def step3d(state: GridState3D, cfg: StamConfig,
         w = w + cfg.dt * sources.get("fw", 0.0)
         dens = dens + cfg.dt * sources.get("dens", 0.0)
         temp = temp + cfg.dt * sources.get("temp", 0.0)
+    if (cfg.projection == "jacobi" and not with_residual
+            and kernels.step_whole_ok(u)):
+        return GridState3D(*kernels.step3d_whole(u, v, w, dens, temp, cfg))
+    return step3d_multi(GridState3D(u=u, v=v, w=w, dens=dens, temp=temp),
+                        cfg, with_residual)
+
+
+def step3d_multi(state: GridState3D, cfg: StamConfig,
+                 with_residual: bool = False):
+    """step3d without sources, each stage through its own kernel."""
+    _check_slice(cfg)
+    u, v, w, dens, temp = state.u, state.v, state.w, state.dens, state.temp
     dt0 = cfg.dt * (u.shape[0] - 2)
     if cfg.buoyancy_alpha or cfg.buoyancy_beta or cfg.vorticity_eps:
         u, v, w = kernels.forcing3d(u, v, w, dens, temp, cfg)
+    if cfg.visc:
+        u, v, w = _diffuse_fields((u, v, w), (1, 2, 3), (cfg.visc,) * 3, cfg)
     u, v, w = project3d(u, v, w, cfg, final=False)
     u, v, w = kernels.advect3d_multi((u, v, w), (1, 2, 3), u, v, w, dt0)
     if with_residual:
         u, v, w, res = project3d(u, v, w, cfg, with_residual=True)
     else:
         u, v, w = project3d(u, v, w, cfg)
+    coeffs = {f: c for f, c in (("dens", cfg.diff), ("temp", cfg.temp_diff))
+              if c}
+    if coeffs:
+        fields = {"dens": dens, "temp": temp}
+        fields.update(zip(coeffs, _diffuse_fields(
+            [fields[f] for f in coeffs], (0,) * len(coeffs),
+            list(coeffs.values()), cfg)))
+        dens, temp = fields["dens"], fields["temp"]
     dens, temp = kernels.advect3d_multi((dens, temp), (0, 0), u, v, w, dt0)
     out = GridState3D(u=u, v=v, w=w, dens=dens, temp=temp)
     return (out, res) if with_residual else out

@@ -12,7 +12,7 @@ from tpufluids_torch.state import ParticleState, make_state
 
 
 def base_dam(cfg: SPHConfig = BASE_CONFIG, n: int = 8000, nb: int = 0,
-             capacity=None, device="cpu") -> ParticleState:
+             capacity=None, device="cuda") -> ParticleState:
     """The base variant's scene: a fluid column seeded on a 15x15
     lattice (solver.cu:17-19, 115-121), with no floor.
 
@@ -42,7 +42,7 @@ def base_dam(cfg: SPHConfig = BASE_CONFIG, n: int = 8000, nb: int = 0,
 
 
 def unidyn_tank(cfg: SPHConfig = UNIDYN_CONFIG, nf: int = 10000,
-                nb: int = 4040, capacity=None, device="cpu") -> ParticleState:
+                nb: int = 4040, capacity=None, device="cuda") -> ParticleState:
     """The unidyn scene: a 30x30-lattice fluid block above a tank made of
     a floor plane plus four wall planes of boundary particles, all with
     sand phase (solid=1, fluid=0) (solver-unidyn.cu:21-23, 127-184)."""
@@ -78,7 +78,7 @@ def unidyn_tank(cfg: SPHConfig = UNIDYN_CONFIG, nf: int = 10000,
 
 def random_blob(n: int, seed: int = 0, cfg: SPHConfig = BASE_CONFIG,
                 span: float = 0.3, boundary_frac: float = 0.0,
-                capacity=None, device="cpu") -> ParticleState:
+                capacity=None, device="cuda") -> ParticleState:
     """Small random cluster for tests: particles dense enough to
     interact."""
     rng = np.random.default_rng(seed)

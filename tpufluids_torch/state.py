@@ -47,7 +47,7 @@ FIELDS = tuple(f.name for f in dataclasses.fields(ParticleState))
 def make_state(pos, vel=None, *, boundary=None, solid=None, fluid=None,
                mass=None, cfg: Optional[SPHConfig] = None,
                capacity: Optional[int] = None, rho0: float = 9550.0,
-               gravity: float = -9.8, device="cpu") -> ParticleState:
+               gravity: float = -9.8, device="cuda") -> ParticleState:
     """A ParticleState from seed arrays (numpy or tensors), padded with
     dead rows to ``capacity``; as ``tpufluids.state.make_state``.
 
