@@ -14,18 +14,33 @@
    untimed, at config 2's diffusion coefficients (b = 1) too, and the
    whole step of configs 2 and 4 must equal the separate kernels
    (stam.step3d_multi) bit for bit.
+   The 2D kernels (csrc/grid2d.cu) at config 1's 130^2 fields: the
+   solve (a = 1, c = 4, b = 0, and config 1's diffusion at b = 1) and
+   the whole step (config 1, and config 1 with buoyancy and vorticity)
+   must equal their plain versions bit for bit, and the whole step the
+   multi-call step (stam.step2d_multi).
 3. Runs 4 steps of the bench.py scene and of BASELINE configs 2 and 4
-   at 16^3 on the card and on the CPU (plain versions) and compares
-   them.
-4. Drives four grid configurations through
+   at 16^3, and of BASELINE config 1 at 32^2, on the card and on the CPU
+   (plain versions) and compares them.
+4. Drives five 3D grid configurations through
    tpufluids_torch.grid.stam.run3d_python: the bench.py scene (DCT) and
    config 3 (red-black Jacobi, "jacobi continuity") at 256^3 for 3
    warm-up and 30 timed steps, config 3 with plain Jacobi for 3 and 10,
-   and configs 2 and 4 at 64^3 for 3 and 400, as bench.py times them.
-   Each first runs two steps through the kernels against two through
-   the plain versions: one without the residual (at 64^3 the whole
-   step) and one with it.  Checks shape, finiteness, the final Poisson
-   residual and the kernel launches of the timed run.
+   configs 2 and 4 at 64^3 for 3 and 400, as bench.py times them, and
+   the CLI's plume3d scene (gather advection, no whole step) at 64^3 for
+   3 and 20.  Each first runs two steps through the kernels against two
+   through the plain versions: one without the residual (at 64^3 the
+   whole step, for stencil advection) and one with it.  Checks shape,
+   finiteness, the final Poisson residual and the kernel launches of the
+   timed run.  Then two 2D configurations through stam.run2d_python at
+   128^2 with bench.py's sources: BASELINE config 1 (one whole-step
+   launch a step) for 3 and 400 steps, and the CLI's smoke2d default
+   (gather advection: five solve launches a step) for 3 and 100, with
+   no host sync allowed; each first holds two steps through the kernels
+   bitwise against two through the plain versions, and config 1's
+   residual step against the plain one.  Every grid path then runs 10
+   more steps under torch.profiler: device busy time, device ops a step,
+   the device's idle share against the timed ms/step, the top kernels.
 5. Holds the SPH force kernel (base_forces_rowblock) against its plain
    version at the base_dam scene and at a 262144-particle uniform fill,
    on seeded dens, press and vel, and times both with CUDA events.
@@ -74,9 +89,11 @@ import torch
 
 N_BIG = 256
 N_WHOLE = 64             # BASELINE configs 2 and 4: the whole tier
+N_2D = 128               # BASELINE config 1
 SEED = 0
 FIELDS = ("u", "v", "w", "dens", "temp")
 TIME_REPS = 20
+PROFILE_STEPS = 10       # steps of each grid path under torch.profiler
 # the DCT projection's limit; a Jacobi residual is held to the plain
 # step's instead (twenty sweeps leave about 1e-5)
 MAX_RESIDUAL = 1e-8
@@ -107,6 +124,11 @@ KERNELS = {
                         "tpufluids/grid/pallas_kernels.py:1174", 1e-6),
     "step3d_whole": ("tpufluids_torch/csrc/step.cu",
                      "tpufluids/grid/pallas_kernels.py:1319", STEP_TOL),
+    # bit for bit
+    "lin_solve2d": ("tpufluids_torch/csrc/grid2d.cu",
+                    "tpufluids/grid/pallas_kernels.py:1993", 0.0),
+    "step2d_whole": ("tpufluids_torch/csrc/grid2d.cu",
+                     "tpufluids/grid/pallas_kernels.py:2157", 0.0),
 }
 # float32 operations per interior cell of one call, counted from the
 # kernels' sources (a min, max, sqrt or division counts as one): the
@@ -114,7 +136,12 @@ KERNELS = {
 # multiply-add per field; buoyancy 6 and vorticity confinement 70; the
 # divergence 6; the gradient subtraction 5 a component; a Jacobi sweep
 # 8 (5 adds, a multiply-add, a multiply); the whole step the sum of its
-# phases
+# phases.  In 2D: a Jacobi sweep 6; the divergence 4, the gradient
+# subtraction 4 a component; the 9-tap advection of k fields 19 an axis
+# for the weights and per tap a weight product and a multiply-add per
+# field; buoyancy 6, vorticity confinement 27.  A solve's bound counts
+# its sweeps' operations as if they could run at once: it ignores their
+# serial dependence, which is what bounds the 2D kernels.
 
 
 def step_ops(cfg):
@@ -123,6 +150,15 @@ def step_ops(cfg):
     ops += 6 if cfg.buoyancy_alpha or cfg.buoyancy_beta else 0
     ops += 70 if cfg.vorticity_eps else 0
     return ops + 8 * iters * (3 * bool(cfg.visc) + bool(cfg.diff)
+                              + bool(cfg.temp_diff))
+
+
+def step2d_ops(cfg):
+    iters = cfg.jacobi_iters
+    ops = 2 * (4 + 6 * iters + 8) + 2 * (38 + 9 * 5)
+    ops += 6 if cfg.buoyancy_alpha or cfg.buoyancy_beta else 0
+    ops += 27 if cfg.vorticity_eps else 0
+    return ops + 6 * iters * (2 * bool(cfg.visc) + bool(cfg.diff)
                               + bool(cfg.temp_diff))
 
 
@@ -136,6 +172,8 @@ GRID_OPS = {
     "diffuse3d_multi": lambda a: 8 * a[2] * len(a[0]),
     "project3d_whole": lambda a: 6 + 8 * a[3] + 15,
     "step3d_whole": lambda a: step_ops(a[5]),
+    "lin_solve2d": lambda a: 6 * a[5],
+    "step2d_whole": lambda a: step2d_ops(a[4]),
 }
 # run3d_python's paths: name -> (configuration keywords, size, warm-up
 # and timed steps)
@@ -155,7 +193,22 @@ GRID_PATHS = {
                                     red_black=False), N_BIG, 3, 10),
     "config 2": (CONFIG2_KW, N_WHOLE, 3, 400),
     "config 4": ({**CONFIG2_KW, **PLUME_KW}, N_WHOLE, 3, 400),
+    # the CLI's plume3d (cli.py:190-197, 250-255): its defaults, gather
+    "plume3d (gather)": (dict(dt=0.05, diff=1e-5, visc=1e-5,
+                              jacobi_iters=20, buoyancy_alpha=0.05,
+                              buoyancy_beta=1.0, advect_mode="gather"),
+                         N_WHOLE, 3, 20),
 }
+# run2d_python's paths, with bench.py's sources: name -> (configuration
+# keywords, size, warm-up and timed steps)
+CONFIG1_KW = dict(dt=0.1, diff=1e-5, visc=1e-5,
+                  jacobi_iters=20)               # bench.py:305-306
+GRID2D_PATHS = {
+    "config 1": (dict(CONFIG1_KW, advect_mode="stencil"), N_2D, 3, 400),
+    # python -m tpufluids.cli smoke2d: the StamConfig default advection
+    "smoke2d (gather)": (CONFIG1_KW, N_2D, 3, 100),
+}
+FIELDS2D = ("u", "v", "dens", "temp")
 # the SPH base step: 1e-5 * max|plain| for sum_w and each dpress column
 SPH_KERNELS = {
     "base_forces_rowblock": ("tpufluids_torch/csrc/sph_forces.cu",
@@ -222,13 +275,29 @@ def grid_config(stam, path, n=None):
     return stam.StamConfig(n=n, **{"dt": 0.5 / n, **kw})
 
 
+def grid2d_config(stam, path, n=None):
+    kw, size, _, _ = GRID2D_PATHS[path]
+    return stam.StamConfig(n=n or size, **kw)
+
+
+def grid2d_sources(n, device):
+    """bench.py:308-311's sources at size n (cli.py:202-205): dens 5 and
+    fv 2 in [n/2-4:n/2+4, 4:8]."""
+    src = torch.zeros((n + 2, n + 2), dtype=torch.float32, device=device)
+    fv = torch.zeros_like(src)
+    src[n // 2 - 4:n // 2 + 4, 4:8] = 5.0
+    fv[n // 2 - 4:n // 2 + 4, 4:8] = 2.0
+    return {"dens": src, "fv": fv}
+
+
 def grid_state(stam, path, cfg, device):
     """bench.py's seeding: dens 1 and temp 3 in [3k:5k, 3k:5k, 1:k],
     k = n/8 (bench.py:151-156), and in [24:40, 24:40, 1:9] at 64^3 for
-    configs 2 and 4 (bench.py:330-333), i.e. one z plane more."""
+    configs 2 and 4 (bench.py:330-333) and plume3d (cli.py:258-261), i.e.
+    one z plane more."""
     s = stam.make_grid3d(cfg, device)
     k = cfg.n // 8
-    top = k + 1 if path in ("config 2", "config 4") else k
+    top = k if path.startswith(("bench", "config 3")) else k + 1
     s.dens[3 * k:5 * k, 3 * k:5 * k, 1:top] = 1.0
     s.temp[3 * k:5 * k, 3 * k:5 * k, 1:top] = 3.0
     return s
@@ -259,7 +328,7 @@ def grid_work(name, args, outs):
     once, each output written once, GRID_OPS per interior cell."""
     n = outs[0].shape[0] - 2
     nbytes = sum(t.nbytes for t in tensors_in(args) + list(outs))
-    return nbytes, GRID_OPS[name](args) * n ** 3
+    return nbytes, GRID_OPS[name](args) * n ** outs[0].dim()
 
 
 def rel_err(got, want):
@@ -284,6 +353,44 @@ def time_ms(fn):
     return start.elapsed_time(stop) / TIME_REPS
 
 
+def device_profile(run, steps):
+    """(wall ms/step, device busy ms/step, device ops a step, the four
+    kernels of most device time as (ms/step, calls a step, name)) of
+    ``run(steps)`` under torch.profiler: the card's kernel and copy
+    times, and the host clock."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(steps)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps * 1e3
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time for e in events) / 1e3 / steps
+    by_name = {}
+    for e in events:
+        t = by_name.setdefault(e.name[:48], [0.0, 0])
+        t[0] += e.device_time / 1e3 / steps
+        t[1] += 1
+    top = sorted(((t, c / steps, name) for name, (t, c) in by_name.items()),
+                 reverse=True)[:4]
+    return wall, busy, len(events) / steps, top
+
+
+def log_profile(path, run, ms):
+    """The device's busy time and ops a step of ``run``, and its idle
+    share against the timed run's ``ms`` a step: the profiler's own host
+    cost slows the steps it records."""
+    wall, busy, ops, top = device_profile(run, PROFILE_STEPS)
+    log(f"{path}: {PROFILE_STEPS} steps under torch.profiler ({wall:.4f} "
+        f"ms/step there): device busy {busy:.4f} ms/step, {ops:.1f} device "
+        f"ops a step; device idle share {1.0 - busy / ms:.3f} of the timed "
+        f"{ms:.4f} ms/step")
+    for t, calls, name in top:
+        log(f"    {t:.4f} ms/step in {calls:.1f} calls a step: {name}")
+
+
 @contextlib.contextmanager
 def plain_kernels(kernels):
     """Route the step's kernel calls to the plain versions."""
@@ -299,7 +406,8 @@ def plain_kernels(kernels):
 
 def check_kernels(stam, kernels, dev):
     """Each grid kernel against its plain version: the stencil kernels
-    and the streamed solves at 256^3, the whole tier at 64^3; returns
+    and the streamed solves at 256^3, the whole tier at 64^3, the 2D
+    kernels at 128^2; returns
     per-kernel {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
     "library_ms"}, the times and bounds those of the main path's call
     shapes (averaged over the two advections of a step)."""
@@ -320,6 +428,18 @@ def check_kernels(stam, kernels, dev):
     a2 = c2.dt * c2.visc * c2.n ** 2
     u64, v64, w64 = (field(N_WHOLE, b, -1.0, 1.0) for b in (1, 2, 3))
     d64, t64 = (field(N_WHOLE, 0, 0.0, 1.0) for _ in range(2))
+
+    def field2d(b, lo, hi):
+        a = rng.uniform(lo, hi, (N_2D + 2,) * 2).astype(np.float32)
+        return stam.set_bnd2d(b, torch.from_numpy(a).to(dev))
+
+    c1 = grid2d_config(stam, "config 1")
+    c1_forced = c1.replace(buoyancy_alpha=0.04, buoyancy_beta=0.9,
+                           vorticity_eps=1.5)
+    a1 = c1.dt * c1.visc * N_2D ** 2
+    u2, v2 = (field2d(b, -1.2 / (c1.dt * N_2D), 1.2 / (c1.dt * N_2D))
+              for b in (1, 2))
+    d2, t2, p2 = (field2d(0, 0.0, 1.0) for _ in range(3))
     # the main path's call shapes, timed
     calls = {
         "advect3d_multi": [((u, v, w), (1, 2, 3), u, v, w, dt0),
@@ -335,15 +455,21 @@ def check_kernels(stam, kernels, dev):
                              20)],
         "project3d_whole": [(u64, v64, w64, 20, True)],
         "step3d_whole": [(u64, v64, w64, d64, t64, c4)],
+        # the smoke2d default's projection and velocity diffusion solves
+        "lin_solve2d": [(0, None, p2, 1.0, 4.0, 20),
+                        (1, u2, u2, a1, 1 + 4 * a1, 20)],
+        "step2d_whole": [(u2, v2, d2, t2, c1)],
     }
     # checked only: the solves at diffusion coefficients, at b = 1; the
-    # whole step of config 2, and of config 4 with plain Jacobi
+    # whole step of config 2, and of config 4 with plain Jacobi; the 2D
+    # whole step with buoyancy and vorticity
     checked_only = {
         "lin_solve3d": [(1, u, u, a2, 1 + 6 * a2, 20)],
         "lin_solve3d_rb": [(1, u, u, a2, 1 + 6 * a2, 20)],
         "step3d_whole": [(u64, v64, w64, d64, t64, c2),
                          (u64, v64, w64, d64, t64,
                           c4.replace(red_black=False))],
+        "step2d_whole": [(u2, v2, d2, t2, c1_forced)],
     }
     results = {}
     for name, arg_sets in calls.items():
@@ -372,12 +498,21 @@ def check_kernels(stam, kernels, dev):
                     f"{bool(args[5].vorticity_eps)}: bitwise equal to "
                     f"stam.step3d_multi: {same}")
                 check(same, "step3d_whole differs from stam.step3d_multi")
+            if name == "step2d_whole":
+                sep = stam.step2d_multi(stam.GridState2D(*args[:4]), args[4])
+                same = all(torch.equal(g, getattr(sep, f))
+                           for g, f in zip(got, FIELDS2D))
+                log(f"step2d_whole @ {N_2D}^2, forcing "
+                    f"{bool(args[4].vorticity_eps)}: bitwise equal to "
+                    f"stam.step2d_multi: {same}")
+                check(same, "step2d_whole differs from stam.step2d_multi")
         tol = KERNELS[name][2]
         # per call, averaged over the call shapes of the step
         ms = [time_ms(lambda a=a: kern(*a)) for a in arg_sets]
         plain_ms = [time_ms(lambda a=a: plain(*a)) for a in arg_sets]
         bound_ms, bound_by = bound(*np.mean(work, axis=0))
-        log(f"kernel {name} @ {got[0].shape[0] - 2}^3: max_abs_err "
+        log(f"kernel {name} @ {got[0].shape[0] - 2}^{got[0].dim()}: "
+            f"max_abs_err "
             f"{err:.3e} (relative {rel:.3e}, tolerance {tol:.0e}); ms per "
             f"call: kernel {ms}, plain {plain_ms}; bound {bound_ms:.4f} ms "
             f"({bound_by}; bytes, operations per call: {work})")
@@ -415,28 +550,39 @@ def check_small_against_cpu(stam, dev):
         if path != "bench (DCT)":
             check(abs(g - c) <= RESIDUAL_RTOL * c,
                   f"{path} at 16^3: residuals differ")
+    cfg = grid2d_config(stam, "config 1", 32)
+    gpu, cpu = (stam.run2d_python(stam.make_grid2d(cfg, d), cfg, 4,
+                                  sources=grid2d_sources(32, d))
+                for d in (dev, "cpu"))
+    e, r = rel_err([getattr(gpu, f).cpu() for f in FIELDS2D],
+                   [getattr(cpu, f) for f in FIELDS2D])
+    log(f"config 1, 32^2, 4 steps, card vs CPU: max_abs_err {e:.3e} "
+        f"(relative {r:.3e}, tolerance {STEP_TOL:.0e})")
+    check(r <= STEP_TOL, "config 1 at 32^2: card and CPU disagree")
 
 
 def expected_launches(kernels, cfg, steps, state):
-    """Launches of a ``steps``-step run3d_python run.  A Jacobi run at
-    the whole step's size launches step3d_whole once a step but the
-    last; the last step reports the residual, so it runs the separate
-    kernels (as every step of the other runs does): two advections and
-    a forcing (if any), and per projection div, solve and gradsub, or at
+    """Launches of a ``steps``-step run3d_python run.  A stencil Jacobi
+    run at the whole step's size launches step3d_whole once a step but
+    the last; the last step reports the residual, so it runs the
+    separate kernels (as every step of the other runs does): two stencil
+    advections (none for gather advection, which is torch ops) and a
+    forcing (if any), and per projection div, solve and gradsub, or at
     the whole tier one fused call and the diffusions.  The last step's
     final projection always streams."""
     jacobi = cfg.projection == "jacobi"
+    stencil = cfg.advect_mode == "stencil"
     whole = jacobi and kernels.whole_ok(state.u)
-    fused = jacobi and kernels.step_whole_ok(state.u)
+    fused = jacobi and stencil and kernels.step_whole_ok(state.u)
     separate = 1 if fused else steps
     want = dict.fromkeys(KERNELS, 0)
     want["step3d_whole"] = steps - separate
-    want["advect3d_multi"] = 2 * separate
+    want["advect3d_multi"] = 2 * separate if stencil else 0
     if cfg.buoyancy_alpha or cfg.buoyancy_beta or cfg.vorticity_eps:
         want["forcing3d"] = separate
-    streamed = separate if whole else 2 * separate
+    streamed = 1 if whole else 2 * separate
     if whole:
-        want["project3d_whole"] = separate
+        want["project3d_whole"] = 2 * separate - 1
         want["diffuse3d_multi"] = separate * (
             bool(cfg.visc) + bool(cfg.diff or cfg.temp_diff))
     want["div3d"] = want["gradsub3d"] = streamed
@@ -499,6 +645,7 @@ def run_grid_path(stam, kernels, dev, path):
         check(residual < 1e-2, f"{path}: final residual {residual:.3e}")
     want = expected_launches(kernels, cfg, timed, state)
     check(counts == want, f"{path}: launches {counts} != {want}")
+    log_profile(path, lambda k: stam.run3d_python(state, cfg, k), ms)
     if path == "config 2":
         # no forcing from a still start: the scalars only diffuse
         check(float(state.w.abs().max()) == 0.0, f"{path}: the flow moved")
@@ -506,6 +653,72 @@ def run_grid_path(stam, kernels, dev, path):
     else:
         check(float(state.w.abs().max()) > 0.0,
               f"{path}: the plume did not move")
+    return counts
+
+
+def run_grid2d_path(stam, kernels, dev, path):
+    """Two steps through the kernels against two through the plain
+    versions, bit for bit; then the warm-up and the timed run (no host
+    sync allowed), whose launch counts are returned; then one residual
+    step against the plain one."""
+    _, n, warm, timed = GRID2D_PATHS[path]
+    cfg = grid2d_config(stam, path)
+    sources = grid2d_sources(n, dev)
+    state = stam.make_grid2d(cfg, dev)
+
+    one = stam.run2d_python(state, cfg, 2, sources=sources)
+    with plain_kernels(kernels):
+        ref = stam.run2d_python(state, cfg, 2, sources=sources)
+    torch.cuda.synchronize()
+    e, r = rel_err([getattr(one, f) for f in FIELDS2D],
+                   [getattr(ref, f) for f in FIELDS2D])
+    log(f"{path} @ {n}^2, two steps, kernels vs plain versions: max_abs_err "
+        f"{e:.3e} (relative {r:.3e}, bit for bit required)")
+    check(e == 0.0, f"{path}: two steps through the kernels and two "
+                    f"through the plain versions differ")
+
+    state = stam.run2d_python(state, cfg, warm, sources=sources)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        state = stam.run2d_python(state, cfg, timed, sources=sources)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    ms = seconds / timed * 1e3
+    finite = all(bool(torch.isfinite(getattr(state, f)).all())
+                 for f in FIELDS2D)
+    total = float(state.dens.sum())
+    log(f"{path} @ {n}^2, {timed} timed steps after {warm} warm-up: "
+        f"{ms:.4f} ms/step, {n ** 2 / (ms / 1e3):.4e} cell-updates/s, dens "
+        f"total {total:.6e}, max |v| {float(state.v.abs().max()):.4e}, "
+        f"finite {finite}")
+    log(f"launches: {counts}")
+    check(all(getattr(state, f).shape == (n + 2,) * 2 for f in FIELDS2D),
+          f"{path}: field shapes")
+    check(finite and total > 0.0, f"{path}: fields not finite, or no dens")
+    want = dict.fromkeys(KERNELS, 0)
+    if cfg.advect_mode == "stencil":
+        want["step2d_whole"] = timed
+    else:
+        # two velocity diffusions, two projections, the dens diffusion
+        want["lin_solve2d"] = 5 * timed
+    check(counts == want, f"{path}: launches {counts} != {want}")
+    log_profile(path, lambda k: stam.run2d_python(state, cfg, k,
+                                                  sources=sources), ms)
+
+    _, res = stam.step2d(state, cfg, sources, with_residual=True)
+    with plain_kernels(kernels):
+        _, ref_res = stam.step2d(state, cfg, sources, with_residual=True)
+    res, ref_res = float(res), float(ref_res)
+    log(f"{path} @ {n}^2: residual step {res:.6e}, plain {ref_res:.6e}")
+    check(0.0 < res < 1e-2 and abs(res - ref_res) <= RESIDUAL_RTOL * ref_res,
+          f"{path}: residual {res:.6e} against the plain step's "
+          f"{ref_res:.6e}")
     return counts
 
 
@@ -940,6 +1153,9 @@ def main():
     counts = {}
     for path in GRID_PATHS:
         for name, c in run_grid_path(stam, kernels, dev, path).items():
+            counts[name] = counts.get(name, 0) + c
+    for path in GRID2D_PATHS:
+        for name, c in run_grid2d_path(stam, kernels, dev, path).items():
             counts[name] = counts.get(name, 0) + c
 
     checked["base_forces_rowblock"] = check_sph_kernel(sph, dev)

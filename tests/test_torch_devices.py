@@ -14,6 +14,7 @@ from tpufluids_torch.grid import convert as grid_convert
 from tpufluids_torch.grid import stam
 
 ENTRY_POINTS = {
+    "grid.stam.make_grid2d": stam.make_grid2d,
     "grid.stam.make_grid3d": stam.make_grid3d,
     "grid.convert.state_from_numpy": grid_convert.state_from_numpy,
     "state.make_state": state.make_state,
@@ -33,6 +34,9 @@ def test_entry_point_defaults_to_the_card(name):
 def test_no_card_raises_instead_of_running_on_the_cpu():
     cfg = stam.StamConfig(n=4)
     calls = [lambda: stam.make_grid3d(cfg).u,
+             lambda: stam.make_grid2d(cfg).u,
+             lambda: grid_convert.state_from_numpy(
+                 {f: np.zeros((6, 6)) for f in grid_convert.FIELDS2D}).u,
              lambda: scenes.random_blob(20, seed=0).pos,
              lambda: state.make_state(np.zeros((2, 3), np.float32)).pos]
     for call in calls:

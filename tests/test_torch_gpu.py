@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card, at 64^3 and at the main path's 256^3, and the step's launch counts
-and final residual.  Marked ``gpu`` and skipped without a CUDA device;
+card, at 64^3 and at the main path's 256^3 (the 2D kernels at 15^2 to
+200^2 fields), and the steps' launch counts and final residual.  Marked ``gpu`` and skipped without a CUDA device;
 on the card (tests/conftest.py sets up JAX, which these tests do not
 use):
 
@@ -11,7 +11,7 @@ versions; the tolerances (relative to max|plain output|) are those of
 the JAX package's Pallas tests: 3e-6 for advection and forcing, 1e-6
 for divergence, gradient subtraction and the Jacobi solves, 1e-5 for
 whole steps.  The whole tier (one cooperative launch) must equal the
-streamed kernels bit for bit."""
+streamed kernels bit for bit, and the 2D kernels their plain versions."""
 
 import numpy as np
 import pytest
@@ -107,7 +107,8 @@ def test_step_launches_residual_and_plain_agreement(cuda, monkeypatch):
     assert kernels.launch_counts() == {
         "advect3d_multi": 4, "forcing3d": 2, "div3d": 4, "gradsub3d": 4,
         "lin_solve3d": 0, "lin_solve3d_rb": 0, "diffuse3d_multi": 0,
-        "project3d_whole": 0, "step3d_whole": 0}
+        "project3d_whole": 0, "step3d_whole": 0, "lin_solve2d": 0,
+        "step2d_whole": 0}
     # the final solve runs TF32-free: the residual stays at float32 level
     assert float(res[0]) <= 1e-8
     for name in ("advect3d_multi", "forcing3d", "div3d", "gradsub3d"):
@@ -241,5 +242,145 @@ def test_jacobi_step_launches(cuda):
     assert kernels.launch_counts() == {
         "advect3d_multi": 2, "forcing3d": 1, "div3d": 1, "gradsub3d": 1,
         "lin_solve3d": 0, "lin_solve3d_rb": 1, "diffuse3d_multi": 2,
-        "project3d_whole": 1, "step3d_whole": 2}
+        "project3d_whole": 1, "step3d_whole": 2, "lin_solve2d": 0,
+        "step2d_whole": 0}
     assert bool(torch.isfinite(out.w).all()) and 0.0 < float(res[0]) < 1e-2
+
+
+def test_gather_step_takes_no_whole_step(cuda):
+    """A 3D gather config inside the whole step's gate runs the separate
+    kernels: no step3d_whole launch, no stencil advection."""
+    cfg = _config(16, True).replace(advect_mode="gather")
+    kernels.reset_launches()
+    gpu, gres = stam.run3d_python(_seeded_plume(cfg, cuda), cfg, 3)
+    cpu, cres = stam.run3d_python(_seeded_plume(cfg, "cpu"), cfg, 3)
+    counts = kernels.launch_counts()
+    assert counts["step3d_whole"] == 0 and counts["advect3d_multi"] == 0
+    assert counts["forcing3d"] == 3 and counts["diffuse3d_multi"] == 6
+    for f in ("u", "v", "w", "dens", "temp"):
+        _close((getattr(gpu, f).cpu(),), (getattr(cpu, f),), 1e-5)
+    assert abs(float(gres[0]) - float(cres[0])) <= 1e-3 * float(cres[0])
+
+
+# ---------------------------------------------------------------------------
+# the 2D kernels: bit for bit against their plain versions
+
+
+def _fields2d(dev, n, seed, bnds, lo, hi, raw=False):
+    rng = np.random.default_rng(seed)
+    out = []
+    for b in bnds:
+        a = torch.from_numpy(rng.uniform(lo, hi, (n + 2,) * 2).astype(
+            np.float32)).to(dev)
+        out.append(a if raw else stam.set_bnd2d(b, a))
+    return out
+
+
+def test_scalar_division_rounds_as_the_2d_kernel_takes_it(cuda):
+    """The plain 2D stages divide by the Python scalar h; PyTorch on the
+    card computes that as a product with fl(1 / h), the reciprocal taken
+    in double, which is what csrc/grid2d.cu multiplies by.  (On the CPU
+    it divides by fl(h); the two meet when n is a power of two.)"""
+    x = torch.from_numpy(np.random.default_rng(23).normal(
+        0, 1, 1 << 16).astype(np.float32)).to(cuda)
+    for n in (13, 14, 128):
+        h = 1.0 / n
+        assert torch.equal(x / h, x * (1.0 / h))
+
+
+@pytest.mark.parametrize("n", [13, 14, 128, 198])
+def test_lin_solve2d_kernel_is_bitwise_plain(cuda, n):
+    """Fields of 15^2, 16^2, 130^2 and 200^2 cells (the last past shared
+    memory: its buffers in device memory); every b, zero, consistent and
+    raw guesses, pressure and diffusion coefficients, odd and even sweep
+    counts."""
+    x, x0 = _fields2d(cuda, n, 20, (0, 0), -1.0, 1.0, raw=True)
+    a = 0.1 * 1e-5 * n * n
+    before = kernels.lin_solve2d.launches
+    calls = 0
+    for b in range(3):
+        for guess in (None, stam.set_bnd2d(b, x), x):
+            for coeffs, iters in (((1.0, 4.0), 20), ((a, 1 + 4 * a), 7)):
+                got = kernels.lin_solve2d(b, guess, x0, *coeffs, iters)
+                want = kernels.lin_solve2d_plain(b, guess, x0, *coeffs,
+                                                 iters)
+                assert torch.equal(got, want), (b, coeffs, iters)
+                calls += 1
+    assert kernels.lin_solve2d.launches == before + calls
+    assert kernels.step2d_whole_ok(x0) == (n < 169)
+
+
+def _config1(n, **kw):
+    """BASELINE config 1 (bench.py:305-306) at size n."""
+    return stam.StamConfig(**{**dict(n=n, dt=0.1, diff=1e-5, visc=1e-5,
+                                     jacobi_iters=20, advect_mode="stencil"),
+                              **kw})
+
+
+FORCING = dict(buoyancy_alpha=0.04, buoyancy_beta=0.9, vorticity_eps=1.5,
+               temp_diff=2e-5, ambient_temp=0.1)
+
+
+@pytest.mark.parametrize("case", [
+    {}, FORCING, dict(FORCING, visc=0.0, diff=0.0),
+    dict(buoyancy_beta=0.9, diff=0.0), dict(vorticity_eps=1.5)],
+    ids=["config1", "forcing", "no_diffusion", "buoyancy", "vorticity"])
+@pytest.mark.parametrize("n", [13, 14, 128])
+def test_step2d_whole_is_bitwise_plain_and_multi(cuda, n, case):
+    """One whole-step launch against its plain version and against the
+    multi-call step through the solve kernel, on a moving state."""
+    cfg = _config1(n, **case)
+    u, v = _fields2d(cuda, n, 21, (1, 2), -1.0 / (cfg.dt * n),
+                     1.0 / (cfg.dt * n))
+    d, t = _fields2d(cuda, n, 22, (0, 0), 0.0, 1.0)
+    before = kernels.step2d_whole.launches
+    got = kernels.step2d_whole(u, v, d, t, cfg)
+    assert kernels.step2d_whole.launches == before + 1
+    want = kernels.step2d_whole_plain(u, v, d, t, cfg)
+    multi = stam.step2d_multi(stam.GridState2D(u, v, d, t), cfg)
+    for g, w, f in zip(got, want, ("u", "v", "dens", "temp")):
+        assert torch.equal(g, w), f
+        assert torch.equal(g, getattr(multi, f)), f
+    assert float(got[0].abs().max()) > 0.0
+
+
+def _sources2d(n, dev):
+    """bench.py:308-311's sources at size n (cli.py:202-205)."""
+    src = torch.zeros((n + 2, n + 2), device=dev)
+    fv = torch.zeros_like(src)
+    src[n // 2 - 4:n // 2 + 4, 4:8] = 5.0
+    fv[n // 2 - 4:n // 2 + 4, 4:8] = 2.0
+    return {"dens": src, "fv": fv}
+
+
+@pytest.mark.parametrize("mode", ["stencil", "gather"])
+def test_2d_card_matches_cpu_over_four_steps(cuda, mode):
+    cfg = _config1(32, advect_mode=mode)
+    gpu = stam.run2d_python(stam.make_grid2d(cfg, cuda), cfg, 4,
+                            sources=_sources2d(32, cuda))
+    cpu = stam.run2d_python(stam.make_grid2d(cfg, "cpu"), cfg, 4,
+                            sources=_sources2d(32, "cpu"))
+    for f in ("u", "v", "dens", "temp"):
+        _close((getattr(gpu, f).cpu(),), (getattr(cpu, f),), 1e-5)
+
+
+def test_2d_launch_counts(cuda):
+    """Config 1 at 128^2: one step2d_whole launch a step; the smoke2d
+    default (gather) five lin_solve2d launches a step (two velocity
+    diffusions, two projections, the dens diffusion); run2d reports the
+    residual every step, so it takes the multi-call step too."""
+    cfg = _config1(128)
+    expect = dict.fromkeys(kernels.launch_counts(), 0)
+    for c, steps, want in ((cfg, 3, dict(step2d_whole=3)),
+                           (cfg.replace(advect_mode="gather"), 3,
+                            dict(lin_solve2d=15))):
+        kernels.reset_launches()
+        s = stam.run2d_python(stam.make_grid2d(c, cuda), c, steps,
+                              sources=_sources2d(128, cuda))
+        torch.cuda.synchronize()
+        assert kernels.launch_counts() == {**expect, **want}
+        assert bool(torch.isfinite(s.dens).all()) and float(s.dens.sum()) > 0
+    kernels.reset_launches()
+    s, res = stam.run2d(s, cfg, 2)
+    assert kernels.launch_counts() == {**expect, "lin_solve2d": 10}
+    assert res.shape == (2,) and 0.0 < float(res.max()) < 1e-2

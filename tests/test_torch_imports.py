@@ -32,8 +32,8 @@ def test_port_has_sources():
     csrc = {p.name for p in (REPO / "tpufluids_torch" / "csrc").iterdir()}
     assert {"grid_common.cuh", "advect.cuh", "advect.cu", "forcing.cuh",
             "forcing.cu", "divgrad.cuh", "divgrad.cu", "jacobi.cuh",
-            "jacobi.cu", "step.cu", "sph_common.cuh", "sph_forces.cu",
-            "sph_unidyn.cu"} <= csrc
+            "jacobi.cu", "step.cu", "grid2d.cu", "sph_common.cuh",
+            "sph_forces.cu", "sph_unidyn.cu"} <= csrc
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from tpufluids.grid import stam as jstam
+from tpufluids_torch.grid import kernels as tkernels
 from tpufluids_torch.grid import mac as tmac
 from tpufluids_torch.grid import stam as tstam
 
@@ -179,7 +180,6 @@ _CONFIG_IDS = dict(ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 
 
 @pytest.mark.parametrize("kw", [
-    dict(advect_mode="gather"),
     dict(projection="multigrid"),
     dict(solver_dtype="bfloat16"),
 ], **_CONFIG_IDS)
@@ -195,12 +195,13 @@ def test_configs_outside_the_slice_raise(kw):
     dict(visc=1e-5),
     dict(diff=1e-5),
     dict(temp_diff=1e-5),
+    dict(advect_mode="gather"),
 ], **_CONFIG_IDS)
 def test_configs_once_outside_the_slice_match_jax(kw):
-    """The Jacobi projection and the three diffusions, which raised
-    before the Jacobi slice: one step with a residual from a seeded
-    moving state, against the JAX dense path (fields at 1e-5 * max, as
-    tests/test_torch_jacobi.py holds whole steps)."""
+    """The Jacobi projection, the three diffusions and gather advection,
+    which raised before their slices: one step with a residual from a
+    seeded moving state, against the JAX dense path (fields at 1e-5 *
+    max, as tests/test_torch_jacobi.py holds whole steps)."""
     n = 8
     base = dict(n=n, dt=0.05, advect_mode="stencil", projection="dct",
                 jacobi_iters=6, buoyancy_beta=0.5)
@@ -223,10 +224,62 @@ def test_configs_once_outside_the_slice_match_jax(kw):
         assert float(gres) < 1e-6 and float(rres) < 1e-6
 
 
-@pytest.mark.parametrize("entry", [tstam.step2d, tstam.run2d_python,
-                                   tmac.make_mac3d, tmac.run3d_python],
-                         ids=["step2d", "run2d_python", "make_mac3d",
-                              "mac.run3d_python"])
+@pytest.mark.parametrize("entry", [tmac.make_mac3d, tmac.run3d_python],
+                         ids=["make_mac3d", "mac.run3d_python"])
 def test_entry_points_outside_the_slice_raise(entry):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         entry(None, None)
+
+
+@pytest.mark.parametrize("entry", ["step2d", "run2d_python"])
+def test_2d_entry_points_once_outside_the_slice_match_jax(entry):
+    """The 2D entry points, which raised before the 2D slice: two steps
+    of the smoke2d scene (gather advection, BASELINE config 1's
+    coefficients) at 16^2 with its sources, against the JAX package."""
+    n = 16
+    kw = dict(n=n, dt=0.1, diff=1e-5, visc=1e-5, jacobi_iters=20)
+    src = np.zeros((n + 2, n + 2), np.float32)
+    src[n // 2 - 4:n // 2 + 4, 4:8] = 5.0
+    sources = {"dens": src, "fv": 0.4 * src}
+    tcfg, jcfg = tstam.StamConfig(**kw), jstam.StamConfig(**kw)
+    jstate = jstam.run2d_python(jstam.make_grid2d(jcfg), jcfg, 2,
+                                sources={k: J(a) for k, a in sources.items()})
+    tsrc = {k: T(a) for k, a in sources.items()}
+    tstate = tstam.make_grid2d(tcfg, device="cpu")
+    if entry == "step2d":
+        for _ in range(2):
+            tstate = tstam.step2d(tstate, tcfg, tsrc)
+    else:
+        tstate = tstam.run2d_python(tstate, tcfg, 2, sources=tsrc)
+    for f in ("u", "v", "dens", "temp"):
+        _close(getattr(tstate, f), getattr(jstate, f), 1e-5)
+    assert float(tstate.v.abs().max()) > 0.0
+
+
+def test_gather_step_inside_the_whole_gate_takes_no_whole_step(monkeypatch):
+    """A 16^3 Jacobi config with gather advection, stepped without the
+    residual, is inside the whole step's size gate, but the whole step
+    advects by the stencil: it runs the separate stages, as the
+    reference takes its whole step only for advect_mode="stencil"."""
+    n = 16
+    kw = dict(n=n, dt=0.05, diff=1e-5, visc=1e-5, jacobi_iters=20,
+              red_black=True, buoyancy_alpha=0.05, buoyancy_beta=1.0,
+              vorticity_eps=2.0, advect_mode="gather")
+    tcfg = tstam.StamConfig(**kw)
+    jcfg = jstam.StamConfig(solver_backend="xla", **kw)
+    fields = dict(zip(("u", "v", "w", "dens", "temp"),
+                      (np.asarray(jstam.set_bnd3d(b, J(f))) for b, f in
+                       zip((1, 2, 3, 0, 0), _fields(9, n, 5, scale=0.3)))))
+    tstate = tstam.GridState3D(**{k: T(a) for k, a in fields.items()})
+    assert tkernels.step_whole_ok(tstate.u)
+
+    def refuse(*args):
+        raise AssertionError("the gather step took the whole step")
+
+    monkeypatch.setattr(tkernels, "step3d_whole", refuse)
+    monkeypatch.setattr(tkernels, "step3d_whole_plain", refuse)
+    got = tstam.step3d(tstate, tcfg)
+    ref = jstam.step3d(jstam.GridState3D(**{k: J(a) for k, a in
+                                            fields.items()}), jcfg)
+    for f in fields:
+        _close(getattr(got, f), getattr(ref, f), 1e-5)

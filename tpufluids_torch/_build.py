@@ -47,6 +47,8 @@ SIGNATURES = {
     "tf_diffuse3d_multi": [_P] * 9 + [_INT] * 6 + [_F] * 6 + [_P],
     "tf_project3d_whole": [_P] * 9 + [_INT] * 3 + [_F] * 3 + [_P],
     "tf_step3d_whole": [_P] * 11 + [_INT] * 8 + [_F] * 15 + [_P],
+    "tf_lin_solve2d": [_P] * 4 + [_INT] * 3 + [_F] * 2 + [_P],
+    "tf_step2d_whole": [_P] * 9 + [_INT] * 7 + [_F] * 15 + [_P],
     "tf_sph_base_forces": [_P] * 6 + [_INT] * 2 + [_F] * 9 + [_P],
     "tf_unidyn_pass_a": [_P] * 10 + [_INT] * 3 + [_F] * 19 + [_P],
     "tf_unidyn_pass_b": [_P] * 7 + [_INT] * 3 + [_F] * 3 + [_P],

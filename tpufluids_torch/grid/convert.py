@@ -1,6 +1,7 @@
 """Carry grid state and configuration between the JAX package and the
 port without importing JAX: the state crosses as numpy arrays, the
-configuration as the dict of ``dataclasses.asdict``."""
+configuration as the dict of ``dataclasses.asdict``.  A state is 2D or
+3D by the rank of its fields."""
 
 from __future__ import annotations
 
@@ -9,24 +10,29 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpufluids_torch.grid.stam import GridState3D, StamConfig
+from tpufluids_torch.grid.stam import GridState2D, GridState3D, StamConfig
 
 FIELDS = tuple(f.name for f in dataclasses.fields(GridState3D))
+FIELDS2D = tuple(f.name for f in dataclasses.fields(GridState2D))
 
 
-def state_from_numpy(fields: dict, device="cuda") -> GridState3D:
-    """A GridState3D holding float32 copies of ``fields`` (one (n+2)^3
-    array per name in FIELDS) on ``device``."""
-    missing = set(FIELDS) - set(fields)
+def state_from_numpy(fields: dict, device="cuda"):
+    """A GridState3D, or a GridState2D when ``fields["u"]`` is 2D,
+    holding float32 copies of ``fields`` (one array per name in FIELDS or
+    FIELDS2D) on ``device``."""
+    flat = "u" in fields and np.ndim(fields["u"]) == 2
+    cls, names = (GridState2D, FIELDS2D) if flat else (GridState3D, FIELDS)
+    missing = set(names) - set(fields)
     if missing:
         raise ValueError(f"missing fields: {sorted(missing)}")
-    return GridState3D(**{
+    return cls(**{
         f: torch.tensor(np.asarray(fields[f], np.float32), device=device)
-        for f in FIELDS})
+        for f in names})
 
 
-def state_to_numpy(state: GridState3D) -> dict:
-    return {f: getattr(state, f).cpu().numpy() for f in FIELDS}
+def state_to_numpy(state) -> dict:
+    return {f.name: getattr(state, f.name).cpu().numpy()
+            for f in dataclasses.fields(state)}
 
 
 def config_from_dict(d: dict) -> StamConfig:

@@ -1,8 +1,8 @@
-"""The hand-written CUDA kernels of the 3D step, each beside its plain
-PyTorch version.
+"""The hand-written CUDA kernels of the 2D and 3D steps, each beside its
+plain PyTorch version.
 
 Counterpart of ``tpufluids/grid/pallas_kernels.py``: every Pallas
-kernel on the step's path has a CUDA kernel here (sources in
+kernel on the steps' paths has a CUDA kernel here (sources in
 ``tpufluids_torch/csrc``, built by ``tpufluids_torch._build``).  A
 wrapper runs the plain version when its tensors lie on the CPU, and
 launches its kernel when they lie on a CUDA device; anything else
@@ -10,8 +10,8 @@ raises.  A launch that fails raises too: no wrapper falls back from its
 kernel to the plain version.  Each wrapper counts its launches in its
 ``launches`` attribute.
 
-Device-memory bytes bound every kernel here.  The four stencil stages
-(advection, forcing, divergence, gradient subtraction) are single
+Device-memory bytes bound every 3D kernel here.  The four stencil
+stages (advection, forcing, divergence, gradient subtraction) are single
 passes over a few (n+2)^3 float32 fields, one thread per output cell,
 ghosts included; a ghost output is the interior value at its clamped
 index times the set_bnd sign (csrc/grid_common.cuh), so no second
@@ -20,6 +20,11 @@ per Jacobi sweep or red-black half-sweep; the whole tier (the
 multi-field diffusion, the fused projection and the whole step) runs a
 whole solve, or a whole step, in one cooperative launch, for grids whose
 fields stay in the card's L2 (``whole_ok``).
+
+A 2D field is small (130^2 float32 is 68 KB), so the 2D kernels
+(csrc/grid2d.cu) run one thread block that does every sweep, with a
+block barrier between sweeps: the 2D solve, and the whole 2D step, whose
+solves keep their two buffers in the block's shared memory.
 """
 
 from __future__ import annotations
@@ -30,13 +35,15 @@ from tpufluids_torch import _build
 from tpufluids_torch.grid import stam
 
 
-def _on_cuda(*tensors) -> bool:
-    """Validate a kernel's field arguments; True for CUDA tensors, False
-    for CPU tensors (the plain version runs)."""
+def _on_cuda(*tensors, ndim: int = 3) -> bool:
+    """Validate a kernel's field arguments, cubic (n+2)^3 fields or, with
+    ``ndim=2``, square (n+2)^2 ones; True for CUDA tensors, False for CPU
+    tensors (the plain version runs)."""
     ref = tensors[0]
-    if ref.dim() != 3 or len(set(ref.shape)) != 1 or ref.shape[0] < 3:
-        raise ValueError(f"expected a cubic (n+2)^3 field with n >= 1, "
-                         f"got shape {tuple(ref.shape)}")
+    if ref.dim() != ndim or len(set(ref.shape)) != 1 or ref.shape[0] < 3:
+        raise ValueError(f"expected a {'square' if ndim == 2 else 'cubic'} "
+                         f"(n+2)^{ndim} field with n >= 1, got shape "
+                         f"{tuple(ref.shape)}")
     for t in tensors:
         if t.device != ref.device:
             raise ValueError(f"fields on {t.device} and {ref.device}")
@@ -60,7 +67,7 @@ def _on_cuda(*tensors) -> bool:
 
 
 def advect3d_multi_plain(fields, bnds, u, v, w, dt0: float):
-    return tuple(stam._advect_stencil(fields, bnds, u, v, w, dt0))
+    return tuple(stam._advect_stencil(fields, bnds, (u, v, w), dt0))
 
 
 def advect3d_multi(fields, bnds, u, v, w, dt0: float):
@@ -370,10 +377,13 @@ STEP_SCRATCH = 9
 
 
 def _check_step(cfg: stam.StamConfig):
-    if cfg.projection != "jacobi" or cfg.solver_dtype != "float32":
+    if (cfg.projection != "jacobi" or cfg.solver_dtype != "float32"
+            or cfg.advect_mode != "stencil"):
         raise ValueError(f"the whole step runs the float32 Jacobi projection"
-                         f", not projection={cfg.projection!r}, "
-                         f"solver_dtype={cfg.solver_dtype!r}")
+                         f" and stencil advection, not projection="
+                         f"{cfg.projection!r}, solver_dtype="
+                         f"{cfg.solver_dtype!r}, advect_mode="
+                         f"{cfg.advect_mode!r}")
     _check_solve(0, cfg.jacobi_iters)
 
 
@@ -442,8 +452,111 @@ def step3d_whole(u, v, w, dens, temp, cfg: stam.StamConfig):
 
 step3d_whole.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# the 2D kernels: one thread block each
+
+# shared memory one block may use on the H100 (227 KB, opt-in above 48 KB)
+BLOCK_SMEM_BYTES = 232448
+
+
+def step2d_whole_ok(x: torch.Tensor) -> bool:
+    """True when the two Jacobi buffers of a 2D solve on fields shaped
+    like ``x`` fit one block's shared memory (up to 170^2 cells, ghosts
+    included).  Such fields take the whole 2D step; lin_solve2d keeps its
+    buffers there, or else in device memory."""
+    return 2 * x.numel() * x.element_size() <= BLOCK_SMEM_BYTES
+
+
+def lin_solve2d_plain(b, x, x0, a, c, iters):
+    return stam.lin_solve2d(b, x, x0, a, c, iters)
+
+
+def lin_solve2d(b, x, x0, a, c, iters):
+    """``iters`` Jacobi sweeps of (x0 + a * sum of the four neighbours)
+    / c, each followed by set_bnd2d(b) with its corner averages; as
+    stam.lin_solve2d.  ``x`` None is a zero initial guess.
+
+    Replaces lin_solve2d_pallas (tpufluids/grid/pallas_kernels.py).  Bound
+    by latency: a sweep is a few microseconds of work, and the sweeps are
+    serial.  One block of 1024 threads runs every sweep with a block
+    barrier between sweeps, its two buffers in shared memory, or in
+    device memory past ``step2d_whole_ok`` (csrc/grid2d.cu)."""
+    if b not in (0, 1, 2):
+        raise ValueError(f"set_bnd2d mode must be 0..2, got {b}")
+    _check_solve(b, iters)
+    if not (_on_cuda(x0, ndim=2) if x is None else _on_cuda(x, x0, ndim=2)):
+        return lin_solve2d_plain(b, x, x0, a, c, iters)
+    out = torch.empty_like(x0)
+    tmp = None if step2d_whole_ok(x0) else torch.empty_like(x0)
+    _build.launch("tf_lin_solve2d", x, x0, out, tmp, b, x0.shape[0] - 2,
+                  iters, a, 1.0 / c)
+    lin_solve2d.launches += 1
+    return out
+
+
+lin_solve2d.launches = 0
+
+# scratch fields of the whole 2D step: two velocity pairs, |curl| and div
+STEP2D_SCRATCH = 6
+
+
+def step2d_whole_plain(u, v, dens, temp, cfg: stam.StamConfig):
+    s = stam.step2d_multi(stam.GridState2D(u, v, dens, temp), cfg,
+                          solve=lin_solve2d_plain)
+    return s.u, s.v, s.dens, s.temp
+
+
+def step2d_whole(u, v, dens, temp, cfg: stam.StamConfig):
+    """One 2D step with stencil advection and the Jacobi projection,
+    without the residual: buoyancy, vorticity confinement, velocity
+    diffusion, projection, self-advection, projection, dens/temp
+    diffusion and advection; as stam.step2d_multi, returning (u, v, dens,
+    temp).
+
+    Replaces step2d_whole_pallas (tpufluids/grid/pallas_kernels.py).  One
+    block of 1024 threads runs every phase in the reference's order, a
+    block barrier between phases and sweeps; the solves' two buffers live
+    in shared memory, every other field in device memory (L2-resident at
+    128^2).  Only for fields that pass ``step2d_whole_ok``
+    (csrc/grid2d.cu)."""
+    _check_step(cfg)
+    if not _on_cuda(u, v, dens, temp, ndim=2):
+        return step2d_whole_plain(u, v, dens, temp, cfg)
+    if not step2d_whole_ok(u):
+        raise ValueError(f"{tuple(u.shape)} fields are outside the whole 2D "
+                         f"step (step2d_whole_ok)")
+    n = u.shape[0] - 2
+    h = 1.0 / n
+    outs = tuple(torch.empty_like(u) for _ in range(4))
+    scratch = torch.empty((STEP2D_SCRATCH, *u.shape), dtype=u.dtype,
+                          device=u.device)
+
+    def ac(coeff):
+        a, c = stam._diffusion_ac(cfg, coeff, n, 2)
+        return a, 1.0 / c
+
+    # the constants of the plain version's stages, computed as they do;
+    # its tensor / h runs on the card as tensor * fl(1 / h), the
+    # reciprocal taken in double
+    _build.launch("tf_step2d_whole", u, v, dens, temp, *outs, scratch, n,
+                  cfg.jacobi_iters,
+                  bool(cfg.buoyancy_alpha or cfg.buoyancy_beta),
+                  bool(cfg.vorticity_eps), bool(cfg.visc), bool(cfg.diff),
+                  bool(cfg.temp_diff), cfg.dt, cfg.buoyancy_alpha,
+                  cfg.buoyancy_beta, cfg.ambient_temp, 1.0 / h,
+                  cfg.vorticity_eps * h, -cfg.vorticity_eps * h, -0.5 * h,
+                  cfg.dt * n, *ac(cfg.visc), *ac(cfg.diff),
+                  *ac(cfg.temp_diff))
+    step2d_whole.launches += 1
+    return outs
+
+
+step2d_whole.launches = 0
+
 KERNELS = (advect3d_multi, forcing3d, div3d, gradsub3d, lin_solve3d,
-           lin_solve3d_rb, diffuse3d_multi, project3d_whole, step3d_whole)
+           lin_solve3d_rb, diffuse3d_multi, project3d_whole, step3d_whole,
+           lin_solve2d, step2d_whole)
 
 
 def reset_launches():

@@ -1,15 +1,17 @@
-"""Stam-style stable-fluids solver in PyTorch: the 3D step of
-``tpufluids.grid.stam`` with the spectral (DCT) or the Jacobi
-(plain or red-black) projection, and diffusion.
+"""Stam-style stable-fluids solver in PyTorch: the 2D and 3D steps of
+``tpufluids.grid.stam`` with the spectral (DCT) or the Jacobi (plain or
+red-black) projection, diffusion, and stencil or gather advection.
 
-Fields are dense (n+2)^3 float32 tensors with one ghost layer, z
-contiguous, on any device.  The functions are pure: they return new
-tensors and never write into their arguments.  The stencil stages of
-the step (forcing, divergence, gradient subtraction, advection) and the
-Jacobi solves go through ``tpufluids_torch.grid.kernels``, which
+Fields are dense (n+2)^2 or (n+2)^3 float32 tensors with one ghost
+layer, the last axis contiguous, on any device.  The functions are pure:
+they return new tensors and never write into their arguments.  The
+stencil stages of the 3D step (forcing, divergence, gradient
+subtraction, stencil advection), the Jacobi solves of both steps and the
+whole 2D and 3D steps go through ``tpufluids_torch.grid.kernels``, which
 launches a CUDA kernel for a CUDA tensor and runs the plain PyTorch
-version for a CPU tensor; the DCT solve is dense matrix products
-(``torch.tensordot``).
+version for a CPU tensor.  The DCT solve is dense matrix products
+(``torch.tensordot``); gather advection and the other stages of the
+multi-call 2D step are torch ops, as they are XLA ops in the reference.
 
 The port keeps the reference's dense ghosted layout and reads stored
 ghosts, so it reproduces the reference's dense XLA path
@@ -35,10 +37,12 @@ from tpufluids_torch.grid import kernels
 class StamConfig:
     """Same fields and defaults as ``tpufluids.grid.stam.StamConfig``.
 
-    The port runs ``advect_mode="stencil"`` with the "dct" or "jacobi"
-    projection, with or without diffusion; ``solver_backend`` is ignored
-    (the device of the fields decides), and ``mg_cycles`` only matters
-    to the multigrid projection, which the port does not run yet.
+    The port runs both advection modes with the "dct" or "jacobi"
+    projection, with or without diffusion; in 2D every projection but
+    "dct" is the Jacobi solve and ``solver_dtype`` changes nothing, as in
+    the reference.  ``solver_backend`` is ignored (the device of the
+    fields decides), and ``mg_cycles`` only matters to the 3D multigrid
+    projection, which the port does not run yet.
     """
     n: int = 128                 # interior cells per axis
     dt: float = 0.1
@@ -71,6 +75,14 @@ class StamConfig:
 
 
 @dataclasses.dataclass
+class GridState2D:
+    u: torch.Tensor      # (n+2, n+2) x-velocity
+    v: torch.Tensor      # (n+2, n+2) y-velocity
+    dens: torch.Tensor
+    temp: torch.Tensor
+
+
+@dataclasses.dataclass
 class GridState3D:
     u: torch.Tensor      # (n+2, n+2, n+2)
     v: torch.Tensor
@@ -79,15 +91,20 @@ class GridState3D:
     temp: torch.Tensor
 
 
+def _make_grid(cfg: StamConfig, ndim: int, device):
+    shape = (cfg.n + 2,) * ndim
+    zeros = [torch.zeros(shape, dtype=torch.float32, device=device)
+             for _ in range(ndim + 1)]
+    return zeros + [torch.full(shape, cfg.ambient_temp, dtype=torch.float32,
+                               device=device)]
+
+
+def make_grid2d(cfg: StamConfig, device="cuda") -> GridState2D:
+    return GridState2D(*_make_grid(cfg, 2, device))
+
+
 def make_grid3d(cfg: StamConfig, device="cuda") -> GridState3D:
-    shape = (cfg.n + 2,) * 3
-
-    def zeros():
-        return torch.zeros(shape, dtype=torch.float32, device=device)
-
-    return GridState3D(u=zeros(), v=zeros(), w=zeros(), dens=zeros(),
-                       temp=torch.full(shape, cfg.ambient_temp,
-                                       dtype=torch.float32, device=device))
+    return GridState3D(*_make_grid(cfg, 3, device))
 
 
 def _not_ported(what: str, item: str):
@@ -97,10 +114,7 @@ def _not_ported(what: str, item: str):
 
 
 def _check_slice(cfg: StamConfig):
-    """Raise for a configuration outside the ported slices."""
-    if cfg.advect_mode != "stencil":
-        raise _not_ported(f"advect_mode={cfg.advect_mode!r}",
-                          "gather advection")
+    """Raise for a 3D configuration outside the ported slices."""
     if cfg.projection == "multigrid":
         raise _not_ported("projection='multigrid'", "multigrid")
     if cfg.solver_dtype != "float32":
@@ -108,19 +122,17 @@ def _check_slice(cfg: StamConfig):
                           "bfloat16 solver")
 
 
-def step2d(*args, **kwargs):
-    raise _not_ported("the 2D step", "2D step")
-
-
-def run2d_python(*args, **kwargs):
-    raise _not_ported("the 2D step", "2D step")
-
-
 # ---------------------------------------------------------------------------
 # set_bnd — Stam's boundary enforcement.  b = 0: continuity (copy),
 # b = k: negate the component normal to axis k-1 at that face.
 
-_I = (slice(1, -1),) * 3          # the interior of a ghosted field
+
+def _interior(ndim: int):
+    return (slice(1, -1),) * ndim
+
+
+_I = _interior(3)                 # the interior of a ghosted field
+_I2 = _interior(2)
 
 
 def _bnd_signs(b: int):
@@ -144,6 +156,32 @@ def _set_bnd3d_(b: int, x: torch.Tensor) -> torch.Tensor:
 
 def set_bnd3d(b: int, x: torch.Tensor) -> torch.Tensor:
     return _set_bnd3d_(b, x.clone())
+
+
+def _set_bnd2d_(b: int, x: torch.Tensor) -> torch.Tensor:
+    """set_bnd2d in place, in the reference's order: the x edges over the
+    interior columns, then the full y edges, then each corner as the
+    average of its two edge neighbours.  A corner thus ends up as 0.5 *
+    (sy c + sx c), c the diagonal interior cell: c for b = 0, 0 for b = 1
+    or 2 (not the product of the signs, as in 3D)."""
+    sx, sy, _ = _bnd_signs(b)
+    x[0, 1:-1] = sx * x[1, 1:-1]
+    x[-1, 1:-1] = sx * x[-2, 1:-1]
+    x[:, 0] = sy * x[:, 1]
+    x[:, -1] = sy * x[:, -2]
+    x[0, 0] = 0.5 * (x[1, 0] + x[0, 1])
+    x[0, -1] = 0.5 * (x[1, -1] + x[0, -2])
+    x[-1, 0] = 0.5 * (x[-2, 0] + x[-1, 1])
+    x[-1, -1] = 0.5 * (x[-2, -1] + x[-1, -2])
+    return x
+
+
+def set_bnd2d(b: int, x: torch.Tensor) -> torch.Tensor:
+    return _set_bnd2d_(b, x.clone())
+
+
+def _set_bnd_(b: int, x: torch.Tensor) -> torch.Tensor:
+    return _set_bnd2d_(b, x) if x.dim() == 2 else _set_bnd3d_(b, x)
 
 
 # ---------------------------------------------------------------------------
@@ -196,11 +234,38 @@ def _lin_solve3d(b, x, x0, a, c, iters, red_black=False):
     return solve(b, x, x0, a, c, iters)
 
 
-def _diffusion_ac(cfg: StamConfig, coeff: float, n: int):
+def lin_solve2d(b, x, x0, a, c, iters):
+    """``iters`` Jacobi sweeps of (x0 + a * sum of the four neighbours) /
+    c on the interior, the neighbours summed x-1, x+1, y-1, y+1, each
+    sweep followed by set_bnd2d(b); as the reference's lin_solve2d.
+    ``x`` None is a zero initial guess; the first sweep reads the stored
+    ghosts of ``x``."""
+    c_inv = 1.0 / c
+    x = torch.zeros_like(x0) if x is None else x.clone()
+    for _ in range(iters):
+        nb = x[:-2, 1:-1] + x[2:, 1:-1] + x[1:-1, :-2] + x[1:-1, 2:]
+        x[_I2] = (x0[_I2] + a * nb) * c_inv
+        _set_bnd2d_(b, x)
+    return x
+
+
+def _lin_solve2d(b, x, x0, a, c, iters):
+    """lin_solve2d through its kernel."""
+    return kernels.lin_solve2d(b, x, x0, a, c, iters)
+
+
+def _diffusion_ac(cfg: StamConfig, coeff: float, n: int, ndim: int = 3):
     """(a, c) of the implicit diffusion solve: a = dt coeff n^2,
-    c = 1 + 6a."""
+    c = 1 + 6a in 3D, 1 + 4a in 2D."""
     a = cfg.dt * coeff * n * n
-    return a, 1 + 6 * a
+    return a, 1 + 2 * ndim * a
+
+
+def diffuse2d(b, x, cfg: StamConfig, coeff, solve=_lin_solve2d):
+    """Implicit diffusion of ``x`` by ``coeff``: ``cfg.jacobi_iters``
+    Jacobi sweeps through ``solve``, x0 = x."""
+    a, c = _diffusion_ac(cfg, coeff, x.shape[0] - 2, 2)
+    return solve(b, x, x, a, c, cfg.jacobi_iters)
 
 
 def diffuse3d(b, x, cfg: StamConfig, coeff):
@@ -226,50 +291,133 @@ def _diffuse_fields(fields, bnds, coeffs, cfg: StamConfig):
 # ---------------------------------------------------------------------------
 # semi-Lagrangian advection
 
-_SHIFTS = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
-           for dz in (-1, 0, 1)]
+_SHIFTS = {
+    2: [(dx, dy) for dx in (-1, 0, 1) for dy in (-1, 0, 1)],
+    3: [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
+        for dz in (-1, 0, 1)],
+}
 
 
-def _advect_stencil(fields, bnds, u, v, w, dt0: float):
-    """27-tap stencil trilinear semi-Lagrangian advection of each field
-    in ``fields`` by (u, v, w), then set_bnd3d(b) per field.
+def _axis_index(n: int, a: int, ndim: int, device) -> torch.Tensor:
+    """The 1-based interior index along axis ``a``, shaped to broadcast
+    over the n^ndim interior."""
+    idx = torch.arange(n, dtype=torch.float32, device=device) + 1.0
+    return idx.reshape([-1 if b == a else 1 for b in range(ndim)])
+
+
+def _with_interior(q, out, b):
+    q = q.clone()
+    q[_interior(q.dim())] = out
+    return _set_bnd_(b, q)
+
+
+def _advect_stencil(fields, bnds, vels, dt0: float):
+    """9-tap (2D) or 27-tap (3D) stencil semi-Lagrangian advection of
+    each field in ``fields`` by the velocity components ``vels``, then
+    set_bnd(b) per field.
 
     The backtrace displacement -dt0 * vel is clamped to one cell and to
     the source range [0.5, n + 0.5]; the source value at offset o is the
-    sum over shifts d in {-1, 0, 1}^3 of max(0, 1 - |o_a - d_a|) per axis
-    times the shifted field.  The weights depend only on (u, v, w), so
-    they are built once for all fields."""
+    sum over shifts d in {-1, 0, 1}^ndim (the reference's _SHIFTS order)
+    of max(0, 1 - |o_a - d_a|) per axis times the shifted field.  The
+    weights depend only on the velocity, so they are built once for all
+    fields."""
+    ndim, u = len(vels), vels[0]
     n = u.shape[0] - 2
-    idx = torch.arange(n, dtype=torch.float32, device=u.device) + 1.0
+    interior = _interior(ndim)
     hats = []
-    for a, vel in enumerate((u, v, w)):
-        ia = idx.reshape([-1 if b == a else 1 for b in range(3)])
-        off = torch.clamp(-dt0 * vel[_I], -1.0, 1.0)
+    for a, vel in enumerate(vels):
+        ia = _axis_index(n, a, ndim, u.device)
+        off = torch.clamp(-dt0 * vel[interior], -1.0, 1.0)
         off = torch.clamp(off, 0.5 - ia, n + 0.5 - ia)
         hats.append([torch.clamp(1.0 - torch.abs(off - d), min=0.0)
                      for d in (-1, 0, 1)])
-    outs = [torch.zeros((n,) * 3, dtype=torch.float32, device=u.device)
+    outs = [torch.zeros((n,) * ndim, dtype=torch.float32, device=u.device)
             for _ in fields]
-    for d in _SHIFTS:
-        wgt = hats[0][d[0] + 1] * hats[1][d[1] + 1] * hats[2][d[2] + 1]
+    for d in _SHIFTS[ndim]:
+        wgt = hats[0][d[0] + 1]
+        for a in range(1, ndim):
+            wgt = wgt * hats[a][d[a] + 1]
         sl = tuple(slice(1 + da, 1 + da + n) for da in d)
         for out, q in zip(outs, fields):
             out += wgt * q[sl]
-    result = []
-    for out, q, b in zip(outs, fields, bnds):
-        q = q.clone()
-        q[_I] = out
-        result.append(_set_bnd3d_(b, q))
-    return result
+    return [_with_interior(q, out, b)
+            for out, q, b in zip(outs, fields, bnds)]
+
+
+def advect2d_stencil(b, q, u, v, cfg: StamConfig):
+    n = q.shape[0] - 2
+    return _advect_stencil((q,), (b,), (u, v), cfg.dt * n)[0]
 
 
 def advect3d_stencil(b, q, u, v, w, cfg: StamConfig):
     n = q.shape[0] - 2
-    return _advect_stencil((q,), (b,), u, v, w, cfg.dt * n)[0]
+    return _advect_stencil((q,), (b,), (u, v, w), cfg.dt * n)[0]
+
+
+def _advect_gather(b, q, vels, dt0: float):
+    """Unbounded semi-Lagrangian advection of ``q`` by ``vels``: the
+    backtrace clipped to [0.5, n + 0.5], floored to a cell, and the
+    multilinear interpolation of its 2^ndim corners, nested as the
+    reference writes it (s0 (t0 g00 + t1 g01) + s1 (t0 g10 + t1 g11) in
+    2D); then set_bnd(b)."""
+    ndim = len(vels)
+    n = q.shape[0] - 2
+    interior = _interior(ndim)
+    lo, w1 = [], []
+    for a, vel in enumerate(vels):
+        x = torch.clamp(_axis_index(n, a, ndim, q.device)
+                        - dt0 * vel[interior], 0.5, n + 0.5)
+        i0 = torch.floor(x).to(torch.int64)
+        lo.append(i0)
+        w1.append(x - i0)
+
+    def interp(a, corner):
+        if a == ndim:
+            return q[tuple(i0 + d for i0, d in zip(lo, corner))]
+        return ((1 - w1[a]) * interp(a + 1, corner + (0,))
+                + w1[a] * interp(a + 1, corner + (1,)))
+
+    return _with_interior(q, interp(0, ()), b)
+
+
+def advect2d(b, q, u, v, cfg: StamConfig):
+    return _advect_gather(b, q, (u, v), cfg.dt * (q.shape[0] - 2))
+
+
+def advect3d(b, q, u, v, w, cfg: StamConfig):
+    return _advect_gather(b, q, (u, v, w), cfg.dt * (q.shape[0] - 2))
+
+
+def _advect_fields(fields, bnds, vels, cfg: StamConfig):
+    """Each field advected by ``vels`` with its b, by ``cfg.advect_mode``:
+    the stencil through kernels.advect3d_multi in 3D (one call), else
+    torch ops."""
+    dt0 = cfg.dt * (vels[0].shape[0] - 2)
+    if cfg.advect_mode != "stencil":
+        return tuple(_advect_gather(b, q, vels, dt0)
+                     for q, b in zip(fields, bnds))
+    if len(vels) == 3:
+        return kernels.advect3d_multi(fields, bnds, *vels, dt0)
+    return tuple(_advect_stencil(fields, bnds, vels, dt0))
 
 
 # ---------------------------------------------------------------------------
 # projection
+
+
+def divergence2d(u, v):
+    n = u.shape[0] - 2
+    h = 1.0 / n
+    return -0.5 * h * (u[2:, 1:-1] - u[:-2, 1:-1]
+                       + v[1:-1, 2:] - v[1:-1, :-2])
+
+
+def poisson_residual2d(p, div):
+    """Max-norm residual of the 5-point Poisson system the projection
+    solved."""
+    nb = p[:-2, 1:-1] + p[2:, 1:-1] + p[1:-1, :-2] + p[1:-1, 2:]
+    return torch.max(torch.abs(div[_I2] + nb - 4.0 * p[_I2]))
 
 
 def divergence3d(u, v, w):
@@ -480,6 +628,38 @@ def dct_solve3d(x0, cfg=None, final=True):
     return _set_bnd3d_(0, p)
 
 
+def dct_solve2d(x0, cfg=None):
+    """Spectral solve of the 2D projection's system (lin_solve2d's b = 0,
+    c = 4), at the final solve's tier and radix settings; the result has
+    b=0 ghosts."""
+    p = torch.zeros_like(x0)
+    p[_I2] = _dct_solve_interior(x0[_I2], *_dct_params(cfg, final=True))
+    return _set_bnd2d_(0, p)
+
+
+def project2d(u, v, cfg: StamConfig, with_residual: bool = False,
+              solve=_lin_solve2d):
+    """Pressure projection: the DCT solve, or else (every other
+    projection, red_black ignored, as in the reference) ``cfg.jacobi_iters``
+    Jacobi sweeps through ``solve`` from a zero guess; ``with_residual``
+    also returns the max-norm residual of the Poisson system it solved."""
+    h = 1.0 / (u.shape[0] - 2)
+    div = torch.zeros_like(u)
+    div[_I2] = divergence2d(u, v)
+    _set_bnd2d_(0, div)
+    if cfg.projection == "dct":
+        p = dct_solve2d(div, cfg)
+    else:
+        p = solve(0, None, div, 1.0, 4.0, cfg.jacobi_iters)
+    u, v = u.clone(), v.clone()
+    u[_I2] += -0.5 * (p[2:, 1:-1] - p[:-2, 1:-1]) / h
+    v[_I2] += -0.5 * (p[1:-1, 2:] - p[1:-1, :-2]) / h
+    u, v = _set_bnd2d_(1, u), _set_bnd2d_(2, v)
+    if with_residual:
+        return u, v, poisson_residual2d(p, div)
+    return u, v
+
+
 def project3d(u, v, w, cfg: StamConfig, with_residual: bool = False,
               final=True):
     """Pressure projection: the DCT solve, or ``cfg.jacobi_iters``
@@ -547,8 +727,127 @@ def buoyancy3d(w, dens, temp, cfg: StamConfig):
     return _set_bnd3d_(3, w)
 
 
+def vorticity_confinement2d(u, v, cfg: StamConfig):
+    """Confinement force eps h (gy curl, -gx curl) added to (u, v); |curl|
+    is 0 on the ghosts (no set_bnd), as in the reference."""
+    h = 1.0 / (u.shape[0] - 2)
+    curl = 0.5 * ((v[2:, 1:-1] - v[:-2, 1:-1])
+                  - (u[1:-1, 2:] - u[1:-1, :-2])) / h
+    mag = torch.zeros_like(u)
+    mag[_I2] = torch.abs(curl)
+    gx = 0.5 * (mag[2:, 1:-1] - mag[:-2, 1:-1]) / h
+    gy = 0.5 * (mag[1:-1, 2:] - mag[1:-1, :-2]) / h
+    norm = torch.sqrt(gx * gx + gy * gy) + 1e-5
+    gx, gy = gx / norm, gy / norm
+    fu = cfg.vorticity_eps * h * gy * curl
+    fv = -cfg.vorticity_eps * h * gx * curl
+    u, v = u.clone(), v.clone()
+    u[_I2] += cfg.dt * fu
+    v[_I2] += cfg.dt * fv
+    return _set_bnd2d_(1, u), _set_bnd2d_(2, v)
+
+
+def buoyancy2d(v, dens, temp, cfg: StamConfig):
+    """f_y = -alpha * dens + beta * (temp - ambient) on v."""
+    f = (-cfg.buoyancy_alpha * dens[_I2]
+         + cfg.buoyancy_beta * (temp[_I2] - cfg.ambient_temp))
+    v = v.clone()
+    v[_I2] += cfg.dt * f
+    return _set_bnd2d_(2, v)
+
+
 # ---------------------------------------------------------------------------
-# the step
+# the steps
+
+# state field -> the key of its source
+_SOURCE_KEYS = {"u": "fu", "v": "fv", "w": "fw", "dens": "dens",
+                "temp": "temp"}
+
+
+def _with_sources(state, cfg: StamConfig, sources: Optional[dict]):
+    """A state of the same rank with ``sources`` (source key -> tensor)
+    added times dt, as the reference adds them (0 for a missing key)."""
+    if not sources:
+        return state
+    return type(state)(**{
+        f.name: getattr(state, f.name)
+        + cfg.dt * sources.get(_SOURCE_KEYS[f.name], 0.0)
+        for f in dataclasses.fields(state)})
+
+
+def step2d(state: GridState2D, cfg: StamConfig,
+           sources: Optional[dict] = None, with_residual: bool = False):
+    """One 2D smoke step: sources, forces, velocity diffusion (visc),
+    projection, velocity self-advection, projection, dens/temp diffusion
+    (diff, temp_diff) and advection.  ``sources`` maps "fu", "fv", "dens"
+    and "temp" to tensors added times dt first.
+
+    A stencil-advection Jacobi step in float32 of fields inside
+    kernels.step2d_whole_ok that does not report the residual is one
+    call (kernels.step2d_whole), as the reference takes
+    step2d_whole_pallas; every other step is step2d_multi."""
+    s = _with_sources(state, cfg, sources)
+    if (cfg.advect_mode == "stencil" and cfg.projection == "jacobi"
+            and cfg.solver_dtype == "float32" and not with_residual
+            and kernels.step2d_whole_ok(s.u)):
+        return GridState2D(*kernels.step2d_whole(s.u, s.v, s.dens, s.temp,
+                                                 cfg))
+    return step2d_multi(s, cfg, with_residual)
+
+
+def step2d_multi(state: GridState2D, cfg: StamConfig,
+                 with_residual: bool = False, solve=_lin_solve2d):
+    """step2d without sources, in the reference's multi-call order: each
+    solve through ``solve`` (kernels.lin_solve2d by default), the other
+    stages torch ops."""
+    u, v, dens, temp = state.u, state.v, state.dens, state.temp
+    if cfg.buoyancy_alpha or cfg.buoyancy_beta:
+        v = buoyancy2d(v, dens, temp, cfg)
+    if cfg.vorticity_eps:
+        u, v = vorticity_confinement2d(u, v, cfg)
+    if cfg.visc:
+        u = diffuse2d(1, u, cfg, cfg.visc, solve)
+        v = diffuse2d(2, v, cfg, cfg.visc, solve)
+    u, v = project2d(u, v, cfg, solve=solve)
+    u, v = _advect_fields((u, v), (1, 2), (u, v), cfg)
+    if with_residual:
+        u, v, res = project2d(u, v, cfg, True, solve)
+    else:
+        u, v = project2d(u, v, cfg, solve=solve)
+    if cfg.diff:
+        dens = diffuse2d(0, dens, cfg, cfg.diff, solve)
+    if cfg.temp_diff:
+        temp = diffuse2d(0, temp, cfg, cfg.temp_diff, solve)
+    dens, temp = _advect_fields((dens, temp), (0, 0), (u, v), cfg)
+    out = GridState2D(u=u, v=v, dens=dens, temp=temp)
+    return (out, res) if with_residual else out
+
+
+def run2d_python(state: GridState2D, cfg: StamConfig, n_steps: int,
+                 sources=None, snapshot_every: int = 0, snapshot_fn=None):
+    """Run ``n_steps`` steps with ``sources`` added each step, queued on
+    the device without a host sync.  Every ``snapshot_every`` steps
+    ``snapshot_fn(step, state)`` receives the state as CPU tensors (the
+    one host sync).  Returns the state."""
+    for i in range(n_steps):
+        state = step2d(state, cfg, sources)
+        if (snapshot_fn is not None and snapshot_every > 0
+                and (i + 1) % snapshot_every == 0):
+            snapshot_fn(i + 1, GridState2D(state.u.cpu(), state.v.cpu(),
+                                           state.dens.cpu(),
+                                           state.temp.cpu()))
+    return state
+
+
+def run2d(state: GridState2D, cfg: StamConfig, n_steps: int):
+    """``n_steps`` steps, each reporting its Poisson residual, as the
+    reference's run2d scan; returns (state, residuals as an (n_steps,)
+    tensor)."""
+    res = []
+    for _ in range(n_steps):
+        state, r = step2d(state, cfg, with_residual=True)
+        res.append(r)
+    return state, torch.stack(res)
 
 
 def step3d(state: GridState3D, cfg: StamConfig,
@@ -559,36 +858,31 @@ def step3d(state: GridState3D, cfg: StamConfig,
     dens/temp advection.  ``sources`` maps field names ("fu", "fv",
     "fw", "dens", "temp") to tensors added times dt first.
 
-    A Jacobi step of fields inside the whole step's gate that does not
-    report the residual is one fused call (kernels.step3d_whole), as the
-    reference's step3d_whole_pallas; every other step is step3d_multi."""
+    A stencil-advection Jacobi step of fields inside the whole step's
+    gate that does not report the residual is one fused call
+    (kernels.step3d_whole), as the reference's step3d_whole_pallas;
+    every other step, gather advection's included, is step3d_multi."""
     _check_slice(cfg)
-    u, v, w, dens, temp = state.u, state.v, state.w, state.dens, state.temp
-    if sources:
-        u = u + cfg.dt * sources.get("fu", 0.0)
-        v = v + cfg.dt * sources.get("fv", 0.0)
-        w = w + cfg.dt * sources.get("fw", 0.0)
-        dens = dens + cfg.dt * sources.get("dens", 0.0)
-        temp = temp + cfg.dt * sources.get("temp", 0.0)
-    if (cfg.projection == "jacobi" and not with_residual
-            and kernels.step_whole_ok(u)):
-        return GridState3D(*kernels.step3d_whole(u, v, w, dens, temp, cfg))
-    return step3d_multi(GridState3D(u=u, v=v, w=w, dens=dens, temp=temp),
-                        cfg, with_residual)
+    s = _with_sources(state, cfg, sources)
+    if (cfg.advect_mode == "stencil" and cfg.projection == "jacobi"
+            and not with_residual and kernels.step_whole_ok(s.u)):
+        return GridState3D(*kernels.step3d_whole(s.u, s.v, s.w, s.dens,
+                                                 s.temp, cfg))
+    return step3d_multi(s, cfg, with_residual)
 
 
 def step3d_multi(state: GridState3D, cfg: StamConfig,
                  with_residual: bool = False):
-    """step3d without sources, each stage through its own kernel."""
+    """step3d without sources, each stage through its own kernel (gather
+    advection as torch ops)."""
     _check_slice(cfg)
     u, v, w, dens, temp = state.u, state.v, state.w, state.dens, state.temp
-    dt0 = cfg.dt * (u.shape[0] - 2)
     if cfg.buoyancy_alpha or cfg.buoyancy_beta or cfg.vorticity_eps:
         u, v, w = kernels.forcing3d(u, v, w, dens, temp, cfg)
     if cfg.visc:
         u, v, w = _diffuse_fields((u, v, w), (1, 2, 3), (cfg.visc,) * 3, cfg)
     u, v, w = project3d(u, v, w, cfg, final=False)
-    u, v, w = kernels.advect3d_multi((u, v, w), (1, 2, 3), u, v, w, dt0)
+    u, v, w = _advect_fields((u, v, w), (1, 2, 3), (u, v, w), cfg)
     if with_residual:
         u, v, w, res = project3d(u, v, w, cfg, with_residual=True)
     else:
@@ -601,7 +895,7 @@ def step3d_multi(state: GridState3D, cfg: StamConfig,
             [fields[f] for f in coeffs], (0,) * len(coeffs),
             list(coeffs.values()), cfg)))
         dens, temp = fields["dens"], fields["temp"]
-    dens, temp = kernels.advect3d_multi((dens, temp), (0, 0), u, v, w, dt0)
+    dens, temp = _advect_fields((dens, temp), (0, 0), (u, v, w), cfg)
     out = GridState3D(u=u, v=v, w=w, dens=dens, temp=temp)
     return (out, res) if with_residual else out
 
