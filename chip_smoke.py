@@ -67,6 +67,26 @@
     overflow, finiteness, that the fluid stays inside the walls and
     falls.  Then 20 steps through the row-block kernel must equal 20
     resident steps bitwise, and two resident runs each other.
+11. Holds the column force kernels against their plain versions and
+    times both: base_forces_column (csrc/sph_forces.cu) fresh and stale
+    (xy_cells) at a 524288-particle uniform fill at its suggest_col_cap
+    (584) and at base_dam forced to cap 32, over which its columns run;
+    unidyn_forces_column (csrc/sph_unidyn.cu) on the mixed tank at cap
+    128, and on the mixed 46656 fill at cap 64.  Holds the row-block
+    kernel's stale mode against its plain version at base_dam and the
+    fill.  The overflow counts must be equal and the rows over the cap
+    zero.  Then the identities, bit for bit: the column kernel equals
+    the row-block kernel where no column overflows; with caps above every
+    column its stale pass equals the row-block stale pass; on a
+    just-sorted pool its stale pass equals its fresh one.
+12. Drives four paths through run_python, each with no host sync
+    allowed in its timed steps and a torch.profiler window: the 524288
+    fill in "auto" (the column family) for 3 warm-up and 10 timed
+    steps; the tank forced to the column family for 3 and 100; base_dam
+    at sort_every 8 (the row-block kernel's stale mode) for 3 and 300;
+    the fill at sort_every 8 (the column kernel's stale mode) for 3 and
+    10.  Checks finiteness, the alive count, the mass, the bin overflow,
+    one force launch a step and one sort step in 8.
 
 Prints the kernels' JSON line, with each kernel's least time on the card
 (its bound: the bytes it must move at 3.35 TB/s, or its float32
@@ -247,6 +267,35 @@ UNIDYN_TOLS = (("pos", 2e-4), ("vel", 2e-3), ("dens", 1e-4),
                ("stress", 2e-3))
 
 
+# the column family (PERF.md rows 13 and 14): 1e-5 * max|plain| per output
+# column, as the kernels they share their pair loops with
+COLUMN_KERNELS = {
+    "base_forces_column": ("tpufluids_torch/csrc/sph_forces.cu",
+                           "tpufluids/sph_pallas.py:504", 1e-5),
+    "unidyn_forces_column": ("tpufluids_torch/csrc/sph_unidyn.cu",
+                             "tpufluids/sph_pallas.py:1105", 1e-5),
+}
+# the uniform fill of verify/bench_sph_scaling_ab.py:25-36 at 524288
+# particles; "auto" sends it to the column family, at its suggest_col_cap
+BIG_FILL = 524288
+SORT_EVERY = 8
+# the column and sort-cadence paths: name -> (scene, config changes,
+# warm-up and timed steps).  The fill runs its first 13 steps, as the
+# 262144 fill does (see SPH_STEPS).
+COLUMN_PATHS = {
+    "fill-524k, column": ("fill-524k", {}, 3, 10),
+    "tank, column": ("tank", {"pallas_kernel": "column"}, 3, 100),
+    "base_dam, sort_every 8": ("base_dam", {"sort_every": SORT_EVERY}, 3,
+                               300),
+    "fill-524k, sort_every 8": ("fill-524k", {"sort_every": SORT_EVERY}, 3,
+                                10),
+}
+FILL_SPEED_STEPS = 20     # steps of the 524288 fill whose max speed is logged
+# (calls, warm-up calls) timed of the column family's plain versions, whose
+# stale passes gather whole columns: up to about a second a call
+PLAIN_REPS = (3, 1)
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -340,17 +389,17 @@ def rel_err(got, want):
     return max(errs), max(rels)
 
 
-def time_ms(fn):
-    for _ in range(3):
+def time_ms(fn, reps=TIME_REPS, warm=3):
+    for _ in range(warm):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(TIME_REPS):
+    for _ in range(reps):
         fn()
     stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / TIME_REPS
+    return start.elapsed_time(stop) / reps
 
 
 def device_profile(run, steps):
@@ -723,11 +772,12 @@ def run_grid2d_path(stam, kernels, dev, path):
 
 
 def sph_scene(sph, name, device):
-    """base_dam (8000 particles), or the 262144-particle uniform fill of
-    verify/bench_sph_scaling_ab.py, under BASE_CONFIG."""
+    """base_dam (8000 particles), or the 262144- or 524288-particle
+    uniform fill of verify/bench_sph_scaling_ab.py, under BASE_CONFIG."""
     if name == "base_dam":
         return sph.scenes.base_dam(sph.cfg, device=device)
-    pos = np.random.default_rng(SEED).uniform(-0.9, 0.9, (SPH_FILL, 3))
+    n = BIG_FILL if name == "fill-524k" else SPH_FILL
+    pos = np.random.default_rng(SEED).uniform(-0.9, 0.9, (n, 3))
     return sph.state.make_state(pos.astype(np.float32), cfg=sph.cfg,
                                 device=device)
 
@@ -757,15 +807,18 @@ UNIDYN_IN = BASE_IN + ("mass", "solid", "fluid", "diffusion", "delpress",
                        "stress")
 
 
-def pair_count(sph, st, bt, cfg, threshold=None):
+def pair_count(sph, st, bt, cfg, threshold=None, caps=None, stale=False):
     """Pairs (home, candidate) that the force pass sums over: alive
     candidates of the 27-cell stencil (less the sub-bin octant rule when
-    ``threshold`` is set) within 2h of the home row, self excluded; the
-    candidate table of the plain version, counted in chunks."""
+    ``threshold`` is set; capped by the column caps ``caps``; from whole
+    columns masked by current cells when ``stale``) within 2h of the home
+    row, self excluded; the candidate table of the plain version, counted
+    in chunks."""
     f = sph.forces
     n = st.capacity
     rows = f.pack_rows(st, bt.order, bt.in_dom)
-    run_start, run_len = f.run_table(bt, cfg)
+    run_start, run_len = sph.binning.run_table(bt, cfg, caps, whole=stale)
+    cells = sph.binning.cell_trunc(rows[:, 0:3], cfg)
     k = int(run_len.max())
     slot = torch.arange(k, device=rows.device)
     step = max(1, f.CHUNK_SLOTS // (9 * k))
@@ -777,10 +830,13 @@ def pair_count(sph, st, bt, cfg, threshold=None):
         if threshold is not None:
             valid = valid & f._subbin_ok(bt, cfg, a, b, idx, threshold)
         idx = torch.clamp(idx, 0, n - 1).reshape(b - a, -1)
+        valid = valid.reshape(b - a, -1)
+        if stale:
+            valid = valid & f.near_cells(cells[a:b], cells[idx])
         cand = rows[idx]
         r = rows[a:b, None, 0:3] - cand[..., 0:3]
         ds = torch.sqrt(torch.sum(r * r, dim=-1))
-        total += int((valid.reshape(b - a, -1) & (cand[..., f._ALIVE] > 0.5)
+        total += int((valid & (cand[..., f._ALIVE] > 0.5)
                       & (ds > 0) & (ds <= 2 * cfg.cutoff)).sum())
     return total
 
@@ -1117,6 +1173,319 @@ def run_unidyn_main_path(sph, dev):
     return counts
 
 
+def registers(build_log, *keys):
+    """{kernel entry: registers} from nvcc's -Xptxas -v output, for the
+    entries whose mangled names hold every one of ``keys``."""
+    found, entry = {}, None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif entry and "registers" in line:
+            found[entry] = int(line.split("Used ")[1].split()[0])
+            entry = None
+    return {k: v for k, v in found.items() if all(x in k for x in keys)}
+
+
+def capped_rows(sph, st, bt, cfg, b):
+    """Pool rows of the (in-domain) rows at rank b or more in their
+    column: the column family gives them zeros."""
+    g = cfg.grid_size
+    cs = sph.binning.column_start(bt, cfg)
+    cid = bt.cid.long()
+    rank = torch.arange(st.capacity, device=cid.device) - cs[
+        torch.clamp(cid // g, max=g * g - 1)]
+    return bt.order[(cid < cfg.num_cells) & (rank >= b)]
+
+
+def sorted_and_moved(sph, st, cfg, seed):
+    """(the pool sorted into cell order, its tables, the pool moved by up
+    to 0.4 of a cell since): a stale step's inputs."""
+    st, bt = sph.binning.sort_by_cell(st, cfg)
+    rng = np.random.default_rng(seed)
+    shift = torch.from_numpy(rng.uniform(-0.02, 0.02, (st.capacity, 3))
+                             .astype(np.float32)).to(st.pos.device)
+    return st, bt, st.replace(pos=st.pos + shift)
+
+
+def fill_cfg(sph, st):
+    """BASE_CONFIG at the scene's suggest_col_cap (the JAX CLI's choice
+    for a dam of other than 8000 particles, cli.py:115-128)."""
+    return sph.cfg.replace(pallas_col_cap=sph.binning.suggest_col_cap(
+        st, sph.cfg))
+
+
+def check_base_column(sph, dev, build_log):
+    """base_forces_column against its plain version, fresh and stale, at
+    the 524288 fill (its suggest_col_cap) and at base_dam forced to cap
+    32; the row-block kernel's stale mode at base_dam and the fill.
+    Returns the column kernel's JSON entry (times and bound at the fill,
+    fresh: the main path's call) and the stale row-block times."""
+    col = sph.sph_kernels.base_forces_column
+    col_plain = sph.sph_kernels.base_forces_column_plain
+    tol = COLUMN_KERNELS["base_forces_column"][2]
+    regs = {"fresh": registers(build_log, "base_forces_kernelILb1ELb0E"),
+            "xy_cells": registers(build_log, "base_forces_kernelILb1ELb1E")}
+    log(f"registers, base_forces_column: {regs}")
+    entry, worst = None, 0.0
+    for scene, cap in (("fill-524k", None), ("base_dam", 32)):
+        st = randomised(sph_scene(sph, scene, dev), SEED + 4)
+        cfg = (fill_cfg(sph, st) if cap is None
+               else sph.cfg.replace(pallas_col_cap=cap))
+        b, w_cap = sph.config.column_caps(cfg)
+        sorted_st, sbt, moved = sorted_and_moved(sph, st, cfg, SEED + 5)
+        for stale in (False, True):
+            if stale:
+                pool, bt = moved, sbt
+            else:
+                pool = st
+                _, bt = sph.binning.sort_tables(st, cfg)
+
+            def call(fn, pool=pool, bt=bt, stale=stale):
+                return fn(pool, bt, cfg, bt.order, stale)
+
+            got, want = call(col), call(col_plain)
+            torch.cuda.synchronize()
+            e, r = rel_err([got[0], *got[1].unbind(1)],
+                           [want[0], *want[1].unbind(1)])
+            capped = capped_rows(sph, pool, bt, cfg, b)
+            zeros = not (got[0][capped].any() or got[1][capped].any())
+            ovf, ovf_plain = int(got[2]), int(want[2])
+            ms = time_ms(lambda: call(col))
+            plain_ms = time_ms(lambda: call(col_plain), *PLAIN_REPS)
+            pairs = pair_count(sph, pool, bt, cfg, caps=(b, w_cap),
+                               stale=stale)
+            bound_ms, bound_by = bound(*sph_work(pool, bt, bt.order, BASE_IN,
+                                                 got[:2], pairs,
+                                                 BASE_PAIR_OPS))
+            mode = "xy_cells" if stale else "fresh"
+            log(f"kernel base_forces_column, {mode}, @ {scene} "
+                f"({st.capacity} particles, pallas_col_cap "
+                f"{cfg.pallas_col_cap}: b {b}, w_cap {w_cap}): max_abs_err "
+                f"{e:.3e} (relative {r:.3e}, tolerance {tol:.0e}); overflow "
+                f"{ovf} (plain {ovf_plain}), {capped.numel()} rows over the "
+                f"cap, zero: {zeros}; ms per call: kernel {ms:.4f}, plain "
+                f"{plain_ms:.4f}; {pairs} pairs: bound {bound_ms:.4f} ms "
+                f"({bound_by})")
+            check(r <= tol, f"base_forces_column ({mode}) disagrees with its "
+                            f"plain version at {scene}")
+            check(float(want[1].abs().max()) > 0.0, "dpress is 0: no check")
+            check(ovf == ovf_plain and zeros, f"base_forces_column ({mode}) "
+                  f"at {scene}: overflow or capped rows")
+            check((ovf > 0) == (cap is not None),
+                  f"base_forces_column at {scene}: overflow {ovf}")
+            worst = max(worst, e)
+            if scene == "fill-524k" and not stale:
+                entry = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": None}
+    entry["max_abs_err"] = worst
+
+    row = sph.sph_kernels.base_forces_rowblock
+    row_plain = sph.sph_kernels.base_forces_rowblock_plain
+    tol = SPH_KERNELS["base_forces_rowblock"][2]
+    log(f"registers, base_forces_rowblock stale: "
+        f"{registers(build_log, 'base_forces_kernelILb0ELb1E')}")
+    for scene in SPH_STEPS:
+        st = randomised(sph_scene(sph, scene, dev), SEED + 6)
+        _, bt, moved = sorted_and_moved(sph, st, sph.cfg, SEED + 7)
+
+        def call(fn, moved=moved, bt=bt):
+            return fn(moved, bt, sph.cfg, bt.order, True)
+
+        got, want = call(row), call(row_plain)
+        torch.cuda.synchronize()
+        e, r = rel_err([got[0], *got[1].unbind(1)],
+                       [want[0], *want[1].unbind(1)])
+        ms = time_ms(lambda: call(row))
+        plain_ms = time_ms(lambda: call(row_plain), *PLAIN_REPS)
+        pairs = pair_count(sph, moved, bt, sph.cfg, stale=True)
+        bound_ms, bound_by = bound(*sph_work(moved, bt, bt.order, BASE_IN,
+                                             got[:2], pairs, BASE_PAIR_OPS))
+        log(f"kernel base_forces_rowblock, stale, @ {scene} ({st.capacity} "
+            f"particles): max_abs_err {e:.3e} (relative {r:.3e}, tolerance "
+            f"{tol:.0e}); ms per call: kernel {ms:.4f}, plain "
+            f"{plain_ms:.4f}; {pairs} pairs: bound {bound_ms:.4f} ms "
+            f"({bound_by})")
+        check(r <= tol, f"base_forces_rowblock (stale) disagrees with its "
+                        f"plain version at {scene}")
+    return entry
+
+
+def check_unidyn_column(sph, dev, build_log):
+    """unidyn_forces_column against its plain version on the mixed tank
+    at cap 128 (the main path's call, timed) and on the mixed 46656 fill
+    at cap 64 with merging (overflowing)."""
+    kern = sph.sph_kernels.unidyn_forces_column
+    plain = sph.sph_kernels.unidyn_forces_column_plain
+    tol = COLUMN_KERNELS["unidyn_forces_column"][2]
+    log(f"registers, unidyn_forces_column: "
+        f"{registers(build_log, 'unidyn_pass_', 'ILb1EE')}")
+    entry = None
+    for scene, cap, merge in (("tank", 128, -10.0), ("fill", 64, 0.03)):
+        cfg = sph.ucfg.replace(pallas_col_cap=cap, merge_dist=merge)
+        st = sph.scenes.mixed_phase(unidyn_scene(sph, scene, dev, cfg),
+                                    SEED + 2)
+        order, bt = sph.binning.sort_tables(st, cfg)
+
+        def call(fn, st=st, bt=bt, order=order, cfg=cfg):
+            return fn(st, bt, cfg, order,
+                      subbin_threshold=cfg.subbin_threshold)
+
+        got, want = call(kern), call(plain)
+        torch.cuda.synchronize()
+        worst = err = 0.0
+        for k in UNIDYN_FIELDS:
+            g = got[k].reshape(st.capacity, -1)
+            w = want[k].reshape(st.capacity, -1)
+            for c in range(w.shape[1]):
+                scale = float(w[:, c].abs().max())
+                e = float((g[:, c] - w[:, c]).abs().max())
+                check(scale > 0.0, f"unidyn_forces_column {k}[{c}] is 0 at "
+                                   f"{scene}: no check")
+                worst, err = max(worst, e / scale), max(err, e)
+        same = (torch.equal(got["has_pair"], want["has_pair"])
+                and torch.equal(got["merge_partner"], want["merge_partner"]))
+        capped = capped_rows(sph, st, bt, cfg, cap)
+        zeros = not any(bool(got[k][capped].any()) for k in UNIDYN_FIELDS)
+        ovf = int(got["overflow"])
+        ms = time_ms(lambda: call(kern))
+        plain_ms = time_ms(lambda: call(plain), *PLAIN_REPS)
+        log(f"kernel unidyn_forces_column @ {scene} ({st.capacity} "
+            f"particles, mixed phases, cap {cap}, merge_dist {merge}): "
+            f"max_abs_err {err:.3e} (worst column relative {worst:.3e}, "
+            f"tolerance {tol:.0e}); pair counts and merge partners equal: "
+            f"{same}; overflow {ovf} (plain {int(want['overflow'])}), "
+            f"{capped.numel()} rows over the cap, zero: {zeros}; ms per "
+            f"call: kernel {ms:.4f}, plain {plain_ms:.4f}")
+        check(worst <= tol and same, f"unidyn_forces_column disagrees with "
+                                     f"its plain version at {scene}")
+        check(ovf == int(want["overflow"]) and zeros and (ovf > 0) == (
+            scene == "fill"), f"unidyn_forces_column at {scene}: overflow")
+        if scene == "tank":
+            pairs = pair_count(sph, st, bt, cfg, cfg.subbin_threshold,
+                               caps=sph.config.column_caps(cfg))
+            outs = [t for t in got.values() if isinstance(t, torch.Tensor)]
+            bound_ms, bound_by = bound(*sph_work(st, bt, order, UNIDYN_IN,
+                                                 outs, pairs,
+                                                 UNIDYN_PAIR_OPS))
+            log(f"  {pairs} pairs within 2h: bound {bound_ms:.4f} ms "
+                f"({bound_by})")
+            entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None}
+        else:
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    return entry
+
+
+def check_column_identities(sph, dev):
+    """Bit for bit, at the 524288 fill at its suggest_col_cap (no column
+    over it): the column kernel equals the row-block kernel fresh; with
+    caps above every column its stale pass equals the row-block stale
+    pass; on a just-sorted pool its stale pass equals its fresh one."""
+    k = sph.sph_kernels
+    st = randomised(sph_scene(sph, "fill-524k", dev), SEED + 8)
+    cfg = fill_cfg(sph, st)
+    order, bt = sph.binning.sort_tables(st, cfg)
+    sorted_st, sbt, moved = sorted_and_moved(sph, st, cfg, SEED + 9)
+    big = cfg.replace(pallas_col_cap=st.capacity)
+    col, row = k.base_forces_column, k.base_forces_rowblock
+    for what, (a, b) in {
+            "column fresh = row-block (no overflow)":
+                (col(st, bt, cfg, order), row(st, bt, cfg, order)),
+            "column xy_cells, caps above every column = row-block stale":
+                (col(moved, sbt, big, sbt.order, True),
+                 row(moved, sbt, cfg, sbt.order, True)),
+            "column xy_cells = column fresh on a just-sorted pool":
+                (col(sorted_st, sbt, cfg, sbt.order, True),
+                 col(sorted_st, sbt, cfg, sbt.order))}.items():
+        same = torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        log(f"identity at the 524288 fill, {what}: bitwise {same}")
+        check(same and int(a[2]) == 0, f"identity failed: {what}")
+
+
+def fill_speeds(sph, dev):
+    """Max speed after each of the 524288 fill's first FILL_SPEED_STEPS
+    steps (column family): where the random fill starts to blow up."""
+    st = sph_scene(sph, "fill-524k", dev)
+    cfg = fill_cfg(sph, st)
+    speeds = []
+    for _ in range(FILL_SPEED_STEPS):
+        st, m = sph.step.run_python(st, cfg, 1)
+        speeds.append(m.max_speed)
+    speeds = [float(v) for v in speeds]
+    log(f"524288 fill, max speed after steps 1..{FILL_SPEED_STEPS}: "
+        + ", ".join(f"{v:.3e}" for v in speeds))
+    return speeds
+
+
+def column_path_state(sph, path, dev):
+    """(fresh scene, config) of a COLUMN_PATHS entry."""
+    scene, kw, _, _ = COLUMN_PATHS[path]
+    if scene == "tank":
+        return unidyn_scene(sph, "tank", dev), sph.ucfg.replace(**kw)
+    st = sph_scene(sph, scene, dev)
+    cfg = fill_cfg(sph, st) if scene == "fill-524k" else sph.cfg
+    return st, cfg.replace(**kw)
+
+
+def run_column_path(sph, dev, path):
+    """Warm-up, then the timed steps (counts reset before, read after, no
+    host sync allowed), then a profile window on a fresh scene after its
+    warm-up.  Returns the launch counts of the timed run."""
+    _, _, warm, timed = COLUMN_PATHS[path]
+    st, cfg = column_path_state(sph, path, dev)
+    cap = st.capacity
+    if cfg.variant == "base":
+        kernel = ("base_forces_rowblock" if sph.step.resolve_kernel_family(
+            cfg, cap) == "rowblock" else "base_forces_column")
+    else:
+        kernel = f"unidyn_forces_{sph.step.resolve_unidyn_kernel(cfg, cap)}"
+    n0, mass0 = int(st.alive.sum()), float(st.mass.sum())
+    st, _ = sph.step.run_python(st, cfg, warm)
+    torch.cuda.synchronize()
+    sph.sph_kernels.reset_launches()
+    sph.step.sph_sort_step.calls = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        st, m = sph.step.run_python(st, cfg, timed)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = sph.sph_kernels.launch_counts()
+    sorts = sph.step.sph_sort_step.calls
+    ms = seconds / timed * 1e3
+    finite = all(bool(torch.isfinite(getattr(st, f)).all())
+                 for f in sph.state.FIELDS if f != "pid")
+    log(f"{path} ({n0} particles, pallas_col_cap {cfg.pallas_col_cap}, "
+        f"{kernel}), {timed} timed steps after {warm} warm-up: {ms:.4f} "
+        f"ms/step, {n0 * timed / seconds:.4e} particle-steps/s; n_alive "
+        f"{int(m.n_alive)}, total_mass {float(m.total_mass)}, bin_overflow "
+        f"{int(m.bin_overflow)}, max_speed {float(m.max_speed):.4e}, "
+        f"finite {finite}; launches {counts}, sort steps {sorts}")
+    check(finite, f"{path}: state not finite")
+    check(int(m.n_alive) == n0, f"{path}: n_alive changed")
+    check(float(m.total_mass) == mass0, f"{path}: mass changed")
+    check(int(m.bin_overflow) == 0, f"{path}: bin overflow")
+    want = dict.fromkeys(counts, 0)
+    want[kernel] = timed
+    check(counts == want, f"{path}: launches {counts} != {want}")
+    every = cfg.sort_every if cfg.sort_every > 1 else 0
+    check(sorts == (-(-timed // every) if every else 0),
+          f"{path}: {sorts} sort steps in {timed}")
+    pst, _ = column_path_state(sph, path, dev)
+    pst, _ = sph.step.run_python(pst, cfg, warm)
+    log_profile(path, lambda k: sph.step.run_python(pst, cfg, k), ms)
+    return counts
+
+
+def add_counts(total, counts):
+    for name, c in counts.items():
+        total[name] = total.get(name, 0) + c
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port is only measured on "
@@ -1124,15 +1493,15 @@ def main():
         return 2
     import types
 
-    from tpufluids_torch import (_build, binning, convert, forces, scenes,
-                                 sph_kernels, state, step)
+    from tpufluids_torch import (_build, binning, config, convert, forces,
+                                 scenes, sph_kernels, state, step)
     from tpufluids_torch.config import BASE_CONFIG, UNIDYN_CONFIG
     from tpufluids_torch.grid import kernels, stam
 
-    sph = types.SimpleNamespace(binning=binning, convert=convert,
-                                forces=forces, scenes=scenes,
-                                sph_kernels=sph_kernels, state=state,
-                                step=step, cfg=BASE_CONFIG,
+    sph = types.SimpleNamespace(binning=binning, config=config,
+                                convert=convert, forces=forces,
+                                scenes=scenes, sph_kernels=sph_kernels,
+                                state=state, step=step, cfg=BASE_CONFIG,
                                 ucfg=UNIDYN_CONFIG)
 
     dev = torch.device("cuda")
@@ -1167,9 +1536,18 @@ def main():
     check_unidyn_against_cpu(sph, dev)
     counts.update(run_unidyn_main_path(sph, dev))
 
+    checked["base_forces_column"] = check_base_column(sph, dev, build.log)
+    checked["unidyn_forces_column"] = check_unidyn_column(sph, dev,
+                                                          build.log)
+    check_column_identities(sph, dev)
+    fill_speeds(sph, dev)
+    for path in COLUMN_PATHS:
+        add_counts(counts, run_column_path(sph, dev, path))
+
     rows = []
     for name, (source, replaces, _) in {**KERNELS, **SPH_KERNELS,
-                                        **UNIDYN_KERNELS}.items():
+                                        **UNIDYN_KERNELS,
+                                        **COLUMN_KERNELS}.items():
         check(counts[name] > 0, f"{name} was not launched on the main path")
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": counts[name],

@@ -175,6 +175,40 @@ def test_whole_tier_matches_plain_and_streamed(cuda, n):
             assert torch.equal(g, r)
 
 
+@pytest.mark.parametrize("n", [15, 48])
+def test_reciprocal_h_kernels_are_bitwise_plain(cuda, n):
+    """The kernels that difference by h take 1/h from Python, as PyTorch
+    on the card divides by h (test_scalar_division_rounds_as_the_2d_kernel_
+    takes_it): bit for bit against their plain versions where n is not a
+    power of two (48^3 is inside the whole tier's gate)."""
+    u, v, w, p = _fields(cuda, n, 30, (1, 2, 3, 0), -1.0, 1.0)
+    d, t = _fields(cuda, n, 31, (0, 0), 0.0, 1.0)
+    for coeffs in (dict(vorticity_eps=2.0, buoyancy_alpha=0.05,
+                        buoyancy_beta=0.5),
+                   dict(vorticity_eps=2.0)):
+        cfg = stam.StamConfig(n=n, dt=0.5 / n, **coeffs)
+        for g, r in zip(kernels.forcing3d(u, v, w, d, t, cfg),
+                        kernels.forcing3d_plain(u, v, w, d, t, cfg)):
+            assert torch.equal(g, r), coeffs
+    for g, r in zip(kernels.gradsub3d(p, u, v, w),
+                    kernels.gradsub3d_plain(p, u, v, w)):
+        assert torch.equal(g, r)
+    for red_black in (False, True):
+        for g, r in zip(kernels.project3d_whole(u, v, w, 20, red_black),
+                        kernels.project3d_whole_plain(u, v, w, 20,
+                                                      red_black)):
+            assert torch.equal(g, r), red_black
+    for cfg in (_config(n, True), _config(n, True).replace(red_black=False),
+                _config(n, False)):
+        got = kernels.step3d_whole(u, v, w, d, t, cfg)
+        want = kernels.step3d_whole_plain(u, v, w, d, t, cfg)
+        for g, r, f in zip(got, want, FIELDS):
+            assert torch.equal(g, r), (cfg.red_black, f)
+
+
+FIELDS = ("u", "v", "w", "dens", "temp")
+
+
 def _config(n, plume):
     """BASELINE config 2, or config 4 with ``plume`` (bench.py:323-329)."""
     kw = (dict(buoyancy_alpha=0.05, buoyancy_beta=1.0, vorticity_eps=2.0)

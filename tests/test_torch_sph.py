@@ -275,45 +275,65 @@ def test_update_matches_jax():
         _assert_close(got[f], ref[f], f, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("cfg,kw,match", [
-    (config.UNIDYN_CONFIG.replace(pallas_kernel="column"), {}, "#14"),
-    (CFG.replace(sort_every=2), {}, "Queue 1 item 4"),
-    (CFG.replace(subbin_parity=True), {}, "Queue 1 item 4"),
-    (CFG, dict(subbin_parity=True), "Queue 1 item 4"),
-    (CFG.replace(pallas_kernel="column"), {}, "#13"),
-    (CFG.replace(pallas_kernel="resident"), {}, "#13"),
-    (config.UNIDYN_CONFIG.replace(sort_every=3), {}, "Queue 1 item 4"),
-], ids=["unidyn", "sort_every", "subbin_cfg", "subbin_call", "column",
-        "resident", "unidyn_sort_every"])
-def test_outside_the_slice_raises(cfg, kw, match):
+@pytest.mark.parametrize("cfg,kw,error,match", [
+    (CFG.replace(subbin_parity=True), {}, NotImplementedError,
+     "Queue 1 item 4"),
+    (CFG, dict(subbin_parity=True), NotImplementedError, "Queue 1 item 4"),
+    (config.UNIDYN_CONFIG.replace(sort_every=3), {}, ValueError,
+     "base variant"),
+], ids=["subbin_cfg", "subbin_call", "unidyn_sort_every"])
+def test_outside_the_slice_raises(cfg, kw, error, match):
     st = scenes.random_blob(20, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         step.sph_step(st, cfg, **kw)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         step.run_python(st, cfg, 1, **kw)
 
 
+@pytest.mark.parametrize("cfg,capacity,kernel", [
+    (config.UNIDYN_CONFIG.replace(pallas_kernel="column"), None,
+     "unidyn_forces_column"),
+    (CFG.replace(sort_every=2), None, "base_forces_rowblock"),
+    (CFG.replace(pallas_kernel="column"), None, "base_forces_column"),
+    (CFG.replace(pallas_kernel="resident"), None, "base_forces_column"),
+    (CFG, step.ROWBLOCK_MAX_POOL + 1, "base_forces_column"),
+], ids=["unidyn", "sort_every", "column", "resident", "auto_above_rowblock"])
+def test_column_and_cadence_paths_run(cfg, capacity, kernel, monkeypatch):
+    """The paths that raised before the column family and the sort
+    cadence were ported: each step goes through the force wrapper the
+    JAX package's dispatch picks (its plain version on the CPU)."""
+    calls = []
+    plain = getattr(sph_kernels, kernel + "_plain")
+    monkeypatch.setattr(sph_kernels, kernel + "_plain",
+                        lambda *a, **k: calls.append(1) or plain(*a, **k))
+    st = scenes.random_blob(20, seed=0, cfg=cfg, capacity=capacity,
+                            device="cpu")
+    one, _ = step.sph_step(st, cfg)
+    out, m = step.run_python(st, cfg, 3)
+    assert len(calls) == 4
+    assert int(m.n_alive) == 20 and int(m.bin_overflow) == 0
+    assert float(m.total_mass) == 20.0
+    assert bool(torch.isfinite(out.pos).all())
+    assert not torch.equal(out.pos, one.pos)
+
+
 def test_auto_above_rowblock_pool_and_slabs_raise():
-    big = state.make_state(np.zeros((1, 3), np.float32),
-                           capacity=step.ROWBLOCK_MAX_POOL + 1, device="cpu")
-    assert step.resolve_kernel_family(CFG, big.capacity) == "column"
-    with pytest.raises(NotImplementedError, match="#13"):
-        step.sph_step(big, CFG)
+    assert step.resolve_kernel_family(CFG, step.ROWBLOCK_MAX_POOL) == (
+        "rowblock")
+    assert step.resolve_kernel_family(CFG, step.ROWBLOCK_MAX_POOL + 1) == (
+        "column")
     # unidyn: above the resident budget and the row-block pool, and a
     # "resident" request above the budget, go to the column family
     unidyn = config.UNIDYN_CONFIG
     assert step.resolve_unidyn_kernel(unidyn, 14040) == "resident"
     assert step.resolve_unidyn_kernel(
         unidyn.replace(pallas_kernel="rowblock"), 14040) == "rowblock"
+    assert step.resolve_unidyn_kernel(
+        unidyn.replace(pallas_kernel="column"), 14040) == "column"
     assert step.resolve_unidyn_kernel(unidyn, 200000) == "rowblock"
     assert step.resolve_unidyn_kernel(
         unidyn.replace(pallas_kernel="resident"), 200000) == "column"
-    with pytest.raises(NotImplementedError, match="#14"):
-        step.sph_step(big, unidyn)
-    with pytest.raises(NotImplementedError, match="#14"):
-        step.sph_step(state.make_state(np.zeros((1, 3), np.float32),
-                                       capacity=200000, device="cpu"),
-                      unidyn.replace(pallas_kernel="resident"))
+    assert step.resolve_unidyn_kernel(unidyn, 262145) == "column"
     st = scenes.random_blob(20, seed=0, device="cpu")
     slab = binning.GridSpec(g=CFG.grid_size, x_planes=10, x_offset=5)
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
@@ -327,9 +347,11 @@ def test_kernel_wrapper_rejects_other_devices():
     st = scenes.random_blob(20, seed=0, device="cpu")
     order, bt = binning.sort_tables(st, CFG)
     meta = st.replace(**{f: getattr(st, f).to("meta") for f in state.FIELDS})
-    with pytest.raises(ValueError, match="meta"):
-        sph_kernels.base_forces_rowblock(meta, bt, CFG, order)
-    with pytest.raises(ValueError, match="order"):
-        sph_kernels.base_forces_rowblock(st, bt, CFG, order.to(torch.int32))
-    with pytest.raises(ValueError, match="base variant"):
-        sph_kernels.base_forces_rowblock(st, bt, config.UNIDYN_CONFIG, order)
+    for fn in (sph_kernels.base_forces_rowblock,
+               sph_kernels.base_forces_column):
+        with pytest.raises(ValueError, match="meta"):
+            fn(meta, bt, CFG, order)
+        with pytest.raises(ValueError, match="order"):
+            fn(st, bt, CFG, order.to(torch.int32))
+        with pytest.raises(ValueError, match="base variant"):
+            fn(st, bt, config.UNIDYN_CONFIG, order)

@@ -1,27 +1,34 @@
-"""The port's SPH force kernel against its plain PyTorch version on the
-card, at the base_dam scene and at a 262144-particle uniform fill, and
-its run-to-run determinism.  Marked ``gpu`` and skipped without a CUDA
-device; on the card (tests/conftest.py sets up JAX, which these tests
-do not use):
+"""The port's SPH force kernels (row-block and column, fresh and stale)
+against their plain PyTorch versions on the card, at the base_dam scene
+and at 262144- and 524288-particle uniform fills, the identities between
+them, the column and sort-cadence steps' launches, and run-to-run
+determinism.  Marked ``gpu`` and skipped without a CUDA device; on the
+card (tests/conftest.py sets up JAX, which these tests do not use):
 
     python -m pytest --noconftest -m gpu tests/test_torch_sph_gpu.py
 
 Tolerance: 1e-5 * max|plain| for sum_w and each dpress component.  The
 kernel is built with -fmad=false and follows the plain version's
 operations per pair, but sums its candidates one by one where torch
-reduces them in another order."""
+reduces them in another order.  Overflow counts and the zeros of rows
+over the column cap are exact, and so are the identities: the column
+kernel equals the row-block kernel bit for bit when no column overflows
+(fresh and stale), and on a just-sorted pool the stale pass equals the
+fresh one."""
 
 import numpy as np
 import pytest
 import torch
 
-from tpufluids_torch import binning, scenes, sph_kernels, state, step
+from tpufluids_torch import (binning, config, scenes, sph_kernels, state,
+                             step)
 from tpufluids_torch.config import BASE_CONFIG
 
 pytestmark = pytest.mark.gpu
 
 TOL = 1e-5
 FILL = 262144
+BIG_FILL = 524288
 
 
 @pytest.fixture
@@ -49,9 +56,122 @@ def _randomised(st, seed):
 def _scene(name, dev):
     if name == "base_dam":
         return scenes.base_dam(BASE_CONFIG, device=dev)
-    pos = np.random.default_rng(0).uniform(-0.9, 0.9, (FILL, 3))
+    n = BIG_FILL if name == "fill-524k" else FILL
+    pos = np.random.default_rng(0).uniform(-0.9, 0.9, (n, 3))
     return state.make_state(pos.astype(np.float32), cfg=BASE_CONFIG,
                             device=dev)
+
+
+def _close(got, want):
+    for g, w in zip(got[:2], want[:2]):
+        assert g.shape == w.shape and g.device == w.device
+        for gc, wc in zip(g.reshape(g.shape[0], -1).T,
+                          w.reshape(w.shape[0], -1).T):
+            scale = float(wc.abs().max())
+            assert scale > 0.0
+            assert float((gc - wc).abs().max()) <= TOL * scale
+
+
+def _sorted_and_moved(st, cfg, seed):
+    """(the pool sorted into cell order, its tables, the pool moved by up
+    to 0.4 of a cell): a stale step's inputs."""
+    st, bt = binning.sort_by_cell(st, cfg)
+    rng = np.random.default_rng(seed)
+    dev = st.pos.device
+    shift = torch.from_numpy(rng.uniform(-0.02, 0.02, (st.capacity, 3))
+                             .astype(np.float32)).to(dev)
+    return st, bt, st.replace(pos=st.pos + shift)
+
+
+@pytest.mark.parametrize("name,cap", [("base_dam", 32), ("fill-524k", None)])
+@pytest.mark.parametrize("stale", [False, True], ids=["fresh", "xy_cells"])
+def test_column_kernel_matches_plain(cuda, name, cap, stale):
+    """base_dam at cap 32 overflows; the fill at its suggest_col_cap
+    (584) does not."""
+    st = _randomised(_scene(name, cuda), 2)
+    cfg = BASE_CONFIG.replace(pallas_col_cap=cap or binning.suggest_col_cap(
+        st, BASE_CONFIG))
+    sorted_st, bt, moved = _sorted_and_moved(st, cfg, 3)
+    if stale:
+        st = moved
+    else:
+        _, bt = binning.sort_tables(st, cfg)
+    kern = sph_kernels.base_forces_column
+    before = kern.launches
+    got = kern(st, bt, cfg, bt.order, stale)
+    again = kern(st, bt, cfg, bt.order, stale)
+    want = sph_kernels.base_forces_column_plain(st, bt, cfg, bt.order, stale)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 2
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    _close(got, want)
+    assert int(got[2]) == int(want[2])
+    assert (int(got[2]) > 0) == (cap == 32)
+    b, _ = config.column_caps(cfg)
+    cs = binning.column_start(bt, cfg)
+    cid = bt.cid.long()
+    g = cfg.grid_size
+    rank = torch.arange(st.capacity, device=cuda) - cs[
+        torch.clamp(cid // g, max=g * g - 1)]
+    capped = bt.order[(cid < cfg.num_cells) & (rank >= b)]
+    assert (capped.numel() > 0) == (cap == 32)
+    assert not got[0][capped].any() and not got[1][capped].any()
+
+
+@pytest.mark.parametrize("name", ["base_dam", "fill"])
+def test_stale_rowblock_kernel_matches_plain(cuda, name):
+    st = _randomised(_scene(name, cuda), 4)
+    _, bt, moved = _sorted_and_moved(st, BASE_CONFIG, 5)
+    kern = sph_kernels.base_forces_rowblock
+    got = kern(moved, bt, BASE_CONFIG, bt.order, True)
+    again = kern(moved, bt, BASE_CONFIG, bt.order, True)
+    want = sph_kernels.base_forces_rowblock_plain(moved, bt, BASE_CONFIG,
+                                                  bt.order, True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    _close(got, want)
+
+
+def test_column_identities_are_bitwise(cuda):
+    """On the fill: the column kernel equals the row-block kernel where no
+    column overflows (fresh, and stale with caps above every column), and
+    on a just-sorted pool its stale pass equals its fresh one."""
+    st = _randomised(_scene("fill", cuda), 6)
+    cap = binning.suggest_col_cap(st, BASE_CONFIG)
+    cfg = BASE_CONFIG.replace(pallas_col_cap=cap)
+    col, row = sph_kernels.base_forces_column, sph_kernels.base_forces_rowblock
+    order, bt = binning.sort_tables(st, cfg)
+    fresh = col(st, bt, cfg, order)
+    assert int(fresh[2]) == 0
+    for g, r in zip(fresh[:2], row(st, bt, cfg, order)[:2]):
+        assert torch.equal(g, r)
+    sorted_st, sbt, moved = _sorted_and_moved(st, cfg, 7)
+    for g, r in zip(col(sorted_st, sbt, cfg, sbt.order, True)[:2],
+                    col(sorted_st, sbt, cfg, sbt.order, False)[:2]):
+        assert torch.equal(g, r)
+    big = cfg.replace(pallas_col_cap=st.capacity)
+    for g, r in zip(col(moved, sbt, big, sbt.order, True)[:2],
+                    row(moved, sbt, cfg, sbt.order, True)[:2]):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("path", ["column", "sort_every"])
+def test_column_and_cadence_steps_launch_once_a_step(cuda, path):
+    """base_dam through the column family (pallas_kernel="column"), and
+    through the sort cadence at sort_every 8: one force launch a step,
+    one sort step in 8."""
+    cfg = BASE_CONFIG.replace(**({"pallas_kernel": "column"}
+                                 if path == "column" else {"sort_every": 8}))
+    kernel = ("base_forces_column" if path == "column"
+              else "base_forces_rowblock")
+    sph_kernels.reset_launches()
+    step.sph_sort_step.calls = 0
+    st, m = step.run_python(_scene("base_dam", cuda), cfg, 20)
+    assert sph_kernels.launch_counts(kernel) == {kernel: 20}
+    assert sum(sph_kernels.launch_counts().values()) == 20
+    assert step.sph_sort_step.calls == (3 if path == "sort_every" else 0)
+    assert int(m.n_alive) == 8000 and int(m.bin_overflow) == 0
+    assert bool(torch.isfinite(st.pos).all())
 
 
 @pytest.mark.parametrize("name", ["base_dam", "fill"])

@@ -266,8 +266,9 @@ def test_unidyn_wrappers_run_plain_on_cpu():
         for k, v in want.items():
             assert torch.equal(got[k], v), k
     assert sph_kernels.launch_counts() == before
-    assert set(before) == {"base_forces_rowblock", "unidyn_forces_resident",
-                           "unidyn_forces_rowblock"}
+    assert set(before) == {"base_forces_rowblock", "base_forces_column",
+                           "unidyn_forces_resident", "unidyn_forces_rowblock",
+                           "unidyn_forces_column"}
     assert sph_kernels.launch_counts("unidyn_forces_resident") == {
         "unidyn_forces_resident": before["unidyn_forces_resident"]}
 

@@ -1,5 +1,6 @@
-"""The port's unidyn force kernels against their plain PyTorch versions on
-the card, and their run-to-run determinism.  Marked ``gpu`` and skipped
+"""The port's unidyn force kernels (resident, row-block and column)
+against their plain PyTorch versions on the card, and their run-to-run
+determinism.  Marked ``gpu`` and skipped
 without a CUDA device; on the card (tests/conftest.py sets up JAX, which
 these tests do not use):
 
@@ -78,6 +79,63 @@ def test_kernels_match_plain_and_repeat(cuda, name, merge):
         assert torch.equal(got["has_pair"], want["has_pair"])
         assert torch.equal(got["merge_partner"], want["merge_partner"])
         assert bool((got["merge_partner"] >= 0).any()) == merge
+
+
+@pytest.mark.parametrize("name,cap,merge", [("tank", 128, False),
+                                            ("fill", 64, True)])
+def test_column_kernels_match_plain_and_repeat(cuda, name, cap, merge):
+    """The mixed tank at UNIDYN_CONFIG's cap (128, no column over it) and
+    the mixed fill at cap 64, over which its columns run: the overflow
+    count and the rows over the cap (zeros, no partner) are exact."""
+    cfg = UNIDYN_CONFIG.replace(merge_dist=0.03 if merge else -10.0,
+                                pallas_col_cap=cap)
+    st = scenes.mixed_phase(_scene(name, cuda), 1)
+    order, bt = binning.sort_tables(st, cfg)
+    kern = sph_kernels.unidyn_forces_column
+    before = kern.launches
+    got = kern(st, bt, cfg, order, subbin_threshold=6)
+    again = kern(st, bt, cfg, order, subbin_threshold=6)
+    want = sph_kernels.unidyn_forces_column_plain(st, bt, cfg, order,
+                                                  subbin_threshold=6)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 2
+    for k in (*FIELDS, "has_pair", "merge_partner", "overflow"):
+        assert torch.equal(got[k], again[k]), k
+    for gc, wc in zip(_columns(got), _columns(want)):
+        scale = float(wc.abs().max())
+        assert scale > 0.0
+        assert float((gc - wc).abs().max()) <= TOL * scale
+    assert torch.equal(got["has_pair"], want["has_pair"])
+    assert torch.equal(got["merge_partner"], want["merge_partner"])
+    assert bool((got["merge_partner"] >= 0).any()) == merge
+    assert int(got["overflow"]) == int(want["overflow"])
+    assert (int(got["overflow"]) > 0) == (name == "fill")
+    cs = binning.column_start(bt, cfg)
+    cid = bt.cid.long()
+    g = cfg.grid_size
+    rank = torch.arange(st.capacity, device=cuda) - cs[
+        torch.clamp(cid // g, max=g * g - 1)]
+    capped = order[(cid < cfg.num_cells) & (rank >= cap)]
+    assert (capped.numel() > 0) == (name == "fill")
+    for k in FIELDS:
+        assert not got[k][capped].any(), k
+    assert not bool((got["merge_partner"][capped] >= 0).any())
+
+
+def test_column_steps_equal_resident_steps(cuda):
+    """No column of the tank is over the cap for 5 steps, so the column
+    kernels sum the resident kernels' pairs in their order: bit for bit."""
+    runs = []
+    for kernel in ("column", "resident"):
+        sph_kernels.reset_launches()
+        st, m = step.run_python(_scene("tank", cuda),
+                                UNIDYN_CONFIG.replace(pallas_kernel=kernel), 5)
+        assert sph_kernels.launch_counts(f"unidyn_forces_{kernel}") == {
+            f"unidyn_forces_{kernel}": 5}
+        assert int(m.n_alive) == 14040 and int(m.bin_overflow) == 0
+        runs.append(st)
+    for f in state.FIELDS:
+        assert torch.equal(getattr(runs[0], f), getattr(runs[1], f)), f
 
 
 def test_rowblock_and_resident_steps_are_bitwise_equal(cuda):

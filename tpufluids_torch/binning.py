@@ -2,10 +2,17 @@
 in PyTorch.
 
 Per step the pool is sorted by linear cell id (z fastest).  The pool
-itself is never permuted: ``sort_tables`` returns the permutation
+itself is not permuted: ``sort_tables`` returns the permutation
 ``order`` and the sorted tables, and the force pass gathers what it
-needs by ``order``.  Dead and out-of-domain particles get the sentinel
-id ``num_cells`` and sort to the end, so no neighbour run holds them.
+needs by ``order``.  Only the sort cadence (``sort_every > 1``)
+permutes it, with ``sort_by_cell``, so that the steps between two
+sorts read the pool in the sorted order of their stale tables.  Dead
+and out-of-domain particles get the sentinel id ``num_cells`` and sort
+to the end, so no neighbour run holds them.
+
+One (x, y) column of the grid, g consecutive cells, is one contiguous
+range of sorted rows from ``column_start``; the column force family
+caps the rows it takes of each column (``config.column_caps``).
 
 Cell coordinates truncate toward zero, like the reference's ``int()``
 cast (FluidGPU.cu:419) and the JAX package's binning.  (The JAX
@@ -26,10 +33,11 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from tpufluids_torch.config import SPHConfig
-from tpufluids_torch.state import ParticleState
+from tpufluids_torch.state import FIELDS, ParticleState
 
 # The 9 (dx, dy) run offsets of the 27-cell stencil.
 RUN_OFFSETS = [(dx, dy) for dx in (-1, 0, 1) for dy in (-1, 0, 1)]
@@ -71,11 +79,17 @@ def _shifted(pos: torch.Tensor, cfg: SPHConfig):
                                device=pos.device)
 
 
+def cell_trunc(pos: torch.Tensor, cfg: SPHConfig) -> torch.Tensor:
+    """(N, 3) float cell coordinates, truncated toward zero; NaN stays
+    NaN.  The stale force passes compare these per pair."""
+    shifted, cs = _shifted(pos, cfg)
+    return torch.trunc(shifted / cs)
+
+
 def cell_coords(pos: torch.Tensor, cfg: SPHConfig) -> torch.Tensor:
     """(N, 3) int32 cell coordinates, truncated toward zero like
     ``int((x - XMIN)/CELLSIZE)`` (FluidGPU.cu:419)."""
-    shifted, cs = _shifted(pos, cfg)
-    c = torch.trunc(shifted / cs)
+    c = cell_trunc(pos, cfg)
     if c.device.type == "cpu":
         # torch's CPU cast turns NaN into INT_MIN; XLA's, and CUDA's
         # (so the card's step, with no op added), turn it into 0
@@ -152,12 +166,68 @@ def sort_tables(state: ParticleState, cfg: SPHConfig,
     return order, bt
 
 
-def run_table(bt: BinTable, cfg: SPHConfig):
+def sort_by_cell(state: ParticleState, cfg: SPHConfig,
+                 grid: Optional[GridSpec] = None):
+    """The pool permuted into cell order, and its tables: (state,
+    BinTable), as ``tpufluids.binning.sort_by_cell(..., runs=False)``.
+    The tables are those of ``sort_tables`` (the port builds neighbour
+    runs on demand, ``run_table``), with ``order`` the identity: pool
+    row and sorted row are now one."""
+    order, bt = sort_tables(state, cfg, grid)
+    return permute_pool(state, order), bt._replace(
+        order=torch.arange(state.capacity, dtype=torch.int64,
+                           device=order.device))
+
+
+def permute_pool(state: ParticleState, order: torch.Tensor) -> ParticleState:
+    """Every field of the pool gathered by ``order`` (row r of the result
+    is row order[r] of ``state``)."""
+    return state.replace(**{f: getattr(state, f)[order] for f in FIELDS})
+
+
+def column_start(bt: BinTable, cfg: SPHConfig) -> torch.Tensor:
+    """(g*g + 1,) first sorted row of each (x, y) column, and the end."""
+    g = cfg.grid_size
+    return bt.cell_start[0:g ** 3 + 1:g]
+
+
+def column_overflow(bt: BinTable, cfg: SPHConfig, b: int) -> torch.Tensor:
+    """() int32: the rows beyond the home cap ``b``, summed over the
+    columns; the column family gives them no forces."""
+    cs = column_start(bt, cfg)
+    return torch.clamp(cs[1:] - cs[:-1] - b, min=0).sum().to(torch.int32)
+
+
+def suggest_col_cap(state: ParticleState, cfg: SPHConfig,
+                    headroom: float = 1.25, minimum: int = 64) -> int:
+    """A static ``pallas_col_cap`` for a scene, as
+    ``tpufluids.binning.suggest_col_cap``: the smallest multiple of 8 at
+    or above ``headroom`` times the fullest column's population, and at
+    least ``minimum``.  Host-side (it reads the state back): call it once
+    on the initial state."""
+    cid, _ = cell_id(state.pos, state.alive, cfg)
+    g = cfg.grid_size
+    col = cid.cpu().numpy() // g
+    col = col[state.alive.cpu().numpy()]
+    col = col[col < g * g]
+    occ = (np.bincount(col.astype(np.int64), minlength=g * g).max()
+           if col.size else 0)
+    want = int(np.ceil(occ * headroom / 8.0) * 8)
+    return max(minimum, want)
+
+
+def run_table(bt: BinTable, cfg: SPHConfig, caps=None, whole=False):
     """(run_start, run_len), each (N, 9) int64 in sorted order: the 9
     (dx, dy) neighbour runs of cells (z-1, z, z+1) of every sorted row,
     in RUN_OFFSETS order, as ``tpufluids.binning.build_bins`` builds
     them but without its ``3 * max_per_cell`` clip.  Rows outside the
-    domain have runs of length 0.  Used by the plain force version."""
+    domain have runs of length 0.  Used by the plain force versions.
+
+    ``whole``: each run is the whole neighbour column (the stale
+    passes, which mask pairs by their current cells instead).
+    ``caps`` = (b, w_cap): the column family's pair set.  A row at rank b
+    or more in its column gets no runs, and a run ends at rank w_cap of
+    its column."""
     g = cfg.grid_size
     num_cells = g ** 3
     cid = bt.cid.to(torch.int64)
@@ -166,15 +236,24 @@ def run_table(bt: BinTable, cfg: SPHConfig):
     cz = cc % g
     cy = (cc // g) % g
     cx = cc // (g * g)
+    cs = bt.cell_start.to(torch.int64)
+    if caps is not None:
+        rank = torch.arange(cid.shape[0], device=cid.device) - cs[cc - cz]
+        valid_home = valid_home & (rank < caps[0])
     off = torch.tensor(RUN_OFFSETS, dtype=torch.int64, device=cid.device)
     nx = cx[:, None] + off[:, 0]
     ny = cy[:, None] + off[:, 1]
     valid = ((nx >= 0) & (nx < g) & (ny >= 0) & (ny < g)
              & valid_home[:, None])
     base = nx * (g * g) + ny * g
-    zlo = torch.clamp(cz - 1, min=0)[:, None]
-    zhi = torch.clamp(cz + 1, max=g - 1)[:, None]
-    cs = bt.cell_start.to(torch.int64)
-    lo = cs[torch.clamp(base + zlo, 0, num_cells)]
-    hi = cs[torch.clamp(base + zhi + 1, 0, num_cells + 1)]
+    if whole:
+        lo_cell, hi_cell = base, base + g
+    else:
+        lo_cell = base + torch.clamp(cz - 1, min=0)[:, None]
+        hi_cell = base + torch.clamp(cz + 1, max=g - 1)[:, None] + 1
+    lo = cs[torch.clamp(lo_cell, 0, num_cells)]
+    hi = cs[torch.clamp(hi_cell, 0, num_cells + 1)]
+    if caps is not None:
+        end = cs[torch.clamp(base, 0, num_cells)] + caps[1]
+        lo, hi = torch.minimum(lo, end), torch.minimum(hi, end)
     return lo, torch.where(valid, hi - lo, 0)

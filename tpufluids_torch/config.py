@@ -8,11 +8,15 @@ constants (FluidGPU.cuh:1-31, FluidGPU-unidyn.cuh:1-36).
 
 On the port the device of the state decides the force path: CPU
 tensors run the plain PyTorch version, CUDA tensors launch the CUDA
-kernel (``tpufluids_torch.sph_kernels``).  ``force_backend`` and the TPU
-tile knobs (``pallas_col_cap``, ``pallas_w_chunk``, ``pallas_h_chunk``,
-``pallas_z_skip``) are kept so that a config round-trips, and the port
-does not read them.  ``pallas_kernel`` still names the kernel family:
-the port runs the row-block family only (``tpufluids_torch.step``).
+kernel (``tpufluids_torch.sph_kernels``).  ``pallas_kernel`` names the
+kernel family (``tpufluids_torch.step``).  The column family reads
+``pallas_col_cap``, ``pallas_w_chunk`` and ``pallas_h_chunk`` through
+``column_caps``, because its capacity caps decide which pairs are
+dropped.  ``force_backend`` is read only by ``step.use_sort_every``
+(``"xla"`` refuses the sort cadence, as in the JAX package).
+``pallas_z_skip`` and the banded sweep's settings change no result
+(``tpufluids/sph_pallas.py:223-242``, ``:329-346``); they are kept so
+that a config round-trips, and the port does not read them.
 """
 
 from __future__ import annotations
@@ -143,6 +147,34 @@ class SPHConfig:
 
     def replace(self, **kw) -> "SPHConfig":
         return dataclasses.replace(self, **kw)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def column_caps(cfg: SPHConfig) -> tuple[int, int]:
+    """(b, w_cap): the column family's home cap (rows of a column that
+    get forces) and window cap (rows of a neighbour column that count as
+    candidates), as the JAX package derives them from
+    ``pallas_col_cap``.  ``w_cap`` rounds up to a multiple of
+    ``pallas_w_chunk`` (``sph_pallas.py:526-527``, ``:1129-1131``).  For
+    the base variant ``b`` rounds up to a multiple of the home chunk,
+    whose "auto" (-1) is 128 above a cap of 192 and 0 (none) otherwise
+    (``tpufluids/step.py:115-117``, ``sph_pallas.py:528-533``)."""
+    b = w_cap = cfg.pallas_col_cap
+    if cfg.pallas_w_chunk:
+        w_cap = _round_up(w_cap, cfg.pallas_w_chunk)
+    if cfg.variant == "base":
+        hc = cfg.pallas_h_chunk
+        if hc < 0:
+            hc = 128 if cfg.pallas_col_cap > 192 else 0
+        if hc:
+            if hc % 64:
+                raise ValueError(f"pallas_h_chunk={hc}: only multiples of "
+                                 f"64 are supported")
+            b = _round_up(b, hc)
+    return b, w_cap
 
 
 # Base variant preset: FluidGPU.cuh:1-31 + solver.cu scene constants.

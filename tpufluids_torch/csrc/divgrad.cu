@@ -24,9 +24,10 @@ __global__ void gradsub3d_kernel(const float* __restrict__ p,
                                  const float* __restrict__ w,
                                  float* __restrict__ uo,
                                  float* __restrict__ vo,
-                                 float* __restrict__ wo, int n, float h) {
+                                 float* __restrict__ wo, int n,
+                                 float inv_h) {
   tf::gradsub_cell(blockIdx.x * blockDim.x + threadIdx.x, p, u, v, w, uo, vo,
-                   wo, n, h);
+                   wo, n, inv_h);
 }
 
 }  // namespace
@@ -40,9 +41,9 @@ extern "C" int tf_div3d(const float* u, const float* v, const float* w,
 
 extern "C" int tf_gradsub3d(const float* p, const float* u, const float* v,
                             const float* w, float* uo, float* vo, float* wo,
-                            int n, float h, void* stream) {
+                            int n, float inv_h, void* stream) {
   gradsub3d_kernel<<<tf::blocks_for(n), tf::kThreads, 0,
-                     (cudaStream_t)stream>>>(p, u, v, w, uo, vo, wo, n, h);
+                     (cudaStream_t)stream>>>(p, u, v, w, uo, vo, wo, n, inv_h);
   return tf::launch_status();
 }
 

@@ -21,19 +21,22 @@ __device__ __forceinline__ void div_cell(int idx, const float* u,
   out[out_index(cell, n)] = coef * s;
 }
 
-// q_a += -0.5 (p[+1] - p[-1]) / h along axis a, then set_bnd3d(a + 1).
+// q_a += -0.5 (p[+1] - p[-1]) / h along axis a, then set_bnd3d(a + 1), as
+// the card runs the plain version's division: a product with inv_h =
+// fl(1 / h) (forcing.cuh).
 __device__ __forceinline__ void gradsub_cell(int idx, const float* p,
                                              const float* u, const float* v,
                                              const float* w, float* uo,
                                              float* vo, float* wo, int n,
-                                             float h) {
+                                             float inv_h) {
   Cell cell;
   if (!cell_at(idx, n, cell)) return;
   const int N = n + 2, c = cell.c;
   const int o = out_index(cell, n);
-  uo[o] = cell.sign[1] * (u[c] + -0.5f * (p[c + N * N] - p[c - N * N]) / h);
-  vo[o] = cell.sign[2] * (v[c] + -0.5f * (p[c + N] - p[c - N]) / h);
-  wo[o] = cell.sign[3] * (w[c] + -0.5f * (p[c + 1] - p[c - 1]) / h);
+  uo[o] = cell.sign[1] *
+          (u[c] + -0.5f * (p[c + N * N] - p[c - N * N]) * inv_h);
+  vo[o] = cell.sign[2] * (v[c] + -0.5f * (p[c + N] - p[c - N]) * inv_h);
+  wo[o] = cell.sign[3] * (w[c] + -0.5f * (p[c + 1] - p[c - 1]) * inv_h);
 }
 
 }  // namespace tf

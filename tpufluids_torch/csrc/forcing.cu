@@ -22,9 +22,9 @@ __global__ void forcing_a_kernel(const float* __restrict__ u,
                                  float* __restrict__ w_out,
                                  float* __restrict__ mag_out, int n,
                                  int buoy, int vort, tf::Buoyancy b,
-                                 float h) {
+                                 float inv_h) {
   tf::forcing_a_cell(blockIdx.x * blockDim.x + threadIdx.x, u, v, w, dens,
-                     temp, w_out, mag_out, n, buoy, vort, b, h);
+                     temp, w_out, mag_out, n, buoy, vort, b, inv_h);
 }
 
 __global__ void forcing_b_kernel(const float* __restrict__ u,
@@ -34,9 +34,9 @@ __global__ void forcing_b_kernel(const float* __restrict__ u,
                                  float* __restrict__ uo,
                                  float* __restrict__ vo,
                                  float* __restrict__ wo, int n, float dt,
-                                 float eps_h, float h) {
+                                 float eps_h, float inv_h) {
   tf::forcing_b_cell(blockIdx.x * blockDim.x + threadIdx.x, u, v, w, mag, uo,
-                     vo, wo, n, dt, eps_h, h);
+                     vo, wo, n, dt, eps_h, inv_h);
 }
 
 }  // namespace
@@ -45,20 +45,20 @@ extern "C" int tf_forcing_a(const float* u, const float* v, const float* w,
                             const float* dens, const float* temp,
                             float* w_out, float* mag_out, int n, int buoy,
                             int vort, float dt, float alpha, float beta,
-                            float t_amb, float h, void* stream) {
+                            float t_amb, float inv_h, void* stream) {
   forcing_a_kernel<<<tf::blocks_for(n), tf::kThreads, 0,
                      (cudaStream_t)stream>>>(
       u, v, w, dens, temp, w_out, mag_out, n, buoy, vort,
-      tf::Buoyancy{dt, alpha, beta, t_amb}, h);
+      tf::Buoyancy{dt, alpha, beta, t_amb}, inv_h);
   return tf::launch_status();
 }
 
 extern "C" int tf_forcing_b(const float* u, const float* v, const float* w,
                             const float* mag, float* uo, float* vo, float* wo,
-                            int n, float dt, float eps_h, float h,
+                            int n, float dt, float eps_h, float inv_h,
                             void* stream) {
   forcing_b_kernel<<<tf::blocks_for(n), tf::kThreads, 0,
                      (cudaStream_t)stream>>>(u, v, w, mag, uo, vo, wo, n, dt,
-                                             eps_h, h);
+                                             eps_h, inv_h);
   return tf::launch_status();
 }

@@ -37,15 +37,19 @@ __device__ __forceinline__ float w_prime(const float* w, const float* dens,
   return (ck != k ? -1.0f : 1.0f) * buoyant_w(w, dens, temp, c, b);
 }
 
-// The three curl components at interior cell (i, j, k).
+// The three curl components at interior cell (i, j, k).  The plain
+// version's division by the Python scalar h runs on the card as a product
+// with fl(1 / h), the reciprocal taken in double, so the kernels take
+// inv_h = 1 / h from Python and multiply by it.
 __device__ __forceinline__ void curl_at(const float* u, const float* v,
                                         float w_jp, float w_jm, float w_ip,
-                                        float w_im, int c, int N, float h,
-                                        float& cx, float& cy, float& cz) {
-  cx = 0.5f * (w_jp - w_jm) / h - 0.5f * (v[c + 1] - v[c - 1]) / h;
-  cy = 0.5f * (u[c + 1] - u[c - 1]) / h - 0.5f * (w_ip - w_im) / h;
-  cz = 0.5f * (v[c + N * N] - v[c - N * N]) / h
-       - 0.5f * (u[c + N] - u[c - N]) / h;
+                                        float w_im, int c, int N,
+                                        float inv_h, float& cx, float& cy,
+                                        float& cz) {
+  cx = 0.5f * (w_jp - w_jm) * inv_h - 0.5f * (v[c + 1] - v[c - 1]) * inv_h;
+  cy = 0.5f * (u[c + 1] - u[c - 1]) * inv_h - 0.5f * (w_ip - w_im) * inv_h;
+  cz = 0.5f * (v[c + N * N] - v[c - N * N]) * inv_h
+       - 0.5f * (u[c + N] - u[c - N]) * inv_h;
 }
 
 // Half A at output cell idx: w_out = w' (if buoy), mag_out = |curl(u, v,
@@ -53,7 +57,7 @@ __device__ __forceinline__ void curl_at(const float* u, const float* v,
 __device__ __forceinline__ void forcing_a_cell(
     int idx, const float* u, const float* v, const float* w,
     const float* dens, const float* temp, float* w_out, float* mag_out,
-    int n, int buoy, int vort, Buoyancy b, float h) {
+    int n, int buoy, int vort, Buoyancy b, float inv_h) {
   Cell cell;
   if (!cell_at(idx, n, cell)) return;
   const int N = n + 2;
@@ -69,8 +73,8 @@ __device__ __forceinline__ void forcing_a_cell(
   curl_at(u, v, w_prime(w, dens, temp, i, j + 1, k, n, buoy, b),
           w_prime(w, dens, temp, i, j - 1, k, n, buoy, b),
           w_prime(w, dens, temp, i + 1, j, k, n, buoy, b),
-          w_prime(w, dens, temp, i - 1, j, k, n, buoy, b), cell.c, N, h, cx,
-          cy, cz);
+          w_prime(w, dens, temp, i - 1, j, k, n, buoy, b), cell.c, N, inv_h,
+          cx, cy, cz);
   mag_out[o] = sqrtf(cx * cx + cy * cy + cz * cz);
 }
 
@@ -82,16 +86,16 @@ __device__ __forceinline__ void forcing_b_cell(int idx, const float* u,
                                                const float* mag, float* uo,
                                                float* vo, float* wo, int n,
                                                float dt, float eps_h,
-                                               float h) {
+                                               float inv_h) {
   Cell cell;
   if (!cell_at(idx, n, cell)) return;
   const int N = n + 2, c = cell.c;
   float cx, cy, cz;
-  curl_at(u, v, w[c + N], w[c - N], w[c + N * N], w[c - N * N], c, N, h, cx,
-          cy, cz);
-  float gx = 0.5f * (mag[c + N * N] - mag[c - N * N]) / h;
-  float gy = 0.5f * (mag[c + N] - mag[c - N]) / h;
-  float gz = 0.5f * (mag[c + 1] - mag[c - 1]) / h;
+  curl_at(u, v, w[c + N], w[c - N], w[c + N * N], w[c - N * N], c, N, inv_h,
+          cx, cy, cz);
+  float gx = 0.5f * (mag[c + N * N] - mag[c - N * N]) * inv_h;
+  float gy = 0.5f * (mag[c + N] - mag[c - N]) * inv_h;
+  float gz = 0.5f * (mag[c + 1] - mag[c - 1]) * inv_h;
   const float norm = sqrtf(gx * gx + gy * gy + gz * gz) + 1e-5f;
   gx = gx / norm;
   gy = gy / norm;

@@ -133,9 +133,9 @@ extern "C" int tf_project3d_whole(const float* u, const float* v,
                                   const float* w, float* uo, float* vo,
                                   float* wo, float* div, float* p, float* p2,
                                   int n, int iters, int red_black, float coef,
-                                  float h, float c_inv, void* stream) {
+                                  float inv_h, float c_inv, void* stream) {
   const tf::ProjectArgs g{u, v, w, uo, vo, wo, div, p, p2, n, iters,
-                          red_black, coef, h, c_inv};
+                          red_black, coef, inv_h, c_inv};
   return tf::launch_cooperative(project_whole_kernel, g, n,
                                 (cudaStream_t)stream);
 }

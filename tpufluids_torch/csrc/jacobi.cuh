@@ -206,7 +206,7 @@ struct ProjectArgs {
   const float *u, *v, *w;
   float *uo, *vo, *wo, *div, *p, *p2;
   int n, iters, red_black;
-  float coef, h, c_inv;
+  float coef, inv_h, c_inv;
 };
 
 // divergence -> zero-guess pressure solve (a = 1, b = 0) -> gradient
@@ -247,7 +247,7 @@ __device__ __forceinline__ void project_phase(cg::grid_group& grid,
   }
   grid.sync();
   for (int idx = loop.start; idx < cells; idx += loop.stride)
-    gradsub_cell(idx, g.p, g.u, g.v, g.w, g.uo, g.vo, g.wo, n, g.h);
+    gradsub_cell(idx, g.p, g.u, g.v, g.w, g.uo, g.vo, g.wo, n, g.inv_h);
 }
 
 // Launches ``kernel`` cooperatively with as many blocks as the card keeps

@@ -10,18 +10,24 @@
 // Replaces unidyn_forces_resident (_unidyn_resident_kernel) and
 // unidyn_forces_rowblock (_unidyn_rowblock_kernel_a / _b) of
 // tpufluids/sph_pallas.py, whose pair bodies are _make_unidyn_a_body and
-// _make_unidyn_b_body.  The TPU kernels hold the packed pool in VMEM and
-// sweep 128-row home blocks over candidate chunks; here one thread owns
-// one cell-sorted row and walks its candidates cell by cell straight from
-// device memory.  The two passes are two launches on one stream: pass A
-// writes the drift velocities in sorted order (drift_sorted), and pass B
-// reads them there.  The resident wrapper launches the two back to back;
-// the row-block wrapper runs the drift_fix hook between them and gathers
-// the fixed drifts into drift_sorted itself.
+// _make_unidyn_b_body, with tf_unidyn_pass_a / _b; and the column family
+// unidyn_forces_pallas (_unidyn_kernel_a / _b, the same bodies on capped
+// column windows) with tf_unidyn_column_a / _b, the same passes capped:
+// a row at rank b or more in its (x, y) column gets zeros, and only the
+// first w_cap rows of each neighbour column are candidates.  The TPU
+// kernels hold the packed pool or column windows in VMEM and sweep home
+// blocks over candidate chunks; here one thread owns one cell-sorted row
+// and walks its candidates cell by cell straight from device memory.
+// The two passes are two launches on one stream: pass A writes the drift
+// velocities in sorted order (drift_sorted; zeros for a capped-out row),
+// and pass B reads them there.  The resident and column wrappers launch
+// the two back to back; the row-block wrapper runs the drift_fix hook
+// between them and gathers the fixed drifts into drift_sorted itself.
 //
 // What bounds it on the card: a few hundred float operations per pair
 // (most of them the drift terms) and the latency of each thread's serial
-// candidate loop, since a pool of 14040 rows is only 14040 threads.  Each candidate is four 16-byte loads
+// candidate loop, since a pool of 14040 rows is only 14040 threads.
+// Each candidate is four 16-byte loads
 // (rows) in pass A and six in pass B (rows and drift_sorted); neighbouring
 // threads share most of their candidates, so those loads hit L1/L2.  The
 // home-only fields (delpress, stress) are read once per thread, in pool
@@ -81,11 +87,13 @@ __device__ __forceinline__ Row load_row(const float4* __restrict__ rows,
 
 // Calls f(j) for every sorted row j of the 27-cell stencil of cell c, in
 // run order; with sub-binning on (threshold >= 0) and more than threshold
-// rows in cell c, only the cells at offsets {0, dir} per axis.
-template <class F>
+// rows in cell c, only the cells at offsets {0, dir} per axis.  Capped
+// (the column family): only the first w_cap rows of each neighbour
+// column.
+template <bool kCapped, class F>
 __device__ __forceinline__ void for_each_candidate(
     const int* __restrict__ cell_start, int c, int g, int threshold,
-    int octant, F&& f) {
+    int octant, int w_cap, F&& f) {
   const int cz = c % g, cy = (c / g) % g, cx = c / (g * g);
   const bool sub =
       threshold >= 0 && cell_start[c + 1] - cell_start[c] > threshold;
@@ -99,14 +107,25 @@ __device__ __forceinline__ void for_each_candidate(
       const int ny = cy + dy;
       if (ny < 0 || ny >= g || (sub && dy != 0 && dy != diry)) continue;
       const int base = (nx * g + ny) * g;
+      const int end = kCapped ? cell_start[base] + w_cap : 0;
       for (int dz = -1; dz <= 1; ++dz) {
         const int nz = cz + dz;
         if (nz < 0 || nz >= g || (sub && dz != 0 && dz != dirz)) continue;
-        const int j1 = cell_start[base + nz + 1];
+        int j1 = cell_start[base + nz + 1];
+        if (kCapped) j1 = min(j1, end);
         for (int j = cell_start[base + nz]; j < j1; ++j) f(j);
       }
     }
   }
+}
+
+// Whether sorted row i, of cell c (sentinel: out of the domain), gets
+// forces: in the domain and, capped, at rank below b in its column.
+template <bool kCapped>
+__device__ __forceinline__ bool is_home(const int* __restrict__ cell_start,
+                                        int i, int c, int g, int b) {
+  if (c >= g * g * g) return false;
+  return !kCapped || i - cell_start[c - c % g] < b;
 }
 
 struct Geom {
@@ -138,13 +157,14 @@ __device__ __forceinline__ bool pair_geom(const Row& hi, const Row& hj,
   return true;
 }
 
+template <bool kCapped>
 __global__ void unidyn_pass_a_kernel(
     const float4* __restrict__ rows, const float* __restrict__ delpress,
     const float* __restrict__ stress, const int* __restrict__ cid,
     const int* __restrict__ cell_start, const long long* __restrict__ order,
     const int* __restrict__ octant, float* __restrict__ out_a,
     long long* __restrict__ partner, float4* __restrict__ drift_sorted,
-    int n, int g, int threshold, UnidynConsts k) {
+    int n, int g, int threshold, int b, int w_cap, UnidynConsts k) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int c = cid[i];
@@ -153,7 +173,7 @@ __global__ void unidyn_pass_a_kernel(
 #pragma unroll
   for (int m = 0; m < kACols; ++m) acc[m] = 0.f;
   long long best_j = -1;
-  if (c < g * g * g) {
+  if (is_home<kCapped>(cell_start, i, c, g, b)) {
     const Row hi = load_row(rows, i);
     const float vi[3] = {hi.a.w, hi.b.x, hi.b.y};
     const float di = hi.b.z, pi = hi.b.w, mi = hi.c.z;
@@ -186,7 +206,8 @@ __global__ void unidyn_pass_a_kernel(
     float best_d = INFINITY;
     const int oct = octant != nullptr ? octant[i] : 0;
 
-    for_each_candidate(cell_start, c, g, threshold, oct, [&](int j) {
+    for_each_candidate<kCapped>(cell_start, c, g, threshold, oct, w_cap,
+                                [&](int j) {
       const Row hj = load_row(rows, j);
       Geom q;
       if (!pair_geom(hi, hj, k, q)) return;
@@ -275,16 +296,18 @@ __global__ void unidyn_pass_a_kernel(
 
 // drift_sorted: 8 floats as 2 float4 per sorted row: solid drift 0:3,
 // fluid drift 3:6, then zeros.
+template <bool kCapped>
 __global__ void unidyn_pass_b_kernel(
     const float4* __restrict__ rows, const float4* __restrict__ drift_sorted,
     const int* __restrict__ cid, const int* __restrict__ cell_start,
     const long long* __restrict__ order, const int* __restrict__ octant,
-    float* __restrict__ out_b, int n, int g, int threshold, UnidynConsts k) {
+    float* __restrict__ out_b, int n, int g, int threshold, int b, int w_cap,
+    UnidynConsts k) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int c = cid[i];
   float acc[kBCols] = {0.f, 0.f, 0.f, 0.f, 0.f};
-  if (c < g * g * g) {
+  if (is_home<kCapped>(cell_start, i, c, g, b)) {
     const Row hi = load_row(rows, i);
     const float4 e0 = drift_sorted[2 * i], e1 = drift_sorted[2 * i + 1];
     const float sdi[3] = {e0.x, e0.y, e0.z}, fdi[3] = {e0.w, e1.x, e1.y};
@@ -292,7 +315,8 @@ __global__ void unidyn_pass_b_kernel(
     const bool bi = hi.c.x > 0.5f;
     const int oct = octant != nullptr ? octant[i] : 0;
 
-    for_each_candidate(cell_start, c, g, threshold, oct, [&](int j) {
+    for_each_candidate<kCapped>(cell_start, c, g, threshold, oct, w_cap,
+                                [&](int j) {
       const Row hj = load_row(rows, j);
       Geom q;
       if (!pair_geom(hi, hj, k, q)) return;
@@ -335,28 +359,65 @@ unsigned blocks_for(int n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
 
+template <bool kCapped>
+int launch_a(const float* rows, const float* delpress, const float* stress,
+             const int* cid, const int* cell_start, const long long* order,
+             const int* octant, float* out_a, long long* partner,
+             float* drift_sorted, int n, int g, int threshold, int b,
+             int w_cap, const UnidynConsts& k, void* stream) {
+  if (n == 0) return 0;
+  unidyn_pass_a_kernel<kCapped>
+      <<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+          reinterpret_cast<const float4*>(rows), delpress, stress, cid,
+          cell_start, order, octant, out_a, partner,
+          reinterpret_cast<float4*>(drift_sorted), n, g, threshold, b, w_cap,
+          k);
+  return (int)cudaGetLastError();
+}
+
+template <bool kCapped>
+int launch_b(const float* rows, const float* drift_sorted, const int* cid,
+             const int* cell_start, const long long* order, const int* octant,
+             float* out_b, int n, int g, int threshold, int b, int w_cap,
+             float h, float two_h, float spiky, void* stream) {
+  if (n == 0) return 0;
+  UnidynConsts k{};
+  k.h = h;
+  k.two_h = two_h;
+  k.spiky = spiky;
+  unidyn_pass_b_kernel<kCapped>
+      <<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+          reinterpret_cast<const float4*>(rows),
+          reinterpret_cast<const float4*>(drift_sorted), cid, cell_start,
+          order, octant, out_b, n, g, threshold, b, w_cap, k);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-extern "C" int tf_unidyn_pass_a(
-    const float* rows, const float* delpress, const float* stress,
-    const int* cid, const int* cell_start, const long long* order,
-    const int* octant, float* out_a, long long* partner, float* drift_sorted,
-    int n, int g, int threshold, float h, float two_h, float w_norm,
-    float spiky, float mu_eps, float alpha_fluid, float sound, float visc_q,
-    float alpha_sb, float bdens, float mix_reg, float rho0, float rho0_sand,
-    float frac_min, float frac_max, float mixpressure, float mixbrownian,
-    float gravity, float merge_dist, void* stream) {
-  if (n == 0) return 0;
-  const UnidynConsts k{h,         two_h,       w_norm,    spiky,
-                       mu_eps,    alpha_fluid, sound,     visc_q,
-                       alpha_sb,  bdens,       mix_reg,   rho0,
-                       rho0_sand, frac_min,    frac_max,  mixpressure,
-                       mixbrownian, gravity,   merge_dist};
-  unidyn_pass_a_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      reinterpret_cast<const float4*>(rows), delpress, stress, cid,
-      cell_start, order, octant, out_a, partner,
-      reinterpret_cast<float4*>(drift_sorted), n, g, threshold, k);
-  return (int)cudaGetLastError();
+#define TF_UNIDYN_A_ARGS                                                     \
+  const float *rows, const float *delpress, const float *stress,             \
+      const int *cid, const int *cell_start, const long long *order,         \
+      const int *octant, float *out_a, long long *partner,                   \
+      float *drift_sorted, int n, int g, int threshold
+#define TF_UNIDYN_A_CONSTS                                                   \
+  float h, float two_h, float w_norm, float spiky, float mu_eps,             \
+      float alpha_fluid, float sound, float visc_q, float alpha_sb,          \
+      float bdens, float mix_reg, float rho0, float rho0_sand,               \
+      float frac_min, float frac_max, float mixpressure, float mixbrownian,  \
+      float gravity, float merge_dist
+#define TF_UNIDYN_A_K                                                        \
+  UnidynConsts {                                                             \
+    h, two_h, w_norm, spiky, mu_eps, alpha_fluid, sound, visc_q, alpha_sb,   \
+        bdens, mix_reg, rho0, rho0_sand, frac_min, frac_max, mixpressure,    \
+        mixbrownian, gravity, merge_dist                                     \
+  }
+
+extern "C" int tf_unidyn_pass_a(TF_UNIDYN_A_ARGS, TF_UNIDYN_A_CONSTS,
+                                void* stream) {
+  return launch_a<false>(rows, delpress, stress, cid, cell_start, order,
+                         octant, out_a, partner, drift_sorted, n, g,
+                         threshold, 0, 0, TF_UNIDYN_A_K, stream);
 }
 
 extern "C" int tf_unidyn_pass_b(const float* rows, const float* drift_sorted,
@@ -365,14 +426,29 @@ extern "C" int tf_unidyn_pass_b(const float* rows, const float* drift_sorted,
                                 float* out_b, int n, int g, int threshold,
                                 float h, float two_h, float spiky,
                                 void* stream) {
-  if (n == 0) return 0;
-  UnidynConsts k{};
-  k.h = h;
-  k.two_h = two_h;
-  k.spiky = spiky;
-  unidyn_pass_b_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      reinterpret_cast<const float4*>(rows),
-      reinterpret_cast<const float4*>(drift_sorted), cid, cell_start, order,
-      octant, out_b, n, g, threshold, k);
-  return (int)cudaGetLastError();
+  return launch_b<false>(rows, drift_sorted, cid, cell_start, order, octant,
+                         out_b, n, g, threshold, 0, 0, h, two_h, spiky,
+                         stream);
+}
+
+// The column family's passes: b, w_cap are the caps of
+// config.column_caps; a row over the home cap gets zeros, and zero drift
+// in drift_sorted for pass B.
+extern "C" int tf_unidyn_column_a(TF_UNIDYN_A_ARGS, int b, int w_cap,
+                                  TF_UNIDYN_A_CONSTS, void* stream) {
+  return launch_a<true>(rows, delpress, stress, cid, cell_start, order,
+                        octant, out_a, partner, drift_sorted, n, g,
+                        threshold, b, w_cap, TF_UNIDYN_A_K, stream);
+}
+
+extern "C" int tf_unidyn_column_b(const float* rows,
+                                  const float* drift_sorted, const int* cid,
+                                  const int* cell_start,
+                                  const long long* order, const int* octant,
+                                  float* out_b, int n, int g, int threshold,
+                                  int b, int w_cap, float h, float two_h,
+                                  float spiky, void* stream) {
+  return launch_b<true>(rows, drift_sorted, cid, cell_start, order, octant,
+                        out_b, n, g, threshold, b, w_cap, h, two_h, spiky,
+                        stream);
 }

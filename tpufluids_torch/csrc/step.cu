@@ -39,7 +39,7 @@ struct StepArgs {
   float *force_u, *force_v, *force_w;
   int buoy, vort;
   tf::Buoyancy buoyancy;
-  float h, eps_h;
+  float inv_h, eps_h;
   // velocity diffusion (visc), then the two projections around the
   // self-advection, then dens/temp diffusion (n_scalar fields)
   int visc, n_scalar;
@@ -62,13 +62,13 @@ __global__ void step_whole_kernel(StepArgs g) {
   if (g.buoy || g.vort) {
     for (int idx = loop.start; idx < cells; idx += loop.stride)
       tf::forcing_a_cell(idx, g.u, g.v, g.w, g.dens, g.temp, g.w1, g.mag, n,
-                         g.buoy, g.vort, g.buoyancy, g.h);
+                         g.buoy, g.vort, g.buoyancy, g.inv_h);
     grid.sync();
     if (g.vort) {
       for (int idx = loop.start; idx < cells; idx += loop.stride)
         tf::forcing_b_cell(idx, g.force_in.u, g.force_in.v, g.force_in.w,
                            g.mag, g.force_u, g.force_v, g.force_w, n,
-                           g.buoyancy.dt, g.eps_h, g.h);
+                           g.buoyancy.dt, g.eps_h, g.inv_h);
       grid.sync();
     }
   }
@@ -102,7 +102,7 @@ extern "C" int tf_step3d_whole(
     const float* temp, float* uo, float* vo, float* wo, float* dens_o,
     float* temp_o, float* scratch, int n, int iters, int red_black, int buoy,
     int vort, int visc, int diff, int temp_diff, float dt, float alpha,
-    float beta, float t_amb, float h, float eps_h, float div_coef,
+    float beta, float t_amb, float inv_h, float eps_h, float div_coef,
     float p_c_inv, float dt0, float visc_a, float visc_c_inv, float diff_a,
     float diff_c_inv, float temp_a, float temp_c_inv, void* stream) {
   const long long cells = (long long)(n + 2) * (n + 2) * (n + 2);
@@ -123,7 +123,7 @@ extern "C" int tf_step3d_whole(
   g.buoy = buoy;
   g.vort = vort;
   g.buoyancy = tf::Buoyancy{dt, alpha, beta, t_amb};
-  g.h = h;
+  g.inv_h = inv_h;
   g.eps_h = eps_h;
 
   Vel cur{u, v, w};
@@ -156,7 +156,7 @@ extern "C" int tf_step3d_whole(
   auto project = [&](float* ou, float* ov, float* ow) {
     return tf::ProjectArgs{cur.u, cur.v, cur.w, ou, ov,        ow,
                            T[0],  T[1],  T[2],  n,  iters,     red_black,
-                           div_coef, h,  p_c_inv};
+                           div_coef, inv_h, p_c_inv};
   };
   {
     float* const* o = other();

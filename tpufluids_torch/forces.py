@@ -25,10 +25,11 @@ split trigger (``accum_from_sums``) make the ``ForceAccum``.
 The pool is never permuted.  ``pack_rows`` / ``pack_unidyn_rows``
 gather the fields the pair passes read into sorted order with one row
 gather; the sums come back to pool order through the permutation.  The
-candidates are the 9 uncapped neighbour runs of ``binning.run_table``,
-padded to the longest run present (reading that length is this plain
-path's one host sync), and the home rows go in chunks so a
-262144-particle pool fits in memory.  The CUDA kernels of
+candidates are the 9 neighbour runs of ``binning.run_table`` (uncapped,
+or capped for the column family; whole columns masked by current cells
+for the stale passes), padded to the longest run present (reading that
+length is this plain path's one host sync), and the home rows go in
+chunks so a 524288-particle pool fits in memory.  The CUDA kernels of
 ``tpufluids_torch.sph_kernels`` compute the same sums on the card.
 """
 
@@ -39,7 +40,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from tpufluids_torch.binning import RUN_OFFSETS, BinTable, run_table
+from tpufluids_torch.binning import (RUN_OFFSETS, BinTable, cell_trunc,
+                                     run_table)
 from tpufluids_torch.config import SPHConfig
 from tpufluids_torch.kernels import grad_w_spiky, w_cubic
 from tpufluids_torch.state import ParticleState
@@ -141,26 +143,40 @@ def _chunk_sums(home, cand, valid, cfg: SPHConfig):
     return sum_w, dpress
 
 
-def pair_sums(rows: torch.Tensor, bt: BinTable, cfg: SPHConfig):
+def near_cells(cells_i: torch.Tensor, cells_j: torch.Tensor) -> torch.Tensor:
+    """The stale passes' pair mask: the current truncated cells
+    (``binning.cell_trunc``) of home rows (c, 3) and their candidates
+    (c, M, 3) differ by at most one on x, y and z."""
+    return (torch.abs(cells_i[:, None, :] - cells_j) <= 1.0).all(dim=-1)
+
+
+def pair_sums(rows: torch.Tensor, bt: BinTable, cfg: SPHConfig, caps=None,
+              stale: bool = False):
     """(sum_w (N,), dpress (N, 3)) of the sorted ``rows`` (pack_rows),
     over the uncapped 27-cell stencil runs; rows outside the domain get
-    zeros."""
+    zeros.  ``caps`` = (b, w_cap): the column family's capped pair set
+    (``binning.run_table``).  ``stale``: ``bt`` was built on earlier
+    positions; the candidates are the whole neighbour columns, masked by
+    the rows' current cells (``near_cells``)."""
     n = rows.shape[0]
-    run_start, run_len = run_table(bt, cfg)
+    run_start, run_len = run_table(bt, cfg, caps, whole=stale)
     k = int(run_len.max()) if n else 0       # the plain path's host sync
     sum_w = rows.new_zeros(n)
     dpress = rows.new_zeros((n, 3))
     if k == 0:
         return sum_w, dpress
+    cells = cell_trunc(rows[:, _X:_X + 3], cfg) if stale else None
     slot = torch.arange(k, device=rows.device)
     step = max(1, CHUNK_SLOTS // (9 * k))
     for a in range(0, n, step):
         b = min(n, a + step)
         idx = run_start[a:b, :, None] + slot                   # (c, 9, k)
-        valid = slot < run_len[a:b, :, None]
+        valid = (slot < run_len[a:b, :, None]).reshape(b - a, -1)
         idx = torch.clamp(idx, 0, n - 1).reshape(b - a, -1)
-        sum_w[a:b], dpress[a:b] = _chunk_sums(
-            rows[a:b], rows[idx], valid.reshape(b - a, -1), cfg)
+        if stale:
+            valid = valid & near_cells(cells[a:b], cells[idx])
+        sum_w[a:b], dpress[a:b] = _chunk_sums(rows[a:b], rows[idx], valid,
+                                              cfg)
     return sum_w, dpress
 
 
@@ -369,7 +385,8 @@ def unidyn_result(res_a, res_b, merge_partner, dens, solid_drift,
     """The result dict of the JAX package's unidyn force passes, from the
     pass-A (N, A_COLS) and pass-B (N, B_COLS) sums in pool order: the
     velocity gradient and the stress acceleration are divided by dens
-    and dens^2 after the sum.  ``overflow`` is 0: the runs are uncapped."""
+    and dens^2 after the sum.  ``overflow`` is 0: the runs are uncapped
+    (the column family's wrapper puts its own count there)."""
     n = res_a.shape[0]
     return dict(
         sum_w=res_a[:, A_SUMW],
@@ -390,19 +407,22 @@ def unidyn_result(res_a, res_b, merge_partner, dens, solid_drift,
 
 
 def unidyn_pair_pass(state: ParticleState, bt: BinTable, cfg: SPHConfig,
-                     subbin_threshold=None, drift_fix=None) -> dict:
+                     subbin_threshold=None, drift_fix=None,
+                     caps=None) -> dict:
     """Both unidyn pair passes in plain PyTorch, on any device: ``state``
     in pool order, ``bt`` from ``binning.sort_tables`` (unidyn); returns
     the result dict of ``unidyn_result`` in pool order.
     ``subbin_threshold``: the two-level binning's threshold, None for the
     full stencil.  ``drift_fix`` maps (solid_drift, fluid_drift), in pool
-    order, to the arrays pass B reads."""
+    order, to the arrays pass B reads.  ``caps`` = (b, w_cap): the column
+    family's capped pair set (``binning.run_table``); a row over the home
+    cap gets zeros, so pass B reads zero drift for it."""
     n = state.capacity
     order = bt.order
     rows = pack_unidyn_rows(state, order, bt.in_dom, cfg)
     hx = torch.cat([state.delpress, state.stress.reshape(n, 9)],
                    dim=1)[order]
-    run_start, run_len = run_table(bt, cfg)
+    run_start, run_len = run_table(bt, cfg, caps)
     k = int(run_len.max()) if n else 0       # the plain path's host sync
     out_a = rows.new_zeros((n, A_COLS))
     out_b = rows.new_zeros((n, B_COLS))

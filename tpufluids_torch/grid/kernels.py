@@ -130,15 +130,17 @@ def forcing3d(u, v, w, dens, temp, cfg: stam.StamConfig):
     h = 1.0 / n
     w1 = torch.empty_like(w) if buoy else None
     mag = torch.empty_like(u) if vort else None
+    # the plain version's tensor / h runs on the card as tensor * fl(1 / h),
+    # the reciprocal taken in double: the kernels multiply by 1 / h
     _build.launch("tf_forcing_a", u, v, w, dens, temp, w1, mag, n, buoy,
                   vort, cfg.dt, cfg.buoyancy_alpha, cfg.buoyancy_beta,
-                  cfg.ambient_temp, h)
+                  cfg.ambient_temp, 1.0 / h)
     if buoy:
         w = w1
     if vort:
         outs = tuple(torch.empty_like(u) for _ in range(3))
         _build.launch("tf_forcing_b", u, v, w, mag, *outs, n, cfg.dt,
-                      cfg.vorticity_eps * h, h)
+                      cfg.vorticity_eps * h, 1.0 / h)
         u, v, w = outs
     forcing3d.launches += 1
     return u, v, w
@@ -199,8 +201,9 @@ def gradsub3d(p, u, v, w):
     if not _on_cuda(p, u, v, w):
         return gradsub3d_plain(p, u, v, w)
     n = u.shape[0] - 2
+    h = 1.0 / n
     outs = tuple(torch.empty_like(u) for _ in range(3))
-    _build.launch("tf_gradsub3d", p, u, v, w, *outs, n, 1.0 / n)
+    _build.launch("tf_gradsub3d", p, u, v, w, *outs, n, 1.0 / h)
     gradsub3d.launches += 1
     return outs
 
@@ -356,11 +359,12 @@ def project3d_whole(u, v, w, iters, red_black):
         raise ValueError(f"{tuple(u.shape)} fields are outside the whole "
                          f"tier (whole_ok)")
     n = u.shape[0] - 2
+    h = 1.0 / n
     outs = tuple(torch.empty_like(u) for _ in range(3))
     div, p = torch.empty_like(u), torch.empty_like(u)
     p2 = None if red_black else torch.empty_like(u)
     _build.launch("tf_project3d_whole", u, v, w, *outs, div, p, p2, n, iters,
-                  bool(red_black), -0.5 * (1.0 / n), 1.0 / n, 1.0 / 6.0)
+                  bool(red_black), -0.5 * h, 1.0 / h, 1.0 / 6.0)
     project3d_whole.launches += 1
     return outs
 
@@ -442,7 +446,7 @@ def step3d_whole(u, v, w, dens, temp, cfg: stam.StamConfig):
                   bool(cfg.buoyancy_alpha or cfg.buoyancy_beta),
                   bool(cfg.vorticity_eps), bool(cfg.visc), bool(cfg.diff),
                   bool(cfg.temp_diff), cfg.dt, cfg.buoyancy_alpha,
-                  cfg.buoyancy_beta, cfg.ambient_temp, h,
+                  cfg.buoyancy_beta, cfg.ambient_temp, 1.0 / h,
                   cfg.vorticity_eps * h, -0.5 * (1.0 / n), 1.0 / 6.0,
                   cfg.dt * n, *ac(cfg.visc), *ac(cfg.diff),
                   *ac(cfg.temp_diff))

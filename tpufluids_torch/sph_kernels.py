@@ -1,13 +1,16 @@
 """The hand-written CUDA kernels of the SPH step, beside their plain
-PyTorch versions: the counterpart of ``tpufluids/sph_pallas.py`` for the
-row-block and resident families.
+PyTorch versions: the counterpart of ``tpufluids/sph_pallas.py``.
 
 * ``base_forces_rowblock`` replaces the Pallas kernel of the same name
   (``_base_rowblock_kernel``): ``sum_w`` and ``dpress`` of every particle
   over its exact 27-cell stencil, with no capacity cap, in pool order.
   The wrapper packs the sorted rows with one gather by ``order``
   (``forces.pack_rows``) and launches ``csrc/sph_forces.cu`` (one thread
-  per sorted row, which writes its results at its pool index).
+  per sorted row, which writes its results at its pool index).  Its
+  stale mode serves the sort cadence.
+* ``base_forces_column`` replaces ``base_forces_pallas``: the same
+  pairs, capped per (x, y) column as the column family caps them
+  (``config.column_caps``), fresh or stale, with the overflow count.
 * ``unidyn_forces_resident`` and ``unidyn_forces_rowblock`` replace the
   Pallas kernels of the same names: the two unidyn pair passes, as the
   pair of kernels of ``csrc/sph_unidyn.cu``.  The resident wrapper
@@ -15,6 +18,8 @@ row-block and resident families.
   in sorted order for it; the row-block wrapper runs the ``drift_fix``
   hook on pass A's drifts in pool order and gathers them by ``order``
   for pass B, as ``tpufluids/sph_pallas.py:1674-1684`` does.
+* ``unidyn_forces_column`` replaces ``unidyn_forces_pallas``: the
+  resident passes, capped as the column family caps them.
 
 Each wrapper counts its launches in ``<wrapper>.launches``.  It runs the
 plain version when its tensors lie on the CPU; any other device raises,
@@ -25,9 +30,9 @@ from __future__ import annotations
 
 import torch
 
-from tpufluids_torch import _build, forces
+from tpufluids_torch import _build, binning, forces
 from tpufluids_torch.binning import BinTable
-from tpufluids_torch.config import PI_REF, SPHConfig
+from tpufluids_torch.config import PI_REF, SPHConfig, column_caps
 from tpufluids_torch.state import ParticleState
 
 
@@ -60,22 +65,53 @@ def _on_cuda(state: ParticleState, bt: BinTable, order: torch.Tensor,
     return dev.type == "cuda"
 
 
+def _base_plain(state: ParticleState, bt: BinTable, cfg: SPHConfig,
+                order: torch.Tensor, caps=None, stale=False):
+    """(sum_w, dpress) in pool order from ``forces.pair_sums``."""
+    rows = forces.pack_rows(state, order, bt.in_dom)
+    sum_w, dpress = forces.pair_sums(rows, bt, cfg, caps, stale)
+    return forces.to_pool(sum_w, order), forces.to_pool(dpress, order)
+
+
+def _base_launch(entry: str, state: ParticleState, bt: BinTable,
+                 cfg: SPHConfig, order: torch.Tensor, stale: bool, caps=()):
+    """Launch a base force kernel of csrc/sph_forces.cu; returns (sum_w,
+    dpress) in pool order."""
+    n = state.capacity
+    h = cfg.cutoff
+    rows = forces.pack_rows(state, order, bt.in_dom)
+    sum_w = torch.empty(n, dtype=torch.float32, device=rows.device)
+    dpress = torch.empty((n, 3), dtype=torch.float32, device=rows.device)
+    _build.launch(entry, rows, bt.cid, bt.cell_start, order, sum_w, dpress,
+                  n, cfg.grid_size, *caps, bool(stale), cfg.xmin, cfg.ymin,
+                  cfg.zmin, cfg.cell_size, h, 2 * h, PI_REF * h ** 3,
+                  -45.0 / (PI_REF * h ** 6), 0.01 * h * h,
+                  cfg.alpha_fluid * cfg.sound,
+                  cfg.visc_quadratic / cfg.sound, cfg.alpha_boundary,
+                  cfg.bdensfactor)
+    return sum_w, dpress
+
+
 def base_forces_rowblock_plain(state: ParticleState, bt: BinTable,
-                               cfg: SPHConfig, order: torch.Tensor):
-    """The plain version: ``forces.compute_forces`` on the tables of
+                               cfg: SPHConfig, order: torch.Tensor,
+                               stale: bool = False):
+    """The plain version: ``forces.pair_sums`` on the tables of
     ``order``; returns (sum_w (N,), dpress (N, 3), overflow = 0)."""
-    acc = forces.compute_forces(state, bt._replace(order=order), cfg)
-    return acc.sum_w, acc.dpress, torch.zeros((), dtype=torch.int32,
-                                              device=state.pos.device)
+    return (*_base_plain(state, bt, cfg, order, stale=stale),
+            torch.zeros((), dtype=torch.int32, device=state.pos.device))
 
 
 def base_forces_rowblock(state: ParticleState, bt: BinTable,
-                         cfg: SPHConfig, order: torch.Tensor):
+                         cfg: SPHConfig, order: torch.Tensor,
+                         stale: bool = False):
     """Base-variant forces over the exact 27-cell stencil, as the JAX
     package's ``base_forces_rowblock``: ``state`` in pool order, ``bt``
     and ``order`` from ``binning.sort_tables``; returns (sum_w (N,),
     dpress (N, 3), overflow = 0) in pool order, zero for rows that are
-    dead or outside the domain.
+    dead or outside the domain.  ``stale``: ``bt`` is an earlier step's
+    (``binning.sort_by_cell``, the sort cadence); every row then walks
+    the whole neighbour columns of its stale column and keeps the
+    candidates whose current cells are within one of its own.
 
     Replaces base_forces_rowblock (tpufluids/sph_pallas.py).  The TPU
     kernel's 128-row home blocks, DMA double buffer and chunk knobs are
@@ -86,21 +122,49 @@ def base_forces_rowblock(state: ParticleState, bt: BinTable,
     if cfg.variant != "base":
         raise ValueError("base_forces_rowblock takes the base variant")
     if not _on_cuda(state, bt, order, cfg):
-        return base_forces_rowblock_plain(state, bt, cfg, order)
-    n = state.capacity
-    h = cfg.cutoff
-    rows = forces.pack_rows(state, order, bt.in_dom)
-    sum_w = torch.empty(n, dtype=torch.float32, device=rows.device)
-    dpress = torch.empty((n, 3), dtype=torch.float32, device=rows.device)
-    _build.launch("tf_sph_base_forces", rows, bt.cid, bt.cell_start, order,
-                  sum_w, dpress, n, cfg.grid_size, h, 2 * h,
-                  PI_REF * h ** 3, -45.0 / (PI_REF * h ** 6), 0.01 * h * h,
-                  cfg.alpha_fluid * cfg.sound,
-                  cfg.visc_quadratic / cfg.sound, cfg.alpha_boundary,
-                  cfg.bdensfactor)
+        return base_forces_rowblock_plain(state, bt, cfg, order, stale)
+    sum_w, dpress = _base_launch("tf_sph_base_forces", state, bt, cfg, order,
+                                 stale)
     base_forces_rowblock.launches += 1
     return sum_w, dpress, torch.zeros((), dtype=torch.int32,
-                                      device=rows.device)
+                                      device=sum_w.device)
+
+
+def base_forces_column_plain(state: ParticleState, bt: BinTable,
+                             cfg: SPHConfig, order: torch.Tensor,
+                             stale: bool = False):
+    """The plain version: ``forces.pair_sums`` over the capped column
+    pair set; returns (sum_w (N,), dpress (N, 3), overflow)."""
+    caps = column_caps(cfg)
+    return (*_base_plain(state, bt, cfg, order, caps, stale),
+            binning.column_overflow(bt, cfg, caps[0]))
+
+
+def base_forces_column(state: ParticleState, bt: BinTable, cfg: SPHConfig,
+                       order: torch.Tensor, stale: bool = False):
+    """Base-variant forces of the column family, as the JAX package's
+    ``base_forces_pallas``: the pairs of ``base_forces_rowblock`` (fresh
+    or ``stale``), capped by ``config.column_caps``.  A row at rank b or
+    more in its (x, y) column gets zeros, and only the first w_cap rows
+    of each neighbour column are candidates.  Returns (sum_w (N,),
+    dpress (N, 3), overflow), the overflow an int32 device scalar: the
+    rows over the home cap, summed over the columns.
+
+    Replaces base_forces_pallas (tpufluids/sph_pallas.py), one program
+    per (x, y) column over capped VMEM window tiles.  On the card one
+    thread per sorted row walks the capped columns from device memory
+    (csrc/sph_forces.cu, the row-block kernel's pair loop with the caps):
+    the TPU kernel's tiles, home chunks, z-skip and banded sweep leave its
+    results unchanged and are not carried over."""
+    if cfg.variant != "base":
+        raise ValueError("base_forces_column takes the base variant")
+    if not _on_cuda(state, bt, order, cfg):
+        return base_forces_column_plain(state, bt, cfg, order, stale)
+    caps = column_caps(cfg)
+    sum_w, dpress = _base_launch("tf_sph_base_column", state, bt, cfg,
+                                 order, stale, caps)
+    base_forces_column.launches += 1
+    return sum_w, dpress, binning.column_overflow(bt, cfg, caps[0])
 
 
 def _unidyn_on_cuda(state: ParticleState, bt: BinTable, order, cfg,
@@ -119,10 +183,11 @@ def _unidyn_on_cuda(state: ParticleState, bt: BinTable, order, cfg,
 
 
 def _unidyn_pass_a(state: ParticleState, bt: BinTable, cfg: SPHConfig,
-                   order, subbin_threshold, drift_sorted):
+                   order, subbin_threshold, drift_sorted, caps=()):
     """Launch pass A; returns (rows, out_a (N, A_COLS) in pool order,
     merge partner (N,) pool rows or -1).  ``drift_sorted`` (N, 8) or None
-    receives the drift velocities in sorted order."""
+    receives the drift velocities in sorted order.  ``caps`` (b, w_cap):
+    the column family's pass."""
     n = state.capacity
     dev = state.pos.device
     h = cfg.cutoff
@@ -133,10 +198,11 @@ def _unidyn_pass_a(state: ParticleState, bt: BinTable, cfg: SPHConfig,
                else torch.full((n,), -1, dtype=torch.int64, device=dev))
     sub = subbin_threshold is not None
     _build.launch(
-        "tf_unidyn_pass_a", rows, state.delpress, state.stress, bt.cid,
-        bt.cell_start, order, bt.octant if sub else None, out_a,
-        partner if merge else None, drift_sorted, n, cfg.grid_size,
-        subbin_threshold if sub else -1, h, 2 * h, PI_REF * h ** 3,
+        "tf_unidyn_column_a" if caps else "tf_unidyn_pass_a", rows,
+        state.delpress, state.stress, bt.cid, bt.cell_start, order,
+        bt.octant if sub else None, out_a, partner if merge else None,
+        drift_sorted, n, cfg.grid_size, subbin_threshold if sub else -1,
+        *caps, h, 2 * h, PI_REF * h ** 3,
         -45.0 / (PI_REF * h ** 6), 0.01 * h * h, cfg.alpha_fluid, cfg.sound,
         cfg.visc_quadratic / cfg.sound, cfg.alpha_sand_boundary,
         cfg.bdensfactor, cfg.mixfactor_reg, cfg.rho0, cfg.rho0_sand,
@@ -146,16 +212,17 @@ def _unidyn_pass_a(state: ParticleState, bt: BinTable, cfg: SPHConfig,
 
 
 def _unidyn_pass_b(rows, drift_sorted, bt: BinTable, cfg: SPHConfig, order,
-                   subbin_threshold):
+                   subbin_threshold, caps=()):
     """Launch pass B; returns out_b (N, B_COLS) in pool order."""
     n = rows.shape[0]
     h = cfg.cutoff
     sub = subbin_threshold is not None
     out_b = torch.empty((n, forces.B_COLS), dtype=torch.float32,
                         device=rows.device)
-    _build.launch("tf_unidyn_pass_b", rows, drift_sorted, bt.cid,
-                  bt.cell_start, order, bt.octant if sub else None, out_b, n,
-                  cfg.grid_size, subbin_threshold if sub else -1, h, 2 * h,
+    _build.launch("tf_unidyn_column_b" if caps else "tf_unidyn_pass_b", rows,
+                  drift_sorted, bt.cid, bt.cell_start, order,
+                  bt.octant if sub else None, out_b, n, cfg.grid_size,
+                  subbin_threshold if sub else -1, *caps, h, 2 * h,
                   -45.0 / (PI_REF * h ** 6))
     return out_b
 
@@ -234,8 +301,57 @@ def unidyn_forces_rowblock(state: ParticleState, bt: BinTable,
     return forces.unidyn_result(out_a, out_b, partner, state.dens, sdv, fdv)
 
 
-KERNELS = (base_forces_rowblock, unidyn_forces_resident,
-           unidyn_forces_rowblock)
+def unidyn_forces_column_plain(state: ParticleState, bt: BinTable,
+                               cfg: SPHConfig, order: torch.Tensor,
+                               subbin_threshold=None) -> dict:
+    """The plain version: ``forces.unidyn_pair_pass`` over the capped
+    column pair set, with the column overflow."""
+    caps = column_caps(cfg)
+    r = forces.unidyn_pair_pass(state, bt._replace(order=order), cfg,
+                                subbin_threshold, caps=caps)
+    r["overflow"] = binning.column_overflow(bt, cfg, caps[0])
+    return r
+
+
+def unidyn_forces_column(state: ParticleState, bt: BinTable,
+                         cfg: SPHConfig, order: torch.Tensor,
+                         subbin_threshold=None) -> dict:
+    """Both unidyn pair passes of the column family, as the JAX package's
+    ``unidyn_forces_pallas``: the pairs of ``unidyn_forces_resident``
+    capped by ``config.column_caps``.  A row at rank b or more in its
+    (x, y) column gets zeros (and pass B reads zero drift for it), and
+    only the first w_cap rows of each neighbour column are candidates.
+    Returns the result dict of ``forces.unidyn_result`` in pool order,
+    with the overflow (rows over the home cap, summed over the columns)
+    as an int32 device scalar.
+
+    Replaces unidyn_forces_pallas (tpufluids/sph_pallas.py), whose two
+    column kernels sweep capped VMEM window tiles and splice pass A's
+    drifts into the packed pool for pass B.  On the card pass A (one
+    thread per sorted row) writes the drifts in sorted order and pass B,
+    launched right after it, reads them there (csrc/sph_unidyn.cu, the
+    resident passes with the caps)."""
+    if not _unidyn_on_cuda(state, bt, order, cfg, subbin_threshold):
+        return unidyn_forces_column_plain(state, bt, cfg, order,
+                                          subbin_threshold)
+    caps = column_caps(cfg)
+    drift = torch.empty((state.capacity, 8), dtype=torch.float32,
+                        device=state.pos.device)
+    rows, out_a, partner = _unidyn_pass_a(state, bt, cfg, order,
+                                          subbin_threshold, drift, caps)
+    out_b = _unidyn_pass_b(rows, drift, bt, cfg, order, subbin_threshold,
+                           caps)
+    unidyn_forces_column.launches += 1
+    r = forces.unidyn_result(
+        out_a, out_b, partner, state.dens,
+        out_a[:, forces.A_SDV:forces.A_SDV + 3],
+        out_a[:, forces.A_FDV:forces.A_FDV + 3])
+    r["overflow"] = binning.column_overflow(bt, cfg, caps[0])
+    return r
+
+
+KERNELS = (base_forces_rowblock, base_forces_column, unidyn_forces_resident,
+           unidyn_forces_rowblock, unidyn_forces_column)
 
 
 def reset_launches():

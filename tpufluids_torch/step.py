@@ -1,19 +1,21 @@
 """The SPH step and its step loop: ``tpufluids.step`` in PyTorch.
 
 One step is the JAX package's Pallas path (``step.py:183-226``):
-``binning.sort_tables`` (the pool is never permuted), the force pass
+``binning.sort_tables`` (the pool is not permuted), the force pass
 (the CUDA kernels of ``sph_kernels`` on the card, their plain versions
 on the CPU), then, for the unidyn variant, the granular pass and the
 split trigger, the merges, the update, the split re-injection, and the
-step's metrics.  The force pass is ``base_forces_rowblock`` for the base
-variant, and ``unidyn_forces_resident`` or ``unidyn_forces_rowblock``
-for the unidyn variant, chosen as the JAX package's
-``dispatch_forces`` chooses.  Nothing in a step synchronises the host
-with the device: the metrics stay device tensors, so ``run_python``
-enqueues steps back to back.
+step's metrics.  ``dispatch_forces`` picks the force kernel as the JAX
+package's does: the row-block or column family of the base variant,
+the resident, row-block or column family of the unidyn variant.  With
+``sort_every`` k > 1 (base only), ``run_python`` sorts the pool into
+cell order every k-th step and runs the steps between on the stale
+tables (``sph_sort_step``, ``sph_step_stale``).  Nothing in a step
+synchronises the host with the device: the metrics stay device
+tensors, so ``run_python`` enqueues steps back to back.
 
-Configurations outside the ported slice raise ``NotImplementedError``
-naming the ROADMAP.md item that will port them.
+The base variant with ``subbin_parity`` raises ``NotImplementedError``
+naming the ROADMAP.md item that will port it.
 """
 
 from __future__ import annotations
@@ -78,46 +80,91 @@ def _not_ported(what: str, item: str):
         f"{what} is not ported to tpufluids_torch yet (ROADMAP.md {item})")
 
 
-def _check_slice(cfg: SPHConfig, capacity: int, subbin_parity):
-    """Raise for a configuration outside the ported slice."""
-    if cfg.sort_every > 1:
-        raise _not_ported("sort_every > 1", "Queue 1 item 4")
+def use_sort_every(cfg: SPHConfig, subbin_parity=None) -> bool:
+    """Whether ``run_python`` runs the sort cadence (``sort_every > 1``),
+    as the JAX package's ``use_sort_every``: the base variant on the
+    kernels only.  The unidyn sub-bin and merge state lives in the tables
+    and would go stale; the JAX package's XLA backend has no stale pass.
+    The port's "auto" backend is the kernels (the plain versions on the
+    CPU); the base variant with ``subbin_parity`` runs on none of them."""
+    if cfg.sort_every <= 1:
+        return False
+    if cfg.variant != "base":
+        raise ValueError("sort_every > 1 supports the base variant only "
+                         "(unidyn sub-bin/merge state would go stale "
+                         "between sorts)")
+    if cfg.force_backend == "xla" or resolve_subbin(cfg, subbin_parity):
+        raise ValueError("sort_every > 1 requires the Pallas force backend "
+                         "(the port's kernels)")
+    return True
+
+
+def _check_slice(cfg: SPHConfig, subbin_parity):
+    """Raise for a configuration outside the ported slice, or one that
+    the JAX package refuses (``use_sort_every``)."""
+    if cfg.variant == "base" and resolve_subbin(cfg, subbin_parity):
+        raise _not_ported("the base variant with subbin_parity=True",
+                          "Queue 1 item 4")
+    use_sort_every(cfg, subbin_parity)
+
+
+def dispatch_forces(state: ParticleState, bt: binning.BinTable,
+                    cfg: SPHConfig, subbin_parity=None, stale=False):
+    """The force pass of the JAX package's ``dispatch_forces``
+    (``tpufluids/step.py:76-180``): the kernel family by
+    ``resolve_kernel_family`` for the base variant (the row-block kernel,
+    or the column kernel for "column" and "resident" alike), by
+    ``resolve_unidyn_kernel`` for the unidyn variant.  ``state`` in pool
+    order and ``bt`` from ``binning.sort_tables`` (or ``sort_by_cell``);
+    ``stale``: ``bt`` is an earlier step's (base only).  Returns
+    (ForceAccum, kernel overflow)."""
+    order = bt.order
     if cfg.variant == "base":
-        if resolve_subbin(cfg, subbin_parity):
-            raise _not_ported("the base variant with subbin_parity=True",
-                              "Queue 1 item 4")
-        family = resolve_kernel_family(cfg, capacity)
-        if family != "rowblock":
-            raise _not_ported(
-                f"the {family!r} kernel family (pallas_kernel="
-                f"{cfg.pallas_kernel!r}, {capacity} rows)",
-                "Queue 2, kernel #13 base_forces_pallas")
-    elif resolve_unidyn_kernel(cfg, capacity) == "column":
-        raise _not_ported(
-            f"the unidyn column kernel family (pallas_kernel="
-            f"{cfg.pallas_kernel!r}, {capacity} rows)",
-            "Queue 2, kernel #14 unidyn_forces_pallas")
+        if resolve_kernel_family(cfg, state.capacity) == "rowblock":
+            fn = sph_kernels.base_forces_rowblock
+        else:
+            fn = sph_kernels.base_forces_column
+        sum_w, dpress, overflow = fn(state, bt, cfg, order, stale)
+        return ForceAccum(sum_w, dpress), overflow
+    threshold = (cfg.subbin_threshold if resolve_subbin(cfg, subbin_parity)
+                 else None)
+    fn = getattr(sph_kernels,
+                 f"unidyn_forces_{resolve_unidyn_kernel(cfg, state.capacity)}")
+    r = fn(state, bt, cfg, order, subbin_threshold=threshold)
+    return accum_from_sums(state, r, cfg), r["overflow"]
 
 
 def sph_step(state: ParticleState, cfg: SPHConfig, subbin_parity=None
              ) -> tuple[ParticleState, StepMetrics]:
     """One physics step; returns the new state and its metrics."""
-    _check_slice(cfg, state.capacity, subbin_parity)
-    order, bt = binning.sort_tables(state, cfg)
-    if cfg.variant == "base":
-        sum_w, dpress, overflow = sph_kernels.base_forces_rowblock(
-            state, bt, cfg, order)
-        return _finish_step(state, ForceAccum(sum_w, dpress), overflow, cfg)
-    threshold = (cfg.subbin_threshold if resolve_subbin(cfg, subbin_parity)
-                 else None)
-    if resolve_unidyn_kernel(cfg, state.capacity) == "resident":
-        r = sph_kernels.unidyn_forces_resident(
-            state, bt, cfg, order, subbin_threshold=threshold)
-    else:
-        r = sph_kernels.unidyn_forces_rowblock(
-            state, bt, cfg, order, subbin_threshold=threshold)
-    return _finish_step(state, accum_from_sums(state, r, cfg),
-                        r["overflow"], cfg)
+    _check_slice(cfg, subbin_parity)
+    _, bt = binning.sort_tables(state, cfg)
+    acc, overflow = dispatch_forces(state, bt, cfg, subbin_parity)
+    return _finish_step(state, acc, overflow, cfg)
+
+
+def sph_step_stale(state: ParticleState, bt: binning.BinTable,
+                   cfg: SPHConfig) -> tuple[ParticleState, StepMetrics]:
+    """One step against the tables of the last sort (the sort cadence):
+    the pool is still in that sort's order (``binning.sort_by_cell``), so
+    the force kernels read it as it lies and mask every pair by the
+    current cells; no sort, as the JAX package's ``sph_step_stale``."""
+    acc, overflow = dispatch_forces(state, bt, cfg, stale=True)
+    return _finish_step(state, acc, overflow, cfg)
+
+
+def sph_sort_step(state: ParticleState, cfg: SPHConfig):
+    """The cadence's sort step, as the JAX package's ``_jitted_sort_step``:
+    the pool permuted into cell order, then one stale step on the fresh
+    tables.  Returns (state, tables, metrics); ``sph_sort_step.calls``
+    counts the calls."""
+    state, bt = binning.sort_by_cell(state, cfg)
+    state, metrics = sph_step_stale(state, bt, cfg)
+    sph_sort_step.calls += 1
+    return state, bt, metrics
+
+
+sph_sort_step.calls = 0
 
 
 def _finish_step(state: ParticleState, acc: ForceAccum, overflow,
@@ -146,10 +193,22 @@ def _finish_step(state: ParticleState, acc: ForceAccum, overflow,
 
 def run_python(state: ParticleState, cfg: SPHConfig, n_steps: int,
                subbin_parity=None):
-    """``n_steps`` steps, one ``sph_step`` call each, with no host sync;
-    returns (state, last-step metrics).  The JAX package's tunnel fence
-    (``FENCE_EVERY``) has no counterpart here."""
+    """``n_steps`` steps with no host sync; returns (state, last-step
+    metrics).  With ``sort_every`` k > 1 (``use_sort_every``) every k-th
+    step, the first included, is a sort step and the others are stale
+    steps on its tables, as the JAX package's ``run_python`` runs them;
+    otherwise every step is one ``sph_step`` call.  The JAX package's
+    tunnel fence (``FENCE_EVERY``) has no counterpart here."""
+    _check_slice(cfg, subbin_parity)
     metrics = None
+    if use_sort_every(cfg, subbin_parity):
+        bt = None
+        for i in range(n_steps):
+            if i % cfg.sort_every == 0:
+                state, bt, metrics = sph_sort_step(state, cfg)
+            else:
+                state, metrics = sph_step_stale(state, bt, cfg)
+        return state, metrics
     for _ in range(n_steps):
         state, metrics = sph_step(state, cfg, subbin_parity)
     return state, metrics
