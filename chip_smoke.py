@@ -9,11 +9,15 @@
    inputs with set_bnd-consistent ghosts, and times both with CUDA
    events at the main path's shapes: the stencil kernels and the
    streamed Jacobi and red-black pressure solves (a = 1, c = 6, b = 0)
-   at 256^3, the whole tier (three-field diffusion, the fused projection
-   and the whole step of config 4) at 64^3.  The solves are checked,
-   untimed, at config 2's diffusion coefficients (b = 1) too, and the
-   whole step of configs 2 and 4 must equal the separate kernels
-   (stam.step3d_multi) bit for bit.
+   at 256^3, their bfloat16 versions at 512^3, the whole tier (the
+   whole solve in float32 and bfloat16, Jacobi and red-black, the
+   three-field diffusion, the fused projection and the whole step of
+   config 4) at 64^3.  The solves are checked, untimed, at config 2's
+   diffusion coefficients (b = 1) too; the bfloat16 solves and the whole
+   solve must equal their plain versions bit for bit, the whole solve
+   the streamed solve of its type, and the bfloat16 solve must differ
+   from the float32 one; the whole step of configs 2 and 4 must equal
+   the separate kernels (stam.step3d_multi) bit for bit.
    The 2D kernels (csrc/grid2d.cu) at config 1's 130^2 fields: the
    solve (a = 1, c = 4, b = 0, and config 1's diffusion at b = 1) and
    the whole step (config 1, and config 1 with buoyancy and vorticity)
@@ -22,17 +26,26 @@
 3. Runs 4 steps of the bench.py scene and of BASELINE configs 2 and 4
    at 16^3, and of BASELINE config 1 at 32^2, on the card and on the CPU
    (plain versions) and compares them.
-4. Drives five 3D grid configurations through
+4. Drives eleven 3D grid configurations through
    tpufluids_torch.grid.stam.run3d_python: the bench.py scene (DCT) and
    config 3 (red-black Jacobi, "jacobi continuity") at 256^3 for 3
    warm-up and 30 timed steps, config 3 with plain Jacobi for 3 and 10,
-   configs 2 and 4 at 64^3 for 3 and 400, as bench.py times them, and
-   the CLI's plume3d scene (gather advection, no whole step) at 64^3 for
-   3 and 20.  Each first runs two steps through the kernels against two
-   through the plain versions: one without the residual (at 64^3 the
-   whole step, for stencil advection) and one with it.  Checks shape,
-   finiteness, the final Poisson residual and the kernel launches of the
-   timed run.  Then two 2D configurations through stam.run2d_python at
+   configs 2 and 4 at 64^3 for 3 and 400, as bench.py times them, the
+   CLI's plume3d scene (gather advection, no whole step) at 64^3 for 3
+   and 20; config 3 at 512^3 in float32 and then with the bfloat16
+   solver (verify/bench_bf16_512.py) for 3 and 10 each, and their
+   ms/step ratio; config 4 with the bfloat16 solver at 64^3 for 3 and
+   100; config 3 with plain Jacobi and the bfloat16 solver, and with
+   the multigrid projection (two V-cycles), at 256^3 for 3 and 10.
+   Each first runs two steps through the kernels against two through
+   the plain versions: one without the residual (at 64^3 the whole
+   step, for stencil advection in float32) and one with it.  Checks
+   shape, finiteness, the final Poisson residual and the kernel
+   launches of the timed run.  Then the CLI's plume3d --mac scene
+   through tpufluids_torch.grid.mac.run3d_python at 64^3, with the
+   Jacobi projection (the whole solve) and with multigrid, for 3 and 20
+   steps each, the same way, with no host sync allowed; multigrid must
+   leave less divergence.  Then two 2D configurations through stam.run2d_python at
    128^2 with bench.py's sources: BASELINE config 1 (one whole-step
    launch a step) for 3 and 400 steps, and the CLI's smoke2d default
    (gather advection: five solve launches a step) for 3 and 100, with
@@ -108,6 +121,7 @@ import numpy as np
 import torch
 
 N_BIG = 256
+N_512 = 512              # verify/bench_bf16_512.py: the bfloat16 solver
 N_WHOLE = 64             # BASELINE configs 2 and 4: the whole tier
 N_2D = 128               # BASELINE config 1
 SEED = 0
@@ -119,10 +133,12 @@ PROFILE_STEPS = 10       # steps of each grid path under torch.profiler
 MAX_RESIDUAL = 1e-8
 RESIDUAL_RTOL = 1e-3
 STEP_TOL = 1e-5          # one or four steps, relative to max|field|
-# the card's peaks (H100 SXM data sheet): bytes/s of device memory and
-# float32 operations/s outside the tensor cores
+# the card's peaks (H100 SXM data sheet and whitepaper): bytes/s of
+# device memory, and float32 and bfloat16 operations/s outside the tensor
+# cores (bfloat16 runs two to an instruction, at twice the float32 rate)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 133.8e12
 # kernel name -> (source, Pallas kernel it replaces, tolerance relative
 # to max|plain output|)
 KERNELS = {
@@ -138,6 +154,13 @@ KERNELS = {
                     "tpufluids/grid/pallas_kernels.py:2455", 1e-6),
     "lin_solve3d_rb": ("tpufluids_torch/csrc/jacobi.cu",
                        "tpufluids/grid/pallas_kernels.py:2285", 1e-6),
+    # bit for bit: lin_solve3d_pallas(dtype=bfloat16) and its whole mode
+    "lin_solve3d_bf16": ("tpufluids_torch/csrc/jacobi.cu",
+                         "tpufluids/grid/pallas_kernels.py:2455", 0.0),
+    "lin_solve3d_rb_bf16": ("tpufluids_torch/csrc/jacobi.cu",
+                            "tpufluids/grid/pallas_kernels.py:2455", 0.0),
+    "lin_solve3d_whole": ("tpufluids_torch/csrc/jacobi.cu",
+                          "tpufluids/grid/pallas_kernels.py:136", 0.0),
     "diffuse3d_multi": ("tpufluids_torch/csrc/jacobi.cu",
                         "tpufluids/grid/pallas_kernels.py:247", 1e-6),
     "project3d_whole": ("tpufluids_torch/csrc/jacobi.cu",
@@ -189,6 +212,9 @@ GRID_OPS = {
     "gradsub3d": lambda a: 15,
     "lin_solve3d": lambda a: 8 * a[5],
     "lin_solve3d_rb": lambda a: 8 * a[5],
+    "lin_solve3d_bf16": lambda a: 8 * a[5],
+    "lin_solve3d_rb_bf16": lambda a: 8 * a[5],
+    "lin_solve3d_whole": lambda a: 8 * a[5],
     "diffuse3d_multi": lambda a: 8 * a[2] * len(a[0]),
     "project3d_whole": lambda a: 6 + 8 * a[3] + 15,
     "step3d_whole": lambda a: step_ops(a[5]),
@@ -204,6 +230,8 @@ CONFIG2_KW = dict(dt=0.05, diff=1e-5, visc=1e-5, jacobi_iters=20,
                   red_black=True, advect_mode="stencil")  # bench.py:327-329
 PLUME_KW = dict(buoyancy_alpha=0.05, buoyancy_beta=1.0,
                 vorticity_eps=2.0)                       # bench.py:324-326
+PLUME3D_KW = dict(dt=0.05, diff=1e-5, visc=1e-5, jacobi_iters=20,
+                  buoyancy_alpha=0.05, buoyancy_beta=1.0)  # cli.py:190-197
 GRID_PATHS = {
     "bench (DCT)": (dict(BENCH_KW, projection="dct",
                          dct_precision_first="default"), N_BIG, 3, 30),
@@ -214,10 +242,30 @@ GRID_PATHS = {
     "config 2": (CONFIG2_KW, N_WHOLE, 3, 400),
     "config 4": ({**CONFIG2_KW, **PLUME_KW}, N_WHOLE, 3, 400),
     # the CLI's plume3d (cli.py:190-197, 250-255): its defaults, gather
-    "plume3d (gather)": (dict(dt=0.05, diff=1e-5, visc=1e-5,
-                              jacobi_iters=20, buoyancy_alpha=0.05,
-                              buoyancy_beta=1.0, advect_mode="gather"),
-                         N_WHOLE, 3, 20),
+    "plume3d (gather)": (dict(PLUME3D_KW, advect_mode="gather"), N_WHOLE,
+                         3, 20),
+    # config 3 at 512^3 in float32 and with the bfloat16 solver, one after
+    # the other, as verify/bench_bf16_512.py compares them
+    "config 3, float32": (dict(BENCH_KW, projection="jacobi"), N_512, 3, 10),
+    "config 3, bf16 solver": (dict(BENCH_KW, projection="jacobi",
+                                   solver_dtype="bfloat16"), N_512, 3, 10),
+    # bf16 diffusion and projection: no whole step
+    "config 4, bf16 solver": ({**CONFIG2_KW, **PLUME_KW,
+                               "solver_dtype": "bfloat16"}, N_WHOLE, 3, 100),
+    "config 3, plain Jacobi, bf16 solver": (
+        dict(BENCH_KW, projection="jacobi", red_black=False,
+             solver_dtype="bfloat16"), N_BIG, 3, 10),
+    # the multigrid projection (cli.py:72-84; BASELINE.md:90)
+    "config 3, multigrid": (dict(BENCH_KW, projection="multigrid",
+                                 mg_cycles=2), N_BIG, 3, 10),
+}
+# mac.run3d_python's paths: the CLI's plume3d --mac (cli.py:87-90,
+# 234-246), its defaults: name -> (configuration keywords, size, warm-up
+# and timed steps)
+MAC_PATHS = {
+    "plume3d --mac": (PLUME3D_KW, N_WHOLE, 3, 20),
+    "plume3d --mac, multigrid": (dict(PLUME3D_KW, projection="multigrid"),
+                                 N_WHOLE, 3, 20),
 }
 # run2d_python's paths, with bench.py's sources: name -> (configuration
 # keywords, size, warm-up and timed steps)
@@ -352,11 +400,12 @@ def grid_state(stam, path, cfg, device):
     return s
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, ops_per_s=FP32_OPS_PER_S):
     """(ms, what bounds it): the least time for ``nbytes`` of device
-    memory traffic and ``ops`` float32 operations."""
+    memory traffic and ``ops`` operations at ``ops_per_s`` (float32 by
+    default)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     if t_bytes >= t_ops:
         return float(t_bytes), "bytes"
     return float(t_ops), "operations"
@@ -372,12 +421,23 @@ def tensors_in(args):
     return list(found.values())
 
 
+def bf16_storage(name, args):
+    """True for a solve whose kernel stores its fields as bfloat16."""
+    return name.endswith("_bf16") or (name == "lin_solve3d_whole"
+                                      and args[7] == torch.bfloat16)
+
+
 def grid_work(name, args, outs):
-    """(bytes, operations) of one grid kernel call: each input field read
-    once, each output written once, GRID_OPS per interior cell."""
+    """(bytes, operations, peak operations/s) of one grid kernel call:
+    each input field read once, each output written once, GRID_OPS per
+    interior cell; a bfloat16 solve moves 2 B a cell (its float32 casts
+    are torch ops around it) and does bfloat16 operations."""
     n = outs[0].shape[0] - 2
     nbytes = sum(t.nbytes for t in tensors_in(args) + list(outs))
-    return nbytes, GRID_OPS[name](args) * n ** outs[0].dim()
+    ops = GRID_OPS[name](args) * n ** outs[0].dim()
+    if bf16_storage(name, args):
+        return nbytes // 2, ops, BF16_OPS_PER_S
+    return nbytes, ops, FP32_OPS_PER_S
 
 
 def rel_err(got, want):
@@ -489,6 +549,11 @@ def check_kernels(stam, kernels, dev):
     u2, v2 = (field2d(b, -1.2 / (c1.dt * N_2D), 1.2 / (c1.dt * N_2D))
               for b in (1, 2))
     d2, t2, p2 = (field2d(0, 0.0, 1.0) for _ in range(3))
+    # the bfloat16 solves' pressure right-hand sides: 512^3 (config 3 with
+    # the bf16 solver) and 64^3
+    p512 = field(N_512, 0, 0.0, 1.0)
+    p64 = field(N_WHOLE, 0, 0.0, 1.0)
+    f32, bf16 = torch.float32, torch.bfloat16
     # the main path's call shapes, timed
     calls = {
         "advect3d_multi": [((u, v, w), (1, 2, 3), u, v, w, dt0),
@@ -499,6 +564,12 @@ def check_kernels(stam, kernels, dev):
         # the pressure solve from a zero guess
         "lin_solve3d": [(0, None, p, 1.0, 6.0, 20)],
         "lin_solve3d_rb": [(0, None, p, 1.0, 6.0, 20)],
+        "lin_solve3d_bf16": [(0, None, p512, 1.0, 6.0, 20)],
+        "lin_solve3d_rb_bf16": [(0, None, p512, 1.0, 6.0, 20)],
+        # the 64^3 pressure solves: plume3d --mac's (float32 Jacobi) and
+        # config 4's with the bf16 solver (red-black)
+        "lin_solve3d_whole": [(0, None, p64, 1.0, 6.0, 20, rb, dt)
+                              for dt in (f32, bf16) for rb in (False, True)],
         "diffuse3d_multi": [((u64, v64, w64),
                              tuple((b, a2, 1 + 6 * a2) for b in (1, 2, 3)),
                              20)],
@@ -515,6 +586,10 @@ def check_kernels(stam, kernels, dev):
     checked_only = {
         "lin_solve3d": [(1, u, u, a2, 1 + 6 * a2, 20)],
         "lin_solve3d_rb": [(1, u, u, a2, 1 + 6 * a2, 20)],
+        "lin_solve3d_bf16": [(1, u64, u64, a2, 1 + 6 * a2, 20)],
+        "lin_solve3d_rb_bf16": [(1, u64, u64, a2, 1 + 6 * a2, 20)],
+        "lin_solve3d_whole": [(1, u64, u64, a2, 1 + 6 * a2, 20, rb, dt)
+                              for dt in (f32, bf16) for rb in (False, True)],
         "step3d_whole": [(u64, v64, w64, d64, t64, c2),
                          (u64, v64, w64, d64, t64,
                           c4.replace(red_black=False))],
@@ -547,6 +622,8 @@ def check_kernels(stam, kernels, dev):
                     f"{bool(args[5].vorticity_eps)}: bitwise equal to "
                     f"stam.step3d_multi: {same}")
                 check(same, "step3d_whole differs from stam.step3d_multi")
+            if name == "lin_solve3d_whole":
+                check_whole_solve(kernels, args, got[0])
             if name == "step2d_whole":
                 sep = stam.step2d_multi(stam.GridState2D(*args[:4]), args[4])
                 same = all(torch.equal(g, getattr(sep, f))
@@ -559,20 +636,68 @@ def check_kernels(stam, kernels, dev):
         # per call, averaged over the call shapes of the step
         ms = [time_ms(lambda a=a: kern(*a)) for a in arg_sets]
         plain_ms = [time_ms(lambda a=a: plain(*a)) for a in arg_sets]
-        bound_ms, bound_by = bound(*np.mean(work, axis=0))
-        log(f"kernel {name} @ {got[0].shape[0] - 2}^{got[0].dim()}: "
+        # each call's bound at the peak of its own type, then averaged as
+        # the times are
+        bounds = [bound(*w) for w in work]
+        bound_ms = float(np.mean([t for t, _ in bounds]))
+        by_bytes = sum(t for t, by in bounds if by == "bytes")
+        bound_by = "bytes" if 2 * by_bytes >= len(bounds) * bound_ms \
+            else "operations"
+        timed = tensors_in(arg_sets[0])[0]
+        log(f"kernel {name} timed @ {timed.shape[0] - 2}^{timed.dim()}: "
             f"max_abs_err "
             f"{err:.3e} (relative {rel:.3e}, tolerance {tol:.0e}); ms per "
             f"call: kernel {ms}, plain {plain_ms}; bound {bound_ms:.4f} ms "
-            f"({bound_by}; bytes, operations per call: {work})")
+            f"({bound_by}; per call {bounds}; bytes, operations, peak "
+            f"operations/s per call: {work})")
         check(rel <= tol, f"{name}: kernel disagrees with its plain version "
                           f"({rel:.3e} > {tol:.0e})")
+        if name == "lin_solve3d_rb_bf16":
+            # the bf16 route ran: its result is not the float32 solve's
+            bf16_out = kern(*arg_sets[0])
+            f32_out = kernels.lin_solve3d_rb(*arg_sets[0])
+            diff = float((bf16_out - f32_out).abs().max()
+                         / f32_out.abs().max())
+            log(f"lin_solve3d_rb_bf16 @ {N_512}^3 against the float32 "
+                f"lin_solve3d_rb: {diff:.3e} of max|p|")
+            check(diff > 1e-4, "the bfloat16 solve equals the float32 one")
+            del bf16_out, f32_out
         # no single PyTorch call computes any of these functions
         results[name] = {"max_abs_err": err, "ms": float(np.mean(ms)),
                          "plain_ms": float(np.mean(plain_ms)),
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "library_ms": None}
+        if len(arg_sets) > 1:
+            # the averaged call shapes one by one
+            results[name]["calls"] = [
+                {"call": call_label(name, i, a), "ms": m, "plain_ms": pm,
+                 "bound_ms": b[0], "bound_by": b[1]}
+                for i, (a, m, pm, b) in enumerate(zip(arg_sets, ms, plain_ms,
+                                                      bounds))]
     return results
+
+
+def call_label(name, i, args):
+    """A short name for the i-th timed call shape of a grid kernel."""
+    if name == "lin_solve3d_whole":
+        return (f"{str(args[7]).removeprefix('torch.')}, "
+                f"{'red-black' if args[6] else 'Jacobi'}")
+    return f"call {i}"
+
+
+def check_whole_solve(kernels, args, got):
+    """The whole solve equals the streamed kernel of its type and
+    red-black mode, bit for bit."""
+    b, x, x0, a, c, iters, red_black, dtype = args
+    streamed = {(torch.float32, False): kernels.lin_solve3d,
+                (torch.float32, True): kernels.lin_solve3d_rb,
+                (torch.bfloat16, False): kernels.lin_solve3d_bf16,
+                (torch.bfloat16, True): kernels.lin_solve3d_rb_bf16}
+    same = torch.equal(got, streamed[dtype, red_black](b, x, x0, a, c,
+                                                       iters))
+    log(f"lin_solve3d_whole @ {x0.shape[0] - 2}^3, {dtype}, red_black "
+        f"{red_black}, b {b}: bitwise equal to the streamed solve: {same}")
+    check(same, "lin_solve3d_whole differs from the streamed solve")
 
 
 def check_small_against_cpu(stam, dev):
@@ -610,33 +735,78 @@ def check_small_against_cpu(stam, dev):
     check(r <= STEP_TOL, "config 1 at 32^2: card and CPU disagree")
 
 
+def solve_kernel(kernels, n, red_black, dtype):
+    """The kernel of one stam._lin_solve3d call at size n: float32
+    red-black streams (lin_solve3d_rb); the rest take the whole solve
+    inside its gate, counted in the bytes of their storage type, and
+    stream otherwise."""
+    from tpufluids_torch.grid.stam import solver_dtype
+    dt = solver_dtype(dtype)
+    if dt == torch.float32 and red_black:
+        return "lin_solve3d_rb"
+    if kernels.solve_whole_ok(torch.empty((n + 2,) * 3, device="meta"), dt):
+        return "lin_solve3d_whole"
+    if dt == torch.float32:
+        return "lin_solve3d"
+    return "lin_solve3d_rb_bf16" if red_black else "lin_solve3d_bf16"
+
+
+def add_solves(want, kernels, cfg, n, count):
+    """Add the launches of ``count`` pressure solves at size n: one
+    Jacobi solve each, or mg_cycles V-cycles, each two red-black
+    smoothings a level and one on the coarsest (n <= 8 or odd), in
+    cfg.solver_dtype from 48^3 up and in float32 below."""
+    if cfg.projection == "dct":
+        return
+    if cfg.projection != "multigrid":
+        name = solve_kernel(kernels, n, cfg.red_black, cfg.solver_dtype)
+        want[name] += count
+        return
+    m = n
+    while True:
+        dtype = cfg.solver_dtype if m >= 48 else "float32"
+        name = solve_kernel(kernels, m, True, dtype)
+        coarsest = m <= 8 or m % 2
+        want[name] += count * cfg.mg_cycles * (1 if coarsest else 2)
+        if coarsest:
+            return
+        m //= 2
+
+
 def expected_launches(kernels, cfg, steps, state):
-    """Launches of a ``steps``-step run3d_python run.  A stencil Jacobi
-    run at the whole step's size launches step3d_whole once a step but
-    the last; the last step reports the residual, so it runs the
-    separate kernels (as every step of the other runs does): two stencil
-    advections (none for gather advection, which is torch ops) and a
-    forcing (if any), and per projection div, solve and gradsub, or at
-    the whole tier one fused call and the diffusions.  The last step's
-    final projection always streams."""
+    """Launches of a ``steps``-step run3d_python run.  A float32 stencil
+    Jacobi run at the whole step's size launches step3d_whole once a
+    step but the last; the last step reports the residual, so it runs
+    the separate kernels (as every step of the other runs does): two
+    stencil advections (none for gather advection, which is torch ops)
+    and a forcing (if any), and per projection div, the solves and
+    gradsub, or for float32 Jacobi at the whole tier one fused call; the
+    diffusions in one whole-tier call (float32 at the whole tier) or a
+    solve a field.  The last step's final projection always streams."""
+    n = state.u.shape[0] - 2
+    f32 = cfg.solver_dtype == "float32"
     jacobi = cfg.projection == "jacobi"
     stencil = cfg.advect_mode == "stencil"
-    whole = jacobi and kernels.whole_ok(state.u)
-    fused = jacobi and stencil and kernels.step_whole_ok(state.u)
+    whole = f32 and kernels.solve_whole_ok(state.u, torch.float32)
+    fused = jacobi and stencil and whole and kernels.step_whole_ok(state.u)
     separate = 1 if fused else steps
     want = dict.fromkeys(KERNELS, 0)
     want["step3d_whole"] = steps - separate
     want["advect3d_multi"] = 2 * separate if stencil else 0
     if cfg.buoyancy_alpha or cfg.buoyancy_beta or cfg.vorticity_eps:
         want["forcing3d"] = separate
-    streamed = 1 if whole else 2 * separate
-    if whole:
+    streamed = 1 if jacobi and whole else 2 * separate
+    if jacobi and whole:
         want["project3d_whole"] = 2 * separate - 1
+    want["div3d"] = want["gradsub3d"] = streamed
+    add_solves(want, kernels, cfg, n, streamed)
+    if whole:
         want["diffuse3d_multi"] = separate * (
             bool(cfg.visc) + bool(cfg.diff or cfg.temp_diff))
-    want["div3d"] = want["gradsub3d"] = streamed
-    if jacobi:
-        want["lin_solve3d_rb" if cfg.red_black else "lin_solve3d"] = streamed
+    else:
+        fields = 3 * bool(cfg.visc) + bool(cfg.diff) + bool(cfg.temp_diff)
+        want[solve_kernel(kernels, n, False, cfg.solver_dtype)] += (
+            separate * fields)
     return want
 
 
@@ -660,7 +830,7 @@ def run_grid_path(stam, kernels, dev, path):
         f"{STEP_TOL:.0e}); residual {res:.6e}, plain {ref_res:.6e}")
     check(r <= STEP_TOL, f"{path}: two steps through the kernels and two "
                          f"through the plain versions disagree")
-    if cfg.projection == "jacobi":
+    if cfg.projection != "dct":
         check(abs(res - ref_res) <= RESIDUAL_RTOL * ref_res,
               f"{path}: residual {res:.6e} against the plain step's "
               f"{ref_res:.6e}")
@@ -690,7 +860,8 @@ def run_grid_path(stam, kernels, dev, path):
         check(residual <= MAX_RESIDUAL, f"{path}: final residual "
                                         f"{residual:.3e} > {MAX_RESIDUAL:.0e}")
     else:
-        # twenty sweeps: held to the plain step above, here only sane
+        # twenty sweeps or two V-cycles: held to the plain step above,
+        # here only sane
         check(residual < 1e-2, f"{path}: final residual {residual:.3e}")
     want = expected_launches(kernels, cfg, timed, state)
     check(counts == want, f"{path}: launches {counts} != {want}")
@@ -702,7 +873,79 @@ def run_grid_path(stam, kernels, dev, path):
     else:
         check(float(state.w.abs().max()) > 0.0,
               f"{path}: the plume did not move")
-    return counts
+    return counts, ms
+
+
+def mac_state(mac, cfg, device):
+    """The CLI's plume3d --mac seeding (cli.py:236-241): dens 1 and temp
+    3 in [3k:5k, 3k:5k, 0:k], k = n/8."""
+    s = mac.make_mac3d(cfg, device)
+    k = cfg.n // 8
+    s.dens[3 * k:5 * k, 3 * k:5 * k, 0:k] = 1.0
+    s.temp[3 * k:5 * k, 3 * k:5 * k, 0:k] = 3.0
+    return s
+
+
+def run_mac_path(stam, mac, kernels, dev, path):
+    """Two MAC steps through the kernels against two through the plain
+    versions; then the warm-up and the timed run (no host sync allowed),
+    whose launch counts and ms/step are returned: the face-space stages
+    are torch ops, each projection's solve a kernel call (a multigrid
+    projection its V-cycles' smoothings)."""
+    kw, n, warm, timed = MAC_PATHS[path]
+    cfg = stam.StamConfig(n=n, **kw)
+    state = mac_state(mac, cfg, dev)
+
+    one, res = mac.run3d_python(state, cfg, 2)
+    with plain_kernels(kernels):
+        ref, ref_res = mac.run3d_python(state, cfg, 2)
+    torch.cuda.synchronize()
+    e, r = rel_err([getattr(one, f) for f in FIELDS],
+                   [getattr(ref, f) for f in FIELDS])
+    res, ref_res = float(res[0]), float(ref_res[0])
+    log(f"{path} @ {n}^3, two steps, kernels vs plain versions: "
+        f"max_abs_err {e:.3e} (relative {r:.3e}, tolerance "
+        f"{STEP_TOL:.0e}); max |div u| {res:.6e}, plain {ref_res:.6e}")
+    check(r <= STEP_TOL, f"{path}: two steps through the kernels and two "
+                         f"through the plain versions disagree")
+    check(abs(res - ref_res) <= RESIDUAL_RTOL * ref_res,
+          f"{path}: max |div u| {res:.6e} against the plain step's "
+          f"{ref_res:.6e}")
+    del one, ref
+
+    state, res = mac.run3d_python(state, cfg, warm)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        state, res = mac.run3d_python(state, cfg, timed)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    ms = seconds / timed * 1e3
+    residual = float(res[0])
+    finite = all(bool(torch.isfinite(getattr(state, f)).all())
+                 for f in FIELDS)
+    log(f"{path} @ {n}^3, {timed} timed steps after {warm} warm-up: "
+        f"{ms:.4f} ms/step, {n ** 3 / (ms / 1e3):.4e} cell-updates/s, "
+        f"final max |div u| {residual:.6e}, finite {finite}")
+    log(f"launches: {counts}")
+    shapes = {"u": (n + 1, n, n), "v": (n, n + 1, n), "w": (n, n, n + 1),
+              "dens": (n,) * 3, "temp": (n,) * 3}
+    check(all(getattr(state, f).shape == shapes[f] for f in FIELDS),
+          f"{path}: field shapes")
+    check(finite and 0.0 < residual, f"{path}: fields not finite, or no "
+                                     f"divergence left")
+    check(float(state.w.abs().max()) > 0.0, f"{path}: the plume did not "
+                                            f"move")
+    want = dict.fromkeys(KERNELS, 0)
+    add_solves(want, kernels, cfg, n, 2 * timed)
+    check(counts == want, f"{path}: launches {counts} != {want}")
+    log_profile(path, lambda k: mac.run3d_python(state, cfg, k), ms)
+    return counts, ms, residual
 
 
 def run_grid2d_path(stam, kernels, dev, path):
@@ -1496,7 +1739,7 @@ def main():
     from tpufluids_torch import (_build, binning, config, convert, forces,
                                  scenes, sph_kernels, state, step)
     from tpufluids_torch.config import BASE_CONFIG, UNIDYN_CONFIG
-    from tpufluids_torch.grid import kernels, stam
+    from tpufluids_torch.grid import kernels, mac, stam
 
     sph = types.SimpleNamespace(binning=binning, config=config,
                                 convert=convert, forces=forces,
@@ -1519,10 +1762,22 @@ def main():
 
     checked = check_kernels(stam, kernels, dev)
     check_small_against_cpu(stam, dev)
-    counts = {}
+    counts, ms = {}, {}
     for path in GRID_PATHS:
-        for name, c in run_grid_path(stam, kernels, dev, path).items():
-            counts[name] = counts.get(name, 0) + c
+        c, ms[path] = run_grid_path(stam, kernels, dev, path)
+        add_counts(counts, c)
+    log(f"config 3 @ {N_512}^3: the bf16 solver's ms/step over float32's "
+        f"in this run: {ms['config 3, bf16 solver']:.4f} / "
+        f"{ms['config 3, float32']:.4f} = "
+        f"{ms['config 3, bf16 solver'] / ms['config 3, float32']:.4f}")
+    mac_res = {}
+    for path in MAC_PATHS:
+        c, ms[path], mac_res[path] = run_mac_path(stam, mac, kernels, dev,
+                                                  path)
+        add_counts(counts, c)
+    # two V-cycles a projection against twenty Jacobi sweeps
+    check(mac_res["plume3d --mac, multigrid"] < mac_res["plume3d --mac"],
+          f"MAC: multigrid leaves more divergence than Jacobi: {mac_res}")
     for path in GRID2D_PATHS:
         for name, c in run_grid2d_path(stam, kernels, dev, path).items():
             counts[name] = counts.get(name, 0) + c

@@ -11,12 +11,14 @@ import torch
 
 from tpufluids_torch import convert, scenes, state
 from tpufluids_torch.grid import convert as grid_convert
-from tpufluids_torch.grid import stam
+from tpufluids_torch.grid import mac, stam
 
 ENTRY_POINTS = {
     "grid.stam.make_grid2d": stam.make_grid2d,
     "grid.stam.make_grid3d": stam.make_grid3d,
     "grid.convert.state_from_numpy": grid_convert.state_from_numpy,
+    "grid.mac.make_mac3d": mac.make_mac3d,
+    "grid.convert.mac_state_from_numpy": grid_convert.mac_state_from_numpy,
     "state.make_state": state.make_state,
     "scenes.base_dam": scenes.base_dam,
     "scenes.unidyn_tank": scenes.unidyn_tank,
@@ -35,6 +37,7 @@ def test_no_card_raises_instead_of_running_on_the_cpu():
     cfg = stam.StamConfig(n=4)
     calls = [lambda: stam.make_grid3d(cfg).u,
              lambda: stam.make_grid2d(cfg).u,
+             lambda: mac.make_mac3d(cfg).u,
              lambda: grid_convert.state_from_numpy(
                  {f: np.zeros((6, 6)) for f in grid_convert.FIELDS2D}).u,
              lambda: scenes.random_blob(20, seed=0).pos,

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, at 64^3 and at the main path's 256^3 (the 2D kernels at 15^2 to
-200^2 fields), and the steps' launch counts and final residual.  Marked ``gpu`` and skipped without a CUDA device;
+200^2 fields, the bfloat16 and whole solves at 15^3 and 48^3), and the
+steps' launch counts and final residual.  Marked ``gpu`` and skipped without a CUDA device;
 on the card (tests/conftest.py sets up JAX, which these tests do not
 use):
 
@@ -11,7 +12,8 @@ versions; the tolerances (relative to max|plain output|) are those of
 the JAX package's Pallas tests: 3e-6 for advection and forcing, 1e-6
 for divergence, gradient subtraction and the Jacobi solves, 1e-5 for
 whole steps.  The whole tier (one cooperative launch) must equal the
-streamed kernels bit for bit, and the 2D kernels their plain versions."""
+streamed kernels bit for bit, and the 2D kernels, the bfloat16 solves
+and the whole solve their plain versions."""
 
 import numpy as np
 import pytest
@@ -106,9 +108,10 @@ def test_step_launches_residual_and_plain_agreement(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {
         "advect3d_multi": 4, "forcing3d": 2, "div3d": 4, "gradsub3d": 4,
-        "lin_solve3d": 0, "lin_solve3d_rb": 0, "diffuse3d_multi": 0,
-        "project3d_whole": 0, "step3d_whole": 0, "lin_solve2d": 0,
-        "step2d_whole": 0}
+        "lin_solve3d": 0, "lin_solve3d_rb": 0, "lin_solve3d_bf16": 0,
+        "lin_solve3d_rb_bf16": 0, "lin_solve3d_whole": 0,
+        "diffuse3d_multi": 0, "project3d_whole": 0, "step3d_whole": 0,
+        "lin_solve2d": 0, "step2d_whole": 0}
     # the final solve runs TF32-free: the residual stays at float32 level
     assert float(res[0]) <= 1e-8
     for name in ("advect3d_multi", "forcing3d", "div3d", "gradsub3d"):
@@ -275,9 +278,10 @@ def test_jacobi_step_launches(cuda):
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {
         "advect3d_multi": 2, "forcing3d": 1, "div3d": 1, "gradsub3d": 1,
-        "lin_solve3d": 0, "lin_solve3d_rb": 1, "diffuse3d_multi": 2,
-        "project3d_whole": 1, "step3d_whole": 2, "lin_solve2d": 0,
-        "step2d_whole": 0}
+        "lin_solve3d": 0, "lin_solve3d_rb": 1, "lin_solve3d_bf16": 0,
+        "lin_solve3d_rb_bf16": 0, "lin_solve3d_whole": 0,
+        "diffuse3d_multi": 2, "project3d_whole": 1, "step3d_whole": 2,
+        "lin_solve2d": 0, "step2d_whole": 0}
     assert bool(torch.isfinite(out.w).all()) and 0.0 < float(res[0]) < 1e-2
 
 
@@ -294,6 +298,132 @@ def test_gather_step_takes_no_whole_step(cuda):
     for f in ("u", "v", "w", "dens", "temp"):
         _close((getattr(gpu, f).cpu(),), (getattr(cpu, f),), 1e-5)
     assert abs(float(gres[0]) - float(cres[0])) <= 1e-3 * float(cres[0])
+
+
+# ---------------------------------------------------------------------------
+# the bfloat16 solves and the whole solve: bit for bit against their plain
+# versions
+
+BF16 = torch.bfloat16
+
+
+@pytest.mark.parametrize("n", [15, 48])
+@pytest.mark.parametrize("red_black", [False, True], ids=["jacobi", "rb"])
+def test_bf16_solve_kernels_are_bitwise_plain(cuda, n, red_black):
+    """Every b, zero, set_bnd-consistent and raw guesses, the pressure
+    and config 2's diffusion coefficients; odd n puts both parities on
+    each face."""
+    kern = (kernels.lin_solve3d_rb_bf16 if red_black
+            else kernels.lin_solve3d_bf16)
+    plain = (kernels.lin_solve3d_rb_bf16_plain if red_black
+             else kernels.lin_solve3d_bf16_plain)
+    x, x0 = _raw(cuda, n, 40, 2)
+    a = 0.05 * 1e-5 * 64 * 64
+    before, calls = kern.launches, 0
+    for b in range(4):
+        for guess in (None, stam.set_bnd3d(b, x), x):
+            for coeffs in ((1.0, 6.0), (a, 1 + 6 * a)):
+                got = kern(b, guess, x0, *coeffs, 5)
+                assert got.dtype == torch.float32
+                assert torch.equal(got, plain(b, guess, x0, *coeffs, 5)), \
+                    (b, coeffs)
+                calls += 1
+    assert kern.launches == before + calls
+
+
+@pytest.mark.parametrize("n", [15, 48])
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("red_black", [False, True], ids=["jacobi", "rb"])
+def test_whole_solve_is_bitwise_plain_and_streamed(cuda, n, dtype,
+                                                   red_black):
+    """The whole solve (one cooperative launch) against its plain version
+    and against the streamed kernel of its type, bit for bit."""
+    streamed = {(torch.float32, False): kernels.lin_solve3d,
+                (torch.float32, True): kernels.lin_solve3d_rb,
+                (BF16, False): kernels.lin_solve3d_bf16,
+                (BF16, True): kernels.lin_solve3d_rb_bf16}[dtype, red_black]
+    x, x0 = _raw(cuda, n, 41, 2)
+    a = 0.05 * 1e-5 * 64 * 64
+    before = kernels.lin_solve3d_whole.launches
+    for b in range(4):
+        for guess in (None, stam.set_bnd3d(b, x), x):
+            for coeffs, iters in (((1.0, 6.0), 20), ((a, 1 + 6 * a), 7)):
+                got = kernels.lin_solve3d_whole(b, guess, x0, *coeffs, iters,
+                                                red_black, dtype)
+                want = kernels.lin_solve3d_whole_plain(
+                    b, guess, x0, *coeffs, iters, red_black, dtype)
+                assert torch.equal(got, want), (b, coeffs)
+                assert torch.equal(got, streamed(b, guess, x0, *coeffs,
+                                                 iters)), (b, coeffs)
+    assert kernels.lin_solve3d_whole.launches == before + 24
+
+
+def test_bf16_solve_differs_from_float32_and_rejects_bf16_fields(cuda):
+    x, x0 = _raw(cuda, 48, 42, 2)
+    f32 = kernels.lin_solve3d_rb(0, None, x0, 1.0, 6.0, 20)
+    bf16 = kernels.lin_solve3d_rb_bf16(0, None, x0, 1.0, 6.0, 20)
+    assert float((bf16 - f32).abs().max()) > 1e-4 * float(f32.abs().max())
+    # the kernels take float32 fields: a bfloat16 one raises
+    xb = x.to(BF16)
+    for solve in (kernels.lin_solve3d, kernels.lin_solve3d_rb,
+                  kernels.lin_solve3d_bf16, kernels.lin_solve3d_rb_bf16):
+        with pytest.raises(TypeError):
+            solve(0, xb, x0, 1.0, 6.0, 2)
+    with pytest.raises(TypeError):
+        kernels.div3d(xb, xb, xb)
+    with pytest.raises(TypeError):
+        kernels.lin_solve3d_whole(0, None, xb, 1.0, 6.0, 2, True, BF16)
+    # outside the gate the whole solve raises instead of streaming
+    with pytest.raises(ValueError):
+        kernels.lin_solve3d_whole(0, None, _raw(cuda, 128, 43, 1)[0], 1.0,
+                                  6.0, 2, False, torch.float32)
+
+
+@pytest.mark.parametrize("case", ["config4_bf16", "config3_multigrid",
+                                  "mac_jacobi", "mac_multigrid"])
+def test_new_paths_card_match_cpu_over_four_steps(cuda, case):
+    """The bfloat16 step, the multigrid projection and the MAC grid at
+    16^3, on the card (kernels) against the CPU (plain versions); the
+    routes' launches on the card."""
+    from tpufluids_torch.grid import mac
+    if case.startswith("mac"):
+        cfg = stam.StamConfig(n=16, dt=0.05, diff=1e-5, visc=1e-5,
+                              buoyancy_alpha=0.05, buoyancy_beta=1.0,
+                              projection=case[4:])
+
+        def seeded(dev):
+            s = mac.make_mac3d(cfg, dev)
+            s.dens[4:8, 4:8, 0:2] = 1.0
+            s.temp[4:8, 4:8, 0:2] = 3.0
+            return s
+        run, fields = mac.run3d_python, ("u", "v", "w", "dens", "temp")
+    else:
+        if case == "config4_bf16":
+            cfg = _config(16, True).replace(solver_dtype="bfloat16")
+        else:
+            cfg = _bench(16, projection="multigrid", red_black=True)
+
+        def seeded(dev):
+            return _seeded_plume(cfg, dev)
+        run, fields = stam.run3d_python, FIELDS
+    kernels.reset_launches()
+    gpu, gres = run(seeded(cuda), cfg, 4)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    cpu, cres = run(seeded("cpu"), cfg, 4)
+    for f in fields:
+        _close((getattr(gpu, f).cpu(),), (getattr(cpu, f),), 1e-5)
+    assert abs(float(gres[0]) - float(cres[0])) <= 1e-3 * float(cres[0])
+    # config 4 in bf16: per step two projections and four diffusions, each
+    # one whole bf16 solve; multigrid at 16^3: levels 16 and 8, three
+    # red-black solves a cycle, two cycles a projection
+    want = {"config4_bf16": dict(lin_solve3d_whole=24),
+            "config3_multigrid": dict(lin_solve3d_rb=48),
+            "mac_jacobi": dict(lin_solve3d_whole=8),
+            "mac_multigrid": dict(lin_solve3d_rb=48)}[case]
+    for name, c in want.items():
+        assert counts[name] == c, counts
+    assert counts["step3d_whole"] == counts["project3d_whole"] == 0
 
 
 # ---------------------------------------------------------------------------

@@ -382,9 +382,11 @@ def test_step_whole_rejects_what_its_kernel_does_not_take(bad):
 def test_whole_gate_takes_64_and_streams_256():
     def field(n):
         return torch.empty((n + 2,) * 3, device="meta")
-    assert kernels.whole_ok(field(64)) and kernels.whole_ok(field(16))
-    assert not kernels.whole_ok(field(128))
-    assert not kernels.whole_ok(field(256))
+    f32 = torch.float32
+    assert (kernels.solve_whole_ok(field(64), f32)
+            and kernels.solve_whole_ok(field(16), f32))
+    assert not kernels.solve_whole_ok(field(128), f32)
+    assert not kernels.solve_whole_ok(field(256), f32)
     # the whole step keeps nineteen fields in the L2: up to about 78^3
     assert kernels.step_whole_ok(field(64)) and kernels.step_whole_ok(field(78))
     assert not kernels.step_whole_ok(field(80))

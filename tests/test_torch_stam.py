@@ -17,7 +17,6 @@ import torch
 
 from tpufluids.grid import stam as jstam
 from tpufluids_torch.grid import kernels as tkernels
-from tpufluids_torch.grid import mac as tmac
 from tpufluids_torch.grid import stam as tstam
 
 TOL = 1e-6
@@ -180,17 +179,6 @@ _CONFIG_IDS = dict(ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 
 
 @pytest.mark.parametrize("kw", [
-    dict(projection="multigrid"),
-    dict(solver_dtype="bfloat16"),
-], **_CONFIG_IDS)
-def test_configs_outside_the_slice_raise(kw):
-    base = dict(n=8, advect_mode="stencil", projection="dct")
-    cfg = tstam.StamConfig(**{**base, **kw})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tstam.step3d(tstam.make_grid3d(cfg, device="cpu"), cfg)
-
-
-@pytest.mark.parametrize("kw", [
     dict(projection="jacobi"),
     dict(visc=1e-5),
     dict(diff=1e-5),
@@ -222,13 +210,6 @@ def test_configs_once_outside_the_slice_match_jax(kw):
         np.testing.assert_allclose(float(gres), float(rres), rtol=1e-3)
     else:   # a DCT residual is rounding: hold both to its level
         assert float(gres) < 1e-6 and float(rres) < 1e-6
-
-
-@pytest.mark.parametrize("entry", [tmac.make_mac3d, tmac.run3d_python],
-                         ids=["make_mac3d", "mac.run3d_python"])
-def test_entry_points_outside_the_slice_raise(entry):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        entry(None, None)
 
 
 @pytest.mark.parametrize("entry", ["step2d", "run2d_python"])

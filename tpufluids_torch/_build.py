@@ -44,6 +44,9 @@ SIGNATURES = {
     "tf_gradsub3d": [_P] * 7 + [_INT, _F, _P],
     "tf_lin_solve3d": [_P] * 4 + [_INT] * 3 + [_F] * 2 + [_P],
     "tf_lin_solve3d_rb": [_P] * 3 + [_INT] * 3 + [_F] * 2 + [_P],
+    "tf_lin_solve3d_bf16": [_P] * 4 + [_INT] * 3 + [_F] * 2 + [_P],
+    "tf_lin_solve3d_rb_bf16": [_P] * 3 + [_INT] * 3 + [_F] * 2 + [_P],
+    "tf_lin_solve3d_whole": [_P] * 4 + [_INT] * 5 + [_F] * 2 + [_P],
     "tf_diffuse3d_multi": [_P] * 9 + [_INT] * 6 + [_F] * 6 + [_P],
     "tf_project3d_whole": [_P] * 9 + [_INT] * 3 + [_F] * 3 + [_P],
     "tf_step3d_whole": [_P] * 11 + [_INT] * 8 + [_F] * 15 + [_P],

@@ -3,28 +3,35 @@
 // built on them: the multi-field diffusion and the fused projection.
 //
 // Replaces (tpufluids/grid/pallas_kernels.py):
-//   lin_solve3d_pallas / _solve_whole_kernel, _solve_kernel -> tf_lin_solve3d
+//   lin_solve3d_pallas / _solve_kernel                      -> tf_lin_solve3d
+//   lin_solve3d_pallas(dtype=bfloat16) / _solve_kernel      -> tf_lin_solve3d_bf16,
+//                                                              tf_lin_solve3d_rb_bf16
+//   lin_solve3d_pallas / _solve_whole_kernel (both dtypes)  -> tf_lin_solve3d_whole
 //   lin_solve3d_rb_packed / _solve_rb_packed_*_kernel       -> tf_lin_solve3d_rb
 //   diffuse3d_whole_multi / _solve_whole_multi_kernel       -> tf_diffuse3d_multi
 //   project3d_whole_pallas / _project_whole_kernel          -> tf_project3d_whole
 //
-// The cell bodies, the ghost scheme and the whole-tier phases are in
-// jacobi.cuh.
+// The cell bodies, the ghost scheme, the storage types and the
+// whole-tier phases are in jacobi.cuh.
 //
-// What bounds them on the H100: device-memory bytes.  A sweep does 8
-// flops a cell and moves at least three fields (x and x0 in, the result
-// out).  The streamed solvers make one pass per sweep, or per red-black
-// half-sweep; the TPU kernels fused several sweeps per pass in VMEM,
-// which is left to a later change here (temporal blocking in shared
-// memory).  The red-black half-sweep runs one thread per active cell
-// only, in place.
+// What bounds them on the H100: on paper device-memory bytes.  A sweep
+// does 8 flops a cell and moves at least three fields (x and x0 in, the
+// result out): 12 B a cell in float32, 6 B in bfloat16.  The streamed
+// solvers make one pass per sweep, or per red-black half-sweep; the TPU
+// kernels fused several sweeps per pass in VMEM, which is left to a
+// later change here (temporal blocking in shared memory).  The
+// red-black half-sweep runs one thread per active cell only, in place.
+// Measured, one thread a cell with its index decode and ghost branch is
+// bound by instruction issue: a float32 sweep reaches 1.7 TB/s, and the
+// bfloat16 sweep, with two conversions an operation, is no faster on
+// half the bytes (PERF.md).
 //
 // The whole tier: at 64^3 a field is 66^3 * 4 B = 1.15 MB, and one launch
 // per sweep would leave the card waiting on the host.  One cooperative
-// launch runs every sweep; its fields stay in the 50 MB L2.  The fused
-// projection calls the cell bodies of divgrad.cuh and the sweeps of
-// jacobi.cuh, in the order of the three-launch path, so the two give the
-// same bits.
+// launch runs every sweep; its fields stay in the 50 MB L2.  The whole
+// solve and the fused projection call the cell bodies of the streamed
+// kernels (and divgrad.cuh's), in the order of the streamed launches, so
+// the two give the same bits.
 #include "jacobi.cuh"
 
 namespace cg = cooperative_groups;
@@ -36,23 +43,63 @@ using tf::blocks_of;
 // ---------------------------------------------------------------------------
 // streamed: one launch per sweep or half-sweep
 
-__global__ void jacobi_kernel(const float* __restrict__ src,
-                              const float* __restrict__ x0,
-                              float* __restrict__ dst, int n, int b, float a,
-                              float c_inv) {
+template <typename T>
+__global__ void jacobi_kernel(const T* __restrict__ src,
+                              const T* __restrict__ x0, T* __restrict__ dst,
+                              int n, int b, float a, float c_inv) {
   tf::jacobi_cell(blockIdx.x * blockDim.x + threadIdx.x, src, x0, dst, n, b,
                   a, c_inv);
 }
 
-__global__ void rb_kernel(const float* src, const float* __restrict__ x0,
-                          float* dst, int n, int p, bool first, tf::Signs s,
-                          float a, float c_inv) {
+template <typename T>
+__global__ void rb_kernel(const T* src, const T* __restrict__ x0, T* dst,
+                          int n, int p, bool first, tf::Signs s, float a,
+                          float c_inv) {
   tf::rb_cell(blockIdx.x * blockDim.x + threadIdx.x, src, x0, dst, n, p,
               first, s.x, s.y, s.z, a, c_inv);
 }
 
-__global__ void ghost_kernel(float* x, int n, int b) {
+template <typename T>
+__global__ void ghost_kernel(T* x, int n, int b) {
   tf::ghost_cell(blockIdx.x * blockDim.x + threadIdx.x, x, n, b);
+}
+
+template <typename T>
+int lin_solve3d_streamed(const T* x, const T* x0, T* out, T* tmp, int b,
+                         int n, int iters, float a, float c_inv,
+                         cudaStream_t st) {
+  const T* src = x;
+  for (int s = 0; s < iters; ++s) {
+    T* dst = tf::sweep_dst(s, iters, out, tmp);
+    jacobi_kernel<T><<<tf::blocks_for(n), tf::kThreads, 0, st>>>(
+        src, x0, dst, n, b, a, c_inv);
+    const int rc = tf::launch_status();
+    if (rc) return rc;
+    src = dst;
+  }
+  return 0;
+}
+
+template <typename T>
+int lin_solve3d_rb_streamed(const T* x, const T* x0, T* out, int b, int n,
+                            int iters, float a, float c_inv,
+                            cudaStream_t st) {
+  const tf::Signs s = tf::signs_for(b);
+  const unsigned blocks = blocks_of((long long)n * n * ((n + 1) / 2));
+  for (int it = 0; it < iters; ++it) {
+    for (int p = 0; p < 2; ++p) {
+      const bool first = it == 0 && p == 0;
+      rb_kernel<T><<<blocks, tf::kThreads, 0, st>>>(first ? x : out, x0, out,
+                                                    n, p, first, s, a,
+                                                    c_inv);
+      const int rc = tf::launch_status();
+      if (rc) return rc;
+    }
+  }
+  const long long N = n + 2;
+  ghost_kernel<T><<<blocks_of(N * N * N - (long long)n * n * n),
+                    tf::kThreads, 0, st>>>(out, n, b);
+  return tf::launch_status();
 }
 
 // ---------------------------------------------------------------------------
@@ -69,43 +116,61 @@ __global__ void project_whole_kernel(tf::ProjectArgs g) {
   tf::project_phase(grid, tf::GridLoop(), g);
 }
 
+template <typename T>
+__global__ void solve_whole_kernel(tf::SolveArgs<T> g) {
+  cg::grid_group grid = cg::this_grid();
+  tf::solve_phase(grid, tf::GridLoop(), g);
+}
+
+using bf16 = __nv_bfloat16;
+
 }  // namespace
 
 extern "C" int tf_lin_solve3d(const float* x, const float* x0, float* out,
                               float* tmp, int b, int n, int iters, float a,
                               float c_inv, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const float* src = x;
-  for (int s = 0; s < iters; ++s) {
-    float* dst = tf::sweep_dst(s, iters, out, tmp);
-    jacobi_kernel<<<tf::blocks_for(n), tf::kThreads, 0, st>>>(
-        src, x0, dst, n, b, a, c_inv);
-    const int rc = tf::launch_status();
-    if (rc) return rc;
-    src = dst;
-  }
-  return 0;
+  return lin_solve3d_streamed(x, x0, out, tmp, b, n, iters, a, c_inv,
+                              (cudaStream_t)stream);
+}
+
+extern "C" int tf_lin_solve3d_bf16(const bf16* x, const bf16* x0, bf16* out,
+                                   bf16* tmp, int b, int n, int iters,
+                                   float a, float c_inv, void* stream) {
+  return lin_solve3d_streamed(x, x0, out, tmp, b, n, iters, a, c_inv,
+                              (cudaStream_t)stream);
 }
 
 extern "C" int tf_lin_solve3d_rb(const float* x, const float* x0, float* out,
                                  int b, int n, int iters, float a,
                                  float c_inv, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const tf::Signs s = tf::signs_for(b);
-  const unsigned blocks = blocks_of((long long)n * n * ((n + 1) / 2));
-  for (int it = 0; it < iters; ++it) {
-    for (int p = 0; p < 2; ++p) {
-      const bool first = it == 0 && p == 0;
-      rb_kernel<<<blocks, tf::kThreads, 0, st>>>(first ? x : out, x0, out, n,
-                                                 p, first, s, a, c_inv);
-      const int rc = tf::launch_status();
-      if (rc) return rc;
-    }
+  return lin_solve3d_rb_streamed(x, x0, out, b, n, iters, a, c_inv,
+                                 (cudaStream_t)stream);
+}
+
+extern "C" int tf_lin_solve3d_rb_bf16(const bf16* x, const bf16* x0,
+                                      bf16* out, int b, int n, int iters,
+                                      float a, float c_inv, void* stream) {
+  return lin_solve3d_rb_streamed(x, x0, out, b, n, iters, a, c_inv,
+                                 (cudaStream_t)stream);
+}
+
+// x, x0, out and tmp hold float, or bfloat16 when ``bf16``; x NULL is a
+// zero initial guess, tmp NULL for red-black.
+extern "C" int tf_lin_solve3d_whole(const void* x, const void* x0, void* out,
+                                    void* tmp, int b, int n, int iters,
+                                    int red_black, int bf16_storage, float a,
+                                    float c_inv, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16_storage) {
+    const tf::SolveArgs<bf16> g{(const bf16*)x, (const bf16*)x0, (bf16*)out,
+                                (bf16*)tmp, b, n, iters, red_black, a,
+                                c_inv};
+    return tf::launch_cooperative(solve_whole_kernel<bf16>, g, n, s);
   }
-  const long long N = n + 2;
-  ghost_kernel<<<blocks_of(N * N * N - (long long)n * n * n), tf::kThreads,
-                 0, st>>>(out, n, b);
-  return tf::launch_status();
+  const tf::SolveArgs<float> g{(const float*)x, (const float*)x0,
+                               (float*)out, (float*)tmp, b, n, iters,
+                               red_black, a, c_inv};
+  return tf::launch_cooperative(solve_whole_kernel<float>, g, n, s);
 }
 
 extern "C" int tf_diffuse3d_multi(const float* x_0, const float* x_1,

@@ -8,6 +8,16 @@
 // as the plain PyTorch version does, so kernel and plain version agree
 // bit for bit.  A NULL initial guess is a zero field.
 //
+// Storage type.  The cell bodies are templated on the type the fields
+// are stored in: float, or __nv_bfloat16 for the reference's bfloat16
+// solve (lin_solve3d_pallas(dtype=bfloat16)), where every operation
+// rounds to bfloat16.  A bfloat16 operation is computed in float32 and
+// rounded to bfloat16 (RN) at once: the float32 sum or product of two
+// bfloat16 values rounds to the correctly rounded bfloat16 result, since
+// float32's 24 bits are at least 2 * 8 + 2.  The scalars a and c_inv
+// arrive as floats that bfloat16 represents exactly (the wrapper rounds
+// them, as the reference's weak-typed scalars are rounded).
+//
 // Ghosts.  A Jacobi sweep is out of place and writes every output cell,
 // ghosts included (grid_common.cuh), so each sweep reads the ghosts the
 // previous one wrote, and the first reads the input's stored ghosts, as
@@ -29,6 +39,7 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 
 #include "divgrad.cuh"
 
@@ -36,30 +47,61 @@ namespace tf {
 
 namespace cg = cooperative_groups;
 
-// The Jacobi update of interior cell c from src (NULL: zeros).
-__device__ __forceinline__ float jacobi_at(const float* src, const float* x0,
-                                           int c, int N, float a,
-                                           float c_inv) {
-  float nb = 0.0f;
-  if (src) {
-    nb = src[c - N * N] + src[c + N * N];
-    nb = nb + src[c - N];
-    nb = nb + src[c + N];
-    nb = nb + src[c - 1];
-    nb = nb + src[c + 1];
+// Loads a stored value as float, and rounds a float to the storage type.
+template <typename T>
+struct Store;
+
+template <>
+struct Store<float> {
+  static __device__ __forceinline__ float load(float v) { return v; }
+  static __device__ __forceinline__ float round(float v) { return v; }
+};
+
+template <>
+struct Store<__nv_bfloat16> {
+  static __device__ __forceinline__ float load(__nv_bfloat16 v) {
+    return __bfloat162float(v);
   }
-  return (x0[c] + a * nb) * c_inv;
+  static __device__ __forceinline__ __nv_bfloat16 round(float v) {
+    return __float2bfloat16_rn(v);
+  }
+};
+
+// x + y and s * x, rounded once to the storage type.
+template <typename T>
+__device__ __forceinline__ T add_rn(T x, T y) {
+  return Store<T>::round(Store<T>::load(x) + Store<T>::load(y));
+}
+
+template <typename T>
+__device__ __forceinline__ T mul_rn(float s, T x) {
+  return Store<T>::round(s * Store<T>::load(x));
+}
+
+// The Jacobi update of interior cell c from src (NULL: zeros).
+template <typename T>
+__device__ __forceinline__ T jacobi_at(const T* src, const T* x0, int c,
+                                       int N, float a, float c_inv) {
+  T nb = Store<T>::round(0.0f);
+  if (src) {
+    nb = add_rn(src[c - N * N], src[c + N * N]);
+    nb = add_rn(nb, src[c - N]);
+    nb = add_rn(nb, src[c + N]);
+    nb = add_rn(nb, src[c - 1]);
+    nb = add_rn(nb, src[c + 1]);
+  }
+  return mul_rn(c_inv, add_rn(x0[c], mul_rn(a, nb)));
 }
 
 // One output cell of a Jacobi sweep followed by set_bnd3d(b).
-__device__ __forceinline__ void jacobi_cell(int idx, const float* src,
-                                            const float* x0, float* dst,
-                                            int n, int b, float a,
-                                            float c_inv) {
+template <typename T>
+__device__ __forceinline__ void jacobi_cell(int idx, const T* src,
+                                            const T* x0, T* dst, int n,
+                                            int b, float a, float c_inv) {
   Cell cell;
   if (!cell_at(idx, n, cell)) return;
   dst[out_index(cell, n)] =
-      cell.sign[b] * jacobi_at(src, x0, cell.c, n + 2, a, c_inv);
+      mul_rn(cell.sign[b], jacobi_at(src, x0, cell.c, n + 2, a, c_inv));
 }
 
 // Active cells of a red-black half-sweep.  Interior cell (I, J, K),
@@ -74,11 +116,11 @@ __device__ __forceinline__ int rb_threads(int n) {
 // src is the solve's input (or NULL), read with its stored ghosts, and
 // the inactive cell is copied to dst; otherwise src == dst (in place)
 // and a ghost tap is s * (the active cell's own value).
-__device__ __forceinline__ void rb_cell(int t, const float* src,
-                                        const float* x0, float* dst, int n,
-                                        int p, bool first, float sx,
-                                        float sy, float sz, float a,
-                                        float c_inv) {
+template <typename T>
+__device__ __forceinline__ void rb_cell(int t, const T* src, const T* x0,
+                                        T* dst, int n, int p, bool first,
+                                        float sx, float sy, float sz,
+                                        float a, float c_inv) {
   const int half = (n + 1) / 2;
   if (t >= n * n * half) return;
   const int I = 1 + t / (n * half);
@@ -88,7 +130,8 @@ __device__ __forceinline__ void rb_cell(int t, const float* src,
   const int N = n + 2;
   const int row = (I * N + J) * N;
   const int Ki = 2 * q + 2 - odd;
-  if (first && Ki <= n) dst[row + Ki] = src ? src[row + Ki] : 0.0f;
+  if (first && Ki <= n)
+    dst[row + Ki] = src ? src[row + Ki] : Store<T>::round(0.0f);
   const int K = 2 * q + 1 + odd;
   if (K > n) return;
   const int c = row + K;
@@ -96,14 +139,14 @@ __device__ __forceinline__ void rb_cell(int t, const float* src,
     dst[c] = jacobi_at(src, x0, c, N, a, c_inv);
     return;
   }
-  const float own = src[c];
-  float nb = (I == 1 ? sx * own : src[c - N * N])
-             + (I == n ? sx * own : src[c + N * N]);
-  nb = nb + (J == 1 ? sy * own : src[c - N]);
-  nb = nb + (J == n ? sy * own : src[c + N]);
-  nb = nb + (K == 1 ? sz * own : src[c - 1]);
-  nb = nb + (K == n ? sz * own : src[c + 1]);
-  dst[c] = (x0[c] + a * nb) * c_inv;
+  const T own = src[c];
+  T nb = add_rn(I == 1 ? mul_rn(sx, own) : src[c - N * N],
+                I == n ? mul_rn(sx, own) : src[c + N * N]);
+  nb = add_rn(nb, J == 1 ? mul_rn(sy, own) : src[c - N]);
+  nb = add_rn(nb, J == n ? mul_rn(sy, own) : src[c + N]);
+  nb = add_rn(nb, K == 1 ? mul_rn(sz, own) : src[c - 1]);
+  nb = add_rn(nb, K == n ? mul_rn(sz, own) : src[c + 1]);
+  dst[c] = mul_rn(c_inv, add_rn(x0[c], mul_rn(a, nb)));
 }
 
 // Ghost cells: the x faces (2 N^2 cells), then the y faces without the x
@@ -114,7 +157,8 @@ __device__ __forceinline__ int ghost_threads(int n) {
 }
 
 // Ghost cell t of x set to the value set_bnd3d(b) gives it.
-__device__ __forceinline__ void ghost_cell(int t, float* x, int n, int b) {
+template <typename T>
+__device__ __forceinline__ void ghost_cell(int t, T* x, int n, int b) {
   const int N = n + 2;
   int i, j, k;
   if (t < 2 * N * N) {
@@ -134,7 +178,7 @@ __device__ __forceinline__ void ghost_cell(int t, float* x, int n, int b) {
   }
   Cell cell;
   cell_from(i, j, k, n, cell);
-  x[out_index(cell, n)] = cell.sign[b] * x[cell.c];
+  x[out_index(cell, n)] = mul_rn(cell.sign[b], x[cell.c]);
 }
 
 struct Signs {
@@ -148,8 +192,8 @@ __host__ __device__ inline Signs signs_for(int b) {
 
 // The buffer Jacobi sweep s of ``iters`` writes: out for the last sweep,
 // and alternately tmp and out before it.
-__host__ __device__ inline float* sweep_dst(int s, int iters, float* out,
-                                            float* tmp) {
+template <typename T>
+__host__ __device__ inline T* sweep_dst(int s, int iters, T* out, T* tmp) {
   return ((iters - 1 - s) & 1) ? tmp : out;
 }
 
@@ -202,6 +246,51 @@ __device__ __forceinline__ void diffuse_phase(cg::grid_group& grid,
   }
 }
 
+template <typename T>
+struct SolveArgs {
+  const T* x;  // the initial guess; NULL: zeros
+  const T* x0;
+  T *out, *tmp;  // tmp: the second Jacobi buffer (unused by red-black)
+  int b, n, iters, red_black;
+  float a, c_inv;
+};
+
+// A whole solve, every sweep of the streamed kernels' launches in turn:
+// Jacobi sweeps out of place between out and tmp, the first reading x's
+// stored ghosts, or red-black half-sweeps in place on out after the
+// first (the ghost-race scheme above), then the ghost pass.
+template <typename T>
+__device__ __forceinline__ void solve_phase(cg::grid_group& grid,
+                                            const GridLoop& loop,
+                                            const SolveArgs<T>& g) {
+  const int n = g.n;
+  if (g.red_black) {
+    const Signs s = signs_for(g.b);
+    const int active = rb_threads(n);
+    for (int it = 0; it < g.iters; ++it) {
+      for (int par = 0; par < 2; ++par) {
+        const bool first = it == 0 && par == 0;
+        for (int t = loop.start; t < active; t += loop.stride)
+          rb_cell(t, first ? g.x : g.out, g.x0, g.out, n, par, first, s.x,
+                  s.y, s.z, g.a, g.c_inv);
+        grid.sync();
+      }
+    }
+    const int ghosts = ghost_threads(n);
+    for (int t = loop.start; t < ghosts; t += loop.stride)
+      ghost_cell(t, g.out, n, g.b);
+    return;
+  }
+  const int cells = (n + 2) * (n + 2) * (n + 2);
+  for (int s = 0; s < g.iters; ++s) {
+    const T* src = s == 0 ? g.x : sweep_dst(s - 1, g.iters, g.out, g.tmp);
+    T* dst = sweep_dst(s, g.iters, g.out, g.tmp);
+    for (int idx = loop.start; idx < cells; idx += loop.stride)
+      jacobi_cell(idx, src, g.x0, dst, n, g.b, g.a, g.c_inv);
+    if (s + 1 < g.iters) grid.sync();
+  }
+}
+
 struct ProjectArgs {
   const float *u, *v, *w;
   float *uo, *vo, *wo, *div, *p, *p2;
@@ -221,30 +310,9 @@ __device__ __forceinline__ void project_phase(cg::grid_group& grid,
   for (int idx = loop.start; idx < cells; idx += loop.stride)
     div_cell(idx, g.u, g.v, g.w, g.div, n, g.coef);
   grid.sync();
-  if (g.red_black) {
-    const int active = rb_threads(n);
-    for (int it = 0; it < g.iters; ++it) {
-      for (int par = 0; par < 2; ++par) {
-        const bool first = it == 0 && par == 0;
-        for (int t = loop.start; t < active; t += loop.stride)
-          rb_cell(t, first ? nullptr : g.p, g.div, g.p, n, par, first, 1.0f,
-                  1.0f, 1.0f, 1.0f, g.c_inv);
-        grid.sync();
-      }
-    }
-    const int ghosts = ghost_threads(n);
-    for (int t = loop.start; t < ghosts; t += loop.stride)
-      ghost_cell(t, g.p, n, 0);
-  } else {
-    for (int s = 0; s < g.iters; ++s) {
-      const float* src = s == 0 ? nullptr : sweep_dst(s - 1, g.iters, g.p,
-                                                      g.p2);
-      float* dst = sweep_dst(s, g.iters, g.p, g.p2);
-      for (int idx = loop.start; idx < cells; idx += loop.stride)
-        jacobi_cell(idx, src, g.div, dst, n, 0, 1.0f, g.c_inv);
-      if (s + 1 < g.iters) grid.sync();
-    }
-  }
+  const SolveArgs<float> solve{nullptr, g.div, g.p, g.p2, 0, n,
+                               g.iters, g.red_black, 1.0f, g.c_inv};
+  solve_phase(grid, loop, solve);
   grid.sync();
   for (int idx = loop.start; idx < cells; idx += loop.stride)
     gradsub_cell(idx, g.p, g.u, g.v, g.w, g.uo, g.vo, g.wo, n, g.inv_h);

@@ -1,7 +1,8 @@
 """Carry grid state and configuration between the JAX package and the
 port without importing JAX: the state crosses as numpy arrays, the
 configuration as the dict of ``dataclasses.asdict``.  A state is 2D or
-3D by the rank of its fields."""
+3D by the rank of its fields; a MAC state (``grid.mac.MacState3D``) has
+its own pair of functions."""
 
 from __future__ import annotations
 
@@ -10,10 +11,20 @@ import dataclasses
 import numpy as np
 import torch
 
+from tpufluids_torch.grid.mac import MacState3D
 from tpufluids_torch.grid.stam import GridState2D, GridState3D, StamConfig
 
 FIELDS = tuple(f.name for f in dataclasses.fields(GridState3D))
 FIELDS2D = tuple(f.name for f in dataclasses.fields(GridState2D))
+MAC_FIELDS = tuple(f.name for f in dataclasses.fields(MacState3D))
+
+
+def _tensors(fields: dict, names, device):
+    missing = set(names) - set(fields)
+    if missing:
+        raise ValueError(f"missing fields: {sorted(missing)}")
+    return {f: torch.tensor(np.asarray(fields[f], np.float32), device=device)
+            for f in names}
 
 
 def state_from_numpy(fields: dict, device="cuda"):
@@ -22,17 +33,23 @@ def state_from_numpy(fields: dict, device="cuda"):
     FIELDS2D) on ``device``."""
     flat = "u" in fields and np.ndim(fields["u"]) == 2
     cls, names = (GridState2D, FIELDS2D) if flat else (GridState3D, FIELDS)
-    missing = set(names) - set(fields)
-    if missing:
-        raise ValueError(f"missing fields: {sorted(missing)}")
-    return cls(**{
-        f: torch.tensor(np.asarray(fields[f], np.float32), device=device)
-        for f in names})
+    return cls(**_tensors(fields, names, device))
 
 
 def state_to_numpy(state) -> dict:
     return {f.name: getattr(state, f.name).cpu().numpy()
             for f in dataclasses.fields(state)}
+
+
+def mac_state_from_numpy(fields: dict, device="cuda") -> MacState3D:
+    """A MacState3D holding float32 copies of ``fields`` (the face arrays
+    u, v, w and the cell arrays dens, temp of the JAX package's
+    MacState3D) on ``device``."""
+    return MacState3D(**_tensors(fields, MAC_FIELDS, device))
+
+
+# a MacState3D's fields go out as any state's
+mac_state_to_numpy = state_to_numpy
 
 
 def config_from_dict(d: dict) -> StamConfig:

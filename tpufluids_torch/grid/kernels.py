@@ -16,10 +16,12 @@ passes over a few (n+2)^3 float32 fields, one thread per output cell,
 ghosts included; a ghost output is the interior value at its clamped
 index times the set_bnd sign (csrc/grid_common.cuh), so no second
 boundary pass is needed.  The solvers (csrc/jacobi.cu) stream one pass
-per Jacobi sweep or red-black half-sweep; the whole tier (the
-multi-field diffusion, the fused projection and the whole step) runs a
-whole solve, or a whole step, in one cooperative launch, for grids whose
-fields stay in the card's L2 (``whole_ok``).
+per Jacobi sweep or red-black half-sweep, in float32 or in bfloat16
+(each operation rounded to bfloat16, 2 B a cell); the whole tier (the
+whole solve in either type, the multi-field diffusion, the fused
+projection and the whole step) runs a whole solve, or a whole step, in
+one cooperative launch, for grids whose fields stay in the card's L2
+(``solve_whole_ok``).
 
 A 2D field is small (130^2 float32 is 68 KB), so the 2D kernels
 (csrc/grid2d.cu) run one thread block that does every sweep, with a
@@ -221,10 +223,12 @@ WHOLE_MAX_FIELD_BYTES = 4 * 1024 * 1024
 STEP_MAX_FIELD_BYTES = 2 * 1024 * 1024
 
 
-def whole_ok(x: torch.Tensor) -> bool:
-    """True when fields shaped like ``x`` take the whole tier's solves
-    (diffuse3d_multi, project3d_whole)."""
-    return x.numel() * x.element_size() <= WHOLE_MAX_FIELD_BYTES
+def solve_whole_ok(x: torch.Tensor, dtype: torch.dtype) -> bool:
+    """True when a solve of fields shaped like ``x``, stored as
+    ``dtype``, takes the whole tier (lin_solve3d_whole): up to n = 99
+    stored as float32, n = 126 as bfloat16.  The whole and streamed
+    solves compute the same function, so the gate only decides speed."""
+    return x.numel() * dtype.itemsize <= WHOLE_MAX_FIELD_BYTES
 
 
 def step_whole_ok(x: torch.Tensor) -> bool:
@@ -296,6 +300,119 @@ def lin_solve3d_rb(b, x, x0, a, c, iters):
 lin_solve3d_rb.launches = 0
 
 
+# the solves in bfloat16: x and x0 are cast to bfloat16 and the result
+# back to float32 by torch ops around the launch, as the reference casts
+# around its pallas_call; a and 1 / c are rounded to bfloat16 here, as the
+# reference's weak-typed scalars are
+
+
+def _bf16_operands(x, x0, a, c):
+    bf16 = torch.bfloat16
+    return (None if x is None else x.to(bf16), x0.to(bf16),
+            stam.round_scalar(a, bf16), stam.round_scalar(1.0 / c, bf16))
+
+
+def lin_solve3d_bf16_plain(b, x, x0, a, c, iters):
+    return stam.lin_solve3d(b, x, x0, a, c, iters, dtype=torch.bfloat16)
+
+
+def lin_solve3d_bf16(b, x, x0, a, c, iters):
+    """lin_solve3d in bfloat16: ``iters`` Jacobi sweeps, each operation
+    rounded to bfloat16; float32 in and out, as
+    stam.lin_solve3d(dtype=torch.bfloat16).
+
+    Replaces lin_solve3d_pallas(dtype=bfloat16)
+    (tpufluids/grid/pallas_kernels.py).  On paper bound by bytes, at 2 B
+    a cell; on the card by instruction issue (no faster than float32,
+    PERF.md).  One launch per sweep, out of place between two bfloat16
+    buffers, one thread per output cell (csrc/jacobi.cu)."""
+    if not _solve_on_cuda(b, x, x0, iters):
+        return lin_solve3d_bf16_plain(b, x, x0, a, c, iters)
+    x, x0, a, c_inv = _bf16_operands(x, x0, a, c)
+    out, tmp = torch.empty_like(x0), torch.empty_like(x0)
+    _build.launch("tf_lin_solve3d_bf16", x, x0, out, tmp, b,
+                  x0.shape[0] - 2, iters, a, c_inv)
+    lin_solve3d_bf16.launches += 1
+    return out.float()
+
+
+lin_solve3d_bf16.launches = 0
+
+
+def lin_solve3d_rb_bf16_plain(b, x, x0, a, c, iters):
+    return stam.lin_solve3d(b, x, x0, a, c, iters, red_black=True,
+                            dtype=torch.bfloat16)
+
+
+def lin_solve3d_rb_bf16(b, x, x0, a, c, iters):
+    """lin_solve3d_rb in bfloat16, each operation rounded to bfloat16;
+    float32 in and out, as stam.lin_solve3d(red_black=True,
+    dtype=torch.bfloat16).
+
+    Replaces lin_solve3d_pallas(red_black=True, dtype=bfloat16)
+    (tpufluids/grid/pallas_kernels.py).  On paper bound by bytes, at 2 B
+    a cell; on the card mostly by instruction issue (PERF.md).  One
+    launch per half-sweep over the active cells, in place, then one
+    ghost pass, as lin_solve3d_rb (csrc/jacobi.cu)."""
+    if not _solve_on_cuda(b, x, x0, iters):
+        return lin_solve3d_rb_bf16_plain(b, x, x0, a, c, iters)
+    x, x0, a, c_inv = _bf16_operands(x, x0, a, c)
+    out = torch.empty_like(x0)
+    _build.launch("tf_lin_solve3d_rb_bf16", x, x0, out, b, x0.shape[0] - 2,
+                  iters, a, c_inv)
+    lin_solve3d_rb_bf16.launches += 1
+    return out.float()
+
+
+lin_solve3d_rb_bf16.launches = 0
+
+
+def _check_solve_dtype(dtype):
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the solves run in float32 or bfloat16, not "
+                        f"{dtype}")
+
+
+def lin_solve3d_whole_plain(b, x, x0, a, c, iters, red_black, dtype):
+    return stam.lin_solve3d(b, x, x0, a, c, iters, red_black=red_black,
+                            dtype=dtype)
+
+
+def lin_solve3d_whole(b, x, x0, a, c, iters, red_black, dtype):
+    """The whole solve: ``iters`` Jacobi sweeps, or red-black iterations,
+    in ``dtype`` (float32 or bfloat16); float32 in and out, as
+    stam.lin_solve3d(red_black=red_black, dtype=dtype), so as the
+    streamed lin_solve3d, lin_solve3d_rb and their bfloat16 versions.
+
+    Replaces the whole-solve mode of lin_solve3d_pallas
+    (_solve_whole_kernel, tpufluids/grid/pallas_kernels.py).  One
+    cooperative launch runs every sweep, with a grid-wide barrier
+    between sweeps and half-sweeps, with the cell bodies of the streamed
+    kernels; its buffers stay in the card's L2 (csrc/jacobi.cu).  Only
+    for fields that pass ``solve_whole_ok``."""
+    _check_solve_dtype(dtype)
+    if not _solve_on_cuda(b, x, x0, iters):
+        return lin_solve3d_whole_plain(b, x, x0, a, c, iters, red_black,
+                                       dtype)
+    if not solve_whole_ok(x0, dtype):
+        raise ValueError(f"{tuple(x0.shape)} fields in {dtype} are outside "
+                         f"the whole tier (solve_whole_ok)")
+    if dtype == torch.bfloat16:
+        x, x0, a, c_inv = _bf16_operands(x, x0, a, c)
+    else:
+        c_inv = 1.0 / c
+    out = torch.empty_like(x0)
+    tmp = None if red_black else torch.empty_like(x0)
+    _build.launch("tf_lin_solve3d_whole", x, x0, out, tmp, b,
+                  x0.shape[0] - 2, iters, bool(red_black),
+                  dtype == torch.bfloat16, a, c_inv)
+    lin_solve3d_whole.launches += 1
+    return out.float()
+
+
+lin_solve3d_whole.launches = 0
+
+
 def diffuse3d_multi_plain(xs, params, iters):
     return tuple(stam.lin_solve3d(b, x, x, a, c, iters)
                  for x, (b, a, c) in zip(xs, params))
@@ -309,7 +426,7 @@ def diffuse3d_multi(xs, params, iters):
     Replaces diffuse3d_whole_multi (tpufluids/grid/pallas_kernels.py).
     One cooperative launch runs every sweep of every field, with a
     grid-wide barrier between sweeps (csrc/jacobi.cu); only for fields
-    that pass ``whole_ok``."""
+    that pass ``solve_whole_ok`` in float32."""
     xs, params = tuple(xs), tuple(params)
     if not 1 <= len(xs) <= 3 or len(params) != len(xs):
         raise ValueError("diffuse3d_multi takes 1 to 3 fields, one "
@@ -318,9 +435,9 @@ def diffuse3d_multi(xs, params, iters):
         _check_solve(b, iters)
     if not _on_cuda(*xs):
         return diffuse3d_multi_plain(xs, params, iters)
-    if not whole_ok(xs[0]):
+    if not solve_whole_ok(xs[0], torch.float32):
         raise ValueError(f"{tuple(xs[0].shape)} fields are outside the "
-                         f"whole tier (whole_ok)")
+                         f"whole tier (solve_whole_ok)")
     k, pad = len(xs), (None,) * (3 - len(xs))
     outs = tuple(torch.empty_like(x) for x in xs)
     tmps = tuple(torch.empty_like(x) for x in xs)
@@ -351,13 +468,13 @@ def project3d_whole(u, v, w, iters, red_black):
     Replaces project3d_whole_pallas (tpufluids/grid/pallas_kernels.py).
     One cooperative launch runs the three phases with the cell bodies of
     the three-launch path (csrc/jacobi.cu, csrc/divgrad.cuh); only for
-    fields that pass ``whole_ok``."""
+    fields that pass ``solve_whole_ok`` in float32."""
     _check_solve(0, iters)
     if not _on_cuda(u, v, w):
         return project3d_whole_plain(u, v, w, iters, red_black)
-    if not whole_ok(u):
+    if not solve_whole_ok(u, torch.float32):
         raise ValueError(f"{tuple(u.shape)} fields are outside the whole "
-                         f"tier (whole_ok)")
+                         f"tier (solve_whole_ok)")
     n = u.shape[0] - 2
     h = 1.0 / n
     outs = tuple(torch.empty_like(u) for _ in range(3))
@@ -559,8 +676,9 @@ def step2d_whole(u, v, dens, temp, cfg: stam.StamConfig):
 step2d_whole.launches = 0
 
 KERNELS = (advect3d_multi, forcing3d, div3d, gradsub3d, lin_solve3d,
-           lin_solve3d_rb, diffuse3d_multi, project3d_whole, step3d_whole,
-           lin_solve2d, step2d_whole)
+           lin_solve3d_rb, lin_solve3d_bf16, lin_solve3d_rb_bf16,
+           lin_solve3d_whole, diffuse3d_multi, project3d_whole,
+           step3d_whole, lin_solve2d, step2d_whole)
 
 
 def reset_launches():

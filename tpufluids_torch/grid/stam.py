@@ -1,23 +1,25 @@
 """Stam-style stable-fluids solver in PyTorch: the 2D and 3D steps of
-``tpufluids.grid.stam`` with the spectral (DCT) or the Jacobi (plain or
-red-black) projection, diffusion, and stencil or gather advection.
+``tpufluids.grid.stam`` with the spectral (DCT), the Jacobi (plain or
+red-black) or the multigrid projection, diffusion, stencil or gather
+advection, and the float32 or bfloat16 solver.
 
 Fields are dense (n+2)^2 or (n+2)^3 float32 tensors with one ghost
 layer, the last axis contiguous, on any device.  The functions are pure:
 they return new tensors and never write into their arguments.  The
 stencil stages of the 3D step (forcing, divergence, gradient
-subtraction, stencil advection), the Jacobi solves of both steps and the
-whole 2D and 3D steps go through ``tpufluids_torch.grid.kernels``, which
-launches a CUDA kernel for a CUDA tensor and runs the plain PyTorch
-version for a CPU tensor.  The DCT solve is dense matrix products
-(``torch.tensordot``); gather advection and the other stages of the
-multi-call 2D step are torch ops, as they are XLA ops in the reference.
+subtraction, stencil advection), the Jacobi solves of both steps (in
+float32 or bfloat16; multigrid smooths with them) and the whole 2D and
+3D steps go through ``tpufluids_torch.grid.kernels``, which launches a
+CUDA kernel for a CUDA tensor and runs the plain PyTorch version for a
+CPU tensor.  The DCT solve is dense matrix products
+(``torch.tensordot``); gather advection, multigrid's restriction and
+prolongation and the other stages of the multi-call 2D step are torch
+ops, as they are XLA ops in the reference.
 
 The port keeps the reference's dense ghosted layout and reads stored
 ghosts, so it reproduces the reference's dense XLA path
-(``solver_backend="xla"``).  Configurations outside the ported slice
-raise ``NotImplementedError`` naming the ROADMAP.md item that will port
-them.
+(``solver_backend="xla"``); its bfloat16 solves are the reference's
+Pallas bfloat16 solve, which its dense path does not have.
 """
 
 from __future__ import annotations
@@ -37,12 +39,11 @@ from tpufluids_torch.grid import kernels
 class StamConfig:
     """Same fields and defaults as ``tpufluids.grid.stam.StamConfig``.
 
-    The port runs both advection modes with the "dct" or "jacobi"
-    projection, with or without diffusion; in 2D every projection but
-    "dct" is the Jacobi solve and ``solver_dtype`` changes nothing, as in
-    the reference.  ``solver_backend`` is ignored (the device of the
-    fields decides), and ``mg_cycles`` only matters to the 3D multigrid
-    projection, which the port does not run yet.
+    The port runs both advection modes with every projection, with or
+    without diffusion, with either ``solver_dtype``; in 2D every
+    projection but "dct" is the Jacobi solve and ``solver_dtype``
+    changes nothing, as in the reference.  ``solver_backend`` is ignored
+    (the device of the fields decides).
     """
     n: int = 128                 # interior cells per axis
     dt: float = 0.1
@@ -105,21 +106,6 @@ def make_grid2d(cfg: StamConfig, device="cuda") -> GridState2D:
 
 def make_grid3d(cfg: StamConfig, device="cuda") -> GridState3D:
     return GridState3D(*_make_grid(cfg, 3, device))
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to tpufluids_torch yet (ROADMAP.md Queue 1 "
-        f"item 5, {item!r})")
-
-
-def _check_slice(cfg: StamConfig):
-    """Raise for a 3D configuration outside the ported slices."""
-    if cfg.projection == "multigrid":
-        raise _not_ported("projection='multigrid'", "multigrid")
-    if cfg.solver_dtype != "float32":
-        raise _not_ported(f"solver_dtype={cfg.solver_dtype!r}",
-                          "bfloat16 solver")
 
 
 # ---------------------------------------------------------------------------
@@ -206,14 +192,45 @@ def _checker(n: int, parity: int, device) -> torch.Tensor:
         == parity
 
 
-def lin_solve3d(b, x, x0, a, c, iters, red_black=False):
+SOLVER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def solver_dtype(name: str) -> torch.dtype:
+    """The torch dtype of ``StamConfig.solver_dtype``."""
+    if name not in SOLVER_DTYPES:
+        raise ValueError(f"unknown solver_dtype {name!r}")
+    return SOLVER_DTYPES[name]
+
+
+def round_scalar(v: float, dtype: torch.dtype) -> float:
+    """``v`` rounded to ``dtype`` (through float32, as the reference's
+    weak-typed Python scalars are rounded against a bfloat16 array)."""
+    return float(torch.tensor(v, dtype=torch.float64).to(dtype))
+
+
+def lin_solve3d(b, x, x0, a, c, iters, red_black=False,
+                dtype=torch.float32):
     """``iters`` Jacobi sweeps of (x0 + a * sum of neighbours) / c on the
     interior, or red-black iterations of two half-sweeps (parity 0, then
     1), each sweep and half-sweep followed by set_bnd3d(b); as the
     reference's lin_solve3d.  ``x`` None is a zero initial guess; the
-    first sweep reads the stored ghosts of ``x``."""
+    first sweep reads the stored ghosts of ``x``.
+
+    ``dtype`` bfloat16 is the reference's bfloat16 solve
+    (lin_solve3d_pallas(dtype=bfloat16)): x and x0 are rounded to
+    bfloat16, so are ``a`` and 1 / c, every operation rounds to bfloat16
+    (the neighbours summed x-1, x+1, y-1, y+1, z-1, z+1, then a * sum,
+    then x0 + that, then times 1 / c), and the result is cast back to
+    the input's float32."""
+    out_dtype = x0.dtype
     c_inv = 1.0 / c
-    x = torch.zeros_like(x0) if x is None else x.clone()
+    if dtype != torch.float32:
+        # a tensor times a Python float keeps the float in float32:
+        # round the scalars first
+        a, c_inv = round_scalar(a, dtype), round_scalar(c_inv, dtype)
+    x0 = x0.to(dtype)
+    x = (torch.zeros_like(x0) if x is None
+         else x.to(dtype, copy=True))
     if red_black:
         m0 = _checker(x.shape[0] - 2, 0, x.device)
     for _ in range(iters):
@@ -224,13 +241,27 @@ def lin_solve3d(b, x, x0, a, c, iters, red_black=False):
         for m in (m0, ~m0):
             x[_I] = torch.where(m, _jacobi_new(x, x0, a, c_inv), x[_I])
             _set_bnd3d_(b, x)
-    return x
+    return x.to(out_dtype)
 
 
-def _lin_solve3d(b, x, x0, a, c, iters, red_black=False):
-    """lin_solve3d through its kernel: red-black to lin_solve3d_rb, plain
-    Jacobi to lin_solve3d."""
-    solve = kernels.lin_solve3d_rb if red_black else kernels.lin_solve3d
+def _lin_solve3d(b, x, x0, a, c, iters, red_black=False, dtype="float32"):
+    """lin_solve3d in ``dtype`` (a StamConfig.solver_dtype) through its
+    kernel, as the reference's _lin_solve3d dispatches: float32
+    red-black to lin_solve3d_rb; float32 Jacobi to the whole solve
+    (lin_solve3d_whole) for fields inside kernels.solve_whole_ok, else
+    to lin_solve3d; bfloat16, Jacobi or red-black, to the whole solve
+    inside the gate (at 2 B a cell), else to lin_solve3d_bf16 or
+    lin_solve3d_rb_bf16."""
+    dt = solver_dtype(dtype)
+    if dt == torch.float32 and red_black:
+        return kernels.lin_solve3d_rb(b, x, x0, a, c, iters)
+    if kernels.solve_whole_ok(x0, dt):
+        return kernels.lin_solve3d_whole(b, x, x0, a, c, iters, red_black,
+                                         dt)
+    if dt == torch.float32:
+        return kernels.lin_solve3d(b, x, x0, a, c, iters)
+    solve = (kernels.lin_solve3d_rb_bf16 if red_black
+             else kernels.lin_solve3d_bf16)
     return solve(b, x, x0, a, c, iters)
 
 
@@ -271,15 +302,18 @@ def diffuse2d(b, x, cfg: StamConfig, coeff, solve=_lin_solve2d):
 def diffuse3d(b, x, cfg: StamConfig, coeff):
     """Implicit diffusion of ``x`` by ``coeff``: ``cfg.jacobi_iters``
     plain Jacobi sweeps always (red_black applies to the pressure
-    projection only), x0 = x."""
+    projection only) in ``cfg.solver_dtype``, x0 = x."""
     a, c = _diffusion_ac(cfg, coeff, x.shape[0] - 2)
-    return _lin_solve3d(b, x, x, a, c, cfg.jacobi_iters)
+    return _lin_solve3d(b, x, x, a, c, cfg.jacobi_iters,
+                        dtype=cfg.solver_dtype)
 
 
 def _diffuse_fields(fields, bnds, coeffs, cfg: StamConfig):
     """diffuse3d of each field with its b and coefficient: one whole-tier
-    call for fields that fit it, else one solve per field."""
-    if not kernels.whole_ok(fields[0]):
+    call (float32) for fields that fit it, else one solve per field, as
+    the reference, whose multi-field whole diffusion is float32 only."""
+    if (cfg.solver_dtype != "float32"
+            or not kernels.solve_whole_ok(fields[0], torch.float32)):
         return tuple(diffuse3d(b, q, cfg, coeff)
                      for q, b, coeff in zip(fields, bnds, coeffs))
     n = fields[0].shape[0] - 2
@@ -433,6 +467,69 @@ def poisson_residual3d(p, div):
           + p[1:-1, :-2, 1:-1] + p[1:-1, 2:, 1:-1]
           + p[1:-1, 1:-1, :-2] + p[1:-1, 1:-1, 2:])
     return torch.max(torch.abs(div[_I] + nb - 6.0 * p[_I]))
+
+
+# ---------------------------------------------------------------------------
+# geometric multigrid for the pressure system (the reference's mg_solve3d):
+# V(2,2) cycles of red-black smoothing, restriction and prolongation as
+# torch ops
+
+
+def _mg_residual3d(p, x0):
+    """x0 + sum of neighbours - 6 p on the interior: the residual of the
+    h^2-scaled system lin_solve3d solves at a = 1, c = 6."""
+    nb = (p[:-2, 1:-1, 1:-1] + p[2:, 1:-1, 1:-1]
+          + p[1:-1, :-2, 1:-1] + p[1:-1, 2:, 1:-1]
+          + p[1:-1, 1:-1, :-2] + p[1:-1, 1:-1, 2:])
+    return x0[_I] + nb - 6.0 * p[_I]
+
+
+def _mg_restrict3d(r):
+    """The mean of each 2x2x2 block of the interior residual ``r`` (n^3),
+    times 4 (the coarse h^2), as a ghosted ((n/2)+2)^3 right-hand side
+    with zero ghosts."""
+    m = r.shape[0] // 2
+    rc = r.reshape(m, 2, m, 2, m, 2).mean(dim=(1, 3, 5))
+    return torch.nn.functional.pad(4.0 * rc, (1,) * 6)
+
+
+def _mg_prolong3d(e):
+    """The ghosted coarse correction's interior, each cell repeated onto
+    its 2x2x2 fine cells."""
+    m = e.shape[0] - 2
+    ei = e[_I].reshape(m, 1, m, 1, m, 1)
+    return ei.expand(m, 2, m, 2, m, 2).reshape(2 * m, 2 * m, 2 * m)
+
+
+def _mg_vcycle(p, x0, cfg: StamConfig, nu1=2, nu2=2, coarsest=8):
+    """One V(nu1, nu2) cycle of red-black smoothing from guess ``p``.
+    Levels of n >= 48 solve in ``cfg.solver_dtype``; smaller ones in
+    float32, as the reference sends them to its dense path, which has no
+    bfloat16 solve.  The coarsest level (n <= coarsest, or odd n) runs
+    20 red-black iterations."""
+    n = x0.shape[0] - 2
+    dtype = cfg.solver_dtype if n >= 48 else "float32"
+    if n <= coarsest or n % 2:
+        return _lin_solve3d(0, p, x0, 1.0, 6.0, 20, red_black=True,
+                            dtype=dtype)
+    p = _lin_solve3d(0, p, x0, 1.0, 6.0, nu1, red_black=True, dtype=dtype)
+    ec = _mg_vcycle(None, _mg_restrict3d(_mg_residual3d(p, x0)), cfg, nu1,
+                    nu2, coarsest)
+    p = p.clone()
+    p[_I] += _mg_prolong3d(ec)
+    p = _set_bnd3d_(0, p)
+    return _lin_solve3d(0, p, x0, 1.0, 6.0, nu2, red_black=True, dtype=dtype)
+
+
+def mg_solve3d(x0, cfg: StamConfig, cycles: Optional[int] = None):
+    """Solve the ghosted pressure system of ``x0`` (lin_solve3d's a = 1,
+    c = 6, b = 0) by ``cycles`` (default ``cfg.mg_cycles``) V(2,2)
+    multigrid cycles from a zero guess; as the reference's mg_solve3d.
+    Multigrid has no whole tier: each smoothing is one solve call."""
+    p = None
+    for _ in range(cfg.mg_cycles if cycles is None else cycles):
+        p = _mg_vcycle(p, x0, cfg)
+    return torch.zeros_like(x0) if p is None else p
 
 
 @contextlib.contextmanager
@@ -662,21 +759,23 @@ def project2d(u, v, cfg: StamConfig, with_residual: bool = False,
 
 def project3d(u, v, w, cfg: StamConfig, with_residual: bool = False,
               final=True):
-    """Pressure projection: the DCT solve, or ``cfg.jacobi_iters``
-    Jacobi or red-black sweeps from a zero guess; ``with_residual`` also
-    returns the max-norm residual of the Poisson system it solved.  A
+    """Pressure projection: the DCT solve, the multigrid solve
+    (mg_solve3d), or ``cfg.jacobi_iters`` Jacobi or red-black sweeps from
+    a zero guess in ``cfg.solver_dtype``; ``with_residual`` also returns
+    the max-norm residual of the Poisson system it solved.  A float32
     Jacobi projection of fields inside the whole tier, without the
     residual, is one fused call (kernels.project3d_whole)."""
-    if cfg.projection == "multigrid":
-        raise _not_ported("projection='multigrid'", "multigrid")
-    jacobi = cfg.projection != "dct"
-    if jacobi and not with_residual and kernels.whole_ok(u):
+    jacobi = cfg.projection not in ("multigrid", "dct")
+    if (jacobi and cfg.solver_dtype == "float32" and not with_residual
+            and kernels.solve_whole_ok(u, torch.float32)):
         return kernels.project3d_whole(u, v, w, cfg.jacobi_iters,
                                        cfg.red_black)
     div = kernels.div3d(u, v, w)
-    if jacobi:
+    if cfg.projection == "multigrid":
+        p = mg_solve3d(div, cfg)
+    elif jacobi:
         p = _lin_solve3d(0, None, div, 1.0, 6.0, cfg.jacobi_iters,
-                         red_black=cfg.red_black)
+                         red_black=cfg.red_black, dtype=cfg.solver_dtype)
     else:
         p = dct_solve3d(div, cfg, final=final)
     u, v, w = kernels.gradsub3d(p, u, v, w)
@@ -839,15 +938,32 @@ def run2d_python(state: GridState2D, cfg: StamConfig, n_steps: int,
     return state
 
 
+def run_each_residual(step, state, cfg, n_steps: int):
+    """``n_steps`` calls of ``step(state, cfg, with_residual=True)``, as
+    the reference's run scans; returns (state, residuals as an
+    (n_steps,) tensor)."""
+    res = []
+    for _ in range(n_steps):
+        state, r = step(state, cfg, with_residual=True)
+        res.append(r)
+    return state, torch.stack(res)
+
+
+def run_last_residual(step, state, cfg, n_steps: int):
+    """Run ``n_steps`` calls of ``step`` (at least one), queued on the
+    device without a host sync; the residual of the final step only.
+    Returns (state, residual as a (1,) tensor)."""
+    for _ in range(max(n_steps - 1, 0)):
+        state = step(state, cfg)
+    state, res = step(state, cfg, with_residual=True)
+    return state, res.reshape(1)
+
+
 def run2d(state: GridState2D, cfg: StamConfig, n_steps: int):
     """``n_steps`` steps, each reporting its Poisson residual, as the
     reference's run2d scan; returns (state, residuals as an (n_steps,)
     tensor)."""
-    res = []
-    for _ in range(n_steps):
-        state, r = step2d(state, cfg, with_residual=True)
-        res.append(r)
-    return state, torch.stack(res)
+    return run_each_residual(step2d, state, cfg, n_steps)
 
 
 def step3d(state: GridState3D, cfg: StamConfig,
@@ -861,11 +977,12 @@ def step3d(state: GridState3D, cfg: StamConfig,
     A stencil-advection Jacobi step of fields inside the whole step's
     gate that does not report the residual is one fused call
     (kernels.step3d_whole), as the reference's step3d_whole_pallas;
-    every other step, gather advection's included, is step3d_multi."""
-    _check_slice(cfg)
+    every other step, gather advection's and a bfloat16 solver's
+    included, is step3d_multi."""
     s = _with_sources(state, cfg, sources)
     if (cfg.advect_mode == "stencil" and cfg.projection == "jacobi"
-            and not with_residual and kernels.step_whole_ok(s.u)):
+            and cfg.solver_dtype == "float32" and not with_residual
+            and kernels.step_whole_ok(s.u)):
         return GridState3D(*kernels.step3d_whole(s.u, s.v, s.w, s.dens,
                                                  s.temp, cfg))
     return step3d_multi(s, cfg, with_residual)
@@ -875,7 +992,6 @@ def step3d_multi(state: GridState3D, cfg: StamConfig,
                  with_residual: bool = False):
     """step3d without sources, each stage through its own kernel (gather
     advection as torch ops)."""
-    _check_slice(cfg)
     u, v, w, dens, temp = state.u, state.v, state.w, state.dens, state.temp
     if cfg.buoyancy_alpha or cfg.buoyancy_beta or cfg.vorticity_eps:
         u, v, w = kernels.forcing3d(u, v, w, dens, temp, cfg)
@@ -904,7 +1020,11 @@ def run3d_python(state: GridState3D, cfg: StamConfig, n_steps: int):
     """Run ``n_steps`` steps (at least one).  Steps are queued on the
     device without a host sync; the Poisson residual is evaluated on the
     final step only.  Returns (state, residual as a (1,) tensor)."""
-    for _ in range(max(n_steps - 1, 0)):
-        state = step3d(state, cfg)
-    state, res = step3d(state, cfg, with_residual=True)
-    return state, res.reshape(1)
+    return run_last_residual(step3d, state, cfg, n_steps)
+
+
+def run3d(state: GridState3D, cfg: StamConfig, n_steps: int):
+    """``n_steps`` steps, each reporting its Poisson residual, as the
+    reference's run3d scan; returns (state, residuals as an (n_steps,)
+    tensor)."""
+    return run_each_residual(step3d, state, cfg, n_steps)
