@@ -100,6 +100,27 @@
     the fill at sort_every 8 (the column kernel's stale mode) for 3 and
     10.  Checks finiteness, the alive count, the mass, the bin overflow,
     one force launch a step and one sort step in 8.
+13. The sharded grid step (tpufluids_torch.shard, BASELINE config 5).
+    Holds lin_solve3d_rb_shard (csrc/jacobi_shard.cu) against its plain
+    version bit for bit: one pass on face and inner x-slabs (gx0 > 0) of
+    47^3 and 48^3 grids for fuse 1, 2 and 4, b 0 to 3, from a guess and
+    from zeros, each also equal to the dense solve's rows; and the main
+    path's call, config 5's pressure solve at 512^3 on a world of 1,
+    timed against its plain version.  Holds the slab modes of the four
+    stencil kernels against their plain versions bit for bit on the
+    kernel step's padded slabs at 256^3.  Drives config 5 on a world of
+    1: config 3's configuration at 512^3 through make_sharded_step, two
+    steps bit for bit against two dense steps, then 2 warm-up and 10
+    timed steps of the bench scene beside the unsharded config 3 of
+    step 4, with its launches and a profile window; the kernel builds
+    before the ranks start, and each rank loads it.  Then spawns worlds
+    of 2 (256^3, and a DCT leg at 128^3) and 4 (128^3) processes that
+    share the card over gloo, their halos staged through host memory
+    (the Jacobi legs from seeded velocities, the DCT leg from the bench
+    scene): 1 warm-up and 3 timed steps each, collected on rank 0 and held
+    against the dense steps on the card, bit for bit (the DCT leg within
+    1e-5 of max|field|, residual <= 1e-8); ms/step and staged bytes a
+    step, correctness runs on one shared card, not scaling.
 
 Prints the kernels' JSON line, with each kernel's least time on the card
 (its bound: the bytes it must move at 3.35 TB/s, or its float32
@@ -112,6 +133,7 @@ the package is missing, or when any check fails.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -154,6 +176,9 @@ KERNELS = {
                     "tpufluids/grid/pallas_kernels.py:2455", 1e-6),
     "lin_solve3d_rb": ("tpufluids_torch/csrc/jacobi.cu",
                        "tpufluids/grid/pallas_kernels.py:2285", 1e-6),
+    # bit for bit: the sharded red-black solve (config 5's pressure solve)
+    "lin_solve3d_rb_shard": ("tpufluids_torch/csrc/jacobi_shard.cu",
+                             "tpufluids/grid/pallas_kernels.py:2678", 0.0),
     # bit for bit: lin_solve3d_pallas(dtype=bfloat16) and its whole mode
     "lin_solve3d_bf16": ("tpufluids_torch/csrc/jacobi.cu",
                          "tpufluids/grid/pallas_kernels.py:2455", 0.0),
@@ -277,6 +302,22 @@ GRID2D_PATHS = {
     "smoke2d (gather)": (CONFIG1_KW, N_2D, 3, 100),
 }
 FIELDS2D = ("u", "v", "dens", "temp")
+# BASELINE config 5 (512^3 sharded, the Jacobi sweeps exchanged between
+# slabs): config 3's configuration through the sharded step, on a world of
+# 1 at 512^3 (warm-up and timed steps), and on worlds of 2 and 4 processes
+# sharing the one card over gloo: name -> (n, configuration keywords,
+# scene).  The Jacobi legs start from seeded velocities (seeded_grid); the
+# DCT leg, held to MAX_RESIDUAL, from the bench scene that limit is set
+# for, and runs every solve in full float32 (no TF32 first solve).
+CONFIG5_STEPS = (2, 10)
+SHARD_STEPS = (1, 3)
+SHARD_KW = dict(BENCH_KW, projection="jacobi")
+SHARD_WORLDS = {
+    2: (("config 3, sharded", N_BIG, SHARD_KW, "seeded"),
+        ("DCT, sharded", 128, dict(BENCH_KW, projection="dct"), "bench")),
+    4: (("config 3, sharded", 128, SHARD_KW, "seeded"),),
+}
+DCT_SHARD_TOL = STEP_TOL     # relative to max|field|, against the dense step
 # the SPH base step: 1e-5 * max|plain| for sum_w and each dpress column
 SPH_KERNELS = {
     "base_forces_rowblock": ("tpufluids_torch/csrc/sph_forces.cu",
@@ -1724,6 +1765,298 @@ def run_column_path(sph, dev, path):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the sharded grid step (BASELINE config 5) and its kernels
+
+
+def seeded_grid(stam, cfg, device, seed):
+    """The bench scene of config 3 (grid_state) with seeded velocities of
+    up to half a cell a step, every field set_bnd-consistent: a slab
+    rebuilds its x ghosts from the rule, as the reference's does."""
+    s = grid_state(stam, "config 3, float32", cfg, device)
+    rng = np.random.default_rng(seed)
+    vmax = 0.5 / (cfg.dt * cfg.n)
+    shape = (cfg.n + 2,) * 3
+
+    def vel(b):
+        a = rng.uniform(-vmax, vmax, shape).astype(np.float32)
+        return stam.set_bnd3d(b, torch.from_numpy(a).to(device))
+
+    return stam.GridState3D(vel(1), vel(2), vel(3),
+                            stam.set_bnd3d(0, s.dens),
+                            stam.set_bnd3d(0, s.temp))
+
+
+def cut_rows(x, gx0, rows):
+    """Rows gx0 .. gx0 + rows - 1 of the ghosted field x, zeros outside
+    the grid: an x-slab placed at global row gx0."""
+    out = x.new_zeros((rows,) + tuple(x.shape[1:]))
+    lo, hi = max(gx0, 0), min(gx0 + rows, x.shape[0])
+    out[lo - gx0:hi - gx0] = x[lo:hi]
+    return out
+
+
+def check_slab_modes(stam, kernels, dev):
+    """The slab modes of the four stencil kernels against their plain
+    versions, bit for bit, on the kernel step's padded slabs (2 pad rows
+    a side, gx0 = rank c - 1) at 256^3: world 2's rank 0 (a face) and
+    world 4's ranks 1 and 3 (inside, and at the far face).  Each slab's
+    owned rows must also equal the dense kernels' rows."""
+    rng = np.random.default_rng(SEED + 7)
+    n = N_BIG
+    cfg = grid_config(stam, "bench (DCT)", n)
+    dt0 = cfg.dt * n
+
+    def field(b, lo, hi):
+        a = rng.uniform(lo, hi, (n + 2,) * 3).astype(np.float32)
+        return stam.set_bnd3d(b, torch.from_numpy(a).to(dev))
+
+    dense = [field(b, -1.2 / dt0, 1.2 / dt0) for b in (1, 2, 3)] + [
+        field(0, 0.0, 1.0) for _ in range(3)]
+    ref = {"advect3d_multi": kernels.advect3d_multi(dense[:3], (1, 2, 3),
+                                                    *dense[:3], dt0)
+           + kernels.advect3d_multi(dense[3:5], (0, 0), *dense[:3], dt0),
+           "forcing3d": kernels.forcing3d(*dense[:5], cfg),
+           "div3d": (kernels.div3d(*dense[:3]),),
+           "gradsub3d": kernels.gradsub3d(dense[5], *dense[:3])}
+    for c, rank in ((n // 2, 0), (n // 4, 1), (n // 4, 3)):
+        gx0 = rank * c - 1
+        u, v, w, d, t, p = (cut_rows(q, gx0, c + 4) for q in dense)
+        calls = {"advect3d_multi": lambda k: k((u, v, w), (1, 2, 3), u, v, w,
+                                               dt0, gx0=gx0)
+                 + k((d, t), (0, 0), u, v, w, dt0, gx0=gx0),
+                 "forcing3d": lambda k: k(u, v, w, d, t, cfg, gx0=gx0),
+                 "div3d": lambda k: (k(u, v, w, gx0=gx0),),
+                 "gradsub3d": lambda k: k(p, u, v, w, gx0=gx0)}
+        for name, call in calls.items():
+            got = call(getattr(kernels, name))
+            want = call(getattr(kernels, name + "_plain"))
+            same = all(torch.equal(g, w_) for g, w_ in zip(got, want))
+            dense_rows = all(torch.equal(g[2:2 + c], r[gx0 + 2:gx0 + 2 + c])
+                             for g, r in zip(got, ref[name]))
+            log(f"slab mode of {name} @ {n}^3, rank {rank} of "
+                f"{n // c} ({c + 4} rows at gx0 {gx0}): bitwise equal to "
+                f"its plain version: {same}; owned rows equal the dense "
+                f"kernel's: {dense_rows}")
+            check(same and dense_rows, f"{name}: slab mode at gx0 {gx0}")
+
+
+def check_rb_shard(stam, kernels, shard, dev):
+    """lin_solve3d_rb_shard against its plain version, bit for bit: one
+    pass on a face slab and on an inner slab (gx0 > 0) cut from a 47^3
+    and a 48^3 grid, for fuse 1, 2 and 4, b 0 to 3, from a guess and
+    from zeros, each also equal to the dense solve's rows; then the main
+    path's call, config 5's pressure solve at 512^3 on a world of 1 (20
+    iterations, fuse 4, five passes), timed against its plain version.
+    Returns its row of the kernels line."""
+    rng = np.random.default_rng(SEED + 9)
+    checked = 0
+    for n in (47, 48):
+        for fuse in (1, 2, 4):
+            halo, c_local = 2 * fuse, max(2 * fuse, 4)
+            rows = c_local + 2 * halo
+            for b in range(4):
+                x = stam.set_bnd3d(b, torch.from_numpy(rng.uniform(
+                    -1, 1, (n + 2,) * 3).astype(np.float32)).to(dev))
+                x0 = torch.from_numpy(rng.uniform(
+                    -1, 1, (n + 2,) * 3).astype(np.float32)).to(dev)
+                for zero in (False, True):
+                    guess = None if zero else x
+                    dense = kernels.lin_solve3d_rb(b, guess, x0, 1.0, 6.0,
+                                                   fuse)
+                    for r0 in (0, n // 2):
+                        gx0 = r0 + 1 - halo
+                        args = (b, None if zero else cut_rows(x, gx0, rows),
+                                cut_rows(x0, gx0, rows), 1.0, 6.0, fuse)
+                        got = kernels.lin_solve3d_rb_shard(*args, gx0=gx0,
+                                                           fuse=fuse)
+                        want = kernels.lin_solve3d_rb_shard_plain(
+                            *args, gx0=gx0, fuse=fuse)
+                        check(torch.equal(got, want) and torch.equal(
+                            got, dense[r0 + 1:r0 + 1 + c_local]),
+                              f"lin_solve3d_rb_shard at n {n}, fuse {fuse}, "
+                              f"b {b}, zero guess {zero}, gx0 {gx0}")
+                        checked += 1
+    log(f"lin_solve3d_rb_shard: {checked} single-pass slab calls (47^3 and "
+        f"48^3, fuse 1/2/4, b 0-3, guess and zeros, face and inner slabs) "
+        f"bitwise equal to the plain version and to the dense solve's rows")
+
+    # the main path's call: the pressure solve of config 5 at 512^3, world 1
+    n, iters = N_512, 20
+    mesh = shard.make_mesh(device="cuda")
+    fuse = kernels.rb_shard_plan(n, iters)
+    halo = 2 * fuse
+    rhs = torch.from_numpy(rng.uniform(0, 1, (n, n + 2, n + 2)).astype(
+        np.float32)).to(dev)
+    x0p = shard.grid_sharded._refresh_pad_(
+        shard.grid_sharded._padded(rhs, halo), halo, 0, mesh)
+    del rhs
+    exchange = functools.partial(shard.grid_sharded._refresh_pad_,
+                                 halo=halo, b=0, mesh=mesh)
+    args = (0, None, x0p, 1.0, 6.0, iters)
+    kw = dict(gx0=1 - halo, fuse=fuse, exchange=exchange)
+    got = kernels.lin_solve3d_rb_shard(*args, **kw)
+    want = kernels.lin_solve3d_rb_shard_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(torch.equal(got, want), f"lin_solve3d_rb_shard at {n}^3 differs "
+                                  f"from its plain version ({err:.3e})")
+    ms = time_ms(lambda: kernels.lin_solve3d_rb_shard(*args, **kw))
+    plain_ms = time_ms(lambda: kernels.lin_solve3d_rb_shard_plain(*args, **kw),
+                       reps=PLAIN_REPS[0], warm=PLAIN_REPS[1])
+    nbytes = x0p.nbytes + got.nbytes
+    bound_ms, bound_by = bound(nbytes, 8 * iters * n ** 3)
+    # the floor of this design: x and x0 of the padded slab in and x out,
+    # once per half-sweep
+    sweep_ms = 3 * x0p.nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"kernel lin_solve3d_rb_shard timed @ {n}^3 (world 1, {x0p.shape[0]} "
+        f"padded rows, {iters} iterations, fuse {fuse}: {iters // fuse} "
+        f"passes of {2 * fuse} half-sweeps): max_abs_err {err:.3e} "
+        f"(bitwise); ms per call: kernel {ms:.4f}, plain {plain_ms:.4f}; "
+        f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes} B, "
+        f"{8 * iters * n ** 3} operations); one pass over the padded slab "
+        f"a half-sweep would take {sweep_ms:.4f} ms, "
+        f"{2 * iters * sweep_ms:.4f} ms a call")
+    del got, want, x0p
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def sharded_launches(cfg, steps):
+    """Launches of ``steps`` kernel steps of config 3's configuration:
+    per step a forcing, two projections (div, the sharded solve, gradsub)
+    and two advections."""
+    want = dict.fromkeys(KERNELS, 0)
+    want.update({"forcing3d": steps, "div3d": 2 * steps,
+                 "gradsub3d": 2 * steps, "advect3d_multi": 2 * steps})
+    if cfg.projection == "jacobi":
+        want["lin_solve3d_rb_shard"] = 2 * steps
+    return want
+
+
+def run_config5(stam, kernels, shard, dev, unsharded_ms):
+    """BASELINE config 5 on one card, a world of 1: config 3's
+    configuration at 512^3 through shard.make_sharded_step.  Two steps
+    must equal two dense steps (stam.run3d_python) bit for bit; then the
+    warm-up and the timed steps of the bench scene, the launch counts
+    reset before and read after; then a profile window.  Returns (counts,
+    ms/step)."""
+    warm, timed = CONFIG5_STEPS
+    cfg = grid_config(stam, "config 3, float32")
+    mesh = shard.make_mesh(device="cuda")
+    state = seeded_grid(stam, cfg, dev, SEED + 11)
+    out, res = shard.make_sharded_step(mesh, cfg, 2)(
+        shard.shard_state(shard.to_sharded_layout(state), mesh))
+    ref, ref_res = stam.run3d_python(state, cfg, 2)
+    out = shard.from_sharded_layout(out)
+    same = all(torch.equal(getattr(out, f), getattr(ref, f)) for f in FIELDS)
+    log(f"config 5 @ {cfg.n}^3, world 1, two steps: bitwise equal to two "
+        f"dense steps: {same}; residual {float(res):.6e}, dense "
+        f"{float(ref_res[0]):.6e}")
+    check(same and float(res) == float(ref_res[0]),
+          "config 5 at world 1 differs from the dense step")
+    del state, out, ref
+
+    step = shard.make_sharded_step(mesh, cfg, timed)
+    check(step.backend == "kernels", "config 5 did not take the kernels")
+    state = shard.shard_state(shard.to_sharded_layout(
+        grid_state(stam, "config 3, float32", cfg, dev)), mesh)
+    state, _ = shard.make_sharded_step(mesh, cfg, warm)(state)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state, res = step(state)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    ms = seconds / timed * 1e3
+    finite = all(bool(torch.isfinite(getattr(state, f)).all())
+                 for f in FIELDS)
+    log(f"config 5 @ {cfg.n}^3 (world 1, fuse {step.fuse}), {timed} timed "
+        f"steps after {warm} warm-up: {ms:.4f} ms/step, "
+        f"{cfg.n ** 3 / (ms / 1e3):.4e} cell-updates/s, final residual "
+        f"{float(res):.6e}, finite {finite}; the unsharded config 3 in this "
+        f"run: {unsharded_ms:.4f} ms/step (ratio {ms / unsharded_ms:.4f})")
+    log(f"launches: {counts}")
+    check(finite and 0.0 < float(res) < 1e-2, "config 5: fields not finite "
+                                              "or no residual")
+    check(counts == sharded_launches(cfg, timed),
+          f"config 5: launches {counts}")
+    # one call of k steps, as the timed run: each call pads and unpads
+    log_profile("config 5, world 1",
+                lambda k: shard.make_sharded_step(mesh, cfg, k)(state), ms)
+    return counts, ms
+
+
+def shard_rank(legs):
+    """A rank of a world that shares the card over gloo: each leg (name,
+    n, configuration keywords, scene) runs warm-up and timed sharded kernel
+    steps; rank 0 collects them and holds them against as many dense
+    steps (stam.run3d_python) on the same card: bit for bit with the
+    Jacobi projection, within DCT_SHARD_TOL of max|field| with the DCT
+    projection (its x transform is summed over the ranks), whose final
+    residual must stay at or below MAX_RESIDUAL."""
+    import torch.distributed as dist
+
+    from tpufluids_torch import shard
+    from tpufluids_torch.grid import kernels, stam
+    mesh = shard.make_mesh(device="cuda")
+    warm, timed = SHARD_STEPS
+    for name, n, kw, scene in legs:
+        cfg = stam.StamConfig(n=n, dt=0.5 / n, **kw)
+        dense = (seeded_grid(stam, cfg, mesh.device, SEED + n)
+                 if scene == "seeded" else
+                 grid_state(stam, "bench (DCT)", cfg, mesh.device))
+        state = shard.shard_state(shard.to_sharded_layout(dense), mesh)
+        state, _ = shard.make_sharded_step(mesh, cfg, warm)(state)
+        step = shard.make_sharded_step(mesh, cfg, timed)
+        torch.cuda.synchronize()
+        dist.barrier()
+        staged = mesh.staged_bytes
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        state, res = step(state)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        staged = mesh.staged_bytes - staged
+        counts = kernels.launch_counts()
+        check(counts == sharded_launches(cfg, timed),
+              f"{name}: rank {mesh.rank} launches {counts}")
+        full = shard.collect(state, mesh)
+        if mesh.rank:
+            continue
+        ref, ref_res = stam.run3d_python(dense, cfg, warm + timed)
+        full = shard.from_sharded_layout(full)
+        e, r = rel_err([getattr(full, f) for f in FIELDS],
+                       [getattr(ref, f) for f in FIELDS])
+        res, ref_res = float(res), float(ref_res[0])
+        log(f"{name} @ {n}^3 ({scene} scene), world {mesh.size} on one "
+            f"shared card (gloo, "
+            f"host-staged halos; a correctness run, not scaling): "
+            f"{seconds / timed * 1e3:.4f} ms/step over {timed} steps after "
+            f"{warm}, {staged / timed:.0f} staged bytes a step on rank 0, "
+            f"fuse {step.fuse}; against {warm + timed} dense steps: "
+            f"max_abs_err {e:.3e} (relative {r:.3e}); residual {res:.6e}, "
+            f"dense {ref_res:.6e}")
+        if cfg.projection == "jacobi":
+            check(e == 0.0 and res == ref_res,
+                  f"{name}: the collected step differs from the dense step")
+        else:
+            check(r <= DCT_SHARD_TOL and res <= MAX_RESIDUAL,
+                  f"{name}: the collected DCT step is off the dense step "
+                  f"({r:.3e}) or its residual {res:.3e} > {MAX_RESIDUAL}")
+
+
+def run_shared_card_worlds(shard):
+    """Worlds 2 and 4 as processes on the one card over gloo."""
+    for world, legs in SHARD_WORLDS.items():
+        t0 = time.perf_counter()
+        shard.spawn(world, shard_rank, legs, backend="gloo")
+        log(f"world {world}: {time.perf_counter() - t0:.1f} s in all, "
+            f"process start-up included")
+
+
 def add_counts(total, counts):
     for name, c in counts.items():
         total[name] = total.get(name, 0) + c
@@ -1737,7 +2070,7 @@ def main():
     import types
 
     from tpufluids_torch import (_build, binning, config, convert, forces,
-                                 scenes, sph_kernels, state, step)
+                                 scenes, shard, sph_kernels, state, step)
     from tpufluids_torch.config import BASE_CONFIG, UNIDYN_CONFIG
     from tpufluids_torch.grid import kernels, mac, stam
 
@@ -1782,6 +2115,7 @@ def main():
         for name, c in run_grid2d_path(stam, kernels, dev, path).items():
             counts[name] = counts.get(name, 0) + c
 
+
     checked["base_forces_rowblock"] = check_sph_kernel(sph, dev)
     check_sph_against_cpu(sph, dev)
     check_sph_determinism(sph, dev)
@@ -1798,6 +2132,14 @@ def main():
     fill_speeds(sph, dev)
     for path in COLUMN_PATHS:
         add_counts(counts, run_column_path(sph, dev, path))
+
+    checked["lin_solve3d_rb_shard"] = check_rb_shard(stam, kernels, shard,
+                                                     dev)
+    check_slab_modes(stam, kernels, dev)
+    c, ms["config 5, world 1"] = run_config5(stam, kernels, shard, dev,
+                                             ms["config 3, float32"])
+    add_counts(counts, c)
+    run_shared_card_worlds(shard)
 
     rows = []
     for name, (source, replaces, _) in {**KERNELS, **SPH_KERNELS,

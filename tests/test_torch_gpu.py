@@ -108,9 +108,10 @@ def test_step_launches_residual_and_plain_agreement(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {
         "advect3d_multi": 4, "forcing3d": 2, "div3d": 4, "gradsub3d": 4,
-        "lin_solve3d": 0, "lin_solve3d_rb": 0, "lin_solve3d_bf16": 0,
-        "lin_solve3d_rb_bf16": 0, "lin_solve3d_whole": 0,
-        "diffuse3d_multi": 0, "project3d_whole": 0, "step3d_whole": 0,
+        "lin_solve3d": 0, "lin_solve3d_rb": 0, "lin_solve3d_rb_shard": 0,
+        "lin_solve3d_bf16": 0, "lin_solve3d_rb_bf16": 0,
+        "lin_solve3d_whole": 0, "diffuse3d_multi": 0, "project3d_whole": 0,
+        "step3d_whole": 0,
         "lin_solve2d": 0, "step2d_whole": 0}
     # the final solve runs TF32-free: the residual stays at float32 level
     assert float(res[0]) <= 1e-8
@@ -278,9 +279,10 @@ def test_jacobi_step_launches(cuda):
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {
         "advect3d_multi": 2, "forcing3d": 1, "div3d": 1, "gradsub3d": 1,
-        "lin_solve3d": 0, "lin_solve3d_rb": 1, "lin_solve3d_bf16": 0,
-        "lin_solve3d_rb_bf16": 0, "lin_solve3d_whole": 0,
-        "diffuse3d_multi": 2, "project3d_whole": 1, "step3d_whole": 2,
+        "lin_solve3d": 0, "lin_solve3d_rb": 1, "lin_solve3d_rb_shard": 0,
+        "lin_solve3d_bf16": 0, "lin_solve3d_rb_bf16": 0,
+        "lin_solve3d_whole": 0, "diffuse3d_multi": 2, "project3d_whole": 1,
+        "step3d_whole": 2,
         "lin_solve2d": 0, "step2d_whole": 0}
     assert bool(torch.isfinite(out.w).all()) and 0.0 < float(res[0]) < 1e-2
 

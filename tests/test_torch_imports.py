@@ -28,12 +28,14 @@ def test_port_has_sources():
     assert {"tpufluids_torch/grid/stam.py", "tpufluids_torch/grid/kernels.py",
             "tpufluids_torch/grid/convert.py", "tpufluids_torch/step.py",
             "tpufluids_torch/sph_kernels.py",
-            "tpufluids_torch/adapt.py"} <= names
+            "tpufluids_torch/adapt.py", "tpufluids_torch/shard/__init__.py",
+            "tpufluids_torch/shard/mesh.py",
+            "tpufluids_torch/shard/grid_sharded.py"} <= names
     csrc = {p.name for p in (REPO / "tpufluids_torch" / "csrc").iterdir()}
     assert {"grid_common.cuh", "advect.cuh", "advect.cu", "forcing.cuh",
             "forcing.cu", "divgrad.cuh", "divgrad.cu", "jacobi.cuh",
-            "jacobi.cu", "step.cu", "grid2d.cu", "sph_common.cuh",
-            "sph_forces.cu", "sph_unidyn.cu"} <= csrc
+            "jacobi.cu", "jacobi_shard.cu", "step.cu", "grid2d.cu",
+            "sph_common.cuh", "sph_forces.cu", "sph_unidyn.cu"} <= csrc
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -53,7 +55,7 @@ def test_importing_the_port_loads_no_jax():
         "import tpufluids_torch.binning, tpufluids_torch.forces\n"
         "import tpufluids_torch.integrate, tpufluids_torch.sph_kernels\n"
         "import tpufluids_torch.step, tpufluids_torch.scenes\n"
-        "import tpufluids_torch.adapt\n"
+        "import tpufluids_torch.adapt, tpufluids_torch.shard\n"
         f"bad = sorted(m for m in set(sys.modules) - before\n"
         f"             if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "print(bad)\n"

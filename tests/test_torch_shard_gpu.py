@@ -1,0 +1,146 @@
+"""The sharded step's kernels against their plain PyTorch versions on the
+card: the slab modes of the four stencil kernels and the sharded
+red-black solve (lin_solve3d_rb_shard) at 15^3 and 48^3, on x-slabs cut
+from a set_bnd-consistent grid at a domain face and inside it.  Marked
+``gpu`` and skipped without a CUDA device; on the card:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_shard_gpu.py
+
+The kernels are built with -fmad=false and take 1/h from Python, so
+every check here is bit for bit; the slabs' owned rows must also equal
+the dense kernels' rows of the same global cells."""
+
+import numpy as np
+import pytest
+import torch
+
+from tpufluids_torch.grid import kernels, stam
+
+pytestmark = pytest.mark.gpu
+
+OWNED = 4     # owned rows of a stencil slab, padded with 2 rows a side
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _fields(dev, n, seed, bnds, lo, hi):
+    rng = np.random.default_rng(seed)
+    return [stam.set_bnd3d(b, torch.from_numpy(
+        rng.uniform(lo, hi, (n + 2,) * 3).astype(np.float32)).to(dev))
+        for b in bnds]
+
+
+def _cut(x, gx0, rows):
+    """Rows gx0 .. gx0 + rows - 1 of the ghosted field x, zeros outside
+    the grid."""
+    out = x.new_zeros((rows,) + tuple(x.shape[1:]))
+    lo, hi = max(gx0, 0), min(gx0 + rows, x.shape[0])
+    out[lo - gx0:hi - gx0] = x[lo:hi]
+    return out
+
+
+def _placements(n):
+    """gx0 of a padded slab of OWNED + 4 rows: at the low face, inside,
+    at the high face."""
+    return {"low": -1, "inner": n // 2 - 2, "high": n + 1 - OWNED - 2}
+
+
+def _equal(got, want):
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("where", ["low", "inner", "high"])
+@pytest.mark.parametrize("n", [15, 48])
+def test_slab_stencils_are_bitwise_plain(cuda, n, where):
+    gx0 = _placements(n)[where]
+    rows = OWNED + 4
+    dt0 = 0.5
+    dense = (_fields(cuda, n, 1, (1, 2, 3), -1.2 / dt0, 1.2 / dt0)
+             + _fields(cuda, n, 2, (0, 0, 0), 0.0, 1.0))
+    u, v, w, d, t, p = (_cut(q, gx0, rows) for q in dense)
+    own = slice(2, 2 + OWNED)
+    gown = slice(gx0 + 2, gx0 + 2 + OWNED)
+    before = kernels.launch_counts()
+    for fields, bnds in (((u, v, w), (1, 2, 3)), ((d, t), (0, 0))):
+        got = kernels.advect3d_multi(fields, bnds, u, v, w, dt0, gx0=gx0)
+        assert _equal(got, kernels.advect3d_multi_plain(fields, bnds, u, v,
+                                                        w, dt0, gx0=gx0))
+        ref = kernels.advect3d_multi(
+            tuple(dense[:3] if len(fields) == 3 else dense[3:5]), bnds,
+            *dense[:3], dt0)
+        assert _equal([g[own] for g in got], [r[gown] for r in ref])
+    for coeffs in (dict(vorticity_eps=2.0, buoyancy_alpha=0.05,
+                        buoyancy_beta=0.5),
+                   dict(buoyancy_alpha=0.05, buoyancy_beta=0.5),
+                   dict(vorticity_eps=2.0)):
+        cfg = stam.StamConfig(n=n, dt=0.5 / n, **coeffs)
+        got = kernels.forcing3d(u, v, w, d, t, cfg, gx0=gx0)
+        assert _equal(got, kernels.forcing3d_plain(u, v, w, d, t, cfg,
+                                                   gx0=gx0)), coeffs
+        ref = kernels.forcing3d(*dense[:5], cfg)
+        assert _equal([g[own] for g in got], [r[gown] for r in ref]), coeffs
+    got = kernels.div3d(u, v, w, gx0=gx0)
+    assert torch.equal(got, kernels.div3d_plain(u, v, w, gx0=gx0))
+    assert torch.equal(got[own], kernels.div3d(*dense[:3])[gown])
+    got = kernels.gradsub3d(p, u, v, w, gx0=gx0)
+    assert _equal(got, kernels.gradsub3d_plain(p, u, v, w, gx0=gx0))
+    ref = kernels.gradsub3d(dense[5], *dense[:3])
+    assert _equal([g[own] for g in got], [r[gown] for r in ref])
+    after = kernels.launch_counts()
+    assert {k: after[k] - before[k] for k in ("advect3d_multi", "forcing3d",
+                                              "div3d", "gradsub3d")} == {
+        "advect3d_multi": 4, "forcing3d": 6, "div3d": 2, "gradsub3d": 2}
+
+
+@pytest.mark.parametrize("zero", [False, True], ids=["guess", "x_zero"])
+@pytest.mark.parametrize("fuse", [1, 2, 4])
+@pytest.mark.parametrize("n", [15, 48])
+def test_rb_shard_is_bitwise_plain_and_dense(cuda, n, fuse, zero):
+    """One pass (iters = fuse) on a slab at the low face and one inside
+    the grid, each b: the kernel equals its plain version, and the owned
+    rows the dense red-black solve's."""
+    halo = 2 * fuse
+    c_local = max(2 * fuse, 4)
+    for b in range(4):
+        x, x0 = _fields(cuda, n, 10 + b, (b, 0), -1.0, 1.0)
+        dense = kernels.lin_solve3d_rb(b, None if zero else x, x0, 1.0, 6.0,
+                                       fuse)
+        for r0 in (0, n // 2 - c_local // 2):   # owned global rows r0 + 1..
+            gx0 = r0 + 1 - halo
+            rows = c_local + 2 * halo
+            xs = None if zero else _cut(x, gx0, rows)
+            args = (b, xs, _cut(x0, gx0, rows), 1.0, 6.0, fuse)
+            before = kernels.lin_solve3d_rb_shard.launches
+            got = kernels.lin_solve3d_rb_shard(*args, gx0=gx0, fuse=fuse)
+            assert kernels.lin_solve3d_rb_shard.launches == before + 1
+            want = kernels.lin_solve3d_rb_shard_plain(*args, gx0=gx0,
+                                                      fuse=fuse)
+            assert torch.equal(got, want), (b, r0)
+            assert torch.equal(got, dense[r0 + 1:r0 + 1 + c_local]), (b, r0)
+
+
+def test_rb_shard_passes_equal_the_dense_solve_at_world_1(cuda):
+    """Several passes on the whole grid as one slab, its pad refreshed
+    by seeding the face ghost rows (a world of 1): bit for bit the dense
+    solve at 48^3, 20 iterations, fuse 4."""
+    n, fuse = 48, 4
+    halo = 2 * fuse
+    x0, = _fields(cuda, n, 20, (0,), 0.0, 1.0)
+    x0p = _cut(x0, 1 - halo, n + 2 * halo)
+
+    def seed(q):
+        q[halo - 1] = q[halo]
+        q[halo + n] = q[halo + n - 1]
+
+    got = kernels.lin_solve3d_rb_shard(0, None, x0p, 1.0, 6.0, 20,
+                                       gx0=1 - halo, fuse=fuse,
+                                       exchange=seed)
+    assert torch.equal(got, kernels.lin_solve3d_rb(0, None, x0, 1.0, 6.0,
+                                                   20)[1:-1])
+    assert torch.equal(got, kernels.lin_solve3d_rb_shard_plain(
+        0, None, x0p, 1.0, 6.0, 20, gx0=1 - halo, fuse=fuse, exchange=seed))

@@ -37,13 +37,15 @@ _P, _INT, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> argument types; every entry takes the stream last and
 # returns a cudaError_t as int
 SIGNATURES = {
-    "tf_advect3d": [_P] * 9 + [_INT] * 5 + [_F, _P],
-    "tf_forcing_a": [_P] * 7 + [_INT] * 3 + [_F] * 5 + [_P],
-    "tf_forcing_b": [_P] * 7 + [_INT] + [_F] * 3 + [_P],
-    "tf_div3d": [_P] * 4 + [_INT, _F, _P],
-    "tf_gradsub3d": [_P] * 7 + [_INT, _F, _P],
+    "tf_advect3d": [_P] * 9 + [_INT] * 7 + [_F, _P],
+    "tf_forcing_a": [_P] * 7 + [_INT] * 5 + [_F] * 5 + [_P],
+    "tf_forcing_b": [_P] * 7 + [_INT] * 3 + [_F] * 3 + [_P],
+    "tf_div3d": [_P] * 4 + [_INT] * 3 + [_F, _P],
+    "tf_gradsub3d": [_P] * 7 + [_INT] * 3 + [_F, _P],
     "tf_lin_solve3d": [_P] * 4 + [_INT] * 3 + [_F] * 2 + [_P],
     "tf_lin_solve3d_rb": [_P] * 3 + [_INT] * 3 + [_F] * 2 + [_P],
+    "tf_rb_shard_sweeps": [_P] * 2 + [_INT] * 7 + [_F] * 2 + [_P],
+    "tf_rb_shard_finish": [_P] * 2 + [_INT] * 4 + [_P],
     "tf_lin_solve3d_bf16": [_P] * 4 + [_INT] * 3 + [_F] * 2 + [_P],
     "tf_lin_solve3d_rb_bf16": [_P] * 3 + [_INT] * 3 + [_F] * 2 + [_P],
     "tf_lin_solve3d_whole": [_P] * 4 + [_INT] * 5 + [_F] * 2 + [_P],

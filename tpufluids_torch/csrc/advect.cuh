@@ -19,16 +19,23 @@ struct AdvectFields {
 // Output cell idx of the K fields of f advected by (u, v, w): the
 // backtrace weights once, then the 27 taps of each field in the _SHIFTS
 // order of stam._advect_stencil, then the set_bnd sign of field q's b.
+// On a slab (Place) the x backtrace is clamped by the global row.
 template <int K>
 __device__ __forceinline__ void advect_cell(int idx, const float* u,
                                             const float* v, const float* w,
                                             const AdvectFields& f, int n,
-                                            float dt0) {
+                                            float dt0, Place pl) {
   Cell cell;
-  if (!cell_at(idx, n, cell)) return;
+  if (!cell_at(idx, n, pl, cell)) return;
+  const int o = out_index(cell, n);
+  if (!cell.ok) {
+#pragma unroll
+    for (int q = 0; q < K; ++q) f.out[q][o] = 0.0f;
+    return;
+  }
   const int N = n + 2, c = cell.c;
   const float vel[3] = {u[c], v[c], w[c]};
-  const int at[3] = {c / (N * N), (c / N) % N, c % N};
+  const int at[3] = {cell.gi, (c / N) % N, c % N};
   // hat[a][d + 1] = max(0, 1 - |off_a - d|), with the backtrace offset
   // clamped to one cell and to the source range [0.5, n + 0.5]
   float hat[3][3];
@@ -55,9 +62,16 @@ __device__ __forceinline__ void advect_cell(int idx, const float* u,
 #pragma unroll
         for (int q = 0; q < K; ++q) acc[q] = acc[q] + wgt * f.in[q][src];
       }
-  const int o = out_index(cell, n);
 #pragma unroll
-  for (int q = 0; q < K; ++q) f.out[q][o] = cell.sign[f.bnd[q]] * acc[q];
+  for (int q = 0; q < K; ++q) f.out[q][o] = cell.sign(f.bnd[q]) * acc[q];
+}
+
+template <int K>
+__device__ __forceinline__ void advect_cell(int idx, const float* u,
+                                            const float* v, const float* w,
+                                            const AdvectFields& f, int n,
+                                            float dt0) {
+  advect_cell<K>(idx, u, v, w, f, n, dt0, cubic(n));
 }
 
 }  // namespace tf

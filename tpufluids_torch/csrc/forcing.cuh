@@ -26,14 +26,16 @@ __device__ __forceinline__ float buoyant_w(const float* w, const float* dens,
 
 // w' at any cell (ghosts by the set_bnd3d(3) closed form): the w the
 // curl reads.  Without buoyancy w' is w itself, stored ghosts included.
+// i is a local row of ``pl``, clamped by its global row.
 __device__ __forceinline__ float w_prime(const float* w, const float* dens,
                                          const float* temp, int i, int j,
-                                         int k, int n, bool buoy,
-                                         Buoyancy b) {
+                                         int k, int n, bool buoy, Buoyancy b,
+                                         Place pl) {
   const int N = n + 2;
   if (!buoy) return w[(i * N + j) * N + k];
   const int ck = clamp_interior(k, n);
-  const int c = (clamp_interior(i, n) * N + clamp_interior(j, n)) * N + ck;
+  const int ci = clamp_interior(pl.gx0 + i, n) - pl.gx0;
+  const int c = (ci * N + clamp_interior(j, n)) * N + ck;
   return (ck != k ? -1.0f : 1.0f) * buoyant_w(w, dens, temp, c, b);
 }
 
@@ -57,12 +59,17 @@ __device__ __forceinline__ void curl_at(const float* u, const float* v,
 __device__ __forceinline__ void forcing_a_cell(
     int idx, const float* u, const float* v, const float* w,
     const float* dens, const float* temp, float* w_out, float* mag_out,
-    int n, int buoy, int vort, Buoyancy b, float inv_h) {
+    int n, int buoy, int vort, Buoyancy b, float inv_h, Place pl) {
   Cell cell;
-  if (!cell_at(idx, n, cell)) return;
+  if (!cell_at(idx, n, pl, cell)) return;
   const int N = n + 2;
   const int o = out_index(cell, n);
-  if (buoy) w_out[o] = cell.sign[3] * buoyant_w(w, dens, temp, cell.c, b);
+  if (!cell.ok) {
+    if (buoy) w_out[o] = 0.0f;
+    if (vort) mag_out[o] = 0.0f;
+    return;
+  }
+  if (buoy) w_out[o] = cell.sign(3) * buoyant_w(w, dens, temp, cell.c, b);
   if (!vort) return;
   if (!is_interior(cell, N)) {
     mag_out[o] = 0.0f;
@@ -70,12 +77,20 @@ __device__ __forceinline__ void forcing_a_cell(
   }
   const int i = cell.i, j = cell.j, k = cell.k;
   float cx, cy, cz;
-  curl_at(u, v, w_prime(w, dens, temp, i, j + 1, k, n, buoy, b),
-          w_prime(w, dens, temp, i, j - 1, k, n, buoy, b),
-          w_prime(w, dens, temp, i + 1, j, k, n, buoy, b),
-          w_prime(w, dens, temp, i - 1, j, k, n, buoy, b), cell.c, N, inv_h,
-          cx, cy, cz);
+  curl_at(u, v, w_prime(w, dens, temp, i, j + 1, k, n, buoy, b, pl),
+          w_prime(w, dens, temp, i, j - 1, k, n, buoy, b, pl),
+          w_prime(w, dens, temp, i + 1, j, k, n, buoy, b, pl),
+          w_prime(w, dens, temp, i - 1, j, k, n, buoy, b, pl), cell.c, N,
+          inv_h, cx, cy, cz);
   mag_out[o] = sqrtf(cx * cx + cy * cy + cz * cz);
+}
+
+__device__ __forceinline__ void forcing_a_cell(
+    int idx, const float* u, const float* v, const float* w,
+    const float* dens, const float* temp, float* w_out, float* mag_out,
+    int n, int buoy, int vort, Buoyancy b, float inv_h) {
+  forcing_a_cell(idx, u, v, w, dens, temp, w_out, mag_out, n, buoy, vort, b,
+                 inv_h, cubic(n));
 }
 
 // Half B at output cell idx: the confinement force eps h (N x curl) added
@@ -86,9 +101,14 @@ __device__ __forceinline__ void forcing_b_cell(int idx, const float* u,
                                                const float* mag, float* uo,
                                                float* vo, float* wo, int n,
                                                float dt, float eps_h,
-                                               float inv_h) {
+                                               float inv_h, Place pl) {
   Cell cell;
-  if (!cell_at(idx, n, cell)) return;
+  if (!cell_at(idx, n, pl, cell)) return;
+  const int o = out_index(cell, n);
+  if (!cell.ok) {
+    uo[o] = vo[o] = wo[o] = 0.0f;
+    return;
+  }
   const int N = n + 2, c = cell.c;
   float cx, cy, cz;
   curl_at(u, v, w[c + N], w[c - N], w[c + N * N], w[c - N * N], c, N, inv_h,
@@ -100,10 +120,19 @@ __device__ __forceinline__ void forcing_b_cell(int idx, const float* u,
   gx = gx / norm;
   gy = gy / norm;
   gz = gz / norm;
-  const int o = out_index(cell, n);
-  uo[o] = cell.sign[1] * (u[c] + dt * (eps_h * (gy * cz - gz * cy)));
-  vo[o] = cell.sign[2] * (v[c] + dt * (eps_h * (gz * cx - gx * cz)));
-  wo[o] = cell.sign[3] * (w[c] + dt * (eps_h * (gx * cy - gy * cx)));
+  uo[o] = cell.sign(1) * (u[c] + dt * (eps_h * (gy * cz - gz * cy)));
+  vo[o] = cell.sign(2) * (v[c] + dt * (eps_h * (gz * cx - gx * cz)));
+  wo[o] = cell.sign(3) * (w[c] + dt * (eps_h * (gx * cy - gy * cx)));
+}
+
+__device__ __forceinline__ void forcing_b_cell(int idx, const float* u,
+                                               const float* v, const float* w,
+                                               const float* mag, float* uo,
+                                               float* vo, float* wo, int n,
+                                               float dt, float eps_h,
+                                               float inv_h) {
+  forcing_b_cell(idx, u, v, w, mag, uo, vo, wo, n, dt, eps_h, inv_h,
+                 cubic(n));
 }
 
 }  // namespace tf

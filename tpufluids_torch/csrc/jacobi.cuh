@@ -101,7 +101,7 @@ __device__ __forceinline__ void jacobi_cell(int idx, const T* src,
   Cell cell;
   if (!cell_at(idx, n, cell)) return;
   dst[out_index(cell, n)] =
-      mul_rn(cell.sign[b], jacobi_at(src, x0, cell.c, n + 2, a, c_inv));
+      mul_rn(cell.sign(b), jacobi_at(src, x0, cell.c, n + 2, a, c_inv));
 }
 
 // Active cells of a red-black half-sweep.  Interior cell (I, J, K),
@@ -178,7 +178,7 @@ __device__ __forceinline__ void ghost_cell(int t, T* x, int n, int b) {
   }
   Cell cell;
   cell_from(i, j, k, n, cell);
-  x[out_index(cell, n)] = mul_rn(cell.sign[b], x[cell.c]);
+  x[out_index(cell, n)] = mul_rn(cell.sign(b), x[cell.c]);
 }
 
 struct Signs {

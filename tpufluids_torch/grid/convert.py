@@ -36,6 +36,22 @@ def state_from_numpy(fields: dict, device="cuda"):
     return cls(**_tensors(fields, names, device))
 
 
+def slab_state_from_numpy(fields: dict, rank: int, world: int,
+                          device="cuda") -> GridState3D:
+    """Rank ``rank``'s x-slab of a world of ``world`` ranks, in the
+    sharded layout of ``tpufluids_torch.shard``: rows rank c + 1 .. (rank
+    + 1) c of the dense ghosted (n+2)^3 arrays ``fields`` (c = n / world),
+    float32 on ``device``."""
+    n = np.shape(fields["u"])[0] - 2
+    if world < 1 or not 0 <= rank < world or n % world:
+        raise ValueError(f"rank {rank} of {world} cannot hold a slab of "
+                         f"n={n}")
+    c = n // world
+    rows = slice(1 + rank * c, 1 + (rank + 1) * c)
+    return GridState3D(**_tensors(
+        {f: np.asarray(fields[f])[rows] for f in FIELDS}, FIELDS, device))
+
+
 def state_to_numpy(state) -> dict:
     return {f.name: getattr(state, f.name).cpu().numpy()
             for f in dataclasses.fields(state)}

@@ -23,6 +23,14 @@ projection and the whole step) runs a whole solve, or a whole step, in
 one cooperative launch, for grids whose fields stay in the card's L2
 (``solve_whole_ok``).
 
+The four stencil stages also take an x-slab of the sharded step
+(``tpufluids_torch.shard``): a (rows, n+2, n+2) field placed at global
+row ``gx0`` of the (n+2)^3 grid, whose x clamps and x ghosts follow
+global rows (csrc/grid_common.cuh says which cells have no stencil and
+are written as 0), with h = 1 / n of the global grid.  The sharded
+red-black solve (``lin_solve3d_rb_shard``, csrc/jacobi_shard.cu) runs
+its half-sweeps on such a slab padded with a deep halo.
+
 A 2D field is small (130^2 float32 is 68 KB), so the 2D kernels
 (csrc/grid2d.cu) run one thread block that does every sweep, with a
 block barrier between sweeps: the 2D solve, and the whole 2D step, whose
@@ -37,15 +45,18 @@ from tpufluids_torch import _build
 from tpufluids_torch.grid import stam
 
 
-def _on_cuda(*tensors, ndim: int = 3) -> bool:
-    """Validate a kernel's field arguments, cubic (n+2)^3 fields or, with
-    ``ndim=2``, square (n+2)^2 ones; True for CUDA tensors, False for CPU
+def _on_cuda(*tensors, ndim: int = 3, slab: bool = False) -> bool:
+    """Validate a kernel's field arguments, cubic (n+2)^3 fields, with
+    ``slab`` x-slabs (rows, n+2, n+2) of at least 3 rows, or with
+    ``ndim=2`` square (n+2)^2 ones; True for CUDA tensors, False for CPU
     tensors (the plain version runs)."""
     ref = tensors[0]
-    if ref.dim() != ndim or len(set(ref.shape)) != 1 or ref.shape[0] < 3:
-        raise ValueError(f"expected a {'square' if ndim == 2 else 'cubic'} "
-                         f"(n+2)^{ndim} field with n >= 1, got shape "
-                         f"{tuple(ref.shape)}")
+    shape = tuple(ref.shape)
+    square = shape[1:] if slab else shape
+    if (ref.dim() != ndim or len(set(square)) != 1 or min(shape) < 3):
+        kind = ("an x-slab (rows, n+2, n+2)" if slab else
+                f"a {'square' if ndim == 2 else 'cubic'} (n+2)^{ndim} field")
+        raise ValueError(f"expected {kind} with n >= 1, got shape {shape}")
     for t in tensors:
         if t.device != ref.device:
             raise ValueError(f"fields on {t.device} and {ref.device}")
@@ -59,25 +70,97 @@ def _on_cuda(*tensors, ndim: int = 3) -> bool:
     if ref.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel or plain version for {ref.device}")
     if ref.device.type == "cuda" and ref.numel() >= 2 ** 31:
-        raise ValueError("the kernels index cells with int32: (n+2)^3 "
-                         "must stay below 2^31")
+        raise ValueError("the kernels index cells with int32: the field's "
+                         "cells must stay below 2^31")
     return ref.device.type == "cuda"
+
+
+def _place_args(x, gx0):
+    """(n, rows, gx0) of a kernel launch: n from the y extent, a cubic
+    field (gx0 None) at gx0 = 0."""
+    return x.shape[1] - 2, x.shape[0], 0 if gx0 is None else int(gx0)
+
+
+# ---------------------------------------------------------------------------
+# the plain versions' slab placement (csrc/grid_common.cuh)
+
+
+def _slab_rows(x, gx0: int):
+    """For each local row of slab ``x`` at global row ``gx0``: the local
+    row of its clamped global row (clamped into the slab), whether the
+    clamp moved it (the x ghost sign applies), and whether that row has
+    both x neighbours in the slab (else the cell has no stencil)."""
+    rows, n = x.shape[0], x.shape[1] - 2
+    g = torch.arange(rows, device=x.device) + gx0
+    gc = g.clamp(1, n)
+    ci = gc - gx0
+    ok = (ci >= 1) & (ci <= rows - 2)
+    return ci.clamp(0, rows - 1), gc != g, ok
+
+
+def _set_bnd_yz_(b: int, x: torch.Tensor) -> torch.Tensor:
+    """The y and z faces of set_bnd3d(b), in place, in its order."""
+    _, sy, sz = stam._bnd_signs(b)
+    x[:, 0] = sy * x[:, 1]
+    x[:, -1] = sy * x[:, -2]
+    x[:, :, 0] = sz * x[:, :, 1]
+    x[:, :, -1] = sz * x[:, :, -2]
+    return x
+
+
+def _placed(core, b: int, rows):
+    """A slab output from ``core``, its stencil values on the interior of
+    rows 1 .. rows - 2: the y and z ghosts by set_bnd3d(b), each row the
+    value at its clamped global row times its x ghost sign, 0 where the
+    cell has no stencil."""
+    ci, flip, ok = rows
+    full = core.new_zeros((len(ci), core.shape[1] + 2, core.shape[2] + 2))
+    full[1:-1, 1:-1, 1:-1] = core
+    out = _set_bnd_yz_(b, full)[ci]
+    if b == 1:
+        out = torch.where(flip[:, None, None], -out, out)
+    return torch.where(ok[:, None, None], out, 0.0)
 
 
 # ---------------------------------------------------------------------------
 # advection
 
 
-def advect3d_multi_plain(fields, bnds, u, v, w, dt0: float):
-    return tuple(stam._advect_stencil(fields, bnds, (u, v, w), dt0))
+def advect3d_multi_plain(fields, bnds, u, v, w, dt0: float, gx0=None):
+    """stam._advect_stencil per field, on cubic fields or slabs: the x
+    backtrace clamped by the global row."""
+    gx0 = 0 if gx0 is None else int(gx0)
+    rows, n = u.shape[0], u.shape[1] - 2
+    inner = (slice(1, -1),) * 3
+    gi = (torch.arange(1, rows - 1, device=u.device) + gx0).to(
+        torch.float32).reshape(-1, 1, 1)
+    hats = []
+    for vel, ia in ((u, gi), (v, stam._axis_index(n, 1, 3, u.device)),
+                    (w, stam._axis_index(n, 2, 3, u.device))):
+        off = torch.clamp(-dt0 * vel[inner], -1.0, 1.0)
+        off = torch.clamp(off, 0.5 - ia, n + 0.5 - ia)
+        hats.append([torch.clamp(1.0 - torch.abs(off - d), min=0.0)
+                     for d in (-1, 0, 1)])
+    outs = [torch.zeros((rows - 2, n, n), dtype=torch.float32,
+                        device=u.device) for _ in fields]
+    for d in stam._SHIFTS[3]:
+        wgt = hats[0][d[0] + 1] * hats[1][d[1] + 1] * hats[2][d[2] + 1]
+        sl = (slice(1 + d[0], rows - 1 + d[0]),) + tuple(
+            slice(1 + da, 1 + da + n) for da in d[1:])
+        for out, q in zip(outs, fields):
+            out += wgt * q[sl]
+    place = _slab_rows(u, gx0)
+    return tuple(_placed(out, b, place) for out, b in zip(outs, bnds))
 
 
-def advect3d_multi(fields, bnds, u, v, w, dt0: float):
+def advect3d_multi(fields, bnds, u, v, w, dt0: float, gx0=None):
     """27-tap stencil advection of ``fields`` (1 to 3) by (u, v, w), then
     set_bnd3d(b) per field with b from ``bnds``; as
-    stam.advect3d_stencil per field.
+    stam.advect3d_stencil per field.  ``gx0``: the fields are x-slabs
+    whose row 0 is global row gx0 (None: cubic fields).
 
-    Replaces advect3d_multi_pallas (tpufluids/grid/pallas_kernels.py).
+    Replaces advect3d_multi_pallas (tpufluids/grid/pallas_kernels.py),
+    its gx0/gn slab placement included.
     Bound by bytes: 3 + k fields in, k out.  One thread per output cell
     computes the backtrace weights once and sums the 27 taps of each
     field (csrc/advect.cu)."""
@@ -86,13 +169,13 @@ def advect3d_multi(fields, bnds, u, v, w, dt0: float):
         raise ValueError("advect3d_multi takes 1 to 3 fields, one b each")
     if any(b not in (0, 1, 2, 3) for b in bnds):
         raise ValueError(f"set_bnd modes must be 0..3, got {bnds}")
-    if not _on_cuda(u, v, w, *fields):
-        return advect3d_multi_plain(fields, bnds, u, v, w, dt0)
+    if not _on_cuda(u, v, w, *fields, slab=gx0 is not None):
+        return advect3d_multi_plain(fields, bnds, u, v, w, dt0, gx0)
     k = len(fields)
     outs = tuple(torch.empty_like(u) for _ in fields)
     pad = (None,) * (3 - k)
     _build.launch("tf_advect3d", u, v, w, *fields, *pad, *outs, *pad, k,
-                  *bnds, *(0,) * (3 - k), u.shape[0] - 2, dt0)
+                  *bnds, *(0,) * (3 - k), *_place_args(u, gx0), dt0)
     advect3d_multi.launches += 1
     return outs
 
@@ -104,44 +187,89 @@ advect3d_multi.launches = 0
 # forcing
 
 
-def forcing3d_plain(u, v, w, dens, temp, cfg: stam.StamConfig):
-    if cfg.buoyancy_alpha or cfg.buoyancy_beta:
-        w = stam.buoyancy3d(w, dens, temp, cfg)
-    if cfg.vorticity_eps:
-        u, v, w = stam.vorticity_confinement3d(u, v, w, cfg)
-    return u, v, w
+def forcing3d_plain(u, v, w, dens, temp, cfg: stam.StamConfig, gx0=None):
+    """The two halves of csrc/forcing.cu as torch ops, on cubic fields or
+    slabs: half A writes w' = stam.buoyancy3d's w and |curl| (0 on the
+    ghosts), half B the confined u, v, w of
+    stam.vorticity_confinement3d."""
+    gx0 = 0 if gx0 is None else int(gx0)
+    n = u.shape[1] - 2
+    h = 1.0 / n
+    buoy = bool(cfg.buoyancy_alpha or cfg.buoyancy_beta)
+    place = _slab_rows(u, gx0)
+    ci, flip, ok = place
+    inner = (slice(1, -1),) * 3
+    wp = w
+    if buoy:
+        # w' at every row's clamped global row: what the curl reads
+        f = (-cfg.buoyancy_alpha * dens[:, 1:-1, 1:-1]
+             + cfg.buoyancy_beta * (temp[:, 1:-1, 1:-1] - cfg.ambient_temp))
+        full = torch.zeros_like(w)
+        full[:, 1:-1, 1:-1] = w[:, 1:-1, 1:-1] + cfg.dt * f
+        wp = _set_bnd_yz_(3, full)[ci]
+        w = torch.where(ok[:, None, None], wp, 0.0)
+    if not cfg.vorticity_eps:
+        return u, v, w
+
+    def d(q, axis):
+        hi, lo = [slice(1, -1)] * 3, [slice(1, -1)] * 3
+        hi[axis] = slice(2, None)
+        lo[axis] = slice(0, -2)
+        return 0.5 * (q[tuple(hi)] - q[tuple(lo)]) / h
+
+    wx = d(wp, 1) - d(v, 2)
+    wy = d(u, 2) - d(wp, 0)
+    wz = d(v, 0) - d(u, 1)
+    mag = torch.zeros_like(u)
+    mag[inner] = torch.sqrt(wx * wx + wy * wy + wz * wz)
+    mag = torch.where((ok & ~flip)[:, None, None], mag, 0.0)
+    # half B reads half A's w'
+    wx = d(w, 1) - d(v, 2)
+    wy = d(u, 2) - d(w, 0)
+    wz = d(v, 0) - d(u, 1)
+    gx, gy, gz = d(mag, 0), d(mag, 1), d(mag, 2)
+    norm = torch.sqrt(gx * gx + gy * gy + gz * gz) + 1e-5
+    gx, gy, gz = gx / norm, gy / norm, gz / norm
+    eps_h = cfg.vorticity_eps * h
+    return tuple(_placed(q[inner] + cfg.dt * (eps_h * f), b, place)
+                 for b, q, f in ((1, u, gy * wz - gz * wy),
+                                 (2, v, gz * wx - gx * wz),
+                                 (3, w, gx * wy - gy * wx)))
 
 
-def forcing3d(u, v, w, dens, temp, cfg: stam.StamConfig):
+def forcing3d(u, v, w, dens, temp, cfg: stam.StamConfig, gx0=None):
     """Buoyancy on w (if alpha or beta) then vorticity confinement (if
     eps), each with its set_bnd; as stam.buoyancy3d followed by
-    stam.vorticity_confinement3d.
+    stam.vorticity_confinement3d.  ``gx0``: the fields are x-slabs
+    whose row 0 is global row gx0 (None: cubic fields); a slab's outer
+    two rows a side have no stencil.
 
-    Replaces forcing3d_pallas (tpufluids/grid/pallas_kernels.py).  Bound
+    Replaces forcing3d_pallas (tpufluids/grid/pallas_kernels.py), its
+    gx0/gn slab placement included.  Bound
     by bytes.  The TPU kernel's halo of 2 is cut into two launches
     through two scratch fields (csrc/forcing.cu): A writes w' and
     |curl|, B the confined u, v, w.  A half whose coefficients are 0 is
     skipped."""
-    if not _on_cuda(u, v, w, dens, temp):
-        return forcing3d_plain(u, v, w, dens, temp, cfg)
+    if not _on_cuda(u, v, w, dens, temp, slab=gx0 is not None):
+        return forcing3d_plain(u, v, w, dens, temp, cfg, gx0)
     buoy = bool(cfg.buoyancy_alpha or cfg.buoyancy_beta)
     vort = bool(cfg.vorticity_eps)
     if not (buoy or vort):
         return u, v, w
-    n = u.shape[0] - 2
-    h = 1.0 / n
+    place = _place_args(u, gx0)
+    h = 1.0 / place[0]
     w1 = torch.empty_like(w) if buoy else None
     mag = torch.empty_like(u) if vort else None
     # the plain version's tensor / h runs on the card as tensor * fl(1 / h),
     # the reciprocal taken in double: the kernels multiply by 1 / h
-    _build.launch("tf_forcing_a", u, v, w, dens, temp, w1, mag, n, buoy,
-                  vort, cfg.dt, cfg.buoyancy_alpha, cfg.buoyancy_beta,
+    _build.launch("tf_forcing_a", u, v, w, dens, temp, w1, mag, *place,
+                  buoy, vort, cfg.dt, cfg.buoyancy_alpha, cfg.buoyancy_beta,
                   cfg.ambient_temp, 1.0 / h)
     if buoy:
         w = w1
     if vort:
         outs = tuple(torch.empty_like(u) for _ in range(3))
-        _build.launch("tf_forcing_b", u, v, w, mag, *outs, n, cfg.dt,
+        _build.launch("tf_forcing_b", u, v, w, mag, *outs, *place, cfg.dt,
                       cfg.vorticity_eps * h, 1.0 / h)
         u, v, w = outs
     forcing3d.launches += 1
@@ -155,23 +283,24 @@ forcing3d.launches = 0
 # projection: divergence and gradient subtraction
 
 
-def div3d_plain(u, v, w):
-    div = torch.zeros_like(u)
-    div[stam._I] = stam.divergence3d(u, v, w)
-    return stam._set_bnd3d_(0, div)
+def div3d_plain(u, v, w, gx0=None):
+    return _placed(stam.divergence3d(u, v, w), 0,
+                   _slab_rows(u, 0 if gx0 is None else int(gx0)))
 
 
-def div3d(u, v, w):
+def div3d(u, v, w, gx0=None):
     """set_bnd3d(0, divergence3d(u, v, w) on the interior): the
-    right-hand side of the pressure solve.
+    right-hand side of the pressure solve.  ``gx0``: the fields are
+    x-slabs whose row 0 is global row gx0 (None: cubic fields).
 
-    Replaces div3d_pallas (tpufluids/grid/pallas_kernels.py).  Bound by
+    Replaces div3d_pallas (tpufluids/grid/pallas_kernels.py), with its
+    h = 1 / n_global on slabs.  Bound by
     bytes: 3 fields in, 1 out (csrc/divgrad.cu)."""
-    if not _on_cuda(u, v, w):
-        return div3d_plain(u, v, w)
-    n = u.shape[0] - 2
+    if not _on_cuda(u, v, w, slab=gx0 is not None):
+        return div3d_plain(u, v, w, gx0)
+    place = _place_args(u, gx0)
     out = torch.empty_like(u)
-    _build.launch("tf_div3d", u, v, w, out, n, -0.5 * (1.0 / n))
+    _build.launch("tf_div3d", u, v, w, out, *place, -0.5 * (1.0 / place[0]))
     div3d.launches += 1
     return out
 
@@ -179,33 +308,35 @@ def div3d(u, v, w):
 div3d.launches = 0
 
 
-def gradsub3d_plain(p, u, v, w):
-    n = u.shape[0] - 2
-    h = 1.0 / n
+def gradsub3d_plain(p, u, v, w, gx0=None):
+    h = 1.0 / (u.shape[1] - 2)
+    place = _slab_rows(u, 0 if gx0 is None else int(gx0))
     out = []
     for axis, (b, q) in enumerate(((1, u), (2, v), (3, w))):
         hi, lo = [slice(1, -1)] * 3, [slice(1, -1)] * 3
         hi[axis] = slice(2, None)
         lo[axis] = slice(0, -2)
-        q = q.clone()
-        q[stam._I] += -0.5 * (p[tuple(hi)] - p[tuple(lo)]) / h
-        out.append(stam._set_bnd3d_(b, q))
+        out.append(_placed(q[stam._I] + -0.5 * (p[tuple(hi)]
+                                                - p[tuple(lo)]) / h,
+                           b, place))
     return tuple(out)
 
 
-def gradsub3d(p, u, v, w):
+def gradsub3d(p, u, v, w, gx0=None):
     """Subtract the pressure gradient 0.5 (p[+1] - p[-1]) / h from each
     velocity component, then set_bnd3d(1 / 2 / 3): the tail of
-    stam.project3d.
+    stam.project3d.  ``gx0``: the fields are x-slabs whose row 0 is
+    global row gx0 (None: cubic fields).
 
-    Replaces gradsub3d_pallas (tpufluids/grid/pallas_kernels.py).  Bound
+    Replaces gradsub3d_pallas (tpufluids/grid/pallas_kernels.py), with
+    its h = 1 / n_global on slabs.  Bound
     by bytes: 4 fields in, 3 out (csrc/divgrad.cu)."""
-    if not _on_cuda(p, u, v, w):
-        return gradsub3d_plain(p, u, v, w)
-    n = u.shape[0] - 2
-    h = 1.0 / n
+    if not _on_cuda(p, u, v, w, slab=gx0 is not None):
+        return gradsub3d_plain(p, u, v, w, gx0)
+    place = _place_args(u, gx0)
     outs = tuple(torch.empty_like(u) for _ in range(3))
-    _build.launch("tf_gradsub3d", p, u, v, w, *outs, n, 1.0 / h)
+    h = 1.0 / place[0]
+    _build.launch("tf_gradsub3d", p, u, v, w, *outs, *place, 1.0 / h)
     gradsub3d.launches += 1
     return outs
 
@@ -244,9 +375,10 @@ def _check_solve(b: int, iters: int):
         raise ValueError(f"iters must be an int >= 1, got {iters!r}")
 
 
-def _solve_on_cuda(b, x, x0, iters) -> bool:
+def _solve_on_cuda(b, x, x0, iters, slab=False) -> bool:
     _check_solve(b, iters)
-    return _on_cuda(x0) if x is None else _on_cuda(x, x0)
+    return (_on_cuda(x0, slab=slab) if x is None
+            else _on_cuda(x, x0, slab=slab))
 
 
 def lin_solve3d_plain(b, x, x0, a, c, iters):
@@ -298,6 +430,110 @@ def lin_solve3d_rb(b, x, x0, a, c, iters):
 
 
 lin_solve3d_rb.launches = 0
+
+
+# the sharded red-black solve on one deep-padded x-slab
+
+
+def rb_shard_plan(c_local: int, iters: int) -> int:
+    """The iterations per halo exchange (``fuse``) of
+    lin_solve3d_rb_shard on a slab of ``c_local`` rows: the largest of
+    4, 2 and 1 that divides ``iters`` and whose halo of 2 fuse rows a
+    side one neighbouring slab can fill (2 fuse <= c_local); the fuse
+    of rb_shard_plan (tpufluids/grid/pallas_kernels.py), which also
+    sizes TPU windows."""
+    for fuse in (4, 2, 1):
+        if iters % fuse == 0 and 2 * fuse <= c_local:
+            return fuse
+    raise ValueError(f"a slab of {c_local} x rows cannot host the minimal "
+                     f"halo of 2 rows (needs c_local >= 2)")
+
+
+def _rb_shard_shape(b, x0, iters, fuse):
+    """(c_local, halo) of a sharded solve, after validating it."""
+    _check_solve(b, iters)
+    if not isinstance(fuse, int) or fuse < 1 or iters % fuse:
+        raise ValueError(f"iters={iters} must be a multiple of fuse={fuse}")
+    halo = 2 * fuse
+    c_local = x0.shape[0] - 2 * halo
+    if c_local < halo:
+        raise ValueError(f"{x0.shape[0]} rows hold fewer owned rows than "
+                         f"the halo of {halo}")
+    if c_local % 2:
+        raise ValueError(f"c_local={c_local} must be even")
+    return c_local, halo
+
+
+def lin_solve3d_rb_shard_plain(b, x, x0, a, c, iters, *, gx0, fuse,
+                               exchange=None):
+    _, halo = _rb_shard_shape(b, x0, iters, fuse)
+    rows, n = x0.shape[0], x0.shape[1] - 2
+    c_inv = 1.0 / c
+    sx = stam._bnd_signs(b)[0]
+    x = torch.zeros_like(x0) if x is None else x.clone()
+    # rows 1 .. rows - 2 by their 0-based global interior index
+    i = torch.arange(rows - 2, device=x0.device) + gx0
+    jk = torch.arange(n, device=x0.device)
+    m0 = (i[:, None, None] + jk[None, :, None] + jk[None, None, :]) % 2 == 0
+    inside = ((i >= 0) & (i < n))[:, None, None]
+    lo, hi = -gx0, n + 1 - gx0       # the local rows of the x ghosts
+    for p in range(iters // fuse):
+        if p:
+            exchange(x)
+        for _ in range(fuse):
+            for m in (m0, ~m0):
+                x[stam._I] = torch.where(m & inside,
+                                         stam._jacobi_new(x, x0, a, c_inv),
+                                         x[stam._I])
+                # set_bnd3d(b): the x ghost rows in the slab, then y and z
+                if 0 <= lo < rows - 1:
+                    x[lo] = sx * x[lo + 1]
+                if 1 <= hi < rows:
+                    x[hi] = sx * x[hi - 1]
+                _set_bnd_yz_(b, x)
+    return x[halo:rows - halo].clone()
+
+
+def lin_solve3d_rb_shard(b, x, x0, a, c, iters, *, gx0, fuse,
+                         exchange=None):
+    """``iters`` red-black iterations, as lin_solve3d_rb, on one x-slab of
+    the sharded step.  ``x0`` and ``x`` (None: a zero initial guess) are
+    deep-padded slabs (c_local + 4 fuse, n+2, n+2): c_local owned rows
+    between halos of 2 fuse rows, row 0 at global row ``gx0``, the pad
+    rows filled by the caller (at a domain face the set_bnd ghost row).
+    Every ``fuse`` iterations but the first, ``exchange(slab)`` refreshes
+    the pad rows of the working slab in place; None is allowed for one
+    pass (iters == fuse).  Returns the c_local owned rows with their y and
+    z ghosts.  Stitched, the slabs' results equal lin_solve3d_rb on the
+    whole grid bit for bit when x's x ghosts are set_bnd-consistent; the
+    plain version runs the dense solver's half-sweeps and set_bnd on the
+    slab.
+
+    Replaces lin_solve3d_rb_shard (tpufluids/grid/pallas_kernels.py).
+    Bound by bytes.  One launch per half-sweep over the active cells of
+    the padded slab, in place, then one launch that writes the owned rows
+    out (csrc/jacobi_shard.cu)."""
+    if not _solve_on_cuda(b, x, x0, iters, slab=True):
+        return lin_solve3d_rb_shard_plain(b, x, x0, a, c, iters, gx0=gx0,
+                                          fuse=fuse, exchange=exchange)
+    c_local, halo = _rb_shard_shape(b, x0, iters, fuse)
+    if iters > fuse and exchange is None:
+        raise ValueError("more than one pass needs an exchange")
+    rows, n = x0.shape[0], x0.shape[1] - 2
+    work = torch.zeros_like(x0) if x is None else x.clone()
+    for p in range(iters // fuse):
+        if p:
+            exchange(work)
+        _build.launch("tf_rb_shard_sweeps", work, x0, rows, int(gx0), n,
+                      2 * fuse, p == 0, x is None, b, a, 1.0 / c)
+    out = torch.empty((c_local,) + tuple(x0.shape[1:]), dtype=x0.dtype,
+                      device=x0.device)
+    _build.launch("tf_rb_shard_finish", work, out, c_local, halo, n, b)
+    lin_solve3d_rb_shard.launches += 1
+    return out
+
+
+lin_solve3d_rb_shard.launches = 0
 
 
 # the solves in bfloat16: x and x0 are cast to bfloat16 and the result
@@ -676,7 +912,7 @@ def step2d_whole(u, v, dens, temp, cfg: stam.StamConfig):
 step2d_whole.launches = 0
 
 KERNELS = (advect3d_multi, forcing3d, div3d, gradsub3d, lin_solve3d,
-           lin_solve3d_rb, lin_solve3d_bf16, lin_solve3d_rb_bf16,
+           lin_solve3d_rb, lin_solve3d_rb_shard, lin_solve3d_bf16, lin_solve3d_rb_bf16,
            lin_solve3d_whole, diffuse3d_multi, project3d_whole,
            step3d_whole, lin_solve2d, step2d_whole)
 

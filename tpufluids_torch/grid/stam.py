@@ -455,8 +455,9 @@ def poisson_residual2d(p, div):
 
 
 def divergence3d(u, v, w):
-    n = u.shape[0] - 2
-    h = 1.0 / n
+    """-0.5 h (central divergence) on the interior; h = 1 / n from the y
+    extent, so an x-slab of the sharded step takes the global h."""
+    h = 1.0 / (u.shape[1] - 2)
     return -0.5 * h * (u[2:, 1:-1, 1:-1] - u[:-2, 1:-1, 1:-1]
                        + v[1:-1, 2:, 1:-1] - v[1:-1, :-2, 1:-1]
                        + w[1:-1, 1:-1, 2:] - w[1:-1, 1:-1, :-2])
