@@ -13,8 +13,9 @@
    whole solve in float32 and bfloat16, Jacobi and red-black, the
    three-field diffusion, the fused projection and the whole step of
    config 4) at 64^3.  The solves are checked, untimed, at config 2's
-   diffusion coefficients (b = 1) too; the bfloat16 solves and the whole
-   solve must equal their plain versions bit for bit, the whole solve
+   diffusion coefficients (b = 1) too; the red-black solve, the bfloat16
+   solves and the whole solve must equal their plain versions bit for
+   bit, the whole solve
    the streamed solve of its type, and the bfloat16 solve must differ
    from the float32 one; the whole step of configs 2 and 4 must equal
    the separate kernels (stam.step3d_multi) bit for bit.
@@ -22,7 +23,14 @@
    solve (a = 1, c = 4, b = 0, and config 1's diffusion at b = 1) and
    the whole step (config 1, and config 1 with buoyancy and vorticity)
    must equal their plain versions bit for bit, and the whole step the
-   multi-call step (stam.step2d_multi).
+   multi-call step (stam.step2d_multi).  The red-black solves' floors
+   are printed beside their bounds: one device-memory pass a
+   half-sweep, and the blocked kernel's passes (csrc/rb_blocked.cu).
+   Then the blocked kernel itself: ptxas's registers, stack frame and
+   spills for each compiled tile shape (a stack frame or a spill
+   fails), its shared memory a block, each tile shape's 256^3 solve
+   bit for bit against the plain solve and timed, and the pass time of
+   the default tile by half-sweeps a pass.
 3. Runs 4 steps of the bench.py scene and of BASELINE configs 2 and 4
    at 16^3, and of BASELINE config 1 at 32^2, on the card and on the CPU
    (plain versions) and compares them.
@@ -101,7 +109,7 @@
     10.  Checks finiteness, the alive count, the mass, the bin overflow,
     one force launch a step and one sort step in 8.
 13. The sharded grid step (tpufluids_torch.shard, BASELINE config 5).
-    Holds lin_solve3d_rb_shard (csrc/jacobi_shard.cu) against its plain
+    Holds lin_solve3d_rb_shard (csrc/rb_blocked.cu) against its plain
     version bit for bit: one pass on face and inner x-slabs (gx0 > 0) of
     47^3 and 48^3 grids for fuse 1, 2 and 4, b 0 to 3, from a guess and
     from zeros, each also equal to the dense solve's rows; and the main
@@ -174,10 +182,11 @@ KERNELS = {
                   "tpufluids/grid/pallas_kernels.py:1057", 1e-6),
     "lin_solve3d": ("tpufluids_torch/csrc/jacobi.cu",
                     "tpufluids/grid/pallas_kernels.py:2455", 1e-6),
-    "lin_solve3d_rb": ("tpufluids_torch/csrc/jacobi.cu",
-                       "tpufluids/grid/pallas_kernels.py:2285", 1e-6),
-    # bit for bit: the sharded red-black solve (config 5's pressure solve)
-    "lin_solve3d_rb_shard": ("tpufluids_torch/csrc/jacobi_shard.cu",
+    # bit for bit: the red-black solves, dense and sharded (config 5's
+    # pressure solve), both through the temporally blocked kernel
+    "lin_solve3d_rb": ("tpufluids_torch/csrc/rb_blocked.cu",
+                       "tpufluids/grid/pallas_kernels.py:2285", 0.0),
+    "lin_solve3d_rb_shard": ("tpufluids_torch/csrc/rb_blocked.cu",
                              "tpufluids/grid/pallas_kernels.py:2678", 0.0),
     # bit for bit: lin_solve3d_pallas(dtype=bfloat16) and its whole mode
     "lin_solve3d_bf16": ("tpufluids_torch/csrc/jacobi.cu",
@@ -554,6 +563,101 @@ def plain_kernels(kernels):
             setattr(kernels, name, fn)
 
 
+def rb_pass_bytes(kernels, x0, gx0, passes, zero_guess):
+    """Device-memory bytes of blocked red-black passes over field x0 at
+    global row gx0, as the kernel streams them: per pass each block reads
+    x (not on the first pass from a zero guess) and x0 over its planes
+    (rows lo .. hi of its chunk and the two it fetches past them), tile
+    and halo (the cells inside the array), and writes its tile's cells of
+    the rows it owns."""
+    rows, n = x0.shape[0], x0.shape[1] - 2
+    tile = kernels.RB_TILE
+    ch = kernels._rb_chunks_on(x0, gx0)
+
+    def spans(size):
+        return sum(min(t0 + size + tile.k, n + 2) - max(t0 - tile.k, 0)
+                   for t0 in range(1, n + 1, size))
+
+    area = spans(tile.ty) * spans(tile.tz)
+    owned = (ch.r_hi - ch.r_lo + 1) * n * n
+    total = 0
+    for p in passes:
+        planes = 0
+        for i in range(ch.count):
+            _, _, lo, hi = ch.rows(i, p.half_sweeps)
+            planes += min(hi + 2, rows - 1) - lo + 1
+        fields = 1 if p.first and zero_guess else 2
+        total += 4 * (fields * planes * area + owned)
+    return total
+
+
+def log_rb_floors(name, kernels, x0, gx0, passes, zero_guess, extra_bytes,
+                  iters, bound_ms):
+    """Prints row ``name``'s floors: one device-memory pass (x, x0 in, x
+    out) per half-sweep, the design the blocked kernel replaced, and the
+    blocked passes (k half-sweeps a pass, halo included), plus
+    ``extra_bytes`` (the ghost or finish pass); returns the latter in
+    ms."""
+    tile = kernels.RB_TILE
+    one_ms = 3 * x0.nbytes * 2 * iters / HBM_BYTES_PER_S * 1e3
+    nbytes = rb_pass_bytes(kernels, x0, gx0, passes, zero_guess) \
+        + extra_bytes
+    k_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"{name} floors ({2 * iters} half-sweeps): bound {bound_ms:.4f} "
+        f"ms; blocked passes (k {tile.k}, {len(passes)} launches, tile "
+        f"{tile.ty}x{tile.tz}, {nbytes} B) {k_ms:.4f} ms; one pass a "
+        f"half-sweep {one_ms:.4f} ms")
+    return k_ms
+
+
+def check_rb_blocked(stam, kernels, dev, build_log):
+    """The blocked red-black kernel's build (ptxas: registers, stack
+    frame, spills; a stack frame or a spill fails) and shared memory per
+    block, then its pass time at the main path's 256^3 by half-sweeps a
+    pass: what one level costs.  (The solve itself is held bit for bit
+    against the plain one and timed in check_kernels.)"""
+    entry = None
+    found = {}
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "rb_blocked_kernel" in line \
+                else None
+        elif entry and "stack frame" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            found.setdefault(entry, {})["stack_spill"] = nums
+        elif entry and "registers" in line:
+            found.setdefault(entry, {})["registers"] = int(
+                line.split("Used ")[1].split()[0])
+    check(len(found) == 1,
+          f"ptxas lines of {len(found)} blocked kernels, expected 1")
+    tile = kernels.RB_TILE
+    (name, info), = found.items()
+    check(f"ILi{tile.k}ELi{tile.ty}ELi{tile.tz}E" in name,
+          f"the compiled blocked kernel {name} is not RB_TILE {tile}")
+    slots, smem = kernels.rb_tile_info(torch.cuda.current_device())
+    log(f"rb_blocked (k {tile.k}, {tile.ty}x{tile.tz}): "
+        f"{info['registers']} registers, stack frame, spill stores, spill "
+        f"loads {info['stack_spill']} B; {smem} B shared memory a block, "
+        f"{slots} resident blocks")
+    check(not any(info["stack_spill"]),
+          f"rb_blocked: stack frame or spill {info['stack_spill']}")
+    rng = np.random.default_rng(SEED + 10)
+    n = N_BIG
+    p = stam.set_bnd3d(0, torch.from_numpy(rng.uniform(
+        0.0, 1.0, (n + 2,) * 3).astype(np.float32)).to(dev))
+    chunks = kernels._rb_chunks_on(p, 0)
+    out = torch.empty_like(p)
+    for h in range(1, tile.k + 1):
+        ms = time_ms(lambda h=h: kernels._rb_pass(
+            p, p, out, 0, chunks, kernels.RbPass(h, 0, False), 0, 1.0,
+            1 / 6))
+        log(f"rb_blocked pass @ {n}^3, {h} half-sweeps: "
+            f"{ms:.4f} ms ({ms / h:.4f} ms a half-sweep)")
+    del out, p
+    torch.cuda.empty_cache()
+
+
 def check_kernels(stam, kernels, dev):
     """Each grid kernel against its plain version: the stencil kernels
     and the streamed solves at 256^3, the whole tier at 64^3, the 2D
@@ -708,6 +812,12 @@ def check_kernels(stam, kernels, dev):
                          "plain_ms": float(np.mean(plain_ms)),
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "library_ms": None}
+        if name == "lin_solve3d_rb":
+            _, _, x0, _, _, iters = arg_sets[0]
+            ghosts = x0.numel() - (x0.shape[0] - 2) ** 3
+            log_rb_floors(name, kernels, x0, 0,
+                          kernels.rb_passes(2 * iters, kernels.RB_TILE.k),
+                          True, 2 * 4 * ghosts, iters, bound_ms)
         if len(arg_sets) > 1:
             # the averaged call shapes one by one
             results[name]["calls"] = [
@@ -1906,17 +2016,18 @@ def check_rb_shard(stam, kernels, shard, dev):
                        reps=PLAIN_REPS[0], warm=PLAIN_REPS[1])
     nbytes = x0p.nbytes + got.nbytes
     bound_ms, bound_by = bound(nbytes, 8 * iters * n ** 3)
-    # the floor of this design: x and x0 of the padded slab in and x out,
-    # once per half-sweep
-    sweep_ms = 3 * x0p.nbytes / HBM_BYTES_PER_S * 1e3
+    passes = [p for sp in range(iters // fuse)
+              for p in kernels.rb_passes(2 * fuse, kernels.RB_TILE.k,
+                                         first=sp == 0)]
     log(f"kernel lin_solve3d_rb_shard timed @ {n}^3 (world 1, {x0p.shape[0]} "
         f"padded rows, {iters} iterations, fuse {fuse}: {iters // fuse} "
-        f"passes of {2 * fuse} half-sweeps): max_abs_err {err:.3e} "
-        f"(bitwise); ms per call: kernel {ms:.4f}, plain {plain_ms:.4f}; "
-        f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes} B, "
-        f"{8 * iters * n ** 3} operations); one pass over the padded slab "
-        f"a half-sweep would take {sweep_ms:.4f} ms, "
-        f"{2 * iters * sweep_ms:.4f} ms a call")
+        f"slab passes of {2 * fuse} half-sweeps, {len(passes)} blocked "
+        f"launches): max_abs_err {err:.3e} (bitwise); ms per call: kernel "
+        f"{ms:.4f}, plain {plain_ms:.4f}; bound {bound_ms:.4f} ms "
+        f"({bound_by}: {nbytes} B, {8 * iters * n ** 3} operations)")
+    # the finish pass reads the owned rows and writes them with ghosts
+    log_rb_floors("lin_solve3d_rb_shard", kernels, x0p, 1 - halo, passes,
+                  True, 2 * got.nbytes, iters, bound_ms)
     del got, want, x0p
     torch.cuda.empty_cache()
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -2094,6 +2205,7 @@ def main():
             log("  ptxas: " + line.strip())
 
     checked = check_kernels(stam, kernels, dev)
+    check_rb_blocked(stam, kernels, dev, build.log)
     check_small_against_cpu(stam, dev)
     counts, ms = {}, {}
     for path in GRID_PATHS:

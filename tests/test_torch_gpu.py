@@ -141,21 +141,37 @@ def _raw(dev, n, seed, count):
         np.float32)).to(dev) for _ in range(count)]
 
 
-@pytest.mark.parametrize("red_black", [False, True], ids=["jacobi", "rb"])
-@pytest.mark.parametrize("n", [15, 16, 64])
+# (n, red_black): the Jacobi solve at 15^3-64^3; the red-black solve
+# from n = 4 (multigrid's coarsest) up, odd n, n below the kernel's tile
+# and n not a multiple of it
+SOLVE_CASES = ([(n, False) for n in (15, 16, 64)]
+               + [(n, True) for n in (4, 7, 8, 15, 16, 64, 130)])
+
+
+@pytest.mark.parametrize("n,red_black", SOLVE_CASES,
+                         ids=[f"{'rb' if rb else 'jacobi'}-{n}"
+                              for n, rb in SOLVE_CASES])
 def test_solve_kernels_match_plain(cuda, n, red_black):
     """Every b, pressure and diffusion coefficients, zero, consistent
-    and raw initial guesses; odd n puts both parities on each face."""
+    and raw initial guesses; odd n puts both parities on each face.  The
+    red-black solve bit for bit at 1, 2, 3, 5 and 20 iterations (passes
+    of every length the blocked kernel runs), the Jacobi solve within
+    1e-6 at 5."""
     kern = kernels.lin_solve3d_rb if red_black else kernels.lin_solve3d
     plain = (kernels.lin_solve3d_rb_plain if red_black
              else kernels.lin_solve3d_plain)
     x, x0 = _raw(cuda, n, 6, 2)
     a = 0.05 * 1e-5 * n * n
-    for b in range(4):
-        for guess in (None, stam.set_bnd3d(b, x), x):
-            for coeffs in ((1.0, 6.0), (a, 1 + 6 * a)):
-                got = kern(b, guess, x0, *coeffs, 5)
-                _close((got,), (plain(b, guess, x0, *coeffs, 5),), 1e-6)
+    for iters in ((1, 2, 3, 5, 20) if red_black else (5,)):
+        for b in range(4):
+            for guess in (None, stam.set_bnd3d(b, x), x):
+                for coeffs in ((1.0, 6.0), (a, 1 + 6 * a)):
+                    got = kern(b, guess, x0, *coeffs, iters)
+                    want = plain(b, guess, x0, *coeffs, iters)
+                    if red_black:
+                        assert torch.equal(got, want), (iters, b, coeffs)
+                    else:
+                        _close((got,), (want,), 1e-6)
 
 
 @pytest.mark.parametrize("n", [16, 64])

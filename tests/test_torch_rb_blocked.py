@@ -1,0 +1,285 @@
+"""The temporally blocked red-black passes (csrc/rb_blocked.cu), on the
+CPU: the pass schedule and x-chunks of tpufluids_torch.grid.kernels, and
+a torch emulation of the kernel's schedule held against the plain
+solves.
+
+The emulation does what one block of the kernel does, in the same order:
+it streams the planes of its chunk and its halo rows, and at step s
+level h updates plane s - h in place, inside the cone of the tile and
+chunk widened by H-1-h cells, one level after another (a barrier
+between levels in the kernel); then it writes plane s - (H-1) of its
+tile.
+Passes alternate between two buffers that start as NaN, so a read of a
+cell that no pass wrote shows in the result.  Tolerance: bit for bit
+against lin_solve3d_rb_plain and the plain slab solve, which do the
+same operations in the same order."""
+
+import numpy as np
+import pytest
+import torch
+
+from tpufluids_torch.grid import kernels, stam
+
+
+def emulate_pass(src, x0, dst, gx0, chunks, p, b, a, c_inv, tile):
+    """One launch of the blocked kernel: ``p.half_sweeps`` half-sweeps
+    from ``src`` (None: zeros) into ``dst``, block by block."""
+    rows, n = x0.shape[0], x0.shape[1] - 2
+    N, K, H = n + 2, tile.k, p.half_sweeps
+    sx, sy, sz = stam._bnd_signs(b)
+    for ci in range(chunks.count):
+        c0, c1, lo, hi = chunks.rows(ci, H)
+        for ty0 in range(1, n + 1, tile.ty):
+            for tz0 in range(1, n + 1, tile.tz):
+                # the block's planes lo .. hi, its tile and K-deep halo
+                shape = (hi - lo + 1, tile.ty + 2 * K, tile.tz + 2 * K)
+                X, X0 = torch.zeros(shape), torch.zeros(shape)
+                ys, zs = ty0 - K, tz0 - K
+                r = slice(lo, min(hi, rows - 1) + 1)
+                yg = slice(max(ys, 0), min(ys + shape[1], N))
+                zg = slice(max(zs, 0), min(zs + shape[2], N))
+                yl = slice(yg.start - ys, yg.stop - ys)
+                zl = slice(zg.start - zs, zg.stop - zs)
+                m = r.stop - r.start
+                if src is not None:
+                    X[:m, yl, zl] = src[r, yg, zg]
+                X0[:m, yl, zl] = x0[r, yg, zg]
+                for s in range(max(c0 - (H - 1), chunks.r_lo), c1 + H - 1):
+                    for h in range(H):
+                        q, e = s - h, H - 1 - h
+                        if (max(c0 - e, chunks.r_lo) <= q
+                                <= min(c1 - 1 + e, chunks.r_hi)):
+                            _level(X, X0, q - lo, gx0 + q, n, ty0, tz0, e,
+                                   (p.parity + h) & 1, p.first and h == 0,
+                                   tile, (sx, sy, sz), a, c_inv)
+                    q = s - (H - 1)
+                    if q >= c0:
+                        y1, z1 = min(ty0 + tile.ty, n + 1), \
+                            min(tz0 + tile.tz, n + 1)
+                        dst[q, ty0:y1, tz0:z1] = X[q - lo, K:K + y1 - ty0,
+                                                   K:K + z1 - tz0]
+
+
+def _level(X, X0, qi, I, n, ty0, tz0, e, parity, first, tile, signs, a,
+           c_inv):
+    """Level h on block plane qi (global row I): the cells of ``parity``
+    in the cone, in place."""
+    K = tile.k
+    sx, sy, sz = signs
+    ylo, yhi = max(1, ty0 - e), min(n, ty0 + tile.ty - 1 + e)
+    zlo, zhi = max(1, tz0 - e), min(n, tz0 + tile.tz - 1 + e)
+    y0, y1 = ylo - ty0 + K, yhi - ty0 + K + 1
+    z0, z1 = zlo - tz0 + K, zhi - tz0 + K + 1
+    P = X[qi]
+    own = P[y0:y1, z0:z1]
+    xm, xp = X[qi - 1, y0:y1, z0:z1], X[qi + 1, y0:y1, z0:z1]
+    ym, yp = P[y0 - 1:y1 - 1, z0:z1], P[y0 + 1:y1 + 1, z0:z1]
+    zm, zp = P[y0:y1, z0 - 1:z1 - 1], P[y0:y1, z0 + 1:z1 + 1]
+    J = torch.arange(ylo, yhi + 1)[:, None]
+    Kc = torch.arange(zlo, zhi + 1)[None, :]
+    if not first:
+        xm = sx * own if I == 1 else xm
+        xp = sx * own if I == n else xp
+        ym = torch.where(J == 1, sy * own, ym)
+        yp = torch.where(J == n, sy * own, yp)
+        zm = torch.where(Kc == 1, sz * own, zm)
+        zp = torch.where(Kc == n, sz * own, zp)
+    nb = xm + xp + ym + yp + zm + zp
+    new = (X0[qi, y0:y1, z0:z1] + a * nb) * c_inv
+    P[y0:y1, z0:z1] = torch.where((I + J + Kc + 1) % 2 == parity, new, own)
+
+
+def emulate_dense(b, x, x0, a, c, iters, tile, slots):
+    """kernels.lin_solve3d_rb's launches, each pass emulated."""
+    out, tmp = (torch.full_like(x0, float("nan")) for _ in range(2))
+    chunks = kernels.rb_chunks(x0.shape[0], 0, x0.shape[0] - 2, tile, slots)
+    passes = kernels.rb_passes(2 * iters, tile.k)
+    src = x
+    for i, p in enumerate(passes):
+        dst = out if kernels.rb_lands_in_out(i, len(passes)) else tmp
+        emulate_pass(src, x0, dst, 0, chunks, p, b, a, 1.0 / c, tile)
+        src = dst
+    return stam._set_bnd3d_(b, out)
+
+
+def _exchange(slabs, halo, b):
+    """The pad refresh of grid_sharded._refresh_pad_ over a world of
+    slabs held in one process."""
+    sx = stam._bnd_signs(b)[0]
+    c = slabs[0].shape[0] - 2 * halo
+    edges = [(q[halo:2 * halo].clone(), q[c:c + halo].clone())
+             for q in slabs]
+    for r, q in enumerate(slabs):
+        if r == 0:
+            q[:halo - 1] = 0.0
+            q[halo - 1] = sx * q[halo]
+        else:
+            q[:halo] = edges[r - 1][1]
+        if r == len(slabs) - 1:
+            q[halo + c] = sx * q[halo + c - 1]
+            q[halo + c + 1:] = 0.0
+        else:
+            q[halo + c:] = edges[r + 1][0]
+
+
+def emulate_world(b, x, x0, a, c, iters, fuse, world, tile, slots):
+    """kernels.lin_solve3d_rb_shard on each slab of a world, passes in
+    lockstep, each launch emulated; the owned rows stitched."""
+    n = x0.shape[0] - 2
+    halo, c_local = 2 * fuse, n // world
+
+    def cut(f, r):
+        gx0 = r * c_local + 1 - halo
+        out = torch.zeros((c_local + 2 * halo, n + 2, n + 2))
+        for i in range(out.shape[0]):
+            if 0 <= gx0 + i <= n + 1:
+                out[i] = f[gx0 + i]
+        return out, gx0
+
+    x0s = [cut(x0, r) for r in range(world)]
+    srcs = [None if x is None else cut(x, r)[0] for r in range(world)]
+    bufs = [[torch.full_like(x0s[0][0], float("nan")) for _ in range(2)]
+            for _ in range(world)]
+    chunks = [kernels.rb_chunks(x0s[0][0].shape[0], gx0, n, tile, slots)
+              for _, gx0 in x0s]
+    launches = 0
+    for sp in range(iters // fuse):
+        if sp:
+            _exchange(srcs, halo, b)
+        for p in kernels.rb_passes(2 * fuse, tile.k, first=sp == 0):
+            for r in range(world):
+                dst = bufs[r][launches % 2]
+                emulate_pass(srcs[r], x0s[r][0], dst, x0s[r][1], chunks[r],
+                             p, b, a, 1.0 / c, tile)
+                srcs[r] = dst
+            launches += 1
+    owned = torch.cat([q[halo:halo + c_local] for q in srcs])
+    return kernels._set_bnd_yz_(b, owned)
+
+
+def _fields(n, b, seed):
+    """x0, a set_bnd-consistent guess and a raw guess (ghosts the rule
+    would change)."""
+    rng = np.random.default_rng(seed)
+    x0, raw = (torch.from_numpy(rng.normal(0, 1, (n + 2,) * 3).astype(
+        np.float32)) for _ in range(2))
+    return x0, stam.set_bnd3d(b, raw), raw
+
+
+def _tile(k, ty, tz):
+    return kernels.RbTile(k, ty, tz)
+
+
+# (n, tile, slots, iters): n below the tile, not a multiple of it, odd
+# and even; iters not a multiple of k / 2; slots that force several
+# x-chunks
+DENSE = [(9, (2, 4, 4), 5, 3), (10, (3, 8, 6), 4, 5), (13, (4, 6, 8), 8, 4),
+         (16, (4, 4, 8), 3, 5), (18, (3, 8, 8), 6, 2)]
+
+
+@pytest.mark.parametrize("n,tile,slots,iters", DENSE,
+                         ids=[f"n{d[0]}_k{d[1][0]}" for d in DENSE])
+def test_emulated_dense_solve_is_bitwise_plain(n, tile, slots, iters):
+    tile = _tile(*tile)
+    x0, consistent, raw = _fields(n, 0, n)
+    a = 0.05 * 1e-5 * n * n
+    for b, guess, coeffs in ((n % 4, None, (1.0, 6.0)),
+                             ((n + 1) % 4, consistent, (a, 1 + 6 * a)),
+                             ((n + 2) % 4, raw, (1.0, 6.0))):
+        want = kernels.lin_solve3d_rb_plain(b, guess, x0, *coeffs, iters)
+        got = emulate_dense(b, guess, x0, *coeffs, iters, tile, slots)
+        assert torch.equal(got, want), (b, guess is None)
+
+
+# (n, world, fuse, passes, tile, slots)
+SLABS = [(12, 1, 2, 2, (4, 4, 8), 3), (12, 2, 1, 5, (2, 4, 4), 4),
+         (16, 2, 2, 2, (3, 8, 6), 2), (16, 2, 4, 2, (4, 6, 8), 5),
+         (10, 1, 4, 1, (4, 4, 4), 2), (11, 1, 1, 3, (3, 4, 6), 3)]
+
+
+@pytest.mark.parametrize("n,world,fuse,passes,tile,slots", SLABS,
+                         ids=[f"n{s[0]}_w{s[1]}_f{s[2]}" for s in SLABS])
+def test_emulated_slab_solve_is_bitwise_plain(n, world, fuse, passes, tile,
+                                              slots):
+    """Stitched emulated slabs against the dense plain solve; a world of
+    1 also against the plain slab solve itself (which takes even slabs
+    only)."""
+    tile = _tile(*tile)
+    iters = fuse * passes
+    for b, zero in ((n % 4, True), ((n + 3) % 4, False)):
+        x0, consistent, _ = _fields(n, b, n + b)
+        guess = None if zero else consistent
+        got = emulate_world(b, guess, x0, 1.0, 6.0, iters, fuse, world,
+                            tile, slots)
+        dense = kernels.lin_solve3d_rb_plain(b, guess, x0, 1.0, 6.0, iters)
+        assert torch.equal(got, dense[1:-1]), (b, zero)
+        if world == 1 and not zero and n % 2 == 0:
+            halo = 2 * fuse
+            pad = torch.zeros((n + 2 * halo, n + 2, n + 2))
+            pad[halo - 1:halo + n + 1] = consistent
+            x0p = torch.zeros_like(pad)
+            x0p[halo - 1:halo + n + 1] = x0
+            mesh_x = pad.clone()
+            want = kernels.lin_solve3d_rb_shard_plain(
+                b, mesh_x, x0p, 1.0, 6.0, iters, gx0=1 - halo, fuse=fuse,
+                exchange=lambda q: _exchange([q], halo, b))
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("iters", range(1, 12))
+@pytest.mark.parametrize("k", [2, 3, 4, 6, 8])
+def test_passes_cover_every_half_sweep_and_end_in_out(k, iters):
+    passes = kernels.rb_passes(2 * iters, k)
+    assert sum(p.half_sweeps for p in passes) == 2 * iters
+    assert all(1 <= p.half_sweeps <= k for p in passes)
+    assert len(passes) == -(-2 * iters // k)
+    assert [p.first for p in passes] == [True] + [False] * (len(passes) - 1)
+    done = 0
+    for p in passes:
+        assert p.parity == done % 2
+        done += p.half_sweeps
+    lands = [kernels.rb_lands_in_out(i, len(passes))
+             for i in range(len(passes))]
+    assert lands[-1] and all(a != b for a, b in zip(lands, lands[1:]))
+    assert not any(p.first for p in kernels.rb_passes(2 * iters, k,
+                                                      first=False))
+
+
+# the kernel's shape, and shapes of other depths and tiles
+CHUNK_TILES = [kernels.RB_TILE, _tile(2, 4, 4), _tile(6, 16, 64),
+               _tile(8, 32, 32)]
+
+
+@pytest.mark.parametrize("tile", CHUNK_TILES,
+                         ids=lambda t: f"k{t.k}_{t.ty}x{t.tz}")
+def test_chunks_cover_every_row_without_gaps(tile):
+    for n in range(4, 41):
+        for rows, gx0 in ((n + 2, 0), (n // 2 + 8, -3), (n // 2 + 8, n // 3),
+                          (n // 2 + 8, n // 2 - 2)):
+            for slots in (1, 7, 132, 264):
+                ch = kernels.rb_chunks(rows, gx0, n, tile, slots)
+                assert ch.r_lo == max(1, 1 - gx0)
+                assert ch.r_hi == min(n - gx0, rows - 2)
+                owned = []
+                for i in range(ch.count):
+                    c0, c1, lo, hi = ch.rows(i, tile.k)
+                    assert c0 < c1
+                    assert lo == max(c0 - tile.k + 1, ch.r_lo) - 1 >= 0
+                    assert hi == c1 + tile.k - 1
+                    owned += range(c0, c1)
+                assert owned == list(range(ch.r_lo, ch.r_hi + 1))
+
+
+@pytest.mark.parametrize("slots", [132, 264])
+def test_chunks_fill_the_card_at_256(slots):
+    """At 256^3 the dense solve's tiles of RB_TILE run in x-chunks that
+    fill most of one wave of resident blocks (132 multiprocessors, one
+    or two blocks each) and no more."""
+    ch = kernels.rb_chunks(258, 0, 256, kernels.RB_TILE, slots)
+    blocks = kernels.RB_TILE.tiles(256) * ch.count
+    assert 0.75 * slots <= blocks <= slots
+
+
+def test_rejects_a_field_without_interior_rows():
+    with pytest.raises(ValueError):
+        kernels.rb_chunks(6, 20, 16, kernels.RB_TILE, 132)

@@ -1,7 +1,8 @@
 """The sharded step's kernels against their plain PyTorch versions on the
 card: the slab modes of the four stencil kernels and the sharded
 red-black solve (lin_solve3d_rb_shard) at 15^3 and 48^3, on x-slabs cut
-from a set_bnd-consistent grid at a domain face and inside it.  Marked
+from a set_bnd-consistent grid at a domain face and inside it, in one
+pass and in several with the pad refreshed between them.  Marked
 ``gpu`` and skipped without a CUDA device; on the card:
 
     python -m pytest --noconftest -m gpu tests/test_torch_shard_gpu.py
@@ -122,6 +123,64 @@ def test_rb_shard_is_bitwise_plain_and_dense(cuda, n, fuse, zero):
                                                       fuse=fuse)
             assert torch.equal(got, want), (b, r0)
             assert torch.equal(got, dense[r0 + 1:r0 + 1 + c_local]), (b, r0)
+
+
+def _neighbour_exchange(dense_after, gx0, halo, fuse):
+    """An exchange that refreshes every pad row of a slab as its
+    neighbours and the face rule would, from the dense solve after the
+    iterations done so far (dense_after(iters), plain, cached)."""
+    calls = [0]
+
+    def exchange(q):
+        calls[0] += 1
+        ref = dense_after(calls[0] * fuse)
+        rows = q.shape[0]
+        for i in [*range(halo), *range(rows - halo, rows)]:
+            g = gx0 + i
+            q[i] = ref[g] if 0 <= g < ref.shape[0] else 0.0
+        return q
+    return exchange
+
+
+@pytest.mark.parametrize("zero", [False, True], ids=["guess", "x_zero"])
+@pytest.mark.parametrize("fuse", [1, 2, 4])
+@pytest.mark.parametrize("n", [15, 48])
+def test_rb_shard_passes_are_bitwise_plain_and_dense(cuda, n, fuse, zero):
+    """Several passes (iters = 2 fuse and 5 fuse) on a slab at the low
+    face and one inside the grid, each b, the pad refreshed between
+    passes from the dense solve: the kernel equals its plain version,
+    and the owned rows the dense red-black solve's."""
+    halo = 2 * fuse
+    c_local = max(2 * fuse, 4)
+    rows = c_local + 2 * halo
+    for b in range(4):
+        x, x0 = _fields(cuda, n, 30 + b, (b, 0), -1.0, 1.0)
+        guess = None if zero else x
+        cache = {}
+
+        def dense_after(iters, b=b, guess=guess, x0=x0, cache=cache):
+            if iters not in cache:
+                cache[iters] = kernels.lin_solve3d_rb_plain(
+                    b, guess, x0, 1.0, 6.0, iters)
+            return cache[iters]
+
+        for iters in (2 * fuse, 5 * fuse):
+            for r0 in (0, n // 2 - c_local // 2):
+                gx0 = r0 + 1 - halo
+                args = (b, None if zero else _cut(x, gx0, rows),
+                        _cut(x0, gx0, rows), 1.0, 6.0, iters)
+                got = kernels.lin_solve3d_rb_shard(
+                    *args, gx0=gx0, fuse=fuse,
+                    exchange=_neighbour_exchange(dense_after, gx0, halo,
+                                                 fuse))
+                want = kernels.lin_solve3d_rb_shard_plain(
+                    *args, gx0=gx0, fuse=fuse,
+                    exchange=_neighbour_exchange(dense_after, gx0, halo,
+                                                 fuse))
+                assert torch.equal(got, want), (b, iters, r0)
+                assert torch.equal(
+                    got, dense_after(iters)[r0 + 1:r0 + 1 + c_local]), \
+                    (b, iters, r0)
 
 
 def test_rb_shard_passes_equal_the_dense_solve_at_world_1(cuda):

@@ -7,7 +7,9 @@
 //   lin_solve3d_pallas(dtype=bfloat16) / _solve_kernel      -> tf_lin_solve3d_bf16,
 //                                                              tf_lin_solve3d_rb_bf16
 //   lin_solve3d_pallas / _solve_whole_kernel (both dtypes)  -> tf_lin_solve3d_whole
-//   lin_solve3d_rb_packed / _solve_rb_packed_*_kernel       -> tf_lin_solve3d_rb
+//   lin_solve3d_rb_packed / _solve_rb_packed_*_kernel       -> the passes of
+//                                                              rb_blocked.cu,
+//                                                              then tf_rb_ghosts
 //   diffuse3d_whole_multi / _solve_whole_multi_kernel       -> tf_diffuse3d_multi
 //   project3d_whole_pallas / _project_whole_kernel          -> tf_project3d_whole
 //
@@ -17,14 +19,15 @@
 // What bounds them on the H100: on paper device-memory bytes.  A sweep
 // does 8 flops a cell and moves at least three fields (x and x0 in, the
 // result out): 12 B a cell in float32, 6 B in bfloat16.  The streamed
-// solvers make one pass per sweep, or per red-black half-sweep; the TPU
-// kernels fused several sweeps per pass in VMEM, which is left to a
-// later change here (temporal blocking in shared memory).  The
-// red-black half-sweep runs one thread per active cell only, in place.
-// Measured, one thread a cell with its index decode and ghost branch is
-// bound by instruction issue: a float32 sweep reaches 1.7 TB/s, and the
-// bfloat16 sweep, with two conversions an operation, is no faster on
-// half the bytes (PERF.md).
+// Jacobi solvers and the bfloat16 red-black solve make one pass per
+// sweep, or per red-black half-sweep, so they cannot come nearer the
+// bound than that one pass; the float32 red-black solve does several
+// half-sweeps a pass in shared memory (rb_blocked.cu), as the TPU
+// kernels did in VMEM.  The bfloat16 red-black half-sweep runs one
+// thread per active cell only, in place.  Measured, one thread a cell
+// with its index decode and ghost branch is bound by instruction issue:
+// a float32 sweep reaches 1.7 TB/s, and the bfloat16 sweep, with two
+// conversions an operation, is no faster on half the bytes (PERF.md).
 //
 // The whole tier: at 64^3 a field is 66^3 * 4 B = 1.15 MB, and one launch
 // per sweep would leave the card waiting on the host.  One cooperative
@@ -140,11 +143,13 @@ extern "C" int tf_lin_solve3d_bf16(const bf16* x, const bf16* x0, bf16* out,
                               (cudaStream_t)stream);
 }
 
-extern "C" int tf_lin_solve3d_rb(const float* x, const float* x0, float* out,
-                                 int b, int n, int iters, float a,
-                                 float c_inv, void* stream) {
-  return lin_solve3d_rb_streamed(x, x0, out, b, n, iters, a, c_inv,
-                                 (cudaStream_t)stream);
+// The ghost pass that ends the float32 red-black solve (its half-sweeps
+// are rb_blocked.cu's passes): every ghost of x by set_bnd3d(b).
+extern "C" int tf_rb_ghosts(float* x, int n, int b, void* stream) {
+  const long long N = n + 2;
+  ghost_kernel<float><<<blocks_of(N * N * N - (long long)n * n * n),
+                        tf::kThreads, 0, (cudaStream_t)stream>>>(x, n, b);
+  return tf::launch_status();
 }
 
 extern "C" int tf_lin_solve3d_rb_bf16(const bf16* x, const bf16* x0,

@@ -78,19 +78,28 @@ __device__ __forceinline__ T mul_rn(float s, T x) {
   return Store<T>::round(s * Store<T>::load(x));
 }
 
+// (x0c + a * nb) * c_inv with nb the six neighbours summed in the
+// reference's order, x-1, x+1, y-1, y+1, z-1, z+1: the one cell update
+// of every Jacobi and red-black kernel, so their sums cannot drift apart.
+template <typename T>
+__device__ __forceinline__ T cell_update(T x0c, T xm, T xp, T ym, T yp,
+                                         T zm, T zp, float a, float c_inv) {
+  T nb = add_rn(xm, xp);
+  nb = add_rn(nb, ym);
+  nb = add_rn(nb, yp);
+  nb = add_rn(nb, zm);
+  nb = add_rn(nb, zp);
+  return mul_rn(c_inv, add_rn(x0c, mul_rn(a, nb)));
+}
+
 // The Jacobi update of interior cell c from src (NULL: zeros).
 template <typename T>
 __device__ __forceinline__ T jacobi_at(const T* src, const T* x0, int c,
                                        int N, float a, float c_inv) {
-  T nb = Store<T>::round(0.0f);
-  if (src) {
-    nb = add_rn(src[c - N * N], src[c + N * N]);
-    nb = add_rn(nb, src[c - N]);
-    nb = add_rn(nb, src[c + N]);
-    nb = add_rn(nb, src[c - 1]);
-    nb = add_rn(nb, src[c + 1]);
-  }
-  return mul_rn(c_inv, add_rn(x0[c], mul_rn(a, nb)));
+  if (src)
+    return cell_update(x0[c], src[c - N * N], src[c + N * N], src[c - N],
+                       src[c + N], src[c - 1], src[c + 1], a, c_inv);
+  return mul_rn(c_inv, add_rn(x0[c], mul_rn(a, Store<T>::round(0.0f))));
 }
 
 // One output cell of a Jacobi sweep followed by set_bnd3d(b).
@@ -140,13 +149,12 @@ __device__ __forceinline__ void rb_cell(int t, const T* src, const T* x0,
     return;
   }
   const T own = src[c];
-  T nb = add_rn(I == 1 ? mul_rn(sx, own) : src[c - N * N],
-                I == n ? mul_rn(sx, own) : src[c + N * N]);
-  nb = add_rn(nb, J == 1 ? mul_rn(sy, own) : src[c - N]);
-  nb = add_rn(nb, J == n ? mul_rn(sy, own) : src[c + N]);
-  nb = add_rn(nb, K == 1 ? mul_rn(sz, own) : src[c - 1]);
-  nb = add_rn(nb, K == n ? mul_rn(sz, own) : src[c + 1]);
-  dst[c] = mul_rn(c_inv, add_rn(x0[c], mul_rn(a, nb)));
+  dst[c] = cell_update(x0[c], I == 1 ? mul_rn(sx, own) : src[c - N * N],
+                       I == n ? mul_rn(sx, own) : src[c + N * N],
+                       J == 1 ? mul_rn(sy, own) : src[c - N],
+                       J == n ? mul_rn(sy, own) : src[c + N],
+                       K == 1 ? mul_rn(sz, own) : src[c - 1],
+                       K == n ? mul_rn(sz, own) : src[c + 1], a, c_inv);
 }
 
 // Ghost cells: the x faces (2 N^2 cells), then the y faces without the x

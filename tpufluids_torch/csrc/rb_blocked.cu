@@ -1,0 +1,416 @@
+// The temporally blocked red-black pass: up to K red-black half-sweeps of
+// (x0 + a * sum of the six neighbours) / c in one launch, on a cubic
+// (n+2)^3 field or on a deep-padded x-slab of the sharded step.  The
+// float32 route of both red-black solves.
+//
+// Replaces (tpufluids/grid/pallas_kernels.py):
+//   lin_solve3d_rb_packed / _solve_rb_packed_*_kernel   (the dense solve)
+//   lin_solve3d_rb_shard / _solve_rb_shard_kernel       (the slab passes)
+// both through tf_rb_blocked_pass; the dense solve ends with tf_rb_ghosts
+// (jacobi.cu), the slab solve with tf_rb_shard_finish (jacobi_shard.cu).
+//
+// What bounds it on the H100.  A half-sweep does 8 flops a cell and has
+// to see x and x0.  At one device-memory pass per half-sweep (the design
+// this replaces) that is 3 fields, 12 B a cell, per half-sweep, and those
+// kernels ran at 1.3x that floor, 76-80x above the bound of the whole
+// solve.  Only several half-sweeps per pass close that gap, as the TPU
+// kernels did in VMEM.  Here a pass reads x and x0 once, each with its
+// halo, and writes the result once, for H <= K half-sweeps: (2 * halo
+// overhead + 1) / H field passes a half-sweep.  With the bytes cut that
+// far the pass is bound by the multiprocessor, not by device memory: each
+// level is a barrier-separated phase of shared-memory stencil work that
+// costs about as much whether or not device loads are in flight (PERF.md).
+// So K is 4, the least this design takes, and the tile, 16 x 64, keeps
+// two blocks on each multiprocessor, so that one block's barrier is the
+// other's work (larger tiles and K of 6 and 8 were slower, PERF.md).  A
+// wavefront skewed by two planes a level needs one barrier a step, not
+// K + 1, but a ring of 2K + 3 planes, one block a multiprocessor, and its
+// device loads then wait: it was no faster.
+//
+// Design.  A block owns a (y, z) tile of TY x TZ cells and a chunk of x
+// rows [c0, c1), and streams along x.  Its shared memory holds a ring of
+// K + 3 planes of x and of x0, each the tile with a K-deep y/z halo
+// (zeros outside the array).  At streaming step s, plane s + 2 is stored
+// from registers into the ring, a barrier publishes plane s + 1, and
+// level h = 0 .. H-1 updates plane s - h in place, with a barrier after
+// each level; between the levels the block reads plane s + 3 from device
+// memory into registers, a share at a time.  Then plane s - (H-1), final,
+// is written to dst if the chunk owns it.  The levels of the last step
+// read plane s_end + 1 at most, yet the last two steps fetch planes
+// s_end + 2 and s_end + 3 (those inside the array): a test that skips
+// them needs a register past the 64 that two blocks a multiprocessor
+// allow, and spills, to save about 3% of a pass's bytes at 256^3
+// (kernels.RbChunks.rows; chip_smoke.py counts these planes).
+//
+// Why in place is right.  Level h updates the cells of parity p_h =
+// parity + h and reads only cells of parity 1 - p_h (its six neighbours;
+// the cell itself for a ghost tap), which must hold their level h-1
+// values.  In plane q = s - h those were written by level h-1 at step
+// s-1, and level h+1 reaches plane q only at step s+1.  Plane q+1's were
+// written by level h-1 earlier in this step (plane s - h + 1), and plane
+// q-1's by level h-1 at step s-2, while level h+1 rewrites them only after
+// level h in this step.  So no second buffer is needed inside the ring.
+//
+// The halo cone.  Level h updates the tile widened by e = H-1-h cells in
+// y and z, and the chunk widened by e rows, clipped to the cells a
+// half-sweep updates (interior J, K; rows 1 .. rows-2 whose global row is
+// interior).  Each level reads one cell further out than it writes, so
+// the K-deep halo feeds level 0 and the tile and chunk come out exact.
+// Chunks read H extra rows each side.  Blocks read their neighbours' tiles
+// from device memory, so a pass reads one buffer and writes another; the
+// caller alternates them.  Rows outside [r_lo, r_hi] and ghost cells of
+// dst are not written: no later half-sweep reads them (the dense ghost
+// pass and the slab's exchange rewrite them).
+//
+// Per cell the arithmetic is tf::cell_update's, with the ghost rule of
+// the streamed kernels: on the solve's first half-sweep (level 0 of the
+// first pass) the stored neighbours, ghosts included, or zeros for a zero
+// guess; afterwards a tap across a domain face is the cell's own value
+// times the face's set_bnd sign.  So a pass equals H launches of the
+// streamed half-sweep bit for bit.
+//
+// Layout.  A ring plane is two colour arrays: halo cell (jy, kz) lies in
+// array (jy + kz) & 1 at (jy, kz / 2), the packed checkerboard of the TPU
+// kernel.  A level's active cells are one array, their y and z neighbours
+// the other, their x neighbours the same array of the planes beside: a
+// warp reads consecutive words, with no bank conflict, and the second
+// array starts 16 banks on so that storing a plane has none either.  A
+// thread owns slots of two neighbouring active cells, read and written as
+// float2; which of a slot's cells lie in each level's cone, and whether
+// it may touch a face, is worked out once per launch.  Loads go through
+// registers (__ldg, then a store into the ring), not cp.async or TMA: a
+// row of n + 2 floats starts 16-byte aligned only when n + 2 is a
+// multiple of 4, which TMA needs of every stride, and a 4-byte cp.async
+// per cell was no faster.
+#include "jacobi.cuh"
+
+namespace {
+
+template <int K_, int TY_, int TZ_, int NT_>
+struct Tile {
+  static constexpr int K = K_, TY = TY_, TZ = TZ_;
+  static constexpr int NT = NT_;  // threads a block
+  static constexpr int W = TZ + 2 * K;  // a halo row's cells (even)
+  static constexpr int HW = W / 2;      // ... of one colour
+  static constexpr int ROWS = TY + 2 * K;
+  // a plane is two colour arrays (ROWS, HW), the second 16 banks on
+  static constexpr int CS = (ROWS * HW + 16 + 31) / 32 * 32 - 16;
+  static constexpr int PLANE = 2 * CS;
+  // planes in the ring: at step s, s - K .. s + 1 being updated, read or
+  // written out, s + 2 going in (a warp still on the step before reads
+  // s - K at most)
+  static constexpr int RING = K + 3;
+  static constexpr int SMEM = 2 * RING * PLANE * (int)sizeof(float);
+  // per thread: the slots of two cells of one colour it updates, the
+  // cells it loads
+  static constexpr int SLOTS = (ROWS * HW / 2 + NT - 1) / NT;
+  static constexpr int LOADS = (ROWS * W + NT - 1) / NT;
+};
+
+struct PassArgs {
+  const float* src;  // NULL: a zero guess (first pass only)
+  const float* x0;
+  float* dst;
+  int rows, gx0, n, r_lo, r_hi, chunk, h, parity, first;
+  float sx, sy, sz, a, c_inv;
+};
+
+// (r + d) mod RING for a ring slot r and |d| <= RING.
+template <class Tl>
+__device__ __forceinline__ int ring(int r, int d) {
+  const int v = r + d;
+  return v >= Tl::RING ? v - Tl::RING : v < 0 ? v + Tl::RING : v;
+}
+
+// Halo cell (jy, kz) of a plane lives in colour array (jy + kz) & 1 at
+// (jy, kz / 2).
+template <class Tl>
+__device__ __forceinline__ int packed(int jy, int kz) {
+  return ((jy + kz) & 1) * Tl::CS + jy * Tl::HW + (kz >> 1);
+}
+
+// What a thread does in every plane, fixed for the launch.  Loads: the
+// cells j * (n+2) + k it reads (-1 outside the array) and their packed
+// places (-1 past the plane).  Slots: two neighbouring cells (jy, m) and
+// (jy, m + 1) of one colour array, m even, at c = jy * HW + m; which of
+// the two lie in level h's cone when the active colour is ``act`` is bit
+// pair (act * K + h) of ``cone``, and ``face`` marks a slot that may hold
+// a cell on a y or z face of the grid.
+template <class Tl>
+struct Lanes {
+  int load[Tl::LOADS], place[Tl::LOADS];
+  int row[Tl::SLOTS], m[Tl::SLOTS], c[Tl::SLOTS];
+  unsigned cone[Tl::SLOTS];
+  bool face[Tl::SLOTS];
+
+  __device__ Lanes(int n, int H, int ty0, int tz0) {
+    const int N = n + 2;
+    const int ys = ty0 - Tl::K, zs = tz0 - Tl::K;
+#pragma unroll
+    for (int i = 0; i < Tl::LOADS; ++i) {
+      const int idx = threadIdx.x + i * Tl::NT;
+      const int jy = idx / Tl::W, kz = idx % Tl::W;
+      const int J = ys + jy, Kc = zs + kz;
+      const bool in_plane = idx < Tl::ROWS * Tl::W;
+      load[i] = in_plane && J >= 0 && J < N && Kc >= 0 && Kc < N
+                    ? J * N + Kc
+                    : -1;
+      place[i] = in_plane ? packed<Tl>(jy, kz) : -1;
+    }
+#pragma unroll
+    for (int i = 0; i < Tl::SLOTS; ++i) {
+      const int t = threadIdx.x + i * Tl::NT;
+      const bool in_plane = t < Tl::ROWS * Tl::HW / 2;
+      row[i] = in_plane ? t / (Tl::HW / 2) : 0;
+      m[i] = 2 * (t % (Tl::HW / 2));
+      c[i] = row[i] * Tl::HW + m[i];
+      unsigned bits = 0;
+      for (int act = 0; act < 2; ++act) {
+        const int kz = 2 * m[i] + ((act + row[i]) & 1);
+        for (int h = 0; h < H; ++h) {
+          const int e = H - 1 - h;
+          const int jlo = max(1, ty0 - e) - ys;
+          const int jhi = min(n, ty0 + Tl::TY - 1 + e) - ys;
+          const int zlo = max(1, tz0 - e) - zs;
+          const int zhi = min(n, tz0 + Tl::TZ - 1 + e) - zs;
+          const bool rok = in_plane && row[i] >= jlo && row[i] <= jhi;
+          const unsigned ok0 = rok && kz >= zlo && kz <= zhi;
+          const unsigned ok1 = rok && kz + 2 >= zlo && kz + 2 <= zhi;
+          bits |= (ok0 | ok1 << 1) << 2 * (act * Tl::K + h);
+        }
+      }
+      cone[i] = bits;
+      const int J = ys + row[i], K0 = zs + 2 * m[i];
+      face[i] = J == 1 || J == n || (K0 <= 1 && K0 + 3 >= 1) ||
+                (K0 <= n && K0 + 3 >= n);
+    }
+  }
+};
+
+// A plane of x and x0 on its way from device memory, in registers.
+template <class Tl>
+struct Staged {
+  float x[Tl::LOADS], x0[Tl::LOADS];
+};
+
+// Reads cells [lo, hi) of this thread's share of plane q of x and x0 (the
+// tile and its halo; zeros outside the array) into registers.
+template <class Tl>
+__device__ __forceinline__ void fetch_plane(Staged<Tl>& r, const PassArgs& g,
+                                            const Lanes<Tl>& L, int q,
+                                            int lo, int hi) {
+  const int N = g.n + 2;
+  const bool in = q < g.rows;
+  const float* xq = g.src ? g.src + (size_t)q * N * N : nullptr;
+  const float* x0q = g.x0 + (size_t)q * N * N;
+#pragma unroll
+  for (int i = 0; i < Tl::LOADS; ++i) {
+    if (i < lo || i >= hi) continue;
+    const int off = L.load[i];
+    const bool ok = in && off >= 0;
+    r.x[i] = ok && xq ? __ldg(xq + off) : 0.0f;
+    r.x0[i] = ok ? __ldg(x0q + off) : 0.0f;
+  }
+}
+
+// Stores a fetched plane into ring slot ``at``, in the packed layout.
+template <class Tl>
+__device__ __forceinline__ void put_plane(float* xr, float* x0r,
+                                          const Staged<Tl>& r,
+                                          const Lanes<Tl>& L, int at) {
+  float* xs = xr + at * Tl::PLANE;
+  float* x0s = x0r + at * Tl::PLANE;
+#pragma unroll
+  for (int i = 0; i < Tl::LOADS; ++i) {
+    const int p = L.place[i];
+    if (p >= 0) {
+      xs[p] = r.x[i];
+      x0s[p] = r.x0[i];
+    }
+  }
+}
+
+// Level h on plane q (x in ring slot ``at``, its x neighbours in the
+// slots around it): the cells of colour ``act`` inside the cone, in
+// place.  Their neighbours in y and z are in the other colour array, in x
+// in the same array of planes q - 1 and q + 1: a warp reads consecutive
+// words of each.  A slot is two cells, read and written as float2, and a
+// slot with no cell on a face of the grid (nearly all) takes no ghost
+// select.
+template <class Tl>
+__device__ __forceinline__ void update_plane(float* xr, const float* x0r,
+                                             const PassArgs& g,
+                                             const Lanes<Tl>& L, int h,
+                                             int q, int at, int act,
+                                             bool first, int ys, int zs) {
+  constexpr int HW = Tl::HW;
+  const int n = g.n, I = g.gx0 + q;
+  float* A = xr + at * Tl::PLANE + act * Tl::CS;  // the active cells
+  const float* B = xr + at * Tl::PLANE + (1 - act) * Tl::CS;
+  const float* Am = xr + ring<Tl>(at, -1) * Tl::PLANE + act * Tl::CS;
+  const float* Ap = xr + ring<Tl>(at, 1) * Tl::PLANE + act * Tl::CS;
+  const float* X0 = x0r + at * Tl::PLANE + act * Tl::CS;
+  const bool xface = I == 1 || I == n;
+  const int shift = 2 * (act * Tl::K + h);
+#pragma unroll
+  for (int i = 0; i < Tl::SLOTS; ++i) {
+    const unsigned ok = L.cone[i] >> shift & 3u;
+    if (!ok) continue;
+    const int c = L.c[i];
+    const int b = (act + L.row[i]) & 1;  // cell (jy, m) has kz = 2 m + b
+    const float2 x0c = *reinterpret_cast<const float2*>(X0 + c);
+    const float2 xm = *reinterpret_cast<const float2*>(Am + c);
+    const float2 xp = *reinterpret_cast<const float2*>(Ap + c);
+    const float2 ym = *reinterpret_cast<const float2*>(B + c - HW);
+    const float2 yp = *reinterpret_cast<const float2*>(B + c + HW);
+    const float z0 = B[c - 1 + b], z1 = B[c + b], z2 = B[c + 1 + b];
+    float2 v;
+    if (first || !(xface || L.face[i])) {
+      v.x = tf::cell_update(x0c.x, xm.x, xp.x, ym.x, yp.x, z0, z1, g.a,
+                            g.c_inv);
+      v.y = tf::cell_update(x0c.y, xm.y, xp.y, ym.y, yp.y, z1, z2, g.a,
+                            g.c_inv);
+    } else {
+      // a tap across a face: the cell's own value times the face's sign
+      const float2 own = *reinterpret_cast<const float2*>(A + c);
+      const int J = L.row[i] + ys, K0 = 2 * L.m[i] + b + zs, K1 = K0 + 2;
+      v.x = tf::cell_update(
+          x0c.x, I == 1 ? tf::mul_rn(g.sx, own.x) : xm.x,
+          I == n ? tf::mul_rn(g.sx, own.x) : xp.x,
+          J == 1 ? tf::mul_rn(g.sy, own.x) : ym.x,
+          J == n ? tf::mul_rn(g.sy, own.x) : yp.x,
+          K0 == 1 ? tf::mul_rn(g.sz, own.x) : z0,
+          K0 == n ? tf::mul_rn(g.sz, own.x) : z1, g.a, g.c_inv);
+      v.y = tf::cell_update(
+          x0c.y, I == 1 ? tf::mul_rn(g.sx, own.y) : xm.y,
+          I == n ? tf::mul_rn(g.sx, own.y) : xp.y,
+          J == 1 ? tf::mul_rn(g.sy, own.y) : ym.y,
+          J == n ? tf::mul_rn(g.sy, own.y) : yp.y,
+          K1 == 1 ? tf::mul_rn(g.sz, own.y) : z1,
+          K1 == n ? tf::mul_rn(g.sz, own.y) : z2, g.a, g.c_inv);
+    }
+    if (ok == 3u)
+      *reinterpret_cast<float2*>(A + c) = v;
+    else if (ok == 1u)
+      A[c] = v.x;
+    else
+      A[c + 1] = v.y;
+  }
+}
+
+// The tile cells of the plane in ring slot ``at``, global row q, to dst.
+template <class Tl>
+__device__ __forceinline__ void store_plane(const float* xr,
+                                            const PassArgs& g, int q, int at,
+                                            int ty0, int tz0) {
+  const int N = g.n + 2;
+  const float* P = xr + at * Tl::PLANE;
+  float* dq = g.dst + (size_t)q * N * N;
+  for (int i = threadIdx.x; i < Tl::TY * Tl::TZ; i += Tl::NT) {
+    const int jy = i / Tl::TZ, kz = i % Tl::TZ;
+    const int J = ty0 + jy, Kc = tz0 + kz;
+    if (J <= g.n && Kc <= g.n)
+      dq[J * N + Kc] = P[packed<Tl>(jy + Tl::K, kz + Tl::K)];
+  }
+}
+
+template <class Tl>
+__global__ void __launch_bounds__(Tl::NT)
+    rb_blocked_kernel(const PassArgs g) {
+  extern __shared__ float smem[];
+  float* xr = smem;
+  float* x0r = smem + Tl::RING * Tl::PLANE;
+  const int H = g.h;
+  const int ty0 = 1 + blockIdx.y * Tl::TY, tz0 = 1 + blockIdx.x * Tl::TZ;
+  const int ys = ty0 - Tl::K, zs = tz0 - Tl::K;  // halo cell (0, 0)
+  const int c0 = g.r_lo + blockIdx.z * g.chunk;
+  const int c1 = min(c0 + g.chunk, g.r_hi + 1);
+  const int s0 = max(c0 - (H - 1), g.r_lo);
+  // level h updates plane s - h at step s; plane s - (H-1) is then final
+  const int s_end = c1 + H - 2;
+  const Lanes<Tl> L(g.n, H, ty0, tz0);
+  // planes s0 - 1 .. s0 + 1 in ring slots 0 .. 2, s0 + 2 in registers
+  Staged<Tl> next;
+  for (int i = 0; i < 3; ++i) {
+    fetch_plane<Tl>(next, g, L, s0 - 1 + i, 0, Tl::LOADS);
+    put_plane<Tl>(xr, x0r, next, L, i);
+  }
+  fetch_plane<Tl>(next, g, L, s0 + 2, 0, Tl::LOADS);
+  for (int s = s0, at = 1; s <= s_end; ++s, at = ring<Tl>(at, 1)) {
+    // plane s + 2 goes in (no level of this step reads it); the barrier
+    // publishes plane s + 1
+    put_plane<Tl>(xr, x0r, next, L, ring<Tl>(at, 2));
+    __syncthreads();
+    // level h updates parity parity + h on row gx0 + s - h: in halo
+    // coordinates one colour for every level of the step
+    const int act = (g.parity + g.gx0 + s + ys + zs + 1) & 1;
+#pragma unroll
+    for (int h = 0; h < Tl::K; ++h) {
+      // plane s + 3 comes into registers a share at a time between the
+      // levels, so that loads waiting for room in the memory pipeline
+      // wait between updates, not before all of them
+      fetch_plane<Tl>(next, g, L, s + 3, h * Tl::LOADS / Tl::K,
+                      (h + 1) * Tl::LOADS / Tl::K);
+      if (h < H) {
+        const int q = s - h, e = H - 1 - h;
+        if (q >= max(c0 - e, g.r_lo) && q <= min(c1 - 1 + e, g.r_hi))
+          update_plane<Tl>(xr, x0r, g, L, h, q, ring<Tl>(at, -h), act,
+                           g.first && h == 0, ys, zs);
+        __syncthreads();
+      }
+    }
+    const int q = s - (H - 1);
+    if (q >= c0) store_plane<Tl>(xr, g, q, ring<Tl>(at, 1 - H), ty0, tz0);
+  }
+}
+
+// The one compiled shape; kernels.RB_TILE names it to the Python side.
+using Shape = Tile<4, 16, 64, 512>;
+
+}  // namespace
+
+// One pass of ``h`` half-sweeps, parities parity, parity + 1, ..., from
+// src (NULL: zeros) into dst, over local rows r_lo .. r_hi of a (rows,
+// n+2, n+2) field at global row gx0, in ``chunks`` x-chunks of ``chunk``
+// rows; ``first``: the first half-sweep is the solve's first.  The
+// shared-memory attribute it needs is set by tf_rb_blocked_info, which
+// must have run on the device first (a launch without it is refused).
+extern "C" int tf_rb_blocked_pass(const float* src, const float* x0,
+                                  float* dst, int rows, int gx0, int n,
+                                  int r_lo, int r_hi, int chunk, int chunks,
+                                  int h, int parity, int first, int b,
+                                  float a, float c_inv, void* stream) {
+  if (h < 1 || h > Shape::K || chunks < 1 || chunk < 1)
+    return (int)cudaErrorInvalidValue;
+  const tf::Signs s = tf::signs_for(b);
+  const PassArgs g{src,  x0,     dst,   rows,  gx0,   n,   r_lo, r_hi,
+                   chunk, h,     parity, first, s.x,  s.y, s.z,  a,
+                   c_inv};
+  const dim3 grid((n + Shape::TZ - 1) / Shape::TZ,
+                  (n + Shape::TY - 1) / Shape::TY, chunks);
+  rb_blocked_kernel<Shape>
+      <<<grid, Shape::NT, Shape::SMEM, (cudaStream_t)stream>>>(g);
+  return tf::launch_status();
+}
+
+// Sets the kernel's dynamic shared memory attribute on the current
+// device; gives the blocks the card keeps resident at once and the
+// dynamic shared memory of one.
+extern "C" int tf_rb_blocked_info(int* slots, int* smem) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(rb_blocked_kernel<Shape>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Shape::SMEM);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, rb_blocked_kernel<Shape>, Shape::NT, Shape::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  *slots = sms * per_sm;
+  *smem = Shape::SMEM;
+  return 0;
+}

@@ -15,9 +15,12 @@ stages (advection, forcing, divergence, gradient subtraction) are single
 passes over a few (n+2)^3 float32 fields, one thread per output cell,
 ghosts included; a ghost output is the interior value at its clamped
 index times the set_bnd sign (csrc/grid_common.cuh), so no second
-boundary pass is needed.  The solvers (csrc/jacobi.cu) stream one pass
-per Jacobi sweep or red-black half-sweep, in float32 or in bfloat16
-(each operation rounded to bfloat16, 2 B a cell); the whole tier (the
+boundary pass is needed.  The Jacobi solvers and the bfloat16
+red-black solve (csrc/jacobi.cu) stream one pass per sweep or
+half-sweep, in float32 or in bfloat16 (each operation rounded to
+bfloat16, 2 B a cell); the float32 red-black solves, dense and sharded,
+do up to k half-sweeps a pass in shared memory (csrc/rb_blocked.cu,
+``rb_passes`` and ``rb_chunks`` below); the whole tier (the
 whole solve in either type, the multi-field diffusion, the fused
 projection and the whole step) runs a whole solve, or a whole step, in
 one cooperative launch, for grids whose fields stay in the card's L2
@@ -28,8 +31,8 @@ The four stencil stages also take an x-slab of the sharded step
 row ``gx0`` of the (n+2)^3 grid, whose x clamps and x ghosts follow
 global rows (csrc/grid_common.cuh says which cells have no stencil and
 are written as 0), with h = 1 / n of the global grid.  The sharded
-red-black solve (``lin_solve3d_rb_shard``, csrc/jacobi_shard.cu) runs
-its half-sweeps on such a slab padded with a deep halo.
+red-black solve (``lin_solve3d_rb_shard``) runs its blocked passes on
+such a slab padded with a deep halo.
 
 A 2D field is small (130^2 float32 is 68 KB), so the 2D kernels
 (csrc/grid2d.cu) run one thread block that does every sweep, with a
@@ -38,6 +41,10 @@ solves keep their two buffers in the block's shared memory.
 """
 
 from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -410,6 +417,124 @@ def lin_solve3d_rb_plain(b, x, x0, a, c, iters):
     return stam.lin_solve3d(b, x, x0, a, c, iters, red_black=True)
 
 
+# the temporally blocked red-black passes (csrc/rb_blocked.cu): the pass
+# schedule and the x-chunks live here, where the CPU tests reach them
+
+
+@dataclasses.dataclass(frozen=True)
+class RbTile:
+    """A shape of the blocked kernel: up to ``k`` half-sweeps a pass on a
+    ``ty`` x ``tz`` (y, z) tile with a k-deep halo."""
+    k: int
+    ty: int
+    tz: int
+
+    def tiles(self, n: int) -> int:
+        return -(-n // self.ty) * -(-n // self.tz)
+
+
+# The shape csrc/rb_blocked.cu compiles (its ``Shape``): the fastest at
+# the main path's shapes on the H100 of those measured (PERF.md).
+RB_TILE = RbTile(4, 16, 64)
+
+
+@dataclasses.dataclass(frozen=True)
+class RbPass:
+    """One launch: ``half_sweeps`` half-sweeps from parity ``parity``;
+    ``first``: its first is the solve's first (the stored ghosts, or
+    zeros for a zero guess)."""
+    half_sweeps: int
+    parity: int
+    first: bool
+
+
+def rb_passes(half_sweeps: int, k: int, first: bool = True):
+    """The launches of ``half_sweeps`` half-sweeps (parities 0, 1, 0,
+    ...) at up to ``k`` a launch; the last does the rest."""
+    return [RbPass(min(k, half_sweeps - h0), h0 & 1, first and h0 == 0)
+            for h0 in range(0, half_sweeps, k)]
+
+
+def rb_lands_in_out(i: int, passes: int) -> bool:
+    """Pass i of a dense solve writes ``out`` (else the scratch buffer):
+    the two alternate, and the last pass lands in out."""
+    return (passes - 1 - i) % 2 == 0
+
+
+@dataclasses.dataclass(frozen=True)
+class RbChunks:
+    """The x-chunks of a pass over local rows r_lo .. r_hi (those whose
+    global row is interior, the slab's outermost rows excluded): chunk i
+    owns rows [r_lo + i length, min(r_lo + (i+1) length, r_hi + 1))."""
+    r_lo: int
+    r_hi: int
+    length: int
+    count: int
+
+    def rows(self, i: int, h: int):
+        """(c0, c1, lo, hi) of chunk i in a pass of h half-sweeps: it
+        owns rows [c0, c1) and its levels read rows lo .. hi (h more a
+        side, clipped below at r_lo - 1).  The kernel also fetches rows
+        hi + 1 and hi + 2 where they exist, which no level reads."""
+        c0 = self.r_lo + i * self.length
+        c1 = min(c0 + self.length, self.r_hi + 1)
+        return c0, c1, max(c0 - h + 1, self.r_lo) - 1, c1 + h - 1
+
+
+@functools.cache
+def rb_chunks(rows: int, gx0: int, n: int, tile: RbTile,
+              slots: int) -> RbChunks:
+    """The x-chunks of a (rows, n+2, n+2) field at global row gx0, chosen
+    so that tiles x chunks blocks, in waves of ``slots`` resident blocks,
+    stream the fewest rows: each chunk streams its rows and about 2k
+    more (its halo rows, and the steps the wavefront's levels trail
+    by)."""
+    r_lo, r_hi = max(1, 1 - gx0), min(n - gx0, rows - 2)
+    nr = r_hi - r_lo + 1
+    if nr < 1:
+        raise ValueError(f"a ({rows}, {n + 2}, {n + 2}) field at gx0={gx0} "
+                         f"has no interior row")
+    tiles = tile.tiles(n)
+    best = None
+    for want in range(1, nr + 1):
+        length = -(-nr // want)
+        count = -(-nr // length)
+        cost = -(-tiles * count // slots) * (length + 2 * tile.k)
+        if best is None or cost < best[0]:
+            best = (cost, length, count)
+    return RbChunks(r_lo, r_hi, best[1], best[2])
+
+
+@functools.cache
+def rb_tile_info(device_index: int):
+    """(resident blocks on the card, dynamic shared memory bytes a block)
+    of the blocked kernel on CUDA device ``device_index``, after setting
+    the kernel's shared-memory attribute there, which its launches need:
+    once a device."""
+    lib = _build.load()
+    slots, smem = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        rc = lib.tf_rb_blocked_info(ctypes.byref(slots), ctypes.byref(smem))
+    if rc:
+        raise RuntimeError(f"tf_rb_blocked_info: CUDA error {rc} "
+                           f"({lib.tf_error_string(rc).decode()})")
+    return slots.value, smem.value
+
+
+def _rb_pass(src, x0, dst, gx0, chunks, p: RbPass, b, a, c_inv):
+    _build.launch("tf_rb_blocked_pass", src, x0, dst, x0.shape[0], gx0,
+                  x0.shape[1] - 2, chunks.r_lo, chunks.r_hi, chunks.length,
+                  chunks.count, p.half_sweeps, p.parity, int(p.first), b, a,
+                  c_inv)
+
+
+def _rb_chunks_on(x0, gx0):
+    device = x0.device.index
+    slots, _ = rb_tile_info(torch.cuda.current_device()
+                            if device is None else device)
+    return rb_chunks(x0.shape[0], gx0, x0.shape[1] - 2, RB_TILE, slots)
+
+
 def lin_solve3d_rb(b, x, x0, a, c, iters):
     """``iters`` red-black Gauss-Seidel iterations, each two half-sweeps
     (parity 0, then 1) followed by set_bnd3d(b); as
@@ -417,14 +542,23 @@ def lin_solve3d_rb(b, x, x0, a, c, iters):
     guess.
 
     Replaces lin_solve3d_rb_packed (tpufluids/grid/pallas_kernels.py).
-    Bound by bytes.  One launch per half-sweep over the active cells
-    only, in place, then one launch that writes the ghosts
-    (csrc/jacobi.cu; the header says how ghost taps avoid a race)."""
+    Bound on paper by bytes; on the card, with the bytes cut, by the
+    multiprocessor's work a level (PERF.md).  ceil(2 iters / k) launches
+    of the temporally blocked kernel, each up to k half-sweeps with one
+    read of x and x0 and one write, alternating between out and a
+    scratch buffer so that the last lands in out; then one launch that
+    writes the ghosts (csrc/rb_blocked.cu)."""
     if not _solve_on_cuda(b, x, x0, iters):
         return lin_solve3d_rb_plain(b, x, x0, a, c, iters)
-    out = torch.empty_like(x0)
-    _build.launch("tf_lin_solve3d_rb", x, x0, out, b, x0.shape[0] - 2,
-                  iters, a, 1.0 / c)
+    out, tmp = torch.empty_like(x0), torch.empty_like(x0)
+    chunks = _rb_chunks_on(x0, 0)
+    passes = rb_passes(2 * iters, RB_TILE.k)
+    src = x
+    for i, p in enumerate(passes):
+        dst = out if rb_lands_in_out(i, len(passes)) else tmp
+        _rb_pass(src, x0, dst, 0, chunks, p, b, a, 1.0 / c)
+        src = dst
+    _build.launch("tf_rb_ghosts", out, x0.shape[0] - 2, b)
     lin_solve3d_rb.launches += 1
     return out
 
@@ -502,33 +636,48 @@ def lin_solve3d_rb_shard(b, x, x0, a, c, iters, *, gx0, fuse,
     between halos of 2 fuse rows, row 0 at global row ``gx0``, the pad
     rows filled by the caller (at a domain face the set_bnd ghost row).
     Every ``fuse`` iterations but the first, ``exchange(slab)`` refreshes
-    the pad rows of the working slab in place; None is allowed for one
-    pass (iters == fuse).  Returns the c_local owned rows with their y and
-    z ghosts.  Stitched, the slabs' results equal lin_solve3d_rb on the
-    whole grid bit for bit when x's x ghosts are set_bnd-consistent; the
-    plain version runs the dense solver's half-sweeps and set_bnd on the
-    slab.
+    the pad rows of the working slab in place: it must rewrite every pad
+    row that lies in the grid, on either route, since a stale one reaches
+    the owned rows within a pass (grid_sharded._refresh_pad_ rewrites
+    every pad row); None is allowed for one pass (iters == fuse).  The
+    rows the kernel never writes start as zeros, so an exchange that
+    misses one gives wrong rows, not uninitialised memory.  Returns the
+    c_local owned rows with their y and z ghosts.  Stitched, the slabs'
+    results equal
+    lin_solve3d_rb on the whole grid bit for bit when x's x ghosts are
+    set_bnd-consistent; the plain version runs the dense solver's
+    half-sweeps and set_bnd on the slab.
 
     Replaces lin_solve3d_rb_shard (tpufluids/grid/pallas_kernels.py).
-    Bound by bytes.  One launch per half-sweep over the active cells of
-    the padded slab, in place, then one launch that writes the owned rows
-    out (csrc/jacobi_shard.cu)."""
+    Bound as lin_solve3d_rb.  A pass of 2 fuse half-sweeps is
+    ceil(2 fuse / k) launches of the temporally blocked kernel, out of
+    place between two buffers (the exchange refreshes the pad of the one
+    the last launch wrote), then one launch writes the owned rows out
+    (csrc/rb_blocked.cu, csrc/jacobi_shard.cu)."""
     if not _solve_on_cuda(b, x, x0, iters, slab=True):
         return lin_solve3d_rb_shard_plain(b, x, x0, a, c, iters, gx0=gx0,
                                           fuse=fuse, exchange=exchange)
     c_local, halo = _rb_shard_shape(b, x0, iters, fuse)
     if iters > fuse and exchange is None:
         raise ValueError("more than one pass needs an exchange")
-    rows, n = x0.shape[0], x0.shape[1] - 2
-    work = torch.zeros_like(x0) if x is None else x.clone()
-    for p in range(iters // fuse):
-        if p:
-            exchange(work)
-        _build.launch("tf_rb_shard_sweeps", work, x0, rows, int(gx0), n,
-                      2 * fuse, p == 0, x is None, b, a, 1.0 / c)
+    gx0 = int(gx0)
+    chunks = _rb_chunks_on(x0, gx0)
+    bufs = (torch.empty_like(x0), torch.empty_like(x0))
+    for q in bufs:
+        q[:chunks.r_lo].zero_()
+        q[chunks.r_hi + 1:].zero_()
+    src, launches = x, 0
+    for sp in range(iters // fuse):
+        if sp:
+            exchange(src)
+        for p in rb_passes(2 * fuse, RB_TILE.k, first=sp == 0):
+            dst = bufs[launches % 2]
+            _rb_pass(src, x0, dst, gx0, chunks, p, b, a, 1.0 / c)
+            src, launches = dst, launches + 1
     out = torch.empty((c_local,) + tuple(x0.shape[1:]), dtype=x0.dtype,
                       device=x0.device)
-    _build.launch("tf_rb_shard_finish", work, out, c_local, halo, n, b)
+    _build.launch("tf_rb_shard_finish", src, out, c_local, halo,
+                  x0.shape[1] - 2, b)
     lin_solve3d_rb_shard.launches += 1
     return out
 
@@ -589,7 +738,8 @@ def lin_solve3d_rb_bf16(b, x, x0, a, c, iters):
     (tpufluids/grid/pallas_kernels.py).  On paper bound by bytes, at 2 B
     a cell; on the card mostly by instruction issue (PERF.md).  One
     launch per half-sweep over the active cells, in place, then one
-    ghost pass, as lin_solve3d_rb (csrc/jacobi.cu)."""
+    ghost pass (csrc/jacobi.cu); the float32 lin_solve3d_rb runs
+    blocked passes instead."""
     if not _solve_on_cuda(b, x, x0, iters):
         return lin_solve3d_rb_bf16_plain(b, x, x0, a, c, iters)
     x, x0, a, c_inv = _bf16_operands(x, x0, a, c)

@@ -343,7 +343,9 @@ def _refresh_pad_(q, halo, b, mesh: Mesh):
     at a domain face the set_bnd ghost row (sx times the edge row) next
     to the slab and zeros beyond it, which no kernel reads.  Kernels
     leave their pad rows stale; this re-validates them before a stencil
-    reads them.  Returns q."""
+    reads them.  Every pad row in the grid is rewritten, as the
+    red-black slab solve's ``exchange`` must (kernels.
+    lin_solve3d_rb_shard).  Returns q."""
     c = q.shape[0] - 2 * halo
     from_left = mesh.shift(q[c:c + halo], +1)
     from_right = mesh.shift(q[halo:2 * halo], -1)
