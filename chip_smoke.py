@@ -23,14 +23,17 @@
    solve (a = 1, c = 4, b = 0, and config 1's diffusion at b = 1) and
    the whole step (config 1, and config 1 with buoyancy and vorticity)
    must equal their plain versions bit for bit, and the whole step the
-   multi-call step (stam.step2d_multi).  The red-black solves' floors
-   are printed beside their bounds: one device-memory pass a
-   half-sweep, and the blocked kernel's passes (csrc/rb_blocked.cu).
-   Then the blocked kernel itself: ptxas's registers, stack frame and
-   spills for each compiled tile shape (a stack frame or a spill
-   fails), its shared memory a block, each tile shape's 256^3 solve
-   bit for bit against the plain solve and timed, and the pass time of
-   the default tile by half-sweeps a pass.
+   multi-call step (stam.step2d_multi).  The blocked solves' floors are
+   printed beside their bounds: one device-memory pass a (half-)sweep,
+   and the blocked kernels' passes (csrc/rb_blocked.cu in float32 and
+   bfloat16, csrc/jacobi_blocked.cu), at the bytes of their storage
+   type.  Then the blocked kernels themselves: ptxas's registers, stack
+   frame and spills of the red-black kernel in float32 and in bfloat16
+   and of the bfloat16 Jacobi kernel (a stack frame or a spill fails),
+   their shared memory a block and resident blocks, and their pass
+   times by levels a pass: the float32 red-black pass at 256^3 by
+   half-sweeps, the bfloat16 passes at 512^3 by half-sweeps and by
+   sweeps.
 3. Runs 4 steps of the bench.py scene and of BASELINE configs 2 and 4
    at 16^3, and of BASELINE config 1 at 32^2, on the card and on the CPU
    (plain versions) and compares them.
@@ -189,9 +192,9 @@ KERNELS = {
     "lin_solve3d_rb_shard": ("tpufluids_torch/csrc/rb_blocked.cu",
                              "tpufluids/grid/pallas_kernels.py:2678", 0.0),
     # bit for bit: lin_solve3d_pallas(dtype=bfloat16) and its whole mode
-    "lin_solve3d_bf16": ("tpufluids_torch/csrc/jacobi.cu",
+    "lin_solve3d_bf16": ("tpufluids_torch/csrc/jacobi_blocked.cu",
                          "tpufluids/grid/pallas_kernels.py:2455", 0.0),
-    "lin_solve3d_rb_bf16": ("tpufluids_torch/csrc/jacobi.cu",
+    "lin_solve3d_rb_bf16": ("tpufluids_torch/csrc/rb_blocked.cu",
                             "tpufluids/grid/pallas_kernels.py:2455", 0.0),
     "lin_solve3d_whole": ("tpufluids_torch/csrc/jacobi.cu",
                           "tpufluids/grid/pallas_kernels.py:136", 0.0),
@@ -563,65 +566,97 @@ def plain_kernels(kernels):
             setattr(kernels, name, fn)
 
 
-def rb_pass_bytes(kernels, x0, gx0, passes, zero_guess):
-    """Device-memory bytes of blocked red-black passes over field x0 at
-    global row gx0, as the kernel streams them: per pass each block reads
-    x (not on the first pass from a zero guess) and x0 over its planes
-    (rows lo .. hi of its chunk and the two it fetches past them), tile
-    and halo (the cells inside the array), and writes its tile's cells of
-    the rows it owns."""
+def blocked_pass_bytes(x0, tile, chunks, halo_z, passes, written):
+    """Device-memory bytes of blocked passes over field x0, at its element
+    size a cell, as the kernels stream them: per pass each block reads x
+    (unless the pass starts from a zero guess: ``passes`` holds (levels,
+    reads x)) and x0 over its planes (rows lo .. hi of its chunk and the
+    two it fetches past them), tile and halo (k deep in y, ``halo_z`` in
+    z; the cells inside the array), and the pass writes ``written``
+    cells."""
     rows, n = x0.shape[0], x0.shape[1] - 2
-    tile = kernels.RB_TILE
-    ch = kernels._rb_chunks_on(x0, gx0)
 
-    def spans(size):
-        return sum(min(t0 + size + tile.k, n + 2) - max(t0 - tile.k, 0)
+    def spans(size, halo):
+        return sum(min(t0 + size + halo, n + 2) - max(t0 - halo, 0)
                    for t0 in range(1, n + 1, size))
 
-    area = spans(tile.ty) * spans(tile.tz)
-    owned = (ch.r_hi - ch.r_lo + 1) * n * n
+    area = spans(tile.ty, tile.k) * spans(tile.tz, halo_z)
     total = 0
-    for p in passes:
+    for levels, reads_x in passes:
         planes = 0
-        for i in range(ch.count):
-            _, _, lo, hi = ch.rows(i, p.half_sweeps)
+        for i in range(chunks.count):
+            _, _, lo, hi = chunks.rows(i, levels)
             planes += min(hi + 2, rows - 1) - lo + 1
-        fields = 1 if p.first and zero_guess else 2
-        total += 4 * (fields * planes * area + owned)
+        total += x0.element_size() * ((1 + reads_x) * planes * area
+                                      + written)
     return total
 
 
-def log_rb_floors(name, kernels, x0, gx0, passes, zero_guess, extra_bytes,
-                  iters, bound_ms):
+def log_blocked_floors(name, x0, tile, chunks, halo_z, passes, written,
+                       extra_bytes, sweeps, bound_ms):
     """Prints row ``name``'s floors: one device-memory pass (x, x0 in, x
-    out) per half-sweep, the design the blocked kernel replaced, and the
-    blocked passes (k half-sweeps a pass, halo included), plus
-    ``extra_bytes`` (the ghost or finish pass); returns the latter in
-    ms."""
-    tile = kernels.RB_TILE
-    one_ms = 3 * x0.nbytes * 2 * iters / HBM_BYTES_PER_S * 1e3
-    nbytes = rb_pass_bytes(kernels, x0, gx0, passes, zero_guess) \
-        + extra_bytes
+    out) per (half-)sweep, the design the blocked kernels replaced, and
+    the blocked passes (halo included), plus ``extra_bytes`` (the ghost
+    or finish pass); returns the latter in ms."""
+    one_ms = 3 * x0.nbytes * sweeps / HBM_BYTES_PER_S * 1e3
+    nbytes = blocked_pass_bytes(x0, tile, chunks, halo_z, passes,
+                                written) + extra_bytes
     k_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"{name} floors ({2 * iters} half-sweeps): bound {bound_ms:.4f} "
-        f"ms; blocked passes (k {tile.k}, {len(passes)} launches, tile "
-        f"{tile.ty}x{tile.tz}, {nbytes} B) {k_ms:.4f} ms; one pass a "
-        f"half-sweep {one_ms:.4f} ms")
+    log(f"{name} floors ({sweeps} (half-)sweeps, {x0.element_size()} B a "
+        f"cell): bound {bound_ms:.4f} ms; blocked passes (k {tile.k}, "
+        f"{len(passes)} launches, tile {tile.ty}x{tile.tz}, {nbytes} B) "
+        f"{k_ms:.4f} ms; one pass a (half-)sweep {one_ms:.4f} ms")
     return k_ms
 
 
-def check_rb_blocked(stam, kernels, dev, build_log):
-    """The blocked red-black kernel's build (ptxas: registers, stack
-    frame, spills; a stack frame or a spill fails) and shared memory per
-    block, then its pass time at the main path's 256^3 by half-sweeps a
-    pass: what one level costs.  (The solve itself is held bit for bit
-    against the plain one and timed in check_kernels.)"""
+def log_solve_floors(kernels, name, x0, iters, bound_ms):
+    """The floors of a dense blocked solve from a zero guess at x0's
+    shape, in its kernel's storage type: the red-black passes and their
+    ghost pass, or the bfloat16 Jacobi passes, which write every cell."""
+    dtype = torch.bfloat16 if name.endswith("_bf16") else torch.float32
+    x0 = torch.empty(x0.shape, dtype=dtype, device="meta")
+    n = x0.shape[0] - 2
+    if name == "lin_solve3d_bf16":
+        tile = kernels.JACOBI_TILE
+        passes = [(h, i > 0) for i, h in
+                  enumerate(kernels.jacobi_passes(iters, tile.k))]
+        return log_blocked_floors(name, x0, tile,
+                                  kernels._jacobi_chunks_on(x0), tile.k + 1,
+                                  passes, x0.numel(), 0, iters, bound_ms)
+    tile = kernels.rb_tile(dtype)
+    passes = [(p.half_sweeps, not p.first)
+              for p in kernels.rb_passes(2 * iters, tile.k)]
+    ghosts = x0.numel() - n ** 3
+    return log_blocked_floors(name, x0, tile, kernels._rb_chunks_on(x0, 0),
+                              tile.k, passes, n ** 3,
+                              2 * x0.element_size() * ghosts, 2 * iters,
+                              bound_ms)
+
+
+# the blocked kernels' instantiations in ptxas's output: name -> (the
+# mangled entry holds each of these, and not these)
+BLOCKED_ENTRIES = {
+    "rb_blocked float32": (("rb_blocked_kernel",), ("__nv_bfloat16",)),
+    "rb_blocked bfloat16": (("rb_blocked_kernel", "__nv_bfloat16"), ()),
+    "jacobi_blocked bfloat16": (("jacobi_blocked_kernel",), ()),
+}
+
+
+def check_blocked(stam, kernels, dev, build_log):
+    """The blocked kernels' builds (ptxas: registers, stack frame, spills
+    of the red-black kernel in float32 and bfloat16 and of the bfloat16
+    Jacobi kernel; a stack frame or a spill fails) and shared memory per
+    block, then their pass times by levels a pass: the float32 red-black
+    pass at the main path's 256^3 by half-sweeps, and the bfloat16 passes
+    at 512^3 (config 3 with the bf16 solver) by half-sweeps and sweeps:
+    what one level costs.  (The solves themselves are held bit for bit
+    against the plain ones and timed in check_kernels.)"""
     entry = None
     found = {}
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
-            entry = line.split("'")[1] if "rb_blocked_kernel" in line \
-                else None
+            entry = line.split("'")[1]
+            entry = entry if "blocked_kernel" in entry else None
         elif entry and "stack frame" in line:
             nums = [int(w) for w in line.replace(",", " ").split()
                     if w.isdigit()]
@@ -629,33 +664,52 @@ def check_rb_blocked(stam, kernels, dev, build_log):
         elif entry and "registers" in line:
             found.setdefault(entry, {})["registers"] = int(
                 line.split("Used ")[1].split()[0])
-    check(len(found) == 1,
-          f"ptxas lines of {len(found)} blocked kernels, expected 1")
-    tile = kernels.RB_TILE
-    (name, info), = found.items()
-    check(f"ILi{tile.k}ELi{tile.ty}ELi{tile.tz}E" in name,
-          f"the compiled blocked kernel {name} is not RB_TILE {tile}")
-    slots, smem = kernels.rb_tile_info(torch.cuda.current_device())
-    log(f"rb_blocked (k {tile.k}, {tile.ty}x{tile.tz}): "
-        f"{info['registers']} registers, stack frame, spill stores, spill "
-        f"loads {info['stack_spill']} B; {smem} B shared memory a block, "
-        f"{slots} resident blocks")
-    check(not any(info["stack_spill"]),
-          f"rb_blocked: stack frame or spill {info['stack_spill']}")
+    check(len(found) == len(BLOCKED_ENTRIES),
+          f"ptxas lines of {len(found)} blocked kernels, expected "
+          f"{len(BLOCKED_ENTRIES)}")
+    jt = kernels.JACOBI_TILE
+    cur = torch.cuda.current_device()
+    infos = {"rb_blocked float32": (kernels.RB_TILE,
+                                    kernels.rb_tile_info(cur)),
+             "rb_blocked bfloat16": (kernels.RB_TILE_BF16, kernels.rb_tile_info(
+                 cur, torch.bfloat16)),
+             "jacobi_blocked bfloat16": (jt, kernels.jacobi_tile_info(cur))}
+    for kind, (has, lacks) in BLOCKED_ENTRIES.items():
+        names = [e for e in found if all(k in e for k in has)
+                 and not any(k in e for k in lacks)]
+        check(len(names) == 1, f"{kind}: ptxas entries {names}")
+        info = found[names[0]]
+        tile, (slots, smem) = infos[kind]
+        check(f"ILi{tile.k}ELi{tile.ty}ELi{tile.tz}E" in names[0],
+              f"the compiled {kind} kernel {names[0]} is not {tile}")
+        log(f"{kind} (k {tile.k}, {tile.ty}x{tile.tz}): "
+            f"{info['registers']} registers, stack frame, spill stores, "
+            f"spill loads {info['stack_spill']} B; {smem} B shared memory a "
+            f"block, {slots} resident blocks")
+        check(not any(info["stack_spill"]),
+              f"{kind}: stack frame or spill {info['stack_spill']}")
     rng = np.random.default_rng(SEED + 10)
-    n = N_BIG
-    p = stam.set_bnd3d(0, torch.from_numpy(rng.uniform(
-        0.0, 1.0, (n + 2,) * 3).astype(np.float32)).to(dev))
-    chunks = kernels._rb_chunks_on(p, 0)
-    out = torch.empty_like(p)
-    for h in range(1, tile.k + 1):
-        ms = time_ms(lambda h=h: kernels._rb_pass(
-            p, p, out, 0, chunks, kernels.RbPass(h, 0, False), 0, 1.0,
-            1 / 6))
-        log(f"rb_blocked pass @ {n}^3, {h} half-sweeps: "
-            f"{ms:.4f} ms ({ms / h:.4f} ms a half-sweep)")
-    del out, p
-    torch.cuda.empty_cache()
+    for n, dtype in ((N_BIG, torch.float32), (N_512, torch.bfloat16)):
+        p = stam.set_bnd3d(0, torch.from_numpy(rng.uniform(
+            0.0, 1.0, (n + 2,) * 3).astype(np.float32)).to(dev)).to(dtype)
+        out = torch.empty_like(p)
+        chunks = kernels._rb_chunks_on(p, 0)
+        for h in range(1, kernels.rb_tile(dtype).k + 1):
+            ms = time_ms(lambda h=h: kernels._rb_pass(
+                p, p, out, 0, chunks, kernels.RbPass(h, 0, False), 0, 1.0,
+                1 / 6))
+            log(f"rb_blocked {str(dtype).removeprefix('torch.')} pass @ "
+                f"{n}^3, {h} half-sweeps: {ms:.4f} ms ({ms / h:.4f} ms a "
+                f"half-sweep)")
+        if dtype == torch.bfloat16:
+            chunks = kernels._jacobi_chunks_on(p)
+            for h in range(1, jt.k + 1):
+                ms = time_ms(lambda h=h: kernels._jacobi_pass(
+                    p, p, out, chunks, h, 0, 1.0, 1 / 6))
+                log(f"jacobi_blocked bfloat16 pass @ {n}^3, {h} sweeps: "
+                    f"{ms:.4f} ms ({ms / h:.4f} ms a sweep)")
+        del out, p
+        torch.cuda.empty_cache()
 
 
 def check_kernels(stam, kernels, dev):
@@ -812,12 +866,10 @@ def check_kernels(stam, kernels, dev):
                          "plain_ms": float(np.mean(plain_ms)),
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "library_ms": None}
-        if name == "lin_solve3d_rb":
+        if name in ("lin_solve3d_rb", "lin_solve3d_rb_bf16",
+                    "lin_solve3d_bf16"):
             _, _, x0, _, _, iters = arg_sets[0]
-            ghosts = x0.numel() - (x0.shape[0] - 2) ** 3
-            log_rb_floors(name, kernels, x0, 0,
-                          kernels.rb_passes(2 * iters, kernels.RB_TILE.k),
-                          True, 2 * 4 * ghosts, iters, bound_ms)
+            log_solve_floors(kernels, name, x0, iters, bound_ms)
         if len(arg_sets) > 1:
             # the averaged call shapes one by one
             results[name]["calls"] = [
@@ -2026,8 +2078,12 @@ def check_rb_shard(stam, kernels, shard, dev):
         f"{ms:.4f}, plain {plain_ms:.4f}; bound {bound_ms:.4f} ms "
         f"({bound_by}: {nbytes} B, {8 * iters * n ** 3} operations)")
     # the finish pass reads the owned rows and writes them with ghosts
-    log_rb_floors("lin_solve3d_rb_shard", kernels, x0p, 1 - halo, passes,
-                  True, 2 * got.nbytes, iters, bound_ms)
+    chunks = kernels._rb_chunks_on(x0p, 1 - halo)
+    log_blocked_floors("lin_solve3d_rb_shard", x0p, kernels.RB_TILE, chunks,
+                       kernels.RB_TILE.k,
+                       [(p.half_sweeps, not p.first) for p in passes],
+                       (chunks.r_hi - chunks.r_lo + 1) * n * n,
+                       2 * got.nbytes, 2 * iters, bound_ms)
     del got, want, x0p
     torch.cuda.empty_cache()
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -2205,7 +2261,7 @@ def main():
             log("  ptxas: " + line.strip())
 
     checked = check_kernels(stam, kernels, dev)
-    check_rb_blocked(stam, kernels, dev, build.log)
+    check_blocked(stam, kernels, dev, build.log)
     check_small_against_cpu(stam, dev)
     counts, ms = {}, {}
     for path in GRID_PATHS:

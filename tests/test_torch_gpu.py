@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, at 64^3 and at the main path's 256^3 (the 2D kernels at 15^2 to
-200^2 fields, the bfloat16 and whole solves at 15^3 and 48^3), and the
+200^2 fields, the bfloat16 solves at 15^3 to 130^3 and the whole solve
+at 15^3 and 48^3), and the
 steps' launch counts and final residual.  Marked ``gpu`` and skipped without a CUDA device;
 on the card (tests/conftest.py sets up JAX, which these tests do not
 use):
@@ -325,12 +326,14 @@ def test_gather_step_takes_no_whole_step(cuda):
 BF16 = torch.bfloat16
 
 
-@pytest.mark.parametrize("n", [15, 48])
+@pytest.mark.parametrize("n", [15, 48, 130])
 @pytest.mark.parametrize("red_black", [False, True], ids=["jacobi", "rb"])
 def test_bf16_solve_kernels_are_bitwise_plain(cuda, n, red_black):
     """Every b, zero, set_bnd-consistent and raw guesses, the pressure
-    and config 2's diffusion coefficients; odd n puts both parities on
-    each face."""
+    and config 2's diffusion coefficients, 1, 2, 3, 5 and 20 iterations
+    (every pass length of both blocked kernels); odd n puts both parities
+    on each face, and n + 2 odd and even rows that start on odd and even
+    cells; 130 spans several tiles and x-chunks."""
     kern = (kernels.lin_solve3d_rb_bf16 if red_black
             else kernels.lin_solve3d_bf16)
     plain = (kernels.lin_solve3d_rb_bf16_plain if red_black
@@ -338,15 +341,66 @@ def test_bf16_solve_kernels_are_bitwise_plain(cuda, n, red_black):
     x, x0 = _raw(cuda, n, 40, 2)
     a = 0.05 * 1e-5 * 64 * 64
     before, calls = kern.launches, 0
-    for b in range(4):
-        for guess in (None, stam.set_bnd3d(b, x), x):
-            for coeffs in ((1.0, 6.0), (a, 1 + 6 * a)):
-                got = kern(b, guess, x0, *coeffs, 5)
-                assert got.dtype == torch.float32
-                assert torch.equal(got, plain(b, guess, x0, *coeffs, 5)), \
-                    (b, coeffs)
-                calls += 1
+    for iters in (1, 2, 3, 5, 20):
+        for b in range(4):
+            for guess in (None, stam.set_bnd3d(b, x), x):
+                for coeffs in ((1.0, 6.0), (a, 1 + 6 * a)):
+                    got = kern(b, guess, x0, *coeffs, iters)
+                    assert got.dtype == torch.float32
+                    want = plain(b, guess, x0, *coeffs, iters)
+                    assert torch.equal(got, want), (iters, b, coeffs)
+                    calls += 1
     assert kern.launches == before + calls
+
+
+@pytest.mark.parametrize("n", [15, 48])
+@pytest.mark.parametrize("red_black", [False, True], ids=["jacobi", "rb"])
+def test_bf16_solves_keep_negative_zero_and_tiny_values(cuda, n, red_black):
+    """x0 with -0, bfloat16 subnormals and tiny normal values, from a zero
+    guess and from a guess of the same: the bf16x2 operations round and
+    sign as the float32 operation rounded to bfloat16 does."""
+    kern = (kernels.lin_solve3d_rb_bf16 if red_black
+            else kernels.lin_solve3d_bf16)
+    plain = (kernels.lin_solve3d_rb_bf16_plain if red_black
+             else kernels.lin_solve3d_bf16_plain)
+    rng = np.random.default_rng(44)
+    scale = rng.choice(np.float32([0.0, 1e-39, 3e-39, 2.0 ** -126, 1e-37,
+                                   1e-30]), (n + 2,) * 3)
+    sign = rng.choice(np.float32([-1.0, 1.0]), (n + 2,) * 3)
+    x0 = torch.from_numpy(sign * scale).to(cuda)   # -0 where sign < 0
+    assert bool(torch.signbit(x0[x0 == 0]).any())
+    for iters in (1, 2, 3):
+        for b in range(4):
+            for guess in (None, x0):
+                for coeffs in ((1.0, 6.0), (0.5, 4.0)):
+                    got = kern(b, guess, x0, *coeffs, iters)
+                    want = plain(b, guess, x0, *coeffs, iters)
+                    assert torch.equal(got, want), (iters, b, coeffs)
+                    assert torch.equal(torch.signbit(got),
+                                       torch.signbit(want))
+
+
+@pytest.mark.parametrize("red_black", [False, True], ids=["jacobi", "rb"])
+def test_bf16_solve_launches(cuda, monkeypatch, red_black):
+    """Device launches a solve of 20 iterations: ten blocked passes (k 4
+    red-black half-sweeps or 2 Jacobi sweeps a pass) and, for red-black,
+    the ghost pass; 21 iterations one pass more."""
+    from tpufluids_torch import _build
+    kern = (kernels.lin_solve3d_rb_bf16 if red_black
+            else kernels.lin_solve3d_bf16)
+    entries = []
+    launch = _build.launch
+    monkeypatch.setattr(_build, "launch",
+                        lambda name, *a: (entries.append(name),
+                                          launch(name, *a))[1])
+    x0 = _raw(cuda, 48, 45, 1)[0]
+    for iters, passes in ((20, 10), (21, 11)):
+        entries.clear()
+        kern(0, None, x0, 1.0, 6.0, iters)
+        pass_entry = ("tf_rb_blocked_pass" if red_black
+                      else "tf_jacobi_blocked_pass")
+        assert entries == [pass_entry] * passes + (
+            ["tf_rb_ghosts"] if red_black else [])
 
 
 @pytest.mark.parametrize("n", [15, 48])

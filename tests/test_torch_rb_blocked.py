@@ -1,7 +1,7 @@
 """The temporally blocked red-black passes (csrc/rb_blocked.cu), on the
 CPU: the pass schedule and x-chunks of tpufluids_torch.grid.kernels, and
 a torch emulation of the kernel's schedule held against the plain
-solves.
+solves, in float32 and in bfloat16 storage.
 
 The emulation does what one block of the kernel does, in the same order:
 it streams the planes of its chunk and its halo rows, and at step s
@@ -11,19 +11,27 @@ between levels in the kernel); then it writes plane s - (H-1) of its
 tile.
 Passes alternate between two buffers that start as NaN, so a read of a
 cell that no pass wrote shows in the result.  Tolerance: bit for bit
-against lin_solve3d_rb_plain and the plain slab solve, which do the
-same operations in the same order."""
+against lin_solve3d_rb_plain, lin_solve3d_rb_bf16_plain and the plain
+slab solve, which do the same operations in the same order (in
+bfloat16 each rounded to bfloat16, as the kernel's bf16x2 operations
+round), and the bfloat16 emulation bit for bit against interpret-mode
+lin_solve3d_pallas(dtype=bfloat16) on the interior of set_bnd-consistent
+inputs, as tests/test_torch_bf16.py holds the plain solve."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
+from tpufluids.grid import pallas_kernels as pk
 from tpufluids_torch.grid import kernels, stam
 
 
 def emulate_pass(src, x0, dst, gx0, chunks, p, b, a, c_inv, tile):
     """One launch of the blocked kernel: ``p.half_sweeps`` half-sweeps
-    from ``src`` (None: zeros) into ``dst``, block by block."""
+    from ``src`` (None: zeros) into ``dst``, block by block, in x0's
+    storage type."""
     rows, n = x0.shape[0], x0.shape[1] - 2
     N, K, H = n + 2, tile.k, p.half_sweeps
     sx, sy, sz = stam._bnd_signs(b)
@@ -33,7 +41,8 @@ def emulate_pass(src, x0, dst, gx0, chunks, p, b, a, c_inv, tile):
             for tz0 in range(1, n + 1, tile.tz):
                 # the block's planes lo .. hi, its tile and K-deep halo
                 shape = (hi - lo + 1, tile.ty + 2 * K, tile.tz + 2 * K)
-                X, X0 = torch.zeros(shape), torch.zeros(shape)
+                X, X0 = (torch.zeros(shape, dtype=x0.dtype)
+                         for _ in range(2))
                 ys, zs = ty0 - K, tz0 - K
                 r = slice(lo, min(hi, rows - 1) + 1)
                 yg = slice(max(ys, 0), min(ys + shape[1], N))
@@ -89,17 +98,24 @@ def _level(X, X0, qi, I, n, ty0, tz0, e, parity, first, tile, signs, a,
     P[y0:y1, z0:z1] = torch.where((I + J + Kc + 1) % 2 == parity, new, own)
 
 
-def emulate_dense(b, x, x0, a, c, iters, tile, slots):
-    """kernels.lin_solve3d_rb's launches, each pass emulated."""
+def emulate_dense(b, x, x0, a, c, iters, tile, slots,
+                  dtype=torch.float32):
+    """kernels.lin_solve3d_rb's launches, each pass emulated; with
+    ``dtype`` bfloat16 lin_solve3d_rb_bf16's (the operands cast and
+    rounded as the wrapper casts them, the result back to float32)."""
+    if dtype == torch.bfloat16:
+        x, x0, a, c_inv = kernels._bf16_operands(x, x0, a, c)
+    else:
+        c_inv = 1.0 / c
     out, tmp = (torch.full_like(x0, float("nan")) for _ in range(2))
     chunks = kernels.rb_chunks(x0.shape[0], 0, x0.shape[0] - 2, tile, slots)
     passes = kernels.rb_passes(2 * iters, tile.k)
     src = x
     for i, p in enumerate(passes):
         dst = out if kernels.rb_lands_in_out(i, len(passes)) else tmp
-        emulate_pass(src, x0, dst, 0, chunks, p, b, a, 1.0 / c, tile)
+        emulate_pass(src, x0, dst, 0, chunks, p, b, a, c_inv, tile)
         src = dst
-    return stam._set_bnd3d_(b, out)
+    return stam._set_bnd3d_(b, out).float()
 
 
 def _exchange(slabs, halo, b):
@@ -191,6 +207,50 @@ def test_emulated_dense_solve_is_bitwise_plain(n, tile, slots, iters):
         assert torch.equal(got, want), (b, guess is None)
 
 
+# (n, tile, slots, iters): odd iteration counts, and slots that force
+# several x-chunks (9 and 13: chunks of a few rows)
+DENSE_BF16 = [(9, (4, 4, 4), 2, 3), (12, (4, 8, 6), 7, 5),
+              (15, (4, 6, 8), 4, 1), (18, (3, 8, 8), 3, 3)]
+
+
+@pytest.mark.parametrize("n,tile,slots,iters", DENSE_BF16,
+                         ids=[f"n{d[0]}_k{d[1][0]}" for d in DENSE_BF16])
+def test_emulated_bf16_dense_solve_is_bitwise_plain(n, tile, slots, iters):
+    """Every b, the zero, set_bnd-consistent and raw guesses, the
+    pressure and a diffusion's coefficients, in bfloat16 storage."""
+    tile = _tile(*tile)
+    x0, consistent, raw = _fields(n, 0, 100 + n)
+    a = 0.05 * 1e-5 * 64 * 64
+    for b in range(4):
+        for guess in (None, consistent, raw):
+            coeffs = (1.0, 6.0) if (b + n) % 2 else (a, 1 + 6 * a)
+            want = kernels.lin_solve3d_rb_bf16_plain(b, guess, x0, *coeffs,
+                                                     iters)
+            got = emulate_dense(b, guess, x0, *coeffs, iters, tile, slots,
+                                torch.bfloat16)
+            assert torch.equal(got, want), (b, guess is None)
+
+
+def test_emulated_bf16_solve_is_bitwise_pallas():
+    """The bfloat16 emulation of the kernel's shape (RB_TILE's k on a
+    smaller tile, several chunks) against the reference's interpret-mode
+    red-black solve in bfloat16 at 14^3, on the interior."""
+    n, b, iters = 14, 2, 4
+    rng = np.random.default_rng(7)
+    x, x0 = (rng.normal(0, 1, (n + 2,) * 3).astype(np.float32)
+             for _ in range(2))
+    x = stam.set_bnd3d(b, torch.from_numpy(x)).numpy()
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(pk.lin_solve3d_pallas(
+            b, jnp.asarray(x), jnp.asarray(x0), 1.0, 6.0, iters,
+            red_black=True, tx=4, fuse=1, dtype=jnp.bfloat16))
+    got = emulate_dense(b, torch.from_numpy(x), torch.from_numpy(x0), 1.0,
+                        6.0, iters, _tile(kernels.RB_TILE.k, 8, 8), 5,
+                        torch.bfloat16)
+    np.testing.assert_array_equal(got.numpy()[1:-1, 1:-1, 1:-1],
+                                  ref[1:-1, 1:-1, 1:-1])
+
+
 # (n, world, fuse, passes, tile, slots)
 SLABS = [(12, 1, 2, 2, (4, 4, 8), 3), (12, 2, 1, 5, (2, 4, 4), 4),
          (16, 2, 2, 2, (3, 8, 6), 2), (16, 2, 4, 2, (4, 6, 8), 5),
@@ -246,7 +306,8 @@ def test_passes_cover_every_half_sweep_and_end_in_out(k, iters):
 
 
 # the kernel's shape, and shapes of other depths and tiles
-CHUNK_TILES = [kernels.RB_TILE, _tile(2, 4, 4), _tile(6, 16, 64),
+CHUNK_TILES = [kernels.RB_TILE, kernels.RB_TILE_BF16, kernels.JACOBI_TILE,
+               _tile(2, 4, 4), _tile(6, 16, 64),
                _tile(8, 32, 32)]
 
 
@@ -278,6 +339,22 @@ def test_chunks_fill_the_card_at_256(slots):
     ch = kernels.rb_chunks(258, 0, 256, kernels.RB_TILE, slots)
     blocks = kernels.RB_TILE.tiles(256) * ch.count
     assert 0.75 * slots <= blocks <= slots
+
+
+@pytest.mark.parametrize("tile", [kernels.RB_TILE_BF16, kernels.JACOBI_TILE],
+                         ids=["rb_bf16", "jacobi_bf16"])
+def test_bf16_chunks_fill_the_card_at_512(tile):
+    """At config 3's 512^3 the bfloat16 kernels' tiles run in x-chunks
+    that fill most of one wave of resident blocks (two a multiprocessor)
+    and no more."""
+    ch = kernels.rb_chunks(514, 0, 512, tile, 264)
+    assert 0.75 * 264 <= tile.tiles(512) * ch.count <= 264
+
+
+def test_rb_tile_follows_the_storage_type():
+    assert kernels.rb_tile(torch.float32) == kernels.RB_TILE
+    assert kernels.rb_tile(torch.bfloat16) == kernels.RB_TILE_BF16
+    assert kernels.RB_TILE_BF16.k == kernels.RB_TILE.k
 
 
 def test_rejects_a_field_without_interior_rows():

@@ -43,11 +43,10 @@ SIGNATURES = {
     "tf_div3d": [_P] * 4 + [_INT] * 3 + [_F, _P],
     "tf_gradsub3d": [_P] * 7 + [_INT] * 3 + [_F, _P],
     "tf_lin_solve3d": [_P] * 4 + [_INT] * 3 + [_F] * 2 + [_P],
-    "tf_rb_blocked_pass": [_P] * 3 + [_INT] * 11 + [_F] * 2 + [_P],
-    "tf_rb_ghosts": [_P] + [_INT] * 2 + [_P],
+    "tf_rb_blocked_pass": [_P] * 3 + [_INT] * 12 + [_F] * 2 + [_P],
+    "tf_rb_ghosts": [_P] + [_INT] * 3 + [_P],
+    "tf_jacobi_blocked_pass": [_P] * 3 + [_INT] * 7 + [_F] * 2 + [_P],
     "tf_rb_shard_finish": [_P] * 2 + [_INT] * 4 + [_P],
-    "tf_lin_solve3d_bf16": [_P] * 4 + [_INT] * 3 + [_F] * 2 + [_P],
-    "tf_lin_solve3d_rb_bf16": [_P] * 3 + [_INT] * 3 + [_F] * 2 + [_P],
     "tf_lin_solve3d_whole": [_P] * 4 + [_INT] * 5 + [_F] * 2 + [_P],
     "tf_diffuse3d_multi": [_P] * 9 + [_INT] * 6 + [_F] * 6 + [_P],
     "tf_project3d_whole": [_P] * 9 + [_INT] * 3 + [_F] * 3 + [_P],
@@ -144,8 +143,10 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    lib.tf_rb_blocked_info.argtypes = [ctypes.POINTER(_INT)] * 2
+    lib.tf_rb_blocked_info.argtypes = [_INT] + [ctypes.POINTER(_INT)] * 2
     lib.tf_rb_blocked_info.restype = ctypes.c_int
+    lib.tf_jacobi_blocked_info.argtypes = [ctypes.POINTER(_INT)] * 2
+    lib.tf_jacobi_blocked_info.restype = ctypes.c_int
     lib.tf_error_string.argtypes = [ctypes.c_int]
     lib.tf_error_string.restype = ctypes.c_char_p
     return lib

@@ -4,12 +4,12 @@
 //
 // Replaces (tpufluids/grid/pallas_kernels.py):
 //   lin_solve3d_pallas / _solve_kernel                      -> tf_lin_solve3d
-//   lin_solve3d_pallas(dtype=bfloat16) / _solve_kernel      -> tf_lin_solve3d_bf16,
-//                                                              tf_lin_solve3d_rb_bf16
 //   lin_solve3d_pallas / _solve_whole_kernel (both dtypes)  -> tf_lin_solve3d_whole
-//   lin_solve3d_rb_packed / _solve_rb_packed_*_kernel       -> the passes of
-//                                                              rb_blocked.cu,
+//   lin_solve3d_rb_packed / _solve_rb_packed_*_kernel, and  -> the passes of
+//   lin_solve3d_pallas(red_black=True, dtype=bfloat16)         rb_blocked.cu,
 //                                                              then tf_rb_ghosts
+//   lin_solve3d_pallas(dtype=bfloat16) / _solve_kernel      -> the passes of
+//                                                              jacobi_blocked.cu
 //   diffuse3d_whole_multi / _solve_whole_multi_kernel       -> tf_diffuse3d_multi
 //   project3d_whole_pallas / _project_whole_kernel          -> tf_project3d_whole
 //
@@ -19,15 +19,12 @@
 // What bounds them on the H100: on paper device-memory bytes.  A sweep
 // does 8 flops a cell and moves at least three fields (x and x0 in, the
 // result out): 12 B a cell in float32, 6 B in bfloat16.  The streamed
-// Jacobi solvers and the bfloat16 red-black solve make one pass per
-// sweep, or per red-black half-sweep, so they cannot come nearer the
-// bound than that one pass; the float32 red-black solve does several
-// half-sweeps a pass in shared memory (rb_blocked.cu), as the TPU
-// kernels did in VMEM.  The bfloat16 red-black half-sweep runs one
-// thread per active cell only, in place.  Measured, one thread a cell
-// with its index decode and ghost branch is bound by instruction issue:
-// a float32 sweep reaches 1.7 TB/s, and the bfloat16 sweep, with two
-// conversions an operation, is no faster on half the bytes (PERF.md).
+// float32 Jacobi solve makes one pass per sweep, so it cannot come nearer
+// the bound than that one pass; measured, one thread a cell with its
+// index decode and ghost branch is bound by instruction issue, a sweep at
+// 1.7 TB/s (PERF.md).  The red-black solves in both types and the
+// bfloat16 Jacobi solve do several (half-)sweeps a pass in shared memory
+// (rb_blocked.cu, jacobi_blocked.cu), as the TPU kernels did in VMEM.
 //
 // The whole tier: at 64^3 a field is 66^3 * 4 B = 1.15 MB, and one launch
 // per sweep would leave the card waiting on the host.  One cooperative
@@ -44,22 +41,14 @@ namespace {
 using tf::blocks_of;
 
 // ---------------------------------------------------------------------------
-// streamed: one launch per sweep or half-sweep
+// streamed: one launch per sweep (the float32 Jacobi solve)
 
-template <typename T>
-__global__ void jacobi_kernel(const T* __restrict__ src,
-                              const T* __restrict__ x0, T* __restrict__ dst,
-                              int n, int b, float a, float c_inv) {
+__global__ void jacobi_kernel(const float* __restrict__ src,
+                              const float* __restrict__ x0,
+                              float* __restrict__ dst, int n, int b, float a,
+                              float c_inv) {
   tf::jacobi_cell(blockIdx.x * blockDim.x + threadIdx.x, src, x0, dst, n, b,
                   a, c_inv);
-}
-
-template <typename T>
-__global__ void rb_kernel(const T* src, const T* __restrict__ x0, T* dst,
-                          int n, int p, bool first, tf::Signs s, float a,
-                          float c_inv) {
-  tf::rb_cell(blockIdx.x * blockDim.x + threadIdx.x, src, x0, dst, n, p,
-              first, s.x, s.y, s.z, a, c_inv);
 }
 
 template <typename T>
@@ -67,42 +56,19 @@ __global__ void ghost_kernel(T* x, int n, int b) {
   tf::ghost_cell(blockIdx.x * blockDim.x + threadIdx.x, x, n, b);
 }
 
-template <typename T>
-int lin_solve3d_streamed(const T* x, const T* x0, T* out, T* tmp, int b,
-                         int n, int iters, float a, float c_inv,
-                         cudaStream_t st) {
-  const T* src = x;
+int lin_solve3d_streamed(const float* x, const float* x0, float* out,
+                         float* tmp, int b, int n, int iters, float a,
+                         float c_inv, cudaStream_t st) {
+  const float* src = x;
   for (int s = 0; s < iters; ++s) {
-    T* dst = tf::sweep_dst(s, iters, out, tmp);
-    jacobi_kernel<T><<<tf::blocks_for(n), tf::kThreads, 0, st>>>(
+    float* dst = tf::sweep_dst(s, iters, out, tmp);
+    jacobi_kernel<<<tf::blocks_for(n), tf::kThreads, 0, st>>>(
         src, x0, dst, n, b, a, c_inv);
     const int rc = tf::launch_status();
     if (rc) return rc;
     src = dst;
   }
   return 0;
-}
-
-template <typename T>
-int lin_solve3d_rb_streamed(const T* x, const T* x0, T* out, int b, int n,
-                            int iters, float a, float c_inv,
-                            cudaStream_t st) {
-  const tf::Signs s = tf::signs_for(b);
-  const unsigned blocks = blocks_of((long long)n * n * ((n + 1) / 2));
-  for (int it = 0; it < iters; ++it) {
-    for (int p = 0; p < 2; ++p) {
-      const bool first = it == 0 && p == 0;
-      rb_kernel<T><<<blocks, tf::kThreads, 0, st>>>(first ? x : out, x0, out,
-                                                    n, p, first, s, a,
-                                                    c_inv);
-      const int rc = tf::launch_status();
-      if (rc) return rc;
-    }
-  }
-  const long long N = n + 2;
-  ghost_kernel<T><<<blocks_of(N * N * N - (long long)n * n * n),
-                    tf::kThreads, 0, st>>>(out, n, b);
-  return tf::launch_status();
 }
 
 // ---------------------------------------------------------------------------
@@ -136,27 +102,19 @@ extern "C" int tf_lin_solve3d(const float* x, const float* x0, float* out,
                               (cudaStream_t)stream);
 }
 
-extern "C" int tf_lin_solve3d_bf16(const bf16* x, const bf16* x0, bf16* out,
-                                   bf16* tmp, int b, int n, int iters,
-                                   float a, float c_inv, void* stream) {
-  return lin_solve3d_streamed(x, x0, out, tmp, b, n, iters, a, c_inv,
-                              (cudaStream_t)stream);
-}
-
-// The ghost pass that ends the float32 red-black solve (its half-sweeps
-// are rb_blocked.cu's passes): every ghost of x by set_bnd3d(b).
-extern "C" int tf_rb_ghosts(float* x, int n, int b, void* stream) {
+// The ghost pass that ends the dense red-black solves (their half-sweeps
+// are rb_blocked.cu's passes): every ghost of x by set_bnd3d(b); x holds
+// float, or bfloat16 when ``bf16_storage``.
+extern "C" int tf_rb_ghosts(void* x, int n, int b, int bf16_storage,
+                            void* stream) {
   const long long N = n + 2;
-  ghost_kernel<float><<<blocks_of(N * N * N - (long long)n * n * n),
-                        tf::kThreads, 0, (cudaStream_t)stream>>>(x, n, b);
+  const unsigned blocks = blocks_of(N * N * N - (long long)n * n * n);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bf16_storage)
+    ghost_kernel<bf16><<<blocks, tf::kThreads, 0, st>>>((bf16*)x, n, b);
+  else
+    ghost_kernel<float><<<blocks, tf::kThreads, 0, st>>>((float*)x, n, b);
   return tf::launch_status();
-}
-
-extern "C" int tf_lin_solve3d_rb_bf16(const bf16* x, const bf16* x0,
-                                      bf16* out, int b, int n, int iters,
-                                      float a, float c_inv, void* stream) {
-  return lin_solve3d_rb_streamed(x, x0, out, b, n, iters, a, c_inv,
-                                 (cudaStream_t)stream);
 }
 
 // x, x0, out and tmp hold float, or bfloat16 when ``bf16``; x NULL is a

@@ -92,6 +92,127 @@ __device__ __forceinline__ T cell_update(T x0c, T xm, T xp, T ym, T yp,
   return mul_rn(c_inv, add_rn(x0c, mul_rn(a, nb)));
 }
 
+// Two cells of one storage type side by side in a 4- or 8-byte word (a
+// slot of the blocked kernels): loaded and stored as one word, updated
+// lane by lane.
+template <typename T>
+struct Pair;
+
+template <>
+struct Pair<float> {
+  using V = float2;
+  static __device__ __forceinline__ V load(const float* p) {
+    return *reinterpret_cast<const float2*>(p);
+  }
+  static __device__ __forceinline__ void store(float* p, V v) {
+    *reinterpret_cast<float2*>(p) = v;
+  }
+  static __device__ __forceinline__ float lo(V v) { return v.x; }
+  static __device__ __forceinline__ float hi(V v) { return v.y; }
+  // the z taps of two cells whose neighbours are p[e], p[e+1] and
+  // p[e+1], p[e+2]: (p[e], p[e+1]) and (p[e+1], p[e+2])
+  static __device__ __forceinline__ void z_taps(const float* p, int e,
+                                                V& zm, V& zp) {
+    const float z0 = p[e], z1 = p[e + 1], z2 = p[e + 2];
+    zm = make_float2(z0, z1);
+    zp = make_float2(z1, z2);
+  }
+  // lane by lane: ``stored``, or where l0 / l1 the cell's own value times
+  // the face's sign s
+  static __device__ __forceinline__ V tap(V stored, V own, float s, bool l0,
+                                          bool l1);
+};
+
+template <>
+struct Pair<__nv_bfloat16> {
+  using V = __nv_bfloat162;
+  static __device__ __forceinline__ V load(const __nv_bfloat16* p) {
+    return *reinterpret_cast<const __nv_bfloat162*>(p);
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, V v) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = v;
+  }
+  static __device__ __forceinline__ __nv_bfloat16 lo(V v) {
+    return __low2bfloat16(v);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 hi(V v) {
+    return __high2bfloat16(v);
+  }
+  static __device__ __forceinline__ unsigned bits(V v) {
+    return *reinterpret_cast<const unsigned*>(&v);
+  }
+  static __device__ __forceinline__ V of_bits(unsigned u) {
+    V v;
+    *reinterpret_cast<unsigned*>(&v) = u;
+    return v;
+  }
+  // (hi half of ``a``, lo half of ``b``): the pair that straddles two
+  // words, one byte permute
+  static __device__ __forceinline__ V straddle(unsigned a, unsigned b) {
+    return of_bits(__byte_perm(a, b, 0x5432));
+  }
+  // As Pair<float>::z_taps, p word-aligned: of the two pairs one is a
+  // word and the other straddles two (which one, e's parity says).
+  static __device__ __forceinline__ void z_taps(const __nv_bfloat16* p,
+                                                int e, V& zm, V& zp) {
+    const unsigned* w = reinterpret_cast<const unsigned*>(p) + (e >> 1);
+    const unsigned lo = w[0], hi = w[1];
+    const V mid = straddle(lo, hi);
+    zm = e & 1 ? mid : of_bits(lo);
+    zp = e & 1 ? of_bits(hi) : mid;
+  }
+  static __device__ __forceinline__ V tap(V stored, V own, float s, bool l0,
+                                          bool l1);
+};
+
+// Two cells at once, lane by lane.  In float32 two cell_update calls; in
+// bfloat16 one bf16x2 instruction an operation (add.rn.bf16x2,
+// mul.rn.bf16x2 on sm_90), the sum in the same order.  The correctly
+// rounded bfloat16 result of a bfloat16 operation equals the float32
+// result rounded to bfloat16 (the rule above), so this is the scalar
+// cell_update of each lane bit for bit; the _rn forms are never
+// contracted into an FMA.
+__device__ __forceinline__ float2 cell_update(float2 x0c, float2 xm,
+                                              float2 xp, float2 ym,
+                                              float2 yp, float2 zm,
+                                              float2 zp, float a,
+                                              float c_inv) {
+  return make_float2(
+      cell_update(x0c.x, xm.x, xp.x, ym.x, yp.x, zm.x, zp.x, a, c_inv),
+      cell_update(x0c.y, xm.y, xp.y, ym.y, yp.y, zm.y, zp.y, a, c_inv));
+}
+
+__device__ __forceinline__ __nv_bfloat162 cell_update(
+    __nv_bfloat162 x0c, __nv_bfloat162 xm, __nv_bfloat162 xp,
+    __nv_bfloat162 ym, __nv_bfloat162 yp, __nv_bfloat162 zm,
+    __nv_bfloat162 zp, float a, float c_inv) {
+  // a and c_inv are bfloat16 values (the wrapper rounds them): exact
+  const __nv_bfloat162 a2 = __float2bfloat162_rn(a);
+  const __nv_bfloat162 c2 = __float2bfloat162_rn(c_inv);
+  __nv_bfloat162 nb = __hadd2_rn(xm, xp);
+  nb = __hadd2_rn(nb, ym);
+  nb = __hadd2_rn(nb, yp);
+  nb = __hadd2_rn(nb, zm);
+  nb = __hadd2_rn(nb, zp);
+  return __hmul2_rn(c2, __hadd2_rn(x0c, __hmul2_rn(a2, nb)));
+}
+
+__device__ __forceinline__ float2 Pair<float>::tap(float2 stored, float2 own,
+                                                   float s, bool l0,
+                                                   bool l1) {
+  return make_float2(l0 ? mul_rn(s, own.x) : stored.x,
+                     l1 ? mul_rn(s, own.y) : stored.y);
+}
+
+// s * own is exact in bfloat16 (s is +-1), -0 included.
+__device__ __forceinline__ __nv_bfloat162 Pair<__nv_bfloat16>::tap(
+    __nv_bfloat162 stored, __nv_bfloat162 own, float s, bool l0, bool l1) {
+  const __nv_bfloat162 so = __hmul2_rn(__float2bfloat162_rn(s), own);
+  return __halves2bfloat162(l0 ? __low2bfloat16(so) : __low2bfloat16(stored),
+                            l1 ? __high2bfloat16(so)
+                               : __high2bfloat16(stored));
+}
+
 // The Jacobi update of interior cell c from src (NULL: zeros).
 template <typename T>
 __device__ __forceinline__ T jacobi_at(const T* src, const T* x0, int c,

@@ -1,12 +1,14 @@
 // The temporally blocked red-black pass: up to K red-black half-sweeps of
 // (x0 + a * sum of the six neighbours) / c in one launch, on a cubic
 // (n+2)^3 field or on a deep-padded x-slab of the sharded step.  The
-// float32 route of both red-black solves.
+// route of both float32 red-black solves and of the bfloat16 one.
 //
 // Replaces (tpufluids/grid/pallas_kernels.py):
 //   lin_solve3d_rb_packed / _solve_rb_packed_*_kernel   (the dense solve)
 //   lin_solve3d_rb_shard / _solve_rb_shard_kernel       (the slab passes)
-// both through tf_rb_blocked_pass; the dense solve ends with tf_rb_ghosts
+//   lin_solve3d_pallas(red_black=True, dtype=bfloat16) / _solve_kernel
+//                                          (the streamed bfloat16 solve)
+// all through tf_rb_blocked_pass; the dense solves end with tf_rb_ghosts
 // (jacobi.cu), the slab solve with tf_rb_shard_finish (jacobi_shard.cu).
 //
 // What bounds it on the H100.  A half-sweep does 8 flops a cell and has
@@ -76,41 +78,67 @@
 // warp reads consecutive words, with no bank conflict, and the second
 // array starts 16 banks on so that storing a plane has none either.  A
 // thread owns slots of two neighbouring active cells, read and written as
-// float2; which of a slot's cells lie in each level's cone, and whether
-// it may touch a face, is worked out once per launch.  Loads go through
-// registers (__ldg, then a store into the ring), not cp.async or TMA: a
-// row of n + 2 floats starts 16-byte aligned only when n + 2 is a
-// multiple of 4, which TMA needs of every stride, and a 4-byte cp.async
-// per cell was no faster.
+// one float2 or __nv_bfloat162 and updated together (tf::Pair); which of
+// a slot's cells lie in each level's cone, and whether it may touch a
+// face, is worked out once per launch.
+//
+// Loads go through registers (__ldg, then a store into the ring), not
+// cp.async or TMA: a row of n + 2 floats starts 16-byte aligned only when
+// n + 2 is a multiple of 4, which TMA needs of every stride, and a 4-byte
+// cp.async per cell was no faster.
+//
+// Storage.  The kernel is compiled for float and for __nv_bfloat16 (the
+// reference's bfloat16 solve), one Tile a type.  In bfloat16 a slot is
+// one 4-byte word, so a warp's slots are 32 consecutive banks; a level
+// does each of its 8 operations as one bf16x2 instruction for two cells
+// (tf::cell_update on __nv_bfloat162), rounded as the plain version
+// rounds; of a slot's two z taps one is a word and the other straddles
+// two words (a byte permute).  A ring plane takes half the float32
+// bytes, and the bfloat16 tile spends them on twice the rows (32 x 64,
+// 256 threads): the schedule, the chunks and the halo cone are the
+// float32 ones.  Measured, the bf16x2 arithmetic did not move a level's
+// cost, and loads, shared stores and the store of a step cost as many
+// instructions a cell as in float32, so the bfloat16 pass is about as
+// fast as the float32 one on half the bytes (PERF.md).
 #include "jacobi.cuh"
 
 namespace {
 
-template <int K_, int TY_, int TZ_, int NT_>
+template <int K_, int TY_, int TZ_, int NT_, typename T_>
 struct Tile {
+  using T = T_;  // the storage type
   static constexpr int K = K_, TY = TY_, TZ = TZ_;
   static constexpr int NT = NT_;  // threads a block
   static constexpr int W = TZ + 2 * K;  // a halo row's cells (even)
   static constexpr int HW = W / 2;      // ... of one colour
   static constexpr int ROWS = TY + 2 * K;
+  static constexpr int EPW = 4 / (int)sizeof(T);  // cells a 4-byte bank
   // a plane is two colour arrays (ROWS, HW), the second 16 banks on
-  static constexpr int CS = (ROWS * HW + 16 + 31) / 32 * 32 - 16;
+  static constexpr int CS =
+      ((ROWS * HW / EPW + 16 + 31) / 32 * 32 - 16) * EPW;
   static constexpr int PLANE = 2 * CS;
   // planes in the ring: at step s, s - K .. s + 1 being updated, read or
   // written out, s + 2 going in (a warp still on the step before reads
   // s - K at most)
   static constexpr int RING = K + 3;
-  static constexpr int SMEM = 2 * RING * PLANE * (int)sizeof(float);
+  static constexpr int SMEM = 2 * RING * PLANE * (int)sizeof(T);
+  // a slot (two cells) and the y neighbours' slots are whole words
+  static_assert(HW % 2 == 0 && ROWS * HW % EPW == 0, "pairs straddle words");
   // per thread: the slots of two cells of one colour it updates, the
   // cells it loads
   static constexpr int SLOTS = (ROWS * HW / 2 + NT - 1) / NT;
   static constexpr int LOADS = (ROWS * W + NT - 1) / NT;
+  // resident blocks a multiprocessor the registers must allow: as many
+  // as 1024 threads, or the shared memory (227 KB), allow
+  static constexpr int MIN_BLOCKS =
+      1024 / NT < 232448 / SMEM ? 1024 / NT : 232448 / SMEM;
 };
 
+template <typename T>
 struct PassArgs {
-  const float* src;  // NULL: a zero guess (first pass only)
-  const float* x0;
-  float* dst;
+  const T* src;  // NULL: a zero guess (first pass only)
+  const T* x0;
+  T* dst;
   int rows, gx0, n, r_lo, r_hi, chunk, h, parity, first;
   float sx, sy, sz, a, c_inv;
 };
@@ -134,14 +162,16 @@ __device__ __forceinline__ int packed(int jy, int kz) {
 // places (-1 past the plane).  Slots: two neighbouring cells (jy, m) and
 // (jy, m + 1) of one colour array, m even, at c = jy * HW + m; which of
 // the two lie in level h's cone when the active colour is ``act`` is bit
-// pair (act * K + h) of ``cone``, and ``face`` marks a slot that may hold
-// a cell on a y or z face of the grid.
+// pair (act * K + h) of ``cone``, bit FACE marks a slot that may hold a
+// cell on a y or z face of the grid, and bit ROW is jy's parity (one
+// word a slot: registers are what the tile's size is bound by).
 template <class Tl>
 struct Lanes {
+  static constexpr int FACE = 30, ROW = 31;
+  static_assert(4 * Tl::K <= FACE, "cone bits overlap the flags");
   int load[Tl::LOADS], place[Tl::LOADS];
-  int row[Tl::SLOTS], m[Tl::SLOTS], c[Tl::SLOTS];
+  int c[Tl::SLOTS];
   unsigned cone[Tl::SLOTS];
-  bool face[Tl::SLOTS];
 
   __device__ Lanes(int n, int H, int ty0, int tz0) {
     const int N = n + 2;
@@ -161,28 +191,28 @@ struct Lanes {
     for (int i = 0; i < Tl::SLOTS; ++i) {
       const int t = threadIdx.x + i * Tl::NT;
       const bool in_plane = t < Tl::ROWS * Tl::HW / 2;
-      row[i] = in_plane ? t / (Tl::HW / 2) : 0;
-      m[i] = 2 * (t % (Tl::HW / 2));
-      c[i] = row[i] * Tl::HW + m[i];
+      const int row = in_plane ? t / (Tl::HW / 2) : 0;
+      const int m = 2 * (t % (Tl::HW / 2));
+      c[i] = row * Tl::HW + m;
       unsigned bits = 0;
       for (int act = 0; act < 2; ++act) {
-        const int kz = 2 * m[i] + ((act + row[i]) & 1);
+        const int kz = 2 * m + ((act + row) & 1);
         for (int h = 0; h < H; ++h) {
           const int e = H - 1 - h;
           const int jlo = max(1, ty0 - e) - ys;
           const int jhi = min(n, ty0 + Tl::TY - 1 + e) - ys;
           const int zlo = max(1, tz0 - e) - zs;
           const int zhi = min(n, tz0 + Tl::TZ - 1 + e) - zs;
-          const bool rok = in_plane && row[i] >= jlo && row[i] <= jhi;
+          const bool rok = in_plane && row >= jlo && row <= jhi;
           const unsigned ok0 = rok && kz >= zlo && kz <= zhi;
           const unsigned ok1 = rok && kz + 2 >= zlo && kz + 2 <= zhi;
           bits |= (ok0 | ok1 << 1) << 2 * (act * Tl::K + h);
         }
       }
-      cone[i] = bits;
-      const int J = ys + row[i], K0 = zs + 2 * m[i];
-      face[i] = J == 1 || J == n || (K0 <= 1 && K0 + 3 >= 1) ||
-                (K0 <= n && K0 + 3 >= n);
+      const int J = ys + row, K0 = zs + 2 * m;
+      const bool face = J == 1 || J == n || (K0 <= 1 && K0 + 3 >= 1) ||
+                        (K0 <= n && K0 + 3 >= n);
+      cone[i] = bits | (unsigned)face << FACE | (unsigned)(row & 1) << ROW;
     }
   }
 };
@@ -190,36 +220,40 @@ struct Lanes {
 // A plane of x and x0 on its way from device memory, in registers.
 template <class Tl>
 struct Staged {
-  float x[Tl::LOADS], x0[Tl::LOADS];
+  typename Tl::T x[Tl::LOADS], x0[Tl::LOADS];
 };
 
 // Reads cells [lo, hi) of this thread's share of plane q of x and x0 (the
 // tile and its halo; zeros outside the array) into registers.
 template <class Tl>
-__device__ __forceinline__ void fetch_plane(Staged<Tl>& r, const PassArgs& g,
+__device__ __forceinline__ void fetch_plane(Staged<Tl>& r,
+                                            const PassArgs<typename Tl::T>& g,
                                             const Lanes<Tl>& L, int q,
                                             int lo, int hi) {
+  using T = typename Tl::T;
+  const T zero = tf::Store<T>::round(0.0f);
   const int N = g.n + 2;
   const bool in = q < g.rows;
-  const float* xq = g.src ? g.src + (size_t)q * N * N : nullptr;
-  const float* x0q = g.x0 + (size_t)q * N * N;
+  const T* xq = g.src ? g.src + (size_t)q * N * N : nullptr;
+  const T* x0q = g.x0 + (size_t)q * N * N;
 #pragma unroll
   for (int i = 0; i < Tl::LOADS; ++i) {
     if (i < lo || i >= hi) continue;
     const int off = L.load[i];
     const bool ok = in && off >= 0;
-    r.x[i] = ok && xq ? __ldg(xq + off) : 0.0f;
-    r.x0[i] = ok ? __ldg(x0q + off) : 0.0f;
+    r.x[i] = ok && xq ? __ldg(xq + off) : zero;
+    r.x0[i] = ok ? __ldg(x0q + off) : zero;
   }
 }
 
 // Stores a fetched plane into ring slot ``at``, in the packed layout.
 template <class Tl>
-__device__ __forceinline__ void put_plane(float* xr, float* x0r,
+__device__ __forceinline__ void put_plane(typename Tl::T* xr,
+                                          typename Tl::T* x0r,
                                           const Staged<Tl>& r,
                                           const Lanes<Tl>& L, int at) {
-  float* xs = xr + at * Tl::PLANE;
-  float* x0s = x0r + at * Tl::PLANE;
+  typename Tl::T* xs = xr + at * Tl::PLANE;
+  typename Tl::T* x0s = x0r + at * Tl::PLANE;
 #pragma unroll
   for (int i = 0; i < Tl::LOADS; ++i) {
     const int p = L.place[i];
@@ -234,22 +268,25 @@ __device__ __forceinline__ void put_plane(float* xr, float* x0r,
 // slots around it): the cells of colour ``act`` inside the cone, in
 // place.  Their neighbours in y and z are in the other colour array, in x
 // in the same array of planes q - 1 and q + 1: a warp reads consecutive
-// words of each.  A slot is two cells, read and written as float2, and a
+// words of each.  A slot is two cells, read and written as one word
+// (float2, or __nv_bfloat162) and updated by the paired cell_update; a
 // slot with no cell on a face of the grid (nearly all) takes no ghost
 // select.
 template <class Tl>
-__device__ __forceinline__ void update_plane(float* xr, const float* x0r,
-                                             const PassArgs& g,
-                                             const Lanes<Tl>& L, int h,
-                                             int q, int at, int act,
-                                             bool first, int ys, int zs) {
+__device__ __forceinline__ void update_plane(
+    typename Tl::T* xr, const typename Tl::T* x0r,
+    const PassArgs<typename Tl::T>& g, const Lanes<Tl>& L, int h, int q,
+    int at, int act, bool first, int ys, int zs) {
+  using T = typename Tl::T;
+  using P = tf::Pair<T>;
+  using V = typename P::V;
   constexpr int HW = Tl::HW;
   const int n = g.n, I = g.gx0 + q;
-  float* A = xr + at * Tl::PLANE + act * Tl::CS;  // the active cells
-  const float* B = xr + at * Tl::PLANE + (1 - act) * Tl::CS;
-  const float* Am = xr + ring<Tl>(at, -1) * Tl::PLANE + act * Tl::CS;
-  const float* Ap = xr + ring<Tl>(at, 1) * Tl::PLANE + act * Tl::CS;
-  const float* X0 = x0r + at * Tl::PLANE + act * Tl::CS;
+  T* A = xr + at * Tl::PLANE + act * Tl::CS;  // the active cells
+  const T* B = xr + at * Tl::PLANE + (1 - act) * Tl::CS;
+  const T* Am = xr + ring<Tl>(at, -1) * Tl::PLANE + act * Tl::CS;
+  const T* Ap = xr + ring<Tl>(at, 1) * Tl::PLANE + act * Tl::CS;
+  const T* X0 = x0r + at * Tl::PLANE + act * Tl::CS;
   const bool xface = I == 1 || I == n;
   const int shift = 2 * (act * Tl::K + h);
 #pragma unroll
@@ -257,55 +294,46 @@ __device__ __forceinline__ void update_plane(float* xr, const float* x0r,
     const unsigned ok = L.cone[i] >> shift & 3u;
     if (!ok) continue;
     const int c = L.c[i];
-    const int b = (act + L.row[i]) & 1;  // cell (jy, m) has kz = 2 m + b
-    const float2 x0c = *reinterpret_cast<const float2*>(X0 + c);
-    const float2 xm = *reinterpret_cast<const float2*>(Am + c);
-    const float2 xp = *reinterpret_cast<const float2*>(Ap + c);
-    const float2 ym = *reinterpret_cast<const float2*>(B + c - HW);
-    const float2 yp = *reinterpret_cast<const float2*>(B + c + HW);
-    const float z0 = B[c - 1 + b], z1 = B[c + b], z2 = B[c + 1 + b];
-    float2 v;
-    if (first || !(xface || L.face[i])) {
-      v.x = tf::cell_update(x0c.x, xm.x, xp.x, ym.x, yp.x, z0, z1, g.a,
-                            g.c_inv);
-      v.y = tf::cell_update(x0c.y, xm.y, xp.y, ym.y, yp.y, z1, z2, g.a,
-                            g.c_inv);
+    // cell (jy, m) has kz = 2 m + b
+    const int b = (act + (L.cone[i] >> Lanes<Tl>::ROW)) & 1;
+    const V x0c = P::load(X0 + c);
+    const V xm = P::load(Am + c), xp = P::load(Ap + c);
+    const V ym = P::load(B + c - HW), yp = P::load(B + c + HW);
+    // the z neighbours B[c - 1 + b], B[c + b] (shared) and B[c + 1 + b]
+    V zm, zp;
+    P::z_taps(B, c - 1 + b, zm, zp);
+    V v;
+    if (first || !(xface || (L.cone[i] >> Lanes<Tl>::FACE & 1u))) {
+      v = tf::cell_update(x0c, xm, xp, ym, yp, zm, zp, g.a, g.c_inv);
     } else {
       // a tap across a face: the cell's own value times the face's sign
-      const float2 own = *reinterpret_cast<const float2*>(A + c);
-      const int J = L.row[i] + ys, K0 = 2 * L.m[i] + b + zs, K1 = K0 + 2;
-      v.x = tf::cell_update(
-          x0c.x, I == 1 ? tf::mul_rn(g.sx, own.x) : xm.x,
-          I == n ? tf::mul_rn(g.sx, own.x) : xp.x,
-          J == 1 ? tf::mul_rn(g.sy, own.x) : ym.x,
-          J == n ? tf::mul_rn(g.sy, own.x) : yp.x,
-          K0 == 1 ? tf::mul_rn(g.sz, own.x) : z0,
-          K0 == n ? tf::mul_rn(g.sz, own.x) : z1, g.a, g.c_inv);
-      v.y = tf::cell_update(
-          x0c.y, I == 1 ? tf::mul_rn(g.sx, own.y) : xm.y,
-          I == n ? tf::mul_rn(g.sx, own.y) : xp.y,
-          J == 1 ? tf::mul_rn(g.sy, own.y) : ym.y,
-          J == n ? tf::mul_rn(g.sy, own.y) : yp.y,
-          K1 == 1 ? tf::mul_rn(g.sz, own.y) : z1,
-          K1 == n ? tf::mul_rn(g.sz, own.y) : z2, g.a, g.c_inv);
+      const V own = P::load(A + c);
+      const int J = c / HW + ys, K0 = 2 * (c % HW) + b + zs, K1 = K0 + 2;
+      v = tf::cell_update(x0c, P::tap(xm, own, g.sx, I == 1, I == 1),
+                          P::tap(xp, own, g.sx, I == n, I == n),
+                          P::tap(ym, own, g.sy, J == 1, J == 1),
+                          P::tap(yp, own, g.sy, J == n, J == n),
+                          P::tap(zm, own, g.sz, K0 == 1, K1 == 1),
+                          P::tap(zp, own, g.sz, K0 == n, K1 == n), g.a,
+                          g.c_inv);
     }
     if (ok == 3u)
-      *reinterpret_cast<float2*>(A + c) = v;
+      P::store(A + c, v);
     else if (ok == 1u)
-      A[c] = v.x;
+      A[c] = P::lo(v);
     else
-      A[c + 1] = v.y;
+      A[c + 1] = P::hi(v);
   }
 }
 
 // The tile cells of the plane in ring slot ``at``, global row q, to dst.
 template <class Tl>
-__device__ __forceinline__ void store_plane(const float* xr,
-                                            const PassArgs& g, int q, int at,
-                                            int ty0, int tz0) {
+__device__ __forceinline__ void store_plane(const typename Tl::T* xr,
+                                            const PassArgs<typename Tl::T>& g,
+                                            int q, int at, int ty0, int tz0) {
   const int N = g.n + 2;
-  const float* P = xr + at * Tl::PLANE;
-  float* dq = g.dst + (size_t)q * N * N;
+  const typename Tl::T* P = xr + at * Tl::PLANE;
+  typename Tl::T* dq = g.dst + (size_t)q * N * N;
   for (int i = threadIdx.x; i < Tl::TY * Tl::TZ; i += Tl::NT) {
     const int jy = i / Tl::TZ, kz = i % Tl::TZ;
     const int J = ty0 + jy, Kc = tz0 + kz;
@@ -315,11 +343,12 @@ __device__ __forceinline__ void store_plane(const float* xr,
 }
 
 template <class Tl>
-__global__ void __launch_bounds__(Tl::NT)
-    rb_blocked_kernel(const PassArgs g) {
-  extern __shared__ float smem[];
-  float* xr = smem;
-  float* x0r = smem + Tl::RING * Tl::PLANE;
+__global__ void __launch_bounds__(Tl::NT, Tl::MIN_BLOCKS)
+    rb_blocked_kernel(const PassArgs<typename Tl::T> g) {
+  using T = typename Tl::T;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* xr = reinterpret_cast<T*>(smem);
+  T* x0r = xr + Tl::RING * Tl::PLANE;
   const int H = g.h;
   const int ty0 = 1 + blockIdx.y * Tl::TY, tz0 = 1 + blockIdx.x * Tl::TZ;
   const int ys = ty0 - Tl::K, zs = tz0 - Tl::K;  // halo cell (0, 0)
@@ -364,53 +393,94 @@ __global__ void __launch_bounds__(Tl::NT)
   }
 }
 
-// The one compiled shape; kernels.RB_TILE names it to the Python side.
-using Shape = Tile<4, 16, 64, 512>;
+using bf16 = __nv_bfloat16;
+
+// The compiled shape of each storage type (kernels.RB_TILE and
+// RB_TILE_BF16 name them to the Python side): in bfloat16, whose ring
+// takes half the shared memory, a tile of twice the rows with 256
+// threads (two blocks a multiprocessor, 122 registers, no spill), faster
+// at 512^3 than 16 x 64 or 512 threads (PERF.md).
+template <typename T>
+struct ShapeOf {
+  using type = Tile<4, 16, 64, 512, float>;
+};
+template <>
+struct ShapeOf<bf16> {
+  using type = Tile<4, 32, 64, 256, bf16>;
+};
+template <typename T>
+using Shape = typename ShapeOf<T>::type;
+
+template <typename T>
+int blocked_pass(const void* src, const void* x0, void* dst, int rows,
+                 int gx0, int n, int r_lo, int r_hi, int chunk, int chunks,
+                 int h, int parity, int first, int b, float a, float c_inv,
+                 cudaStream_t stream) {
+  using Tl = Shape<T>;
+  if (h < 1 || h > Tl::K || chunks < 1 || chunk < 1)
+    return (int)cudaErrorInvalidValue;
+  const tf::Signs s = tf::signs_for(b);
+  const PassArgs<T> g{(const T*)src, (const T*)x0, (T*)dst, rows,  gx0,
+                      n,  r_lo,  r_hi,  chunk, h,  parity, first, s.x, s.y,
+                      s.z, a,   c_inv};
+  const dim3 grid((n + Tl::TZ - 1) / Tl::TZ, (n + Tl::TY - 1) / Tl::TY,
+                  chunks);
+  rb_blocked_kernel<Tl><<<grid, Tl::NT, Tl::SMEM, stream>>>(g);
+  return tf::launch_status();
+}
+
+template <typename T>
+int blocked_info(int* slots, int* smem) {
+  using Tl = Shape<T>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(rb_blocked_kernel<Tl>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Tl::SMEM);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, rb_blocked_kernel<Tl>, Tl::NT, Tl::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  *slots = sms * per_sm;
+  *smem = Tl::SMEM;
+  return 0;
+}
 
 }  // namespace
 
 // One pass of ``h`` half-sweeps, parities parity, parity + 1, ..., from
 // src (NULL: zeros) into dst, over local rows r_lo .. r_hi of a (rows,
 // n+2, n+2) field at global row gx0, in ``chunks`` x-chunks of ``chunk``
-// rows; ``first``: the first half-sweep is the solve's first.  The
-// shared-memory attribute it needs is set by tf_rb_blocked_info, which
-// must have run on the device first (a launch without it is refused).
-extern "C" int tf_rb_blocked_pass(const float* src, const float* x0,
-                                  float* dst, int rows, int gx0, int n,
+// rows; ``first``: the first half-sweep is the solve's first.  The fields
+// hold float, or bfloat16 when ``bf16_storage``.  The shared-memory
+// attribute it needs is set by tf_rb_blocked_info for the same storage
+// type, which must have run on the device first (a launch without it is
+// refused).
+extern "C" int tf_rb_blocked_pass(const void* src, const void* x0,
+                                  void* dst, int rows, int gx0, int n,
                                   int r_lo, int r_hi, int chunk, int chunks,
                                   int h, int parity, int first, int b,
-                                  float a, float c_inv, void* stream) {
-  if (h < 1 || h > Shape::K || chunks < 1 || chunk < 1)
-    return (int)cudaErrorInvalidValue;
-  const tf::Signs s = tf::signs_for(b);
-  const PassArgs g{src,  x0,     dst,   rows,  gx0,   n,   r_lo, r_hi,
-                   chunk, h,     parity, first, s.x,  s.y, s.z,  a,
-                   c_inv};
-  const dim3 grid((n + Shape::TZ - 1) / Shape::TZ,
-                  (n + Shape::TY - 1) / Shape::TY, chunks);
-  rb_blocked_kernel<Shape>
-      <<<grid, Shape::NT, Shape::SMEM, (cudaStream_t)stream>>>(g);
-  return tf::launch_status();
+                                  int bf16_storage, float a, float c_inv,
+                                  void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  return bf16_storage
+             ? blocked_pass<bf16>(src, x0, dst, rows, gx0, n, r_lo, r_hi,
+                                  chunk, chunks, h, parity, first, b, a,
+                                  c_inv, st)
+             : blocked_pass<float>(src, x0, dst, rows, gx0, n, r_lo, r_hi,
+                                   chunk, chunks, h, parity, first, b, a,
+                                   c_inv, st);
 }
 
 // Sets the kernel's dynamic shared memory attribute on the current
-// device; gives the blocks the card keeps resident at once and the
-// dynamic shared memory of one.
-extern "C" int tf_rb_blocked_info(int* slots, int* smem) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(rb_blocked_kernel<Shape>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             Shape::SMEM);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, rb_blocked_kernel<Shape>, Shape::NT, Shape::SMEM);
-  if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  *slots = sms * per_sm;
-  *smem = Shape::SMEM;
-  return 0;
+// device for the storage type (bfloat16 when ``bf16_storage``); gives the
+// blocks the card keeps resident at once and the dynamic shared memory of
+// one.
+extern "C" int tf_rb_blocked_info(int bf16_storage, int* slots, int* smem) {
+  return bf16_storage ? blocked_info<bf16>(slots, smem)
+                      : blocked_info<float>(slots, smem);
 }

@@ -15,12 +15,13 @@ stages (advection, forcing, divergence, gradient subtraction) are single
 passes over a few (n+2)^3 float32 fields, one thread per output cell,
 ghosts included; a ghost output is the interior value at its clamped
 index times the set_bnd sign (csrc/grid_common.cuh), so no second
-boundary pass is needed.  The Jacobi solvers and the bfloat16
-red-black solve (csrc/jacobi.cu) stream one pass per sweep or
-half-sweep, in float32 or in bfloat16 (each operation rounded to
-bfloat16, 2 B a cell); the float32 red-black solves, dense and sharded,
-do up to k half-sweeps a pass in shared memory (csrc/rb_blocked.cu,
-``rb_passes`` and ``rb_chunks`` below); the whole tier (the
+boundary pass is needed.  The float32 Jacobi solve (csrc/jacobi.cu)
+streams one pass per sweep; the red-black solves, dense and sharded in
+float32 and dense in bfloat16 (each operation rounded to bfloat16, 2 B a
+cell), do up to k half-sweeps a pass in shared memory
+(csrc/rb_blocked.cu, ``rb_passes`` and ``rb_chunks`` below), and the
+bfloat16 Jacobi solve two sweeps a pass (csrc/jacobi_blocked.cu,
+``jacobi_passes``); the whole tier (the
 whole solve in either type, the multi-field diffusion, the fused
 projection and the whole step) runs a whole solve, or a whole step, in
 one cooperative launch, for grids whose fields stay in the card's L2
@@ -423,8 +424,9 @@ def lin_solve3d_rb_plain(b, x, x0, a, c, iters):
 
 @dataclasses.dataclass(frozen=True)
 class RbTile:
-    """A shape of the blocked kernel: up to ``k`` half-sweeps a pass on a
-    ``ty`` x ``tz`` (y, z) tile with a k-deep halo."""
+    """A shape of a blocked kernel: up to ``k`` half-sweeps (red-black)
+    or sweeps (Jacobi) a pass on a ``ty`` x ``tz`` (y, z) tile with a
+    k-deep halo."""
     k: int
     ty: int
     tz: int
@@ -433,9 +435,16 @@ class RbTile:
         return -(-n // self.ty) * -(-n // self.tz)
 
 
-# The shape csrc/rb_blocked.cu compiles (its ``Shape``): the fastest at
-# the main path's shapes on the H100 of those measured (PERF.md).
+# The shapes csrc/rb_blocked.cu compiles (its ``Shape``), in float32 and
+# in bfloat16: the fastest at the main path's shapes on the H100 of those
+# measured (PERF.md).
 RB_TILE = RbTile(4, 16, 64)
+RB_TILE_BF16 = RbTile(4, 32, 64)
+
+
+def rb_tile(dtype: torch.dtype) -> RbTile:
+    """The blocked red-black kernel's shape in storage ``dtype``."""
+    return RB_TILE_BF16 if dtype == torch.bfloat16 else RB_TILE
 
 
 @dataclasses.dataclass(frozen=True)
@@ -505,34 +514,64 @@ def rb_chunks(rows: int, gx0: int, n: int, tile: RbTile,
     return RbChunks(r_lo, r_hi, best[1], best[2])
 
 
-@functools.cache
-def rb_tile_info(device_index: int):
+def _tile_info(entry: str, device_index: int, *args):
     """(resident blocks on the card, dynamic shared memory bytes a block)
-    of the blocked kernel on CUDA device ``device_index``, after setting
-    the kernel's shared-memory attribute there, which its launches need:
-    once a device."""
+    of a blocked kernel on CUDA device ``device_index`` from its C entry
+    ``entry``, which first sets the kernel's shared-memory attribute
+    there: its launches need it (a launch without it is refused)."""
     lib = _build.load()
     slots, smem = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        rc = lib.tf_rb_blocked_info(ctypes.byref(slots), ctypes.byref(smem))
+        rc = getattr(lib, entry)(*args, ctypes.byref(slots),
+                                 ctypes.byref(smem))
     if rc:
-        raise RuntimeError(f"tf_rb_blocked_info: CUDA error {rc} "
+        raise RuntimeError(f"{entry}: CUDA error {rc} "
                            f"({lib.tf_error_string(rc).decode()})")
     return slots.value, smem.value
+
+
+@functools.cache
+def rb_tile_info(device_index: int, dtype: torch.dtype = torch.float32):
+    """_tile_info of the blocked red-black kernel in storage ``dtype``
+    (float32 or bfloat16, one instantiation each): once a device and
+    type."""
+    return _tile_info("tf_rb_blocked_info", device_index,
+                      int(dtype == torch.bfloat16))
+
+
+def _device_index(t) -> int:
+    return (torch.cuda.current_device() if t.device.index is None
+            else t.device.index)
 
 
 def _rb_pass(src, x0, dst, gx0, chunks, p: RbPass, b, a, c_inv):
     _build.launch("tf_rb_blocked_pass", src, x0, dst, x0.shape[0], gx0,
                   x0.shape[1] - 2, chunks.r_lo, chunks.r_hi, chunks.length,
-                  chunks.count, p.half_sweeps, p.parity, int(p.first), b, a,
-                  c_inv)
+                  chunks.count, p.half_sweeps, p.parity, int(p.first), b,
+                  int(x0.dtype == torch.bfloat16), a, c_inv)
 
 
 def _rb_chunks_on(x0, gx0):
-    device = x0.device.index
-    slots, _ = rb_tile_info(torch.cuda.current_device()
-                            if device is None else device)
-    return rb_chunks(x0.shape[0], gx0, x0.shape[1] - 2, RB_TILE, slots)
+    slots, _ = rb_tile_info(_device_index(x0), x0.dtype)
+    return rb_chunks(x0.shape[0], gx0, x0.shape[1] - 2, rb_tile(x0.dtype),
+                     slots)
+
+
+def _rb_solve(b, x, x0, a, c_inv, iters):
+    """The dense blocked red-black solve in x0's storage type (float32 or
+    bfloat16): ceil(2 iters / k) passes, alternating between out and a
+    scratch buffer so that the last lands in out, then the ghost pass."""
+    out, tmp = torch.empty_like(x0), torch.empty_like(x0)
+    chunks = _rb_chunks_on(x0, 0)
+    passes = rb_passes(2 * iters, rb_tile(x0.dtype).k)
+    src = x
+    for i, p in enumerate(passes):
+        dst = out if rb_lands_in_out(i, len(passes)) else tmp
+        _rb_pass(src, x0, dst, 0, chunks, p, b, a, c_inv)
+        src = dst
+    _build.launch("tf_rb_ghosts", out, x0.shape[0] - 2, b,
+                  int(x0.dtype == torch.bfloat16))
+    return out
 
 
 def lin_solve3d_rb(b, x, x0, a, c, iters):
@@ -550,15 +589,7 @@ def lin_solve3d_rb(b, x, x0, a, c, iters):
     writes the ghosts (csrc/rb_blocked.cu)."""
     if not _solve_on_cuda(b, x, x0, iters):
         return lin_solve3d_rb_plain(b, x, x0, a, c, iters)
-    out, tmp = torch.empty_like(x0), torch.empty_like(x0)
-    chunks = _rb_chunks_on(x0, 0)
-    passes = rb_passes(2 * iters, RB_TILE.k)
-    src = x
-    for i, p in enumerate(passes):
-        dst = out if rb_lands_in_out(i, len(passes)) else tmp
-        _rb_pass(src, x0, dst, 0, chunks, p, b, a, 1.0 / c)
-        src = dst
-    _build.launch("tf_rb_ghosts", out, x0.shape[0] - 2, b)
+    out = _rb_solve(b, x, x0, a, 1.0 / c, iters)
     lin_solve3d_rb.launches += 1
     return out
 
@@ -701,22 +732,62 @@ def lin_solve3d_bf16_plain(b, x, x0, a, c, iters):
     return stam.lin_solve3d(b, x, x0, a, c, iters, dtype=torch.bfloat16)
 
 
+# the blocked bfloat16 Jacobi passes (csrc/jacobi_blocked.cu)
+
+
+# The shape csrc/jacobi_blocked.cu compiles (its ``Shape``): k = 2 sweeps
+# a pass, the reference's fuse on the bfloat16 route, on a 16 x 128 tile
+# (its halo one cell deeper in z, so that its cell pairs start at even K).
+JACOBI_TILE = RbTile(2, 16, 128)
+
+
+def jacobi_passes(iters: int, k: int):
+    """The sweeps of each launch of an ``iters``-sweep solve at up to
+    ``k`` a launch; the last does the rest."""
+    return [min(k, iters - s0) for s0 in range(0, iters, k)]
+
+
+@functools.cache
+def jacobi_tile_info(device_index: int):
+    """_tile_info of the blocked Jacobi kernel: once a device."""
+    return _tile_info("tf_jacobi_blocked_info", device_index)
+
+
+def _jacobi_chunks_on(x0):
+    slots, _ = jacobi_tile_info(_device_index(x0))
+    n = x0.shape[0] - 2
+    return rb_chunks(n + 2, 0, n, JACOBI_TILE, slots)
+
+
+def _jacobi_pass(src, x0, dst, chunks, sweeps, b, a, c_inv):
+    _build.launch("tf_jacobi_blocked_pass", src, x0, dst, x0.shape[0] - 2,
+                  chunks.r_lo, chunks.r_hi, chunks.length, chunks.count,
+                  sweeps, b, a, c_inv)
+
+
 def lin_solve3d_bf16(b, x, x0, a, c, iters):
     """lin_solve3d in bfloat16: ``iters`` Jacobi sweeps, each operation
     rounded to bfloat16; float32 in and out, as
     stam.lin_solve3d(dtype=torch.bfloat16).
 
     Replaces lin_solve3d_pallas(dtype=bfloat16)
-    (tpufluids/grid/pallas_kernels.py).  On paper bound by bytes, at 2 B
-    a cell; on the card by instruction issue (no faster than float32,
-    PERF.md).  One launch per sweep, out of place between two bfloat16
-    buffers, one thread per output cell (csrc/jacobi.cu)."""
+    (tpufluids/grid/pallas_kernels.py).  Bound on paper by bytes, at 2 B
+    a cell.  ceil(iters / k) launches of the blocked kernel, each up to k
+    = 2 sweeps with one read of x and x0 and one write of every cell,
+    ghosts included, two cells an operation in bf16x2, alternating
+    between two bfloat16 buffers so that the last lands in out
+    (csrc/jacobi_blocked.cu)."""
     if not _solve_on_cuda(b, x, x0, iters):
         return lin_solve3d_bf16_plain(b, x, x0, a, c, iters)
     x, x0, a, c_inv = _bf16_operands(x, x0, a, c)
+    chunks = _jacobi_chunks_on(x0)
+    passes = jacobi_passes(iters, JACOBI_TILE.k)
     out, tmp = torch.empty_like(x0), torch.empty_like(x0)
-    _build.launch("tf_lin_solve3d_bf16", x, x0, out, tmp, b,
-                  x0.shape[0] - 2, iters, a, c_inv)
+    src = x
+    for i, sweeps in enumerate(passes):
+        dst = out if rb_lands_in_out(i, len(passes)) else tmp
+        _jacobi_pass(src, x0, dst, chunks, sweeps, b, a, c_inv)
+        src = dst
     lin_solve3d_bf16.launches += 1
     return out.float()
 
@@ -735,17 +806,14 @@ def lin_solve3d_rb_bf16(b, x, x0, a, c, iters):
     dtype=torch.bfloat16).
 
     Replaces lin_solve3d_pallas(red_black=True, dtype=bfloat16)
-    (tpufluids/grid/pallas_kernels.py).  On paper bound by bytes, at 2 B
-    a cell; on the card mostly by instruction issue (PERF.md).  One
-    launch per half-sweep over the active cells, in place, then one
-    ghost pass (csrc/jacobi.cu); the float32 lin_solve3d_rb runs
-    blocked passes instead."""
+    (tpufluids/grid/pallas_kernels.py).  Bound on paper by bytes, at 2 B
+    a cell.  lin_solve3d_rb's passes in bfloat16 storage: the same
+    blocked kernel compiled for __nv_bfloat16, two cells an operation in
+    bf16x2, then the ghost pass (csrc/rb_blocked.cu)."""
     if not _solve_on_cuda(b, x, x0, iters):
         return lin_solve3d_rb_bf16_plain(b, x, x0, a, c, iters)
     x, x0, a, c_inv = _bf16_operands(x, x0, a, c)
-    out = torch.empty_like(x0)
-    _build.launch("tf_lin_solve3d_rb_bf16", x, x0, out, b, x0.shape[0] - 2,
-                  iters, a, c_inv)
+    out = _rb_solve(b, x, x0, a, c_inv, iters)
     lin_solve3d_rb_bf16.launches += 1
     return out.float()
 
