@@ -17,8 +17,17 @@
    solves and the whole solve must equal their plain versions bit for
    bit, the whole solve
    the streamed solve of its type, and the bfloat16 solve must differ
-   from the float32 one; the whole step of configs 2 and 4 must equal
-   the separate kernels (stam.step3d_multi) bit for bit.
+   from the float32 one; the whole step of configs 2 and 4, and of
+   config 4 at 78^3 (the gate's edge), must equal the separate kernels
+   (stam.step3d_multi) bit for bit.  Then the whole step's kernel
+   itself (csrc/step.cu): ptxas's registers, stack frame and spills (a
+   stack frame or a spill fails), what an empty grid-wide barrier costs
+   on its grid and others and in thread block clusters, its time at
+   config 4 without diffusion, at 1 and 10 iterations and at other
+   levels a pass, its tiles, k and F, its grid-wide barriers a step for
+   configs 2 and 4, its barrier floor (barriers x the cost of one, in
+   its row of the kernels line), and stam.step3d_multi's device-busy
+   time at config 4 as a yardstick.
    The 2D kernels (csrc/grid2d.cu) at config 1's 130^2 fields: the
    solve (a = 1, c = 4, b = 0, and config 1's diffusion at b = 1) and
    the whole step (config 1, and config 1 with buoyancy and vorticity)
@@ -156,6 +165,7 @@ import torch
 N_BIG = 256
 N_512 = 512              # verify/bench_bf16_512.py: the bfloat16 solver
 N_WHOLE = 64             # BASELINE configs 2 and 4: the whole tier
+N_STEP_EDGE = 78         # the largest n the whole step's gate admits
 N_2D = 128               # BASELINE config 1
 SEED = 0
 FIELDS = ("u", "v", "w", "dens", "temp")
@@ -736,6 +746,9 @@ def check_kernels(stam, kernels, dev):
     a2 = c2.dt * c2.visc * c2.n ** 2
     u64, v64, w64 = (field(N_WHOLE, b, -1.0, 1.0) for b in (1, 2, 3))
     d64, t64 = (field(N_WHOLE, 0, 0.0, 1.0) for _ in range(2))
+    # the whole step's gate's edge (kernels.step_whole_ok)
+    u78, v78, w78 = (field(N_STEP_EDGE, b, -1.0, 1.0) for b in (1, 2, 3))
+    d78, t78 = (field(N_STEP_EDGE, 0, 0.0, 1.0) for _ in range(2))
 
     def field2d(b, lo, hi):
         a = rng.uniform(lo, hi, (N_2D + 2,) * 2).astype(np.float32)
@@ -791,7 +804,9 @@ def check_kernels(stam, kernels, dev):
                               for dt in (f32, bf16) for rb in (False, True)],
         "step3d_whole": [(u64, v64, w64, d64, t64, c2),
                          (u64, v64, w64, d64, t64,
-                          c4.replace(red_black=False))],
+                          c4.replace(red_black=False)),
+                         (u78, v78, w78, d78, t78,
+                          grid_config(stam, "config 4", N_STEP_EDGE))],
         "step2d_whole": [(u2, v2, d2, t2, c1_forced)],
     }
     results = {}
@@ -816,7 +831,7 @@ def check_kernels(stam, kernels, dev):
                 sep = stam.step3d_multi(stam.GridState3D(*args[:5]), args[5])
                 same = all(torch.equal(g, getattr(sep, f))
                            for g, f in zip(got, FIELDS))
-                log(f"step3d_whole @ {N_WHOLE}^3, red_black "
+                log(f"step3d_whole @ {args[0].shape[0] - 2}^3, red_black "
                     f"{args[5].red_black}, forcing "
                     f"{bool(args[5].vorticity_eps)}: bitwise equal to "
                     f"stam.step3d_multi: {same}")
@@ -901,6 +916,105 @@ def check_whole_solve(kernels, args, got):
     log(f"lin_solve3d_whole @ {x0.shape[0] - 2}^3, {dtype}, red_black "
         f"{red_black}, b {b}: bitwise equal to the streamed solve: {same}")
     check(same, "lin_solve3d_whole differs from the streamed solve")
+
+
+# kernel #7's time at config 4, 64^3, before its redesign (PERF.md row 7)
+STEP_WHOLE_BEFORE_MS = 0.548
+
+
+def check_step_whole(stam, kernels, dev, build_log, checked):
+    """The whole step's kernel (csrc/step.cu): ptxas's registers, stack
+    frame and spills (a stack frame or a spill fails); what an empty
+    grid-wide barrier costs on its grid and on the grid of the design it
+    replaced; its time at config 4 with the diffusion off and at 1 and 10
+    iterations; its plan (tiles, k and F, shared memory) and grid-wide
+    barriers a step for configs 2 and 4; its barrier floor (barriers a
+    step x the cost of one) beside its bound, added to its row of the
+    kernels line; and stam.step3d_multi's device-busy time at config 4,
+    64^3, the separate kernels, as a yardstick beside it."""
+    from tpufluids_torch import _build
+    entry, info = None, {}
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            entry = entry if "step_whole_kernel" in entry else None
+        elif entry and "stack frame" in line:
+            info["stack_spill"] = [int(w) for w in line.replace(
+                ",", " ").split() if w.isdigit()]
+        elif entry and "registers" in line:
+            info["registers"] = int(line.split("Used ")[1].split()[0])
+    check(set(info) == {"stack_spill", "registers"},
+          f"ptxas lines of step_whole_kernel: {info}")
+    blocks, threads, smem = kernels.step_info(torch.cuda.current_device())
+    log(f"step_whole_kernel: {info['registers']} registers, stack frame, "
+        f"spill stores, spill loads {info['stack_spill']} B; {blocks} "
+        f"blocks of {threads} threads (one a multiprocessor), up to {smem} B "
+        f"of shared memory a block; no thread block clusters")
+    check(not any(info["stack_spill"]),
+          f"step_whole_kernel: stack frame or spill {info['stack_spill']}")
+    lib = _build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def barrier_us(grid, threads):
+        """us a barrier of empty grid-wide barriers in one cooperative
+        launch: a launch of 1000 less one of 0, over 1000."""
+        def run(count):
+            rc = lib.tf_barrier_probe(grid, threads, count, stream)
+            check(rc == 0, f"barrier probe {grid} x {threads}: "
+                           f"{lib.tf_error_string(rc).decode()}")
+
+        return time_ms(lambda: run(1000)) - time_ms(lambda: run(0))
+
+    per_ms = barrier_us(blocks, threads) / 1e3
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # the grid of the design this replaces: 528 blocks of 256 threads, 4 a
+    # multiprocessor at its 56 registers
+    log(f"empty grid-wide barriers, one cooperative launch of 1000 less one "
+        f"of 0: {per_ms * 1e3:.4f} us a barrier on the step's grid ({blocks} "
+        f"x {threads}), {barrier_us(4 * sms, 256):.4f} us on the replaced "
+        f"design's ({4 * sms} x 256)")
+    # where the blocked passes' time goes: the step at config 4 with the
+    # diffusion off and at other iteration counts
+    c4 = grid_config(stam, "config 4")
+    state = grid_state(stam, "config 4", c4, dev)
+    fields = tuple(getattr(state, f) for f in FIELDS)
+    for label, cfg in (("shipped", c4),
+                       ("no diffusion", c4.replace(visc=0.0, diff=0.0)),
+                       ("1 iteration", c4.replace(jacobi_iters=1)),
+                       ("10 iterations", c4.replace(jacobi_iters=10))):
+        plan = kernels.step_plan(N_WHOLE, cfg, blocks, smem)
+        ms = time_ms(lambda: kernels.step3d_whole(*fields, cfg))
+        log(f"  step3d_whole @ {N_WHOLE}^3, config 4, {label}: {ms:.4f} ms, "
+            f"{kernels.step_barriers(cfg, plan)} barriers, passes "
+            f"(diffusion, each projection) {kernels.step_passes(cfg, plan)}")
+    for path in ("config 2", "config 4"):
+        cfg = grid_config(stam, path)
+        plan = kernels.step_plan(cfg.n, cfg, blocks, smem)
+        count = kernels.step_barriers(cfg, plan)
+        p, d = plan.project, plan.diffuse
+        log(f"{path} @ {cfg.n}^3: {count} grid-wide barriers a step (before "
+            f"the redesign about 130); pressure passes of k = "
+            f"{plan.rb_levels} half-sweeps on {p.count(cfg.n)} tiles of "
+            f"{p.tx}x{p.ty}x{p.tz} (halo {p.halo}), diffusion passes of F = "
+            f"{plan.jacobi_levels} sweeps on {d.count(cfg.n)} tiles of "
+            f"{d.tx}x{d.ty}x{d.tz} (halo {d.halo}) for "
+            f"{kernels.step_fields(cfg)} fields; {plan.smem} B of shared "
+            f"memory a block; barrier floor {count * per_ms:.4f} ms")
+    row = checked["step3d_whole"]
+    row["barriers"] = count
+    row["barrier_floor_ms"] = count * per_ms
+    log(f"step3d_whole @ {N_WHOLE}^3, config 4: {row['ms']:.4f} ms (before "
+        f"the redesign {STEP_WHOLE_BEFORE_MS} ms), bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}), barrier floor "
+        f"{row['barrier_floor_ms']:.4f} ms ({count} barriers x "
+        f"{per_ms * 1e3:.4f} us)")
+    wall, busy, ops, _ = device_profile(
+        lambda k: [stam.step3d_multi(state, cfg) for _ in range(k)],
+        PROFILE_STEPS)
+    log(f"stam.step3d_multi @ {N_WHOLE}^3, config 4 (the separate kernels): "
+        f"device busy {busy:.4f} ms a step in {ops:.1f} device ops "
+        f"({wall:.4f} ms a step on the host clock under torch.profiler), "
+        f"against step3d_whole's {row['ms']:.4f} ms")
 
 
 def check_small_against_cpu(stam, dev):
@@ -2261,6 +2375,7 @@ def main():
             log("  ptxas: " + line.strip())
 
     checked = check_kernels(stam, kernels, dev)
+    check_step_whole(stam, kernels, dev, build.log, checked)
     check_blocked(stam, kernels, dev, build.log)
     check_small_against_cpu(stam, dev)
     counts, ms = {}, {}

@@ -265,24 +265,56 @@ def test_jacobi_configs_card_match_cpu(cuda, plume):
     dict(plume=True, vorticity_eps=0.0, temp_diff=2e-5),
     dict(plume=True, buoyancy_alpha=0.0, buoyancy_beta=0.0, diff=0.0),
     dict(plume=False, visc=0.0, temp_diff=2e-5),
+    # diffusion a neighbour moves by more than an ulp (a = dt visc n^2
+    # about 1e-4 above does not), an odd iteration count that neither 4
+    # half-sweeps nor 2 sweeps a pass divide
+    dict(plume=True, visc=0.03, diff=0.03, temp_diff=0.02, jacobi_iters=7),
+    dict(plume=True, red_black=False, visc=0.03, diff=0.03, jacobi_iters=5),
 ], ids=["config2", "config4", "config4_jacobi", "buoyancy", "vorticity",
-        "no_visc"])
-@pytest.mark.parametrize("n", [16, 64])
+        "no_visc", "strong_diffusion", "strong_diffusion_jacobi"])
+@pytest.mark.parametrize("n", [15, 16, 17, 63, 64, 78])
 def test_whole_step_matches_plain_and_separate_calls(cuda, n, case):
-    """The whole step (one cooperative launch) against its plain version,
-    and bit for bit against the separate kernels of stam.step3d_multi,
-    on a moving state."""
+    """The whole step (one cooperative launch, and no other) against its
+    plain version, and bit for bit against the separate kernels of
+    stam.step3d_multi, on a moving state: at sizes the tiles divide and
+    do not, up to the gate's edge (n = 78)."""
     case = dict(case)
     cfg = _config(n, case.pop("plume")).replace(**case)
     u, v, w = _fields(cuda, n, 8, (1, 2, 3), -1.0, 1.0)
     d, t = _fields(cuda, n, 9, (0, 0), 0.0, 1.0)
-    before = kernels.step3d_whole.launches
+    before = kernels.launch_counts()
     got = kernels.step3d_whole(u, v, w, d, t, cfg)
-    assert kernels.step3d_whole.launches == before + 1
+    after = kernels.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} \
+        == {"step3d_whole": 1}
     _close(got, kernels.step3d_whole_plain(u, v, w, d, t, cfg), 1e-5)
     multi = stam.step3d_multi(stam.GridState3D(u, v, w, d, t), cfg)
     for g, f in zip(got, ("u", "v", "w", "dens", "temp")):
         assert torch.equal(g, getattr(multi, f)), f
+
+
+def test_whole_step_kernel_has_no_stack_frame(cuda):
+    """ptxas's lines for the whole step's kernel: no stack frame, no
+    spill (its 640 threads a block leave 96 registers a thread)."""
+    from tpufluids_torch import _build
+    lines = _build.build().log.splitlines()
+    at = [i for i, line in enumerate(lines)
+          if "Function properties for" in line and "step_whole_kernel" in line]
+    assert len(at) == 1
+    assert "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" \
+        in lines[at[0] + 1]
+
+
+def test_whole_step_plan_on_the_card(cuda):
+    """One persistent block of 640 threads a multiprocessor, and at 64^3
+    config 4 runs 30 grid barriers a step."""
+    blocks, threads, smem = kernels.step_info(torch.cuda.current_device())
+    props = torch.cuda.get_device_properties(0)
+    assert blocks == props.multi_processor_count and threads == 640
+    cfg = _config(64, True)
+    plan = kernels.step_plan(64, cfg, blocks, smem)
+    assert plan.smem <= smem
+    assert kernels.step_barriers(cfg, plan) == 30
 
 
 def test_jacobi_step_launches(cuda):

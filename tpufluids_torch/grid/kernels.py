@@ -946,9 +946,156 @@ project3d_whole.launches = 0
 # ---------------------------------------------------------------------------
 # the whole step
 
-# scratch fields of the whole step: two velocity trios and one for |curl|,
-# the diffusion's second buffers and the projection's div and p
-STEP_SCRATCH = 9
+# scratch fields of the whole step: two velocity trios, the diffused dens
+# and temp, and the pressure between passes (csrc/step.cu)
+STEP_SCRATCH = 10
+# (half-)sweeps a pass of the whole step's blocked phases
+# (csrc/step_blocked.cuh): red-black half-sweeps of the pressure solve,
+# and Jacobi sweeps of the pressure solve and of the diffusions
+STEP_RB_LEVELS = 4
+STEP_JACOBI_LEVELS = 3
+
+
+@dataclasses.dataclass(frozen=True)
+class StepTile:
+    """The tiles of a blocked phase of the whole step: tx x ty x tz
+    interior cells (the last of a row clipped at n), tiles in C order,
+    each held in a box widened by ``halo`` cells and clipped to the
+    (n+2)^3 array."""
+    tx: int
+    ty: int
+    tz: int
+    halo: int
+
+    def counts(self, n: int):
+        return (-(-n // self.tx), -(-n // self.ty), -(-n // self.tz))
+
+    def count(self, n: int) -> int:
+        cx, cy, cz = self.counts(n)
+        return cx * cy * cz
+
+    def box_cells(self, n: int) -> int:
+        """The cells of the largest box in shared memory, its z rows
+        padded to an even length (csrc/step_blocked.cuh's Box)."""
+        x, y, z = (min(t + 2 * self.halo, n + 2)
+                   for t in (self.tx, self.ty, self.tz))
+        return x * y * (z + z % 2)
+
+    def tile(self, n: int, t: int):
+        """Tile t: its first and last interior cell on each axis, as
+        ((x0, x1), (y0, y1), (z0, z1))."""
+        _, cy, cz = self.counts(n)
+        at = (t // (cy * cz), t // cz % cy, t % cz)
+        return tuple((1 + i * e, min(1 + i * e + e - 1, n))
+                     for i, e in zip(at, (self.tx, self.ty, self.tz)))
+
+
+@dataclasses.dataclass(frozen=True)
+class StepPlan:
+    """How the whole step runs at one size and configuration: ``blocks``
+    persistent blocks (one a multiprocessor), ``smem`` bytes of shared
+    memory each; pressure passes of ``rb_levels`` half-sweeps
+    (red-black) or ``jacobi_levels`` sweeps on ``project``'s tiles, one a
+    block; diffusion passes of ``jacobi_levels`` sweeps on ``diffuse``'s
+    tiles, the blocks taking the (field, tile) pairs in turn."""
+    blocks: int
+    smem: int
+    rb_levels: int
+    jacobi_levels: int
+    project: StepTile
+    diffuse: StepTile
+
+
+def step_fields(cfg: stam.StamConfig) -> int:
+    """The fields the whole step diffuses: u, v, w (visc), dens, temp."""
+    return 3 * bool(cfg.visc) + bool(cfg.diff) + bool(cfg.temp_diff)
+
+
+@functools.cache
+def _step_tile(n, blocks, halo, fields, boxes, smem):
+    """The tile of a blocked phase with ``fields`` fields, ``boxes`` float32
+    boxes a block in ``smem`` bytes: the least rounds x box cells, rounds =
+    ceil(fields x tiles / blocks), on ties the widest (y, z) plane, then
+    the longest z rows; a single field (the pressure) takes at most one
+    tile a block."""
+    sizes = sorted({-(-n // c) for c in range(1, n + 1)})
+    best = None
+    for tx in sizes:
+        for ty in sizes:
+            for tz in sizes:
+                t = StepTile(tx, ty, tz, halo)
+                count = t.count(n)
+                if fields == 1 and count > blocks:
+                    continue
+                if 4 * boxes * t.box_cells(n) > smem:
+                    continue
+                rounds = -(-fields * count // blocks)
+                key = (rounds * t.box_cells(n), -ty * tz, -tz)
+                if best is None or key < best[0]:
+                    best = (key, t)
+    if best is None:
+        raise ValueError(f"no tile of the whole step fits {boxes} boxes of "
+                         f"halo {halo} at n = {n} in {smem} B on {blocks} "
+                         f"blocks")
+    return best[1]
+
+
+def step_plan(n: int, cfg: stam.StamConfig, blocks: int,
+              smem: int) -> StepPlan:
+    """The whole step's plan at size n on ``blocks`` blocks of at most
+    ``smem`` bytes of shared memory: the pressure's tiles with a halo of
+    its levels + 1 (its last pass widens the cone by one for the
+    gradient) in two boxes (red-black) or three (Jacobi), the diffusions'
+    with a halo of their levels in three."""
+    return _step_plan(n, bool(cfg.red_black), step_fields(cfg), blocks, smem)
+
+
+@functools.cache
+def _step_plan(n, rb, fields, blocks, smem):
+    levels = STEP_RB_LEVELS if rb else STEP_JACOBI_LEVELS
+    project = _step_tile(n, blocks, levels + 1, 1, 2 if rb else 3, smem)
+    diffuse = _step_tile(n, blocks, STEP_JACOBI_LEVELS, max(fields, 1), 3,
+                         smem)
+    need = max((2 if rb else 3) * project.box_cells(n),
+               3 * diffuse.box_cells(n) if fields else 0)
+    return StepPlan(blocks, 4 * need, STEP_RB_LEVELS, STEP_JACOBI_LEVELS,
+                    project, diffuse)
+
+
+def step_passes(cfg: stam.StamConfig, plan: StepPlan):
+    """(diffusion passes, passes of each projection) of a whole step."""
+    iters = cfg.jacobi_iters
+    diffuse = -(-iters // plan.jacobi_levels) if step_fields(cfg) else 0
+    if cfg.red_black:
+        return diffuse, -(-2 * iters // plan.rb_levels)
+    return diffuse, -(-iters // plan.jacobi_levels)
+
+
+def step_barriers(cfg: stam.StamConfig, plan: StepPlan) -> int:
+    """The grid-wide barriers of one whole step: forcing half A (with
+    buoyancy or vorticity) and half B (vorticity), one a diffusion pass,
+    one a pressure pass of each projection, one after the
+    self-advection."""
+    buoy = bool(cfg.buoyancy_alpha or cfg.buoyancy_beta)
+    vort = bool(cfg.vorticity_eps)
+    diffuse, project = step_passes(cfg, plan)
+    return (buoy or vort) + vort + diffuse + 2 * project + 1
+
+
+@functools.cache
+def step_info(device_index: int):
+    """(persistent blocks, threads a block, shared memory bytes a block
+    may take) of the whole step's kernel on CUDA device ``device_index``;
+    it also sets the kernel's shared-memory attribute to that size, once
+    a device, so step3d_whole's launches need no setting of their own."""
+    lib = _build.load()
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(device_index):
+        rc = lib.tf_step3d_whole_info(*map(ctypes.byref, vals))
+    if rc:
+        raise RuntimeError(f"tf_step3d_whole_info: CUDA error {rc} "
+                           f"({lib.tf_error_string(rc).decode()})")
+    return tuple(v.value for v in vals)
 
 
 def _check_step(cfg: stam.StamConfig):
@@ -992,16 +1139,21 @@ def step3d_whole(u, v, w, dens, temp, cfg: stam.StamConfig):
     through its own kernel) and returning (u, v, w, dens, temp).
 
     Replaces step3d_whole_pallas (tpufluids/grid/pallas_kernels.py).
-    One cooperative launch runs every phase with the cell bodies of the
-    separate kernels and a grid-wide barrier between phases and sweeps
-    (csrc/step.cu); only for fields that pass ``step_whole_ok``."""
+    Bound by its grid-wide barriers and the latency of each phase.  One
+    cooperative launch of a persistent block a multiprocessor runs every
+    phase; the pressure solves and the diffusions run blocked in shared
+    memory, a few (half-)sweeps a pass and a grid barrier a pass
+    (step_plan, step_barriers; csrc/step.cu, csrc/step_blocked.cuh); only
+    for fields that pass ``step_whole_ok``."""
     _check_step(cfg)
     if not _on_cuda(u, v, w, dens, temp):
         return step3d_whole_plain(u, v, w, dens, temp, cfg)
     if not step_whole_ok(u):
         raise ValueError(f"{tuple(u.shape)} fields are outside the whole "
                          f"step (step_whole_ok)")
+    blocks, _, smem = step_info(_device_index(u))
     n = u.shape[0] - 2
+    plan = step_plan(n, cfg, blocks, smem)
     h = 1.0 / n
     outs = tuple(torch.empty_like(u) for _ in range(5))
     scratch = torch.empty((STEP_SCRATCH, *u.shape), dtype=u.dtype,
@@ -1011,12 +1163,15 @@ def step3d_whole(u, v, w, dens, temp, cfg: stam.StamConfig):
         a, c = stam._diffusion_ac(cfg, coeff, n)
         return a, 1.0 / c
 
+    p, d = plan.project, plan.diffuse
     # the constants the separate wrappers pass, computed as they do
     _build.launch("tf_step3d_whole", u, v, w, dens, temp, *outs, scratch, n,
                   cfg.jacobi_iters, bool(cfg.red_black),
                   bool(cfg.buoyancy_alpha or cfg.buoyancy_beta),
                   bool(cfg.vorticity_eps), bool(cfg.visc), bool(cfg.diff),
-                  bool(cfg.temp_diff), cfg.dt, cfg.buoyancy_alpha,
+                  bool(cfg.temp_diff), plan.blocks, plan.smem,
+                  plan.rb_levels, plan.jacobi_levels, p.tx, p.ty, p.tz, d.tx,
+                  d.ty, d.tz, cfg.dt, cfg.buoyancy_alpha,
                   cfg.buoyancy_beta, cfg.ambient_temp, 1.0 / h,
                   cfg.vorticity_eps * h, -0.5 * (1.0 / n), 1.0 / 6.0,
                   cfg.dt * n, *ac(cfg.visc), *ac(cfg.diff),
