@@ -28,15 +28,22 @@
    configs 2 and 4, its barrier floor (barriers x the cost of one, in
    its row of the kernels line), and stam.step3d_multi's device-busy
    time at config 4 as a yardstick.
-   The 2D kernels (csrc/grid2d.cu) at config 1's 130^2 fields: the
-   solve (a = 1, c = 4, b = 0, and config 1's diffusion at b = 1) and
-   the whole step (config 1, and config 1 with buoyancy and vorticity)
-   must equal their plain versions bit for bit, and the whole step the
-   multi-call step (stam.step2d_multi).  The blocked solves' floors are
-   printed beside their bounds: one device-memory pass a (half-)sweep,
-   and the blocked kernels' passes (csrc/rb_blocked.cu in float32 and
-   bfloat16, csrc/jacobi_blocked.cu), at the bytes of their storage
-   type.  Then the blocked kernels themselves: ptxas's registers, stack
+   The 2D kernels at config 1's 130^2 fields: the solve
+   (csrc/grid2d.cu; a = 1, c = 4, b = 0, and config 1's diffusion at
+   b = 1) and the whole step (csrc/step2d.cu; config 1, config 1 with
+   buoyancy and vorticity, and config 1 at 1119^2, the gate's edge,
+   where a block takes several diffusing (field, tile) pairs) must equal their plain versions bit for bit, and the
+   whole step the multi-call step (stam.step2d_multi).  Then the whole
+   2D step's kernel itself: ptxas's registers, stack frame and spills (a
+   stack frame or a spill fails), its blocks x threads, its plan and
+   grid-wide barriers a step for config 1 and the forcing case, its
+   barrier floor (barriers x an empty barrier on its own grid) and its
+   device time alone (torch.profiler) in its row of the kernels line,
+   and its time without diffusion and at 1 and 10 iterations.  The
+   blocked solves' floors are printed beside their bounds: one
+   device-memory pass a (half-)sweep, and the blocked kernels' passes
+   (csrc/rb_blocked.cu in float32 and bfloat16, csrc/jacobi_blocked.cu),
+   at the bytes of their storage type.  Then the blocked kernels themselves: ptxas's registers, stack
    frame and spills of the red-black kernel in float32 and in bfloat16
    and of the bfloat16 Jacobi kernel (a stack frame or a spill fails),
    their shared memory a block and resident blocks, and their pass
@@ -76,7 +83,11 @@
    the device's idle share against the timed ms/step, the top kernels.
 5. Holds the SPH force kernel (base_forces_rowblock) against its plain
    version at the base_dam scene and at a 262144-particle uniform fill,
-   on seeded dens, press and vel, and times both with CUDA events.
+   on seeded dens, press and vel, and times both with CUDA events.  The
+   SPH force wrappers (here and in steps 8 and 11) also print the device
+   time of their kernels alone (torch.profiler kernel events of
+   csrc/sph_forces.cu's and csrc/sph_unidyn.cu's kernels over the timed
+   calls), "kernel_ms" in their rows of the kernels line.
 6. Runs 10 base_dam steps on the card and on the CPU (plain version)
    and compares them by particle id; runs 10 steps of the fill twice
    on the card and requires bitwise-equal results.
@@ -167,6 +178,9 @@ N_512 = 512              # verify/bench_bf16_512.py: the bfloat16 solver
 N_WHOLE = 64             # BASELINE configs 2 and 4: the whole tier
 N_STEP_EDGE = 78         # the largest n the whole step's gate admits
 N_2D = 128               # BASELINE config 1
+N_2D_BIG = 1119          # the whole 2D step's gate's edge: past the
+                         # one-block design's gate (168), more diffusing
+                         # (field, tile) pairs than blocks
 SEED = 0
 FIELDS = ("u", "v", "w", "dens", "temp")
 TIME_REPS = 20
@@ -217,7 +231,7 @@ KERNELS = {
     # bit for bit
     "lin_solve2d": ("tpufluids_torch/csrc/grid2d.cu",
                     "tpufluids/grid/pallas_kernels.py:1993", 0.0),
-    "step2d_whole": ("tpufluids_torch/csrc/grid2d.cu",
+    "step2d_whole": ("tpufluids_torch/csrc/step2d.cu",
                      "tpufluids/grid/pallas_kernels.py:2157", 0.0),
 }
 # float32 operations per interior cell of one call, counted from the
@@ -525,6 +539,47 @@ def time_ms(fn, reps=TIME_REPS, warm=3):
     return start.elapsed_time(stop) / reps
 
 
+# the force kernels of csrc/sph_forces.cu and csrc/sph_unidyn.cu, by the
+# names torch.profiler gives their launches
+SPH_KERNEL_NAMES = ("base_forces_kernel", "unidyn_pass_a_kernel",
+                    "unidyn_pass_b_kernel")
+
+
+def kernel_alone_ms(fn, names=SPH_KERNEL_NAMES, reps=TIME_REPS, warm=3,
+                    tries=3):
+    """The device time a call of ``fn`` spends in the kernels whose names
+    hold one of ``names`` (by default the SPH force kernels) alone,
+    without the wrapper's torch ops or host work around them:
+    torch.profiler's kernel events over ``reps`` calls after ``warm``, in
+    ms a call.  The profiler may miss the first kernels it traces, so the
+    warm-up calls run under it too and a spin kernel
+    (torch.cuda._sleep) on the stream marks where the timed calls
+    start; a run with fewer events than calls is made again, up to
+    ``tries`` runs."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(warm):
+                fn()
+            torch.cuda._sleep(1000)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        stream = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(stream) if "spin_kernel" in e.name]
+        timed = stream[marks[-1] + 1:] if marks else []
+        events = [e for e in timed if any(k in e.name for k in names)]
+        if len(events) >= reps:
+            break
+        log(f"kernel_alone_ms: {len(events)} events of {names} in {reps} "
+            f"calls (spin kernel traced: {bool(marks)}); profiling again")
+    check(len(events) >= reps, f"{len(events)} events of {names} in {reps} "
+                               f"calls")
+    return sum(e.device_time for e in events) / 1e3 / reps
+
+
 def device_profile(run, steps):
     """(wall ms/step, device busy ms/step, device ops a step, the four
     kernels of most device time as (ms/step, calls a step, name)) of
@@ -750,8 +805,8 @@ def check_kernels(stam, kernels, dev):
     u78, v78, w78 = (field(N_STEP_EDGE, b, -1.0, 1.0) for b in (1, 2, 3))
     d78, t78 = (field(N_STEP_EDGE, 0, 0.0, 1.0) for _ in range(2))
 
-    def field2d(b, lo, hi):
-        a = rng.uniform(lo, hi, (N_2D + 2,) * 2).astype(np.float32)
+    def field2d(b, lo, hi, n=N_2D):
+        a = rng.uniform(lo, hi, (n + 2,) * 2).astype(np.float32)
         return stam.set_bnd2d(b, torch.from_numpy(a).to(dev))
 
     c1 = grid2d_config(stam, "config 1")
@@ -761,6 +816,11 @@ def check_kernels(stam, kernels, dev):
     u2, v2 = (field2d(b, -1.2 / (c1.dt * N_2D), 1.2 / (c1.dt * N_2D))
               for b in (1, 2))
     d2, t2, p2 = (field2d(0, 0.0, 1.0) for _ in range(3))
+    # the whole 2D step past the one-block design's gate
+    c1_big = grid2d_config(stam, "config 1", N_2D_BIG)
+    u2b, v2b = (field2d(b, -1.2 / (c1.dt * N_2D_BIG),
+                        1.2 / (c1.dt * N_2D_BIG), N_2D_BIG) for b in (1, 2))
+    d2b, t2b = (field2d(0, 0.0, 1.0, N_2D_BIG) for _ in range(2))
     # the bfloat16 solves' pressure right-hand sides: 512^3 (config 3 with
     # the bf16 solver) and 64^3
     p512 = field(N_512, 0, 0.0, 1.0)
@@ -794,7 +854,7 @@ def check_kernels(stam, kernels, dev):
     }
     # checked only: the solves at diffusion coefficients, at b = 1; the
     # whole step of config 2, and of config 4 with plain Jacobi; the 2D
-    # whole step with buoyancy and vorticity
+    # whole step with buoyancy and vorticity, and past 168
     checked_only = {
         "lin_solve3d": [(1, u, u, a2, 1 + 6 * a2, 20)],
         "lin_solve3d_rb": [(1, u, u, a2, 1 + 6 * a2, 20)],
@@ -807,7 +867,8 @@ def check_kernels(stam, kernels, dev):
                           c4.replace(red_black=False)),
                          (u78, v78, w78, d78, t78,
                           grid_config(stam, "config 4", N_STEP_EDGE))],
-        "step2d_whole": [(u2, v2, d2, t2, c1_forced)],
+        "step2d_whole": [(u2, v2, d2, t2, c1_forced),
+                         (u2b, v2b, d2b, t2b, c1_big)],
     }
     results = {}
     for name, arg_sets in calls.items():
@@ -842,9 +903,21 @@ def check_kernels(stam, kernels, dev):
                 sep = stam.step2d_multi(stam.GridState2D(*args[:4]), args[4])
                 same = all(torch.equal(g, getattr(sep, f))
                            for g, f in zip(got, FIELDS2D))
-                log(f"step2d_whole @ {N_2D}^2, forcing "
-                    f"{bool(args[4].vorticity_eps)}: bitwise equal to "
-                    f"stam.step2d_multi: {same}")
+                n2 = args[0].shape[0] - 2
+                blocks, _, smem = kernels.step2d_info(
+                    torch.cuda.current_device())
+                plan = kernels.step2d_plan(n2, args[4], blocks, smem)
+                pairs = (kernels.step2d_fields(args[4])
+                         * plan.diffuse.count(n2))
+                log(f"step2d_whole @ {n2}^2, forcing "
+                    f"{bool(args[4].vorticity_eps)}: {pairs} diffusing "
+                    f"(field, tile) pairs and {plan.project.count(n2)} "
+                    f"pressure tiles on {blocks} blocks; bitwise equal to "
+                    f"the plain step and stam.step2d_multi: "
+                    f"{same and e == 0.0}")
+                if n2 == N_2D_BIG:
+                    check(pairs > blocks, f"step2d_whole @ {n2}^2: the "
+                          f"diffusion's pairs are no more than the blocks")
                 check(same, "step2d_whole differs from stam.step2d_multi")
         tol = KERNELS[name][2]
         # per call, averaged over the call shapes of the step
@@ -920,6 +993,43 @@ def check_whole_solve(kernels, args, got):
 
 # kernel #7's time at config 4, 64^3, before its redesign (PERF.md row 7)
 STEP_WHOLE_BEFORE_MS = 0.548
+# kernel #9's time at config 1, 128^2, before its redesign (PERF.md row 9)
+STEP2D_WHOLE_BEFORE_MS = 0.584
+
+
+def ptxas_entry(build_log, key):
+    """{"registers", "stack_spill": [stack frame, spill stores, spill
+    loads] in bytes} from nvcc's -Xptxas -v lines of the one kernel entry
+    whose mangled name holds ``key``."""
+    entry, info = None, {}
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            entry = entry if key in entry else None
+        elif entry and "stack frame" in line:
+            info["stack_spill"] = [int(w) for w in line.replace(
+                ",", " ").split() if w.isdigit()]
+        elif entry and "registers" in line:
+            info["registers"] = int(line.split("Used ")[1].split()[0])
+    check(set(info) == {"stack_spill", "registers"},
+          f"ptxas lines of {key}: {info}")
+    return info
+
+
+def barrier_us(grid, threads):
+    """us a barrier of empty grid-wide barriers in one cooperative launch
+    of ``grid`` blocks of ``threads``: a launch of 1000 less one of 0,
+    over 1000."""
+    from tpufluids_torch import _build
+    lib = _build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(count):
+        rc = lib.tf_barrier_probe(grid, threads, count, stream)
+        check(rc == 0, f"barrier probe {grid} x {threads}: "
+                       f"{lib.tf_error_string(rc).decode()}")
+
+    return time_ms(lambda: run(1000)) - time_ms(lambda: run(0))
 
 
 def check_step_whole(stam, kernels, dev, build_log, checked):
@@ -932,19 +1042,7 @@ def check_step_whole(stam, kernels, dev, build_log, checked):
     step x the cost of one) beside its bound, added to its row of the
     kernels line; and stam.step3d_multi's device-busy time at config 4,
     64^3, the separate kernels, as a yardstick beside it."""
-    from tpufluids_torch import _build
-    entry, info = None, {}
-    for line in build_log.splitlines():
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1]
-            entry = entry if "step_whole_kernel" in entry else None
-        elif entry and "stack frame" in line:
-            info["stack_spill"] = [int(w) for w in line.replace(
-                ",", " ").split() if w.isdigit()]
-        elif entry and "registers" in line:
-            info["registers"] = int(line.split("Used ")[1].split()[0])
-    check(set(info) == {"stack_spill", "registers"},
-          f"ptxas lines of step_whole_kernel: {info}")
+    info = ptxas_entry(build_log, "step_whole_kernel")
     blocks, threads, smem = kernels.step_info(torch.cuda.current_device())
     log(f"step_whole_kernel: {info['registers']} registers, stack frame, "
         f"spill stores, spill loads {info['stack_spill']} B; {blocks} "
@@ -952,19 +1050,6 @@ def check_step_whole(stam, kernels, dev, build_log, checked):
         f"of shared memory a block; no thread block clusters")
     check(not any(info["stack_spill"]),
           f"step_whole_kernel: stack frame or spill {info['stack_spill']}")
-    lib = _build.load()
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def barrier_us(grid, threads):
-        """us a barrier of empty grid-wide barriers in one cooperative
-        launch: a launch of 1000 less one of 0, over 1000."""
-        def run(count):
-            rc = lib.tf_barrier_probe(grid, threads, count, stream)
-            check(rc == 0, f"barrier probe {grid} x {threads}: "
-                           f"{lib.tf_error_string(rc).decode()}")
-
-        return time_ms(lambda: run(1000)) - time_ms(lambda: run(0))
-
     per_ms = barrier_us(blocks, threads) / 1e3
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     # the grid of the design this replaces: 528 blocks of 256 threads, 4 a
@@ -1015,6 +1100,72 @@ def check_step_whole(stam, kernels, dev, build_log, checked):
         f"device busy {busy:.4f} ms a step in {ops:.1f} device ops "
         f"({wall:.4f} ms a step on the host clock under torch.profiler), "
         f"against step3d_whole's {row['ms']:.4f} ms")
+
+
+def check_step2d_whole(stam, kernels, dev, build_log, checked):
+    """The whole 2D step's kernel (csrc/step2d.cu): ptxas's registers,
+    stack frame and spills (a stack frame or a spill fails); its blocks x
+    threads; its plan and grid-wide barriers a step for config 1 and the
+    forcing case; its barrier floor (barriers a step x an empty grid-wide
+    barrier on its own grid) beside its bound, added to its row of the
+    kernels line with its device time alone; that time at config 1
+    without diffusion and at 1 and 10 iterations."""
+    info = ptxas_entry(build_log, "step2d_whole_kernel")
+    blocks, threads, smem = kernels.step2d_info(torch.cuda.current_device())
+    log(f"step2d_whole_kernel: {info['registers']} registers, stack frame, "
+        f"spill stores, spill loads {info['stack_spill']} B; {blocks} blocks "
+        f"x {threads} threads, up to {smem} B of shared memory a block")
+    check(not any(info["stack_spill"]),
+          f"step2d_whole_kernel: stack frame or spill {info['stack_spill']}")
+    check(blocks > 1, f"step2d_whole runs on {blocks} block")
+    per_ms = barrier_us(blocks, threads) / 1e3
+    c1 = grid2d_config(stam, "config 1")
+    forced = c1.replace(buoyancy_alpha=0.04, buoyancy_beta=0.9,
+                        vorticity_eps=1.5)
+    counts = {}
+    for label, cfg in (("config 1", c1), ("forcing", forced)):
+        plan = kernels.step2d_plan(N_2D, cfg, blocks, smem)
+        counts[label] = kernels.step2d_barriers(cfg, plan)
+        p, d = plan.project, plan.diffuse
+        log(f"step2d_whole @ {N_2D}^2, {label}: {counts[label]} grid-wide "
+            f"barriers a step (before the redesign about 105 block "
+            f"barriers); passes of F = {plan.levels} sweeps, the pressure's "
+            f"on {p.count(N_2D)} tiles of {p.tx}x{p.ty} (halo {p.halo}), the "
+            f"diffusions' on {d.count(N_2D)} tiles of {d.tx}x{d.ty} (halo "
+            f"{d.halo}) for {kernels.step2d_fields(cfg)} fields; "
+            f"{plan.smem} B of shared memory a block; barrier floor "
+            f"{counts[label] * per_ms:.4f} ms ({per_ms * 1e3:.4f} us an "
+            f"empty barrier on {blocks} x {threads})")
+    rng = np.random.default_rng(SEED + 11)
+    u, v = (stam.set_bnd2d(b, torch.from_numpy(rng.uniform(
+        -1.2 / (c1.dt * N_2D), 1.2 / (c1.dt * N_2D),
+        (N_2D + 2,) * 2).astype(np.float32)).to(dev)) for b in (1, 2))
+    d, t = (stam.set_bnd2d(0, torch.from_numpy(rng.uniform(
+        0.0, 1.0, (N_2D + 2,) * 2).astype(np.float32)).to(dev))
+        for _ in range(2))
+    for label, cfg in (("no diffusion", c1.replace(visc=0.0, diff=0.0)),
+                       ("1 iteration", c1.replace(jacobi_iters=1)),
+                       ("10 iterations", c1.replace(jacobi_iters=10))):
+        plan = kernels.step2d_plan(N_2D, cfg, blocks, smem)
+        ms = kernel_alone_ms(lambda: kernels.step2d_whole(u, v, d, t, cfg),
+                             ("step2d_whole_kernel",))
+        log(f"  step2d_whole @ {N_2D}^2, config 1, {label}: the kernel "
+            f"alone {ms:.4f} device-ms, "
+            f"{kernels.step2d_barriers(cfg, plan)} barriers, passes "
+            f"(diffusion, each projection) "
+            f"{kernels.step2d_passes(cfg, plan)}")
+    row = checked["step2d_whole"]
+    row["barriers"] = counts["config 1"]
+    row["barrier_floor_ms"] = counts["config 1"] * per_ms
+    row["kernel_ms"] = kernel_alone_ms(
+        lambda: kernels.step2d_whole(u, v, d, t, c1), ("step2d_whole_kernel",))
+    log(f"step2d_whole @ {N_2D}^2, config 1: {row['ms']:.4f} ms a wrapper "
+        f"call, the kernel alone {row['kernel_ms']:.4f} device-ms (before "
+        f"the redesign {STEP2D_WHOLE_BEFORE_MS} ms), bound "
+        f"{row['bound_ms']:.5f} "
+        f"ms ({row['bound_by']}), barrier floor "
+        f"{row['barrier_floor_ms']:.4f} ms ({row['barriers']} barriers x "
+        f"{per_ms * 1e3:.4f} us)")
 
 
 def check_small_against_cpu(stam, dev):
@@ -1433,10 +1584,12 @@ def check_sph_kernel(sph, dev):
         plain_ms = time_ms(lambda: plain(st, bt, sph.cfg, order))
         pack_ms = time_ms(lambda: sph.forces.pack_rows(st, order,
                                                        bt.in_dom))
+        kernel_ms = kernel_alone_ms(lambda: kern(st, bt, sph.cfg, order))
         log(f"kernel base_forces_rowblock @ {name} ({st.capacity} "
             f"particles): max_abs_err {e:.3e} (relative {r:.3e}, tolerance "
             f"{tol:.0e}); ms per call: kernel {ms:.4f} (of which the row "
-            f"pack {pack_ms:.4f}), plain {plain_ms:.4f}")
+            f"pack {pack_ms:.4f}; the force kernel alone {kernel_ms:.4f} "
+            f"device-ms), plain {plain_ms:.4f}")
         check(r <= tol, f"base_forces_rowblock disagrees with its plain "
                         f"version at {name} ({r:.3e} > {tol:.0e})")
         worst = max(worst, e)
@@ -1446,7 +1599,8 @@ def check_sph_kernel(sph, dev):
         log(f"  {pairs} pairs within 2h: bound {bound_ms:.4f} ms "
             f"({bound_by})")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "kernel_ms": kernel_ms}
 
 
 def state_by_pid(sph, st):
@@ -1594,12 +1748,14 @@ def check_unidyn_kernels(sph, dev):
             partners = int((got["merge_partner"] >= 0).sum())
             ms = time_ms(lambda: call(kern))
             plain_ms = time_ms(lambda: call(plain))
+            kernel_ms = kernel_alone_ms(lambda: call(kern))
             log(f"kernel {name} @ {scene} ({st.capacity} particles, mixed "
                 f"phases, merge_dist {merge}): max_abs_err {err:.3e} "
                 f"(worst column relative {worst:.3e}, tolerance {tol:.0e}); "
                 f"pair counts and merge partners equal: {same} "
-                f"({partners} partners); ms per call: kernel {ms:.4f}, "
-                f"plain {plain_ms:.4f}")
+                f"({partners} partners); ms per call: kernel {ms:.4f} (the "
+                f"two force kernels alone {kernel_ms:.4f} device-ms), plain "
+                f"{plain_ms:.4f}")
             check(worst <= tol, f"{name} disagrees with its plain version "
                                 f"at {scene} ({worst:.3e} > {tol:.0e})")
             check(same, f"{name}: pair counts or merge partners differ")
@@ -1613,7 +1769,8 @@ def check_unidyn_kernels(sph, dev):
                     f"({bound_by})")
                 results[name] = {"max_abs_err": err, "ms": ms,
                                  "plain_ms": plain_ms, "bound_ms": bound_ms,
-                                 "bound_by": bound_by, "library_ms": None}
+                                 "bound_by": bound_by, "library_ms": None,
+                                 "kernel_ms": kernel_ms}
             else:
                 results[name]["max_abs_err"] = max(
                     results[name]["max_abs_err"], err)
@@ -1812,6 +1969,7 @@ def check_base_column(sph, dev, build_log):
             ovf, ovf_plain = int(got[2]), int(want[2])
             ms = time_ms(lambda: call(col))
             plain_ms = time_ms(lambda: call(col_plain), *PLAIN_REPS)
+            kernel_ms = kernel_alone_ms(lambda: call(col))
             pairs = pair_count(sph, pool, bt, cfg, caps=(b, w_cap),
                                stale=stale)
             bound_ms, bound_by = bound(*sph_work(pool, bt, bt.order, BASE_IN,
@@ -1823,7 +1981,8 @@ def check_base_column(sph, dev, build_log):
                 f"{cfg.pallas_col_cap}: b {b}, w_cap {w_cap}): max_abs_err "
                 f"{e:.3e} (relative {r:.3e}, tolerance {tol:.0e}); overflow "
                 f"{ovf} (plain {ovf_plain}), {capped.numel()} rows over the "
-                f"cap, zero: {zeros}; ms per call: kernel {ms:.4f}, plain "
+                f"cap, zero: {zeros}; ms per call: kernel {ms:.4f} (the "
+                f"force kernel alone {kernel_ms:.4f} device-ms), plain "
                 f"{plain_ms:.4f}; {pairs} pairs: bound {bound_ms:.4f} ms "
                 f"({bound_by})")
             check(r <= tol, f"base_forces_column ({mode}) disagrees with its "
@@ -1837,7 +1996,7 @@ def check_base_column(sph, dev, build_log):
             if scene == "fill-524k" and not stale:
                 entry = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by,
-                         "library_ms": None}
+                         "library_ms": None, "kernel_ms": kernel_ms}
     entry["max_abs_err"] = worst
 
     row = sph.sph_kernels.base_forces_rowblock
@@ -1910,13 +2069,15 @@ def check_unidyn_column(sph, dev, build_log):
         ovf = int(got["overflow"])
         ms = time_ms(lambda: call(kern))
         plain_ms = time_ms(lambda: call(plain), *PLAIN_REPS)
+        kernel_ms = kernel_alone_ms(lambda: call(kern))
         log(f"kernel unidyn_forces_column @ {scene} ({st.capacity} "
             f"particles, mixed phases, cap {cap}, merge_dist {merge}): "
             f"max_abs_err {err:.3e} (worst column relative {worst:.3e}, "
             f"tolerance {tol:.0e}); pair counts and merge partners equal: "
             f"{same}; overflow {ovf} (plain {int(want['overflow'])}), "
             f"{capped.numel()} rows over the cap, zero: {zeros}; ms per "
-            f"call: kernel {ms:.4f}, plain {plain_ms:.4f}")
+            f"call: kernel {ms:.4f} (the two force kernels alone "
+            f"{kernel_ms:.4f} device-ms), plain {plain_ms:.4f}")
         check(worst <= tol and same, f"unidyn_forces_column disagrees with "
                                      f"its plain version at {scene}")
         check(ovf == int(want["overflow"]) and zeros and (ovf > 0) == (
@@ -1932,7 +2093,7 @@ def check_unidyn_column(sph, dev, build_log):
                 f"({bound_by})")
             entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": None}
+                     "library_ms": None, "kernel_ms": kernel_ms}
         else:
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
     return entry
@@ -2376,6 +2537,7 @@ def main():
 
     checked = check_kernels(stam, kernels, dev)
     check_step_whole(stam, kernels, dev, build.log, checked)
+    check_step2d_whole(stam, kernels, dev, build.log, checked)
     check_blocked(stam, kernels, dev, build.log)
     check_small_against_cpu(stam, dev)
     counts, ms = {}, {}

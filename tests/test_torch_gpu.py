@@ -575,7 +575,7 @@ def test_lin_solve2d_kernel_is_bitwise_plain(cuda, n):
                 assert torch.equal(got, want), (b, coeffs, iters)
                 calls += 1
     assert kernels.lin_solve2d.launches == before + calls
-    assert kernels.step2d_whole_ok(x0) == (n < 169)
+    assert kernels.solve2d_smem_ok(x0) == (n < 169)
 
 
 def _config1(n, **kw):
@@ -593,11 +593,22 @@ FORCING = dict(buoyancy_alpha=0.04, buoyancy_beta=0.9, vorticity_eps=1.5,
     {}, FORCING, dict(FORCING, visc=0.0, diff=0.0),
     dict(buoyancy_beta=0.9, diff=0.0), dict(vorticity_eps=1.5)],
     ids=["config1", "forcing", "no_diffusion", "buoyancy", "vorticity"])
-@pytest.mark.parametrize("n", [13, 14, 128])
+@pytest.mark.parametrize("n", [13, 14, 63, 127, 128, 168, 250, 800, 1119])
 def test_step2d_whole_is_bitwise_plain_and_multi(cuda, n, case):
-    """One whole-step launch against its plain version and against the
-    multi-call step through the solve kernel, on a moving state."""
+    """One whole-step launch, a cooperative launch of more than one block,
+    against its plain version and against the multi-call step through the
+    solve kernel, on a moving state; n below, at and past the tiles'
+    sizes, past the one-block design's gate (168), and up to the gate's
+    edge (1119), where three or four diffusing fields have more (field,
+    tile) pairs than the card has blocks (each block reloading x0 with
+    each pair)."""
     cfg = _config1(n, **case)
+    blocks, _, smem = kernels.step2d_info(torch.cuda.current_device())
+    assert blocks > 1
+    plan = kernels.step2d_plan(n, cfg, blocks, smem)
+    fields = kernels.step2d_fields(cfg)
+    if n >= 800 and fields >= 3:
+        assert fields * plan.diffuse.count(n) > blocks
     u, v = _fields2d(cuda, n, 21, (1, 2), -1.0 / (cfg.dt * n),
                      1.0 / (cfg.dt * n))
     d, t = _fields2d(cuda, n, 22, (0, 0), 0.0, 1.0)
@@ -610,6 +621,55 @@ def test_step2d_whole_is_bitwise_plain_and_multi(cuda, n, case):
         assert torch.equal(g, w), f
         assert torch.equal(g, getattr(multi, f)), f
     assert float(got[0].abs().max()) > 0.0
+
+
+def _raw_step2d_is_bitwise_plain(cuda, n, case):
+    """A state whose ghosts set_bnd2d would change (as once sources are
+    added there), at diffusion coefficients scaled up so that the first
+    sweep's stored taps and the halos show: the whole step bit for bit
+    against the plain step."""
+    cfg = _config1(n, **case)
+    cfg = cfg.replace(visc=3000 * cfg.visc, diff=3000 * cfg.diff,
+                      temp_diff=3000 * cfg.temp_diff)
+    u, v = _fields2d(cuda, n, 23, (1, 2), -1.0 / (cfg.dt * n),
+                     1.0 / (cfg.dt * n), raw=True)
+    d, t = _fields2d(cuda, n, 24, (0, 0), 0.0, 1.0, raw=True)
+    before = kernels.step2d_whole.launches
+    got = kernels.step2d_whole(u, v, d, t, cfg)
+    assert kernels.step2d_whole.launches == before + 1
+    want = kernels.step2d_whole_plain(u, v, d, t, cfg)
+    for g, w, f in zip(got, want, ("u", "v", "dens", "temp")):
+        assert torch.equal(g, w), f
+
+
+@pytest.mark.parametrize("case", [{}, FORCING], ids=["config1", "forcing"])
+@pytest.mark.parametrize("n", [13, 128, 250, 1119])
+def test_step2d_whole_takes_raw_ghosts(cuda, n, case):
+    """Raw ghosts and strong diffusion (_raw_step2d_is_bitwise_plain); at
+    1119^2 the diffusion has more (field, tile) pairs than blocks."""
+    _raw_step2d_is_bitwise_plain(cuda, n, case)
+
+
+@pytest.mark.parametrize("case", [{}, FORCING], ids=["config1", "forcing"])
+@pytest.mark.parametrize("blocks,smem", [(5, 12000), (7, 19200),
+                                         (33, 40000)])
+def test_step2d_whole_on_fewer_blocks(cuda, monkeypatch, blocks, smem, case):
+    """The whole step at 128^2 on fewer blocks with less shared memory
+    than the card offers (step2d_info replaced), so that a block takes
+    several pressure tiles (recomputing x0 each pass) and several (field,
+    tile) pairs (reloading x0 with each), a branch the card's own shape
+    reaches for the diffusion only past about 780^2 and for the pressure
+    at no size the gate admits; (33, 40000) keeps the pressure's tiles
+    resident and not the diffusion's."""
+    _, threads, _ = kernels.step2d_info(torch.cuda.current_device())
+    monkeypatch.setattr(kernels, "step2d_info",
+                        lambda _: (blocks, threads, smem))
+    cfg = _config1(128, **case)
+    plan = kernels.step2d_plan(128, cfg, blocks, smem)
+    assert plan.smem <= smem
+    assert (plan.project.count(128) > blocks) == (blocks < 33)
+    assert kernels.step2d_fields(cfg) * plan.diffuse.count(128) > blocks
+    _raw_step2d_is_bitwise_plain(cuda, 128, case)
 
 
 def _sources2d(n, dev):

@@ -53,7 +53,7 @@ SIGNATURES = {
     "tf_step3d_whole": [_P] * 11 + [_INT] * 18 + [_F] * 15 + [_P],
     "tf_barrier_probe": [_INT] * 3 + [_P],
     "tf_lin_solve2d": [_P] * 4 + [_INT] * 3 + [_F] * 2 + [_P],
-    "tf_step2d_whole": [_P] * 9 + [_INT] * 7 + [_F] * 15 + [_P],
+    "tf_step2d_whole": [_P] * 9 + [_INT] * 14 + [_F] * 15 + [_P],
     "tf_sph_base_forces": [_P] * 6 + [_INT] * 3 + [_F] * 13 + [_P],
     "tf_sph_base_column": [_P] * 6 + [_INT] * 5 + [_F] * 13 + [_P],
     "tf_unidyn_pass_a": [_P] * 10 + [_INT] * 3 + [_F] * 19 + [_P],
@@ -150,6 +150,8 @@ def load() -> ctypes.CDLL:
     lib.tf_jacobi_blocked_info.restype = ctypes.c_int
     lib.tf_step3d_whole_info.argtypes = [ctypes.POINTER(_INT)] * 3
     lib.tf_step3d_whole_info.restype = ctypes.c_int
+    lib.tf_step2d_whole_info.argtypes = [ctypes.POINTER(_INT)] * 3
+    lib.tf_step2d_whole_info.restype = ctypes.c_int
     lib.tf_error_string.argtypes = [ctypes.c_int]
     lib.tf_error_string.restype = ctypes.c_char_p
     return lib

@@ -35,10 +35,12 @@ are written as 0), with h = 1 / n of the global grid.  The sharded
 red-black solve (``lin_solve3d_rb_shard``) runs its blocked passes on
 such a slab padded with a deep halo.
 
-A 2D field is small (130^2 float32 is 68 KB), so the 2D kernels
-(csrc/grid2d.cu) run one thread block that does every sweep, with a
-block barrier between sweeps: the 2D solve, and the whole 2D step, whose
-solves keep their two buffers in the block's shared memory.
+A 2D field is small (130^2 float32 is 68 KB).  The 2D solve
+(csrc/grid2d.cu) runs one thread block that does every sweep, with a
+block barrier between sweeps, its two buffers in the block's shared
+memory; the whole 2D step (csrc/step2d.cu) is one cooperative launch of
+a persistent block a multiprocessor, its solves and diffusions blocked
+in shared memory as the whole 3D step's are.
 """
 
 from __future__ import annotations
@@ -1184,17 +1186,25 @@ step3d_whole.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# the 2D kernels: one thread block each
+# the 2D kernels
 
 # shared memory one block may use on the H100 (227 KB, opt-in above 48 KB)
 BLOCK_SMEM_BYTES = 232448
 
 
 def step2d_whole_ok(x: torch.Tensor) -> bool:
+    """True for 2D fields shaped like ``x`` that the whole 2D step takes:
+    the reference's gate (step2d_whole_ok in
+    tpufluids/grid/pallas_kernels.py), nx ny 4 B x 20 <= 96 MiB, up to
+    1121^2 cells (n = 1119)."""
+    nx, ny = x.shape
+    return nx * ny * 4 * 20 <= 96 * 1024 * 1024
+
+
+def solve2d_smem_ok(x: torch.Tensor) -> bool:
     """True when the two Jacobi buffers of a 2D solve on fields shaped
     like ``x`` fit one block's shared memory (up to 170^2 cells, ghosts
-    included).  Such fields take the whole 2D step; lin_solve2d keeps its
-    buffers there, or else in device memory."""
+    included): lin_solve2d keeps them there, or else in device memory."""
     return 2 * x.numel() * x.element_size() <= BLOCK_SMEM_BYTES
 
 
@@ -1211,14 +1221,14 @@ def lin_solve2d(b, x, x0, a, c, iters):
     by latency: a sweep is a few microseconds of work, and the sweeps are
     serial.  One block of 1024 threads runs every sweep with a block
     barrier between sweeps, its two buffers in shared memory, or in
-    device memory past ``step2d_whole_ok`` (csrc/grid2d.cu)."""
+    device memory past ``solve2d_smem_ok`` (csrc/grid2d.cu)."""
     if b not in (0, 1, 2):
         raise ValueError(f"set_bnd2d mode must be 0..2, got {b}")
     _check_solve(b, iters)
     if not (_on_cuda(x0, ndim=2) if x is None else _on_cuda(x, x0, ndim=2)):
         return lin_solve2d_plain(b, x, x0, a, c, iters)
     out = torch.empty_like(x0)
-    tmp = None if step2d_whole_ok(x0) else torch.empty_like(x0)
+    tmp = None if solve2d_smem_ok(x0) else torch.empty_like(x0)
     _build.launch("tf_lin_solve2d", x, x0, out, tmp, b, x0.shape[0] - 2,
                   iters, a, 1.0 / c)
     lin_solve2d.launches += 1
@@ -1227,8 +1237,137 @@ def lin_solve2d(b, x, x0, a, c, iters):
 
 lin_solve2d.launches = 0
 
-# scratch fields of the whole 2D step: two velocity pairs, |curl| and div
-STEP2D_SCRATCH = 6
+# scratch fields of the whole 2D step: two velocity pairs, the diffused
+# dens and temp, and the pressure between passes (csrc/step2d.cu)
+STEP2D_SCRATCH = 8
+# persistent blocks of the whole 2D step (at most the card's resident
+# blocks: one a multiprocessor on the H100) and Jacobi sweeps a pass of
+# its blocked phases (two passes a solve of 20), chosen by probes on the
+# card (PERF.md); its threads a block are kStepThreads (256) in
+# csrc/step2d.cu
+STEP2D_BLOCKS = 132
+STEP2D_LEVELS = 10
+
+
+@dataclasses.dataclass(frozen=True)
+class Step2dTile:
+    """The tiles of a blocked phase of the whole 2D step: tx x ty interior
+    cells (the last of a row clipped at n), tiles in C order, each held in
+    a box widened by ``halo`` cells and clipped to the (n+2)^2 array."""
+    tx: int
+    ty: int
+    halo: int
+
+    def counts(self, n: int):
+        return (-(-n // self.tx), -(-n // self.ty))
+
+    def count(self, n: int) -> int:
+        cx, cy = self.counts(n)
+        return cx * cy
+
+    def box_cells(self, n: int) -> int:
+        """The cells of the largest box in shared memory."""
+        return (min(self.tx + 2 * self.halo, n + 2)
+                * min(self.ty + 2 * self.halo, n + 2))
+
+    def tile(self, n: int, t: int):
+        """Tile t: its first and last interior cell on each axis, as
+        ((x0, x1), (y0, y1))."""
+        _, cy = self.counts(n)
+        return tuple((1 + i * e, min(i * e + e, n))
+                     for i, e in zip((t // cy, t % cy), (self.tx, self.ty)))
+
+
+@dataclasses.dataclass(frozen=True)
+class Step2dPlan:
+    """How the whole 2D step runs at one size and configuration:
+    ``blocks`` persistent blocks, ``smem`` bytes of shared memory each;
+    passes of ``levels`` Jacobi sweeps, the pressure's on ``project``'s
+    tiles (halo levels + 1), the diffusions' on ``diffuse``'s (halo
+    levels), the blocks taking the tiles, or (field, tile) pairs, in
+    turn."""
+    blocks: int
+    smem: int
+    levels: int
+    project: Step2dTile
+    diffuse: Step2dTile
+
+
+def step2d_fields(cfg: stam.StamConfig) -> int:
+    """The fields the whole 2D step diffuses: u, v (visc), dens, temp."""
+    return 2 * bool(cfg.visc) + bool(cfg.diff) + bool(cfg.temp_diff)
+
+
+@functools.cache
+def _step2d_tile(n, blocks, halo, fields, smem):
+    """The tile of a blocked 2D phase with ``fields`` fields and three
+    float32 boxes a block in ``smem`` bytes: the least rounds x box cells,
+    rounds = ceil(fields x tiles / blocks), on ties the longest y rows."""
+    sizes = sorted({-(-n // c) for c in range(1, n + 1)})
+    best = None
+    for tx in sizes:
+        for ty in sizes:
+            t = Step2dTile(tx, ty, halo)
+            if 4 * 3 * t.box_cells(n) > smem:
+                continue
+            rounds = -(-fields * t.count(n) // blocks)
+            key = (rounds * t.box_cells(n), -ty)
+            if best is None or key < best[0]:
+                best = (key, t)
+    if best is None:
+        raise ValueError(f"no tile of the whole 2D step fits three boxes of "
+                         f"halo {halo} at n = {n} in {smem} B")
+    return best[1]
+
+
+def step2d_plan(n: int, cfg: stam.StamConfig, blocks: int,
+                smem: int) -> Step2dPlan:
+    """The whole 2D step's plan at size n on ``blocks`` blocks of at most
+    ``smem`` bytes of shared memory, F = STEP2D_LEVELS sweeps a pass."""
+    return _step2d_plan(n, step2d_fields(cfg), blocks, smem)
+
+
+@functools.cache
+def _step2d_plan(n, fields, blocks, smem):
+    project = _step2d_tile(n, blocks, STEP2D_LEVELS + 1, 1, smem)
+    diffuse = _step2d_tile(n, blocks, STEP2D_LEVELS, max(fields, 1), smem)
+    need = max(project.box_cells(n), diffuse.box_cells(n) if fields else 0)
+    return Step2dPlan(blocks, 4 * 3 * need, STEP2D_LEVELS, project, diffuse)
+
+
+def step2d_passes(cfg: stam.StamConfig, plan: Step2dPlan):
+    """(diffusion passes, passes of each projection) of a whole 2D step."""
+    passes = -(-cfg.jacobi_iters // plan.levels)
+    return (passes if step2d_fields(cfg) else 0), passes
+
+
+def step2d_barriers(cfg: stam.StamConfig, plan: Step2dPlan) -> int:
+    """The grid-wide barriers of one whole 2D step: one after buoyancy,
+    two in vorticity confinement (|curl|, the force), one a diffusion
+    pass, one a pressure pass of each projection, one after the
+    self-advection."""
+    buoy = bool(cfg.buoyancy_alpha or cfg.buoyancy_beta)
+    vort = bool(cfg.vorticity_eps)
+    diffuse, project = step2d_passes(cfg, plan)
+    return buoy + 2 * vort + diffuse + 2 * project + 1
+
+
+@functools.cache
+def step2d_info(device_index: int):
+    """(persistent blocks, threads a block, shared memory bytes a block
+    may take) of the whole 2D step on CUDA device ``device_index``: at
+    most STEP2D_BLOCKS blocks, and no more than the card keeps resident;
+    it also sets the kernel's shared-memory attribute to that size, once
+    a device, so step2d_whole's launches need no setting of their own."""
+    lib = _build.load()
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(device_index):
+        rc = lib.tf_step2d_whole_info(*map(ctypes.byref, vals))
+    if rc:
+        raise RuntimeError(f"tf_step2d_whole_info: CUDA error {rc} "
+                           f"({lib.tf_error_string(rc).decode()})")
+    resident, threads, smem = (v.value for v in vals)
+    return min(STEP2D_BLOCKS, resident), threads, smem
 
 
 def step2d_whole_plain(u, v, dens, temp, cfg: stam.StamConfig):
@@ -1244,12 +1383,13 @@ def step2d_whole(u, v, dens, temp, cfg: stam.StamConfig):
     diffusion and advection; as stam.step2d_multi, returning (u, v, dens,
     temp).
 
-    Replaces step2d_whole_pallas (tpufluids/grid/pallas_kernels.py).  One
-    block of 1024 threads runs every phase in the reference's order, a
-    block barrier between phases and sweeps; the solves' two buffers live
-    in shared memory, every other field in device memory (L2-resident at
-    128^2).  Only for fields that pass ``step2d_whole_ok``
-    (csrc/grid2d.cu)."""
+    Replaces step2d_whole_pallas (tpufluids/grid/pallas_kernels.py).
+    Bound by its grid-wide barriers and the latency of each phase.  One
+    cooperative launch of STEP2D_BLOCKS persistent blocks runs every
+    phase; the pressure solves and the four diffusions run blocked in
+    shared memory, F = STEP2D_LEVELS sweeps and one grid barrier a pass
+    (step2d_plan, step2d_barriers; csrc/step2d.cu); only for fields that
+    pass ``step2d_whole_ok``."""
     _check_step(cfg)
     if not _on_cuda(u, v, dens, temp, ndim=2):
         return step2d_whole_plain(u, v, dens, temp, cfg)
@@ -1258,6 +1398,8 @@ def step2d_whole(u, v, dens, temp, cfg: stam.StamConfig):
                          f"step (step2d_whole_ok)")
     n = u.shape[0] - 2
     h = 1.0 / n
+    blocks, _, smem = step2d_info(_device_index(u))
+    plan = step2d_plan(n, cfg, blocks, smem)
     outs = tuple(torch.empty_like(u) for _ in range(4))
     scratch = torch.empty((STEP2D_SCRATCH, *u.shape), dtype=u.dtype,
                           device=u.device)
@@ -1266,6 +1408,7 @@ def step2d_whole(u, v, dens, temp, cfg: stam.StamConfig):
         a, c = stam._diffusion_ac(cfg, coeff, n, 2)
         return a, 1.0 / c
 
+    p, d = plan.project, plan.diffuse
     # the constants of the plain version's stages, computed as they do;
     # its tensor / h runs on the card as tensor * fl(1 / h), the
     # reciprocal taken in double
@@ -1273,7 +1416,8 @@ def step2d_whole(u, v, dens, temp, cfg: stam.StamConfig):
                   cfg.jacobi_iters,
                   bool(cfg.buoyancy_alpha or cfg.buoyancy_beta),
                   bool(cfg.vorticity_eps), bool(cfg.visc), bool(cfg.diff),
-                  bool(cfg.temp_diff), cfg.dt, cfg.buoyancy_alpha,
+                  bool(cfg.temp_diff), plan.blocks, plan.smem, plan.levels,
+                  p.tx, p.ty, d.tx, d.ty, cfg.dt, cfg.buoyancy_alpha,
                   cfg.buoyancy_beta, cfg.ambient_temp, 1.0 / h,
                   cfg.vorticity_eps * h, -cfg.vorticity_eps * h, -0.5 * h,
                   cfg.dt * n, *ac(cfg.visc), *ac(cfg.diff),
