@@ -96,12 +96,18 @@
    with no host sync allowed in the timed steps.  Checks finiteness,
    the alive count, the mass, the bin overflow, that the dam column
    falls, and one kernel launch per step.
-8. Holds the unidyn force kernels (unidyn_forces_resident and
-   unidyn_forces_rowblock, csrc/sph_unidyn.cu) against their plain
-   versions on mixed-phase inputs: the reference's 14040-particle tank
-   and a 46656-particle uniform fill at the tank's lattice density,
-   with merging on at the fill.  Every output column must be nonzero.
-   Times both with CUDA events.
+8. The unidyn force kernels (csrc/sph_unidyn.cu): ptxas's registers,
+   stack frame and spills of pass A and pass B, uncapped and capped (a
+   stack frame or a spill fails), and their launch shape (lanes a home
+   row, blocks x threads, resident blocks).  Holds the wrappers
+   (unidyn_forces_resident and unidyn_forces_rowblock) against their
+   plain versions on mixed-phase inputs: the reference's
+   14040-particle tank and a 46656-particle uniform fill at the tank's
+   lattice density, with merging on at the fill.  Every output column
+   must be nonzero.  Holds them against forces.unidyn_lane_pass, the
+   emulation of their lane schedule, run on the card (1e-6 of max,
+   pair counts and partners exact).  Times both with CUDA events, and
+   pass A and pass B alone.
 9. Runs 10 steps of the tank cut to 2808 particles on the card and on
    the CPU, and 3 steps of a merging mixed-phase blob, and compares
    them by particle id.
@@ -110,13 +116,16 @@
     kernel call per step.  Checks the alive count, the mass, the bin
     overflow, finiteness, that the fluid stays inside the walls and
     falls.  Then 20 steps through the row-block kernel must equal 20
-    resident steps bitwise, and two resident runs each other.
+    resident steps bitwise, and two resident runs each other.  The
+    tank's step gets a torch.profiler window (device busy, ops a step,
+    idle share).
 11. Holds the column force kernels against their plain versions and
     times both: base_forces_column (csrc/sph_forces.cu) fresh and stale
     (xy_cells) at a 524288-particle uniform fill at its suggest_col_cap
     (584) and at base_dam forced to cap 32, over which its columns run;
     unidyn_forces_column (csrc/sph_unidyn.cu) on the mixed tank at cap
-    128, and on the mixed 46656 fill at cap 64.  Holds the row-block
+    128, and on the mixed 46656 fill at cap 64, also against the lane
+    emulation.  Holds the row-block
     kernel's stale mode against its plain version at base_dam and the
     fill.  The overflow counts must be equal and the rows over the cap
     zero.  Then the identities, bit for bit: the column kernel equals
@@ -380,6 +389,20 @@ UNIDYN_KERNELS = {
 UNIDYN_FIELDS = ("sum_w", "dpress", "diffusion", "vel_grad", "stress_accel",
                  "solid_drift", "fluid_drift", "mixture_accel", "delsolid",
                  "delfluid")
+# the unidyn kernels against forces.unidyn_lane_pass, the emulation of their
+# lane schedule, run on the card: the same pairs summed in the same order,
+# so only the per-pair arithmetic of torch and of the kernels rounds apart;
+# 1e-6 * max|emulation| per output column
+UNIDYN_LANE_TOL = 1e-6
+# the four instances of the unidyn passes in ptxas's output (mangled names)
+UNIDYN_ENTRIES = {f"pass {p.upper()}, {'capped' if c else 'uncapped'}":
+                  f"unidyn_pass_{p}_kernelILb{int(c)}E"
+                  for p in "ab" for c in (False, True)}
+# the two force kernels alone on the mixed tank before the lane schedule
+# (PERF.md rows 14, 16 and 17), device-ms
+UNIDYN_BEFORE_MS = {"unidyn_forces_resident": 1.108,
+                    "unidyn_forces_rowblock": 1.106,
+                    "unidyn_forces_column": 1.109}
 # a uniform fill of [-0.9, 0.9]^3 at the tank's lattice density, 8000 per
 # unit volume
 UNIDYN_FILL = 46656
@@ -1710,6 +1733,74 @@ def unidyn_scene(sph, name, device, cfg=None):
     return sph.scenes.mixed_phase(st, SEED + 3)
 
 
+def unidyn_errors(got, want, n, what):
+    """(worst column error over max|want|, max abs error, columns equal
+    bit for bit, columns) over the unidyn output columns; a column of
+    ``want`` that is 0 fails (it would check nothing)."""
+    worst = err = 0.0
+    same = cols = 0
+    for k in UNIDYN_FIELDS:
+        g = got[k].reshape(n, -1)
+        w = want[k].reshape(n, -1)
+        check(g.shape == w.shape, f"{what} {k}: shapes")
+        for c in range(w.shape[1]):
+            scale = float(w[:, c].abs().max())
+            e = float((g[:, c] - w[:, c]).abs().max())
+            check(scale > 0.0, f"{what} {k}[{c}] is 0: no check")
+            worst, err = max(worst, e / scale), max(err, e)
+            same += int(torch.equal(g[:, c], w[:, c]))
+            cols += 1
+    return worst, err, same, cols
+
+
+def check_against_lanes(sph, got, st, bt, cfg, caps, what):
+    """A unidyn wrapper's result ``got`` against forces.unidyn_lane_pass
+    on the same inputs (the kernels' lane schedule emulated in torch):
+    every column within UNIDYN_LANE_TOL of max|emulation|, pair counts
+    and merge partners equal."""
+    lanes = sph.sph_kernels.unidyn_info(torch.cuda.current_device())["lanes"]
+    want = sph.forces.unidyn_lane_pass(st, bt, cfg, lanes,
+                                       cfg.subbin_threshold, caps=caps)
+    worst, err, same, cols = unidyn_errors(got, want, st.capacity, what)
+    exact = (torch.equal(got["has_pair"], want["has_pair"])
+             and torch.equal(got["merge_partner"], want["merge_partner"]))
+    log(f"  {what} against the lane emulation ({lanes} lanes): max_abs_err "
+        f"{err:.3e} (worst column relative {worst:.3e}, tolerance "
+        f"{UNIDYN_LANE_TOL:.0e}), {same} of {cols} columns bit for bit; "
+        f"pair counts and merge partners equal: {exact}")
+    check(worst <= UNIDYN_LANE_TOL and exact,
+          f"{what} disagrees with the lane emulation")
+
+
+def pass_times(call):
+    """(pass A, pass B) device-ms a call of ``call`` alone."""
+    return (kernel_alone_ms(call, names=("unidyn_pass_a_kernel",)),
+            kernel_alone_ms(call, names=("unidyn_pass_b_kernel",)))
+
+
+def check_unidyn_build(sph, build_log):
+    """The unidyn passes' builds (ptxas: registers, stack frame and spills
+    of pass A and pass B, uncapped and capped; a stack frame or a spill
+    fails) and their launch shape: lanes a home row, blocks x threads on
+    the tank, blocks a multiprocessor keeps resident."""
+    for what, key in UNIDYN_ENTRIES.items():
+        info = ptxas_entry(build_log, key)
+        log(f"unidyn {what}: {info['registers']} registers, stack frame, "
+            f"spill stores, spill loads {info['stack_spill']} B")
+        check(not any(info["stack_spill"]),
+              f"unidyn {what}: stack frame or spill {info['stack_spill']}")
+    shape = sph.sph_kernels.unidyn_info(torch.cuda.current_device())
+    lanes, threads = shape["lanes"], shape["threads"]
+    check(lanes == sph.sph_kernels.UNIDYN_LANES,
+          f"the kernels take {lanes} lanes a row, sph_kernels.UNIDYN_LANES "
+          f"is {sph.sph_kernels.UNIDYN_LANES}")
+    for n in (14040, UNIDYN_FILL):
+        log(f"unidyn passes at {n} rows: {lanes} lanes a home row, "
+            f"{-(-n * lanes // threads)} blocks x {threads} threads; "
+            f"resident blocks a multiprocessor: pass A "
+            f"{shape['resident_a']}, pass B {shape['resident_b']}")
+
+
 def check_unidyn_kernels(sph, dev):
     """Both unidyn wrappers against their plain versions on the mixed
     tank (the preset: sub-binning, no merging) and the mixed fill (with
@@ -1731,17 +1822,8 @@ def check_unidyn_kernels(sph, dev):
 
             got, want = call(kern), call(plain)
             torch.cuda.synchronize()
-            worst = err = 0.0
-            for k in UNIDYN_FIELDS:
-                g = got[k].reshape(st.capacity, -1)
-                w = want[k].reshape(st.capacity, -1)
-                check(g.shape == w.shape, f"{name} {k}: shapes")
-                for c in range(w.shape[1]):
-                    scale = float(w[:, c].abs().max())
-                    e = float((g[:, c] - w[:, c]).abs().max())
-                    check(scale > 0.0, f"{name} {k}[{c}] is 0 at {scene}: "
-                                       f"no check")
-                    worst, err = max(worst, e / scale), max(err, e)
+            worst, err, _, _ = unidyn_errors(got, want, st.capacity,
+                                             f"{name} at {scene}")
             same = (torch.equal(got["has_pair"], want["has_pair"])
                     and torch.equal(got["merge_partner"],
                                     want["merge_partner"]))
@@ -1749,17 +1831,22 @@ def check_unidyn_kernels(sph, dev):
             ms = time_ms(lambda: call(kern))
             plain_ms = time_ms(lambda: call(plain))
             kernel_ms = kernel_alone_ms(lambda: call(kern))
+            a_ms, b_ms = pass_times(lambda: call(kern))
             log(f"kernel {name} @ {scene} ({st.capacity} particles, mixed "
                 f"phases, merge_dist {merge}): max_abs_err {err:.3e} "
                 f"(worst column relative {worst:.3e}, tolerance {tol:.0e}); "
                 f"pair counts and merge partners equal: {same} "
                 f"({partners} partners); ms per call: kernel {ms:.4f} (the "
-                f"two force kernels alone {kernel_ms:.4f} device-ms), plain "
+                f"two force kernels alone {kernel_ms:.4f} device-ms: pass A "
+                f"{a_ms:.4f}, pass B {b_ms:.4f}; before the lane schedule "
+                f"{UNIDYN_BEFORE_MS[name]} at the tank), plain "
                 f"{plain_ms:.4f}")
             check(worst <= tol, f"{name} disagrees with its plain version "
                                 f"at {scene} ({worst:.3e} > {tol:.0e})")
             check(same, f"{name}: pair counts or merge partners differ")
             check((partners > 0) == (merge > 0), f"{name}: merge partners")
+            check_against_lanes(sph, got, st, bt, cfg, None,
+                                f"{name} at {scene}")
             if scene == "tank":
                 pairs = pair_count(sph, st, bt, cfg, cfg.subbin_threshold)
                 outs = [t for t in got.values() if isinstance(t, torch.Tensor)]
@@ -1770,7 +1857,8 @@ def check_unidyn_kernels(sph, dev):
                 results[name] = {"max_abs_err": err, "ms": ms,
                                  "plain_ms": plain_ms, "bound_ms": bound_ms,
                                  "bound_by": bound_by, "library_ms": None,
-                                 "kernel_ms": kernel_ms}
+                                 "kernel_ms": kernel_ms, "pass_a_ms": a_ms,
+                                 "pass_b_ms": b_ms}
             else:
                 results[name]["max_abs_err"] = max(
                     results[name]["max_abs_err"], err)
@@ -1866,6 +1954,8 @@ def run_unidyn_main_path(sph, dev):
     check(counts == {"unidyn_forces_resident": timed,
                      "unidyn_forces_rowblock": 0},
           f"unidyn tank: launches {counts} != one resident call per step")
+    log_profile(f"unidyn tank ({n0} particles)",
+                lambda steps: sph.step.run_python(st, cfg, steps), ms)
 
     runs = {}
     for kernel in ("resident", "rowblock", "resident again"):
@@ -2052,16 +2142,8 @@ def check_unidyn_column(sph, dev, build_log):
 
         got, want = call(kern), call(plain)
         torch.cuda.synchronize()
-        worst = err = 0.0
-        for k in UNIDYN_FIELDS:
-            g = got[k].reshape(st.capacity, -1)
-            w = want[k].reshape(st.capacity, -1)
-            for c in range(w.shape[1]):
-                scale = float(w[:, c].abs().max())
-                e = float((g[:, c] - w[:, c]).abs().max())
-                check(scale > 0.0, f"unidyn_forces_column {k}[{c}] is 0 at "
-                                   f"{scene}: no check")
-                worst, err = max(worst, e / scale), max(err, e)
+        worst, err, _, _ = unidyn_errors(got, want, st.capacity,
+                                         f"unidyn_forces_column at {scene}")
         same = (torch.equal(got["has_pair"], want["has_pair"])
                 and torch.equal(got["merge_partner"], want["merge_partner"]))
         capped = capped_rows(sph, st, bt, cfg, cap)
@@ -2070,6 +2152,7 @@ def check_unidyn_column(sph, dev, build_log):
         ms = time_ms(lambda: call(kern))
         plain_ms = time_ms(lambda: call(plain), *PLAIN_REPS)
         kernel_ms = kernel_alone_ms(lambda: call(kern))
+        a_ms, b_ms = pass_times(lambda: call(kern))
         log(f"kernel unidyn_forces_column @ {scene} ({st.capacity} "
             f"particles, mixed phases, cap {cap}, merge_dist {merge}): "
             f"max_abs_err {err:.3e} (worst column relative {worst:.3e}, "
@@ -2077,9 +2160,15 @@ def check_unidyn_column(sph, dev, build_log):
             f"{same}; overflow {ovf} (plain {int(want['overflow'])}), "
             f"{capped.numel()} rows over the cap, zero: {zeros}; ms per "
             f"call: kernel {ms:.4f} (the two force kernels alone "
-            f"{kernel_ms:.4f} device-ms), plain {plain_ms:.4f}")
+            f"{kernel_ms:.4f} device-ms: pass A {a_ms:.4f}, pass B "
+            f"{b_ms:.4f}; before the lane schedule "
+            f"{UNIDYN_BEFORE_MS['unidyn_forces_column']} at the tank), plain "
+            f"{plain_ms:.4f}")
         check(worst <= tol and same, f"unidyn_forces_column disagrees with "
                                      f"its plain version at {scene}")
+        check_against_lanes(sph, got, st, bt, cfg,
+                            sph.config.column_caps(cfg),
+                            f"unidyn_forces_column at {scene}")
         check(ovf == int(want["overflow"]) and zeros and (ovf > 0) == (
             scene == "fill"), f"unidyn_forces_column at {scene}: overflow")
         if scene == "tank":
@@ -2093,7 +2182,8 @@ def check_unidyn_column(sph, dev, build_log):
                 f"({bound_by})")
             entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": None, "kernel_ms": kernel_ms}
+                     "library_ms": None, "kernel_ms": kernel_ms,
+                     "pass_a_ms": a_ms, "pass_b_ms": b_ms}
         else:
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
     return entry
@@ -2566,6 +2656,7 @@ def main():
     check_sph_determinism(sph, dev)
     counts.update(run_sph_main_path(sph, dev))
 
+    check_unidyn_build(sph, build.log)
     checked.update(check_unidyn_kernels(sph, dev))
     check_unidyn_against_cpu(sph, dev)
     counts.update(run_unidyn_main_path(sph, dev))

@@ -12,11 +12,13 @@ import torch
 from tpufluids_torch import convert, scenes, state
 from tpufluids_torch.grid import convert as grid_convert
 from tpufluids_torch.grid import mac, stam
+from tpufluids_torch.shard import make_mesh
 
 ENTRY_POINTS = {
     "grid.stam.make_grid2d": stam.make_grid2d,
     "grid.stam.make_grid3d": stam.make_grid3d,
     "grid.convert.state_from_numpy": grid_convert.state_from_numpy,
+    "grid.convert.slab_state_from_numpy": grid_convert.slab_state_from_numpy,
     "grid.mac.make_mac3d": mac.make_mac3d,
     "grid.convert.mac_state_from_numpy": grid_convert.mac_state_from_numpy,
     "state.make_state": state.make_state,
@@ -24,6 +26,7 @@ ENTRY_POINTS = {
     "scenes.unidyn_tank": scenes.unidyn_tank,
     "scenes.random_blob": scenes.random_blob,
     "convert.state_from_numpy": convert.state_from_numpy,
+    "shard.make_mesh": make_mesh,
 }
 
 

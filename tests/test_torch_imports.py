@@ -45,6 +45,12 @@ def test_port_source_imports_no_jax(path):
     assert not _imported_roots(path) & FORBIDDEN
 
 
+def test_chip_smoke_imports_no_jax():
+    """The card's smoke run imports the port alone: it runs where JAX is
+    not installed."""
+    assert not _imported_roots(REPO / "chip_smoke.py") & FORBIDDEN
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys\n"

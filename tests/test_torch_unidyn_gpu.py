@@ -12,18 +12,28 @@ reference's own tank the drift, velocity gradient, stress acceleration
 and mixture terms are exactly 0.  Tolerance: 1e-5 * max|plain| per output
 column.  The kernels are built with -fmad=false and follow the plain
 version's operations per pair, but sum their candidates one by one where
-torch reduces them in another order."""
+torch reduces them in another order.
+
+The kernels are also held against ``forces.unidyn_lane_pass`` run on the
+card, the emulation of their lane schedule (UNIDYN_LANES lanes a home row,
+a fixed shuffle butterfly), at 1e-6 * max|emulation| per column: both
+sum the same pairs in the same order, so only the per-pair arithmetic of
+torch and of the kernels may round apart.  Merge partners and pair counts
+are exact.  These print how many columns are bit for bit (run with -s)."""
 
 import numpy as np
 import pytest
 import torch
 
-from tpufluids_torch import binning, scenes, sph_kernels, state, step
-from tpufluids_torch.config import UNIDYN_CONFIG
+from torch_unidyn_inputs import (NAMES, blob_positions, drift_fix,
+                                       held, unidyn_input)
+from tpufluids_torch import binning, forces, scenes, sph_kernels, state, step
+from tpufluids_torch.config import UNIDYN_CONFIG, column_caps
 
 pytestmark = pytest.mark.gpu
 
 TOL = 1e-5
+LANE_TOL = 1e-6
 FIELDS = ("sum_w", "dpress", "diffusion", "vel_grad", "stress_accel",
           "solid_drift", "fluid_drift", "mixture_accel", "delsolid",
           "delfluid")
@@ -152,3 +162,121 @@ def test_rowblock_and_resident_steps_are_bitwise_equal(cuda):
     for f in state.FIELDS:
         assert torch.equal(getattr(runs[0], f), getattr(runs[1], f)), f
         assert torch.equal(getattr(runs[0], f), getattr(runs[2], f)), f
+
+
+# --- against the emulation of the lane schedule -----------------------------
+
+
+def _against_lanes(st, cfg, threshold=6, caps=None, fix=None, what=""):
+    """Each wrapper that takes the input (column: with ``caps``; else
+    resident, and row-block with ``fix``) against forces.unidyn_lane_pass
+    on the card; returns the wrappers' results."""
+    order, bt = binning.sort_tables(st, cfg)
+    lanes = sph_kernels.unidyn_info(st.pos.device.index or 0)["lanes"]
+    assert lanes == sph_kernels.UNIDYN_LANES
+    want = forces.unidyn_lane_pass(st, bt, cfg, lanes, threshold, fix, caps)
+    if caps is not None:
+        calls = {"column": lambda: sph_kernels.unidyn_forces_column(
+            st, bt, cfg, order, subbin_threshold=threshold)}
+    else:
+        calls = {"resident": lambda: sph_kernels.unidyn_forces_resident(
+            st, bt, cfg, order, subbin_threshold=threshold),
+                 "rowblock": lambda: sph_kernels.unidyn_forces_rowblock(
+            st, bt, cfg, order, drift_fix=fix, subbin_threshold=threshold)}
+        if fix is not None:
+            del calls["resident"]
+    results = {}
+    for name, call in calls.items():
+        got = call()
+        torch.cuda.synchronize()
+        worst, same, cols = held(got, want, FIELDS, LANE_TOL)
+        print(f"{what} {name}: {same} of {cols} columns bit for bit with "
+              f"the lane emulation, worst {worst:.3e} of max")
+        assert torch.equal(got["has_pair"], want["has_pair"])
+        assert torch.equal(got["merge_partner"], want["merge_partner"])
+        results[name] = got
+    return results
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_kernels_match_lane_emulation(cuda, name):
+    st, cfg, threshold, caps, fix = unidyn_input(name, cuda)
+    _against_lanes(st, cfg, threshold, caps, fix, name)
+
+
+@pytest.mark.parametrize("name,cap", [("tank", None), ("tank", 128),
+                                      ("fill", None), ("fill", 64)])
+def test_kernels_match_lane_emulation_at_size(cuda, name, cap):
+    """The mixed tank (sub-binned, no merging) and the mixed 46656 fill
+    (merging on), and the column family at the tank's cap and at a cap
+    over which the fill's columns run; the row-block wrapper with a
+    drift fix."""
+    merge = 0.03 if name == "fill" else -10.0
+    cfg = UNIDYN_CONFIG.replace(merge_dist=merge)
+    st = scenes.mixed_phase(_scene(name, cuda), 1)
+    if cap is None:
+        _against_lanes(st, cfg, what=name)
+        _against_lanes(st, cfg, fix=drift_fix, what=f"{name}, drift fix")
+    else:
+        cfg = cfg.replace(pallas_col_cap=cap)
+        _against_lanes(st, cfg, caps=column_caps(cfg),
+                       what=f"{name}, cap {cap}")
+
+
+def test_full_home_cell(cuda):
+    """A blob of 4000 particles in a 0.24 cube: its cells hold 250 rows
+    and more, so a row walks several hundred slots sub-binned and over a
+    thousand on the full stencil."""
+    cfg = UNIDYN_CONFIG.replace(merge_dist=0.03)
+    pos = np.random.default_rng(11).uniform(-0.12, 0.12, (4000, 3))
+    st = scenes.mixed_phase(state.make_state(pos, cfg=cfg, device=cuda), 3)
+    _, bt = binning.sort_tables(st, cfg)
+    assert int(bt.home_count.max()) >= 224
+    for threshold in (6, None):
+        row = forces.lane_slots(bt, cfg, sph_kernels.UNIDYN_LANES,
+                                threshold)[0]
+        assert int(torch.bincount(row).max()) >= 224
+        _against_lanes(st, cfg, threshold, what=f"full cells, {threshold}")
+
+
+@pytest.mark.parametrize("n", [1, 2, 31, 33, 1001])
+def test_pool_not_a_multiple_of_the_block(cuda, n):
+    """Pools of n rows, so that the last block holds rows past n (and n
+    = 1, a single row with no pair): they write nothing, and the rows
+    below n are right."""
+    cfg = UNIDYN_CONFIG.replace(merge_dist=0.03)
+    pos = blob_positions(seed=n)[:n]
+    st = scenes.mixed_phase(state.make_state(pos, cfg=cfg, device=cuda), 5)
+    order, bt = binning.sort_tables(st, cfg)
+    got = sph_kernels.unidyn_forces_resident(st, bt, cfg, order,
+                                             subbin_threshold=6)
+    want = forces.unidyn_lane_pass(st, bt, cfg, sph_kernels.UNIDYN_LANES, 6)
+    torch.cuda.synchronize()
+    for k in FIELDS:
+        g, w = got[k], want[k]
+        assert g.shape == w.shape, k
+        ok = torch.isfinite(w)
+        assert torch.equal(ok, torch.isfinite(g)), k
+        scale = max(float(w[ok].abs().max()) if ok.any() else 0.0, 1e-30)
+        assert float((g[ok] - w[ok]).abs().max()) <= (
+            LANE_TOL * scale), k
+    assert torch.equal(got["has_pair"], want["has_pair"])
+    assert torch.equal(got["merge_partner"], want["merge_partner"])
+    if n == 1:
+        assert not bool(got["has_pair"].any())
+        assert int(got["merge_partner"][0]) == -1
+
+
+def test_rows_out_of_the_domain_get_zeros(cuda):
+    """The blob's rows beyond the domain's faces and its dead rows get
+    zero sums and no partner; they are candidates of no row."""
+    st, cfg, threshold, caps, fix = unidyn_input("blob", cuda)
+    order, bt = binning.sort_tables(st, cfg)
+    got = _against_lanes(st, cfg, threshold, what="blob")["resident"]
+    out = ~(bt.in_dom[torch.argsort(order)])     # pool order
+    assert int(out.sum()) >= 24 + 32
+    for k in ("sum_w", "dpress", "diffusion", "solid_drift", "fluid_drift",
+              "mixture_accel", "delsolid", "delfluid"):
+        assert not bool(got[k][out].any()), k
+    assert not bool(got["has_pair"][out].any())
+    assert bool((got["merge_partner"][out] == -1).all())

@@ -152,6 +152,8 @@ def load() -> ctypes.CDLL:
     lib.tf_step3d_whole_info.restype = ctypes.c_int
     lib.tf_step2d_whole_info.argtypes = [ctypes.POINTER(_INT)] * 3
     lib.tf_step2d_whole_info.restype = ctypes.c_int
+    lib.tf_unidyn_info.argtypes = [ctypes.POINTER(_INT)] * 4
+    lib.tf_unidyn_info.restype = ctypes.c_int
     lib.tf_error_string.argtypes = [ctypes.c_int]
     lib.tf_error_string.restype = ctypes.c_char_p
     return lib

@@ -460,6 +460,164 @@ def unidyn_pair_pass(state: ParticleState, bt: BinTable, cfg: SPHConfig,
                          to_pool(partner, order), state.dens, sdv, fdv)
 
 
+# --- the CUDA passes' lane schedule, emulated -----------------------------
+
+
+def lane_slots(bt: BinTable, cfg: SPHConfig, lanes: int,
+               subbin_threshold=None, caps=None):
+    """The dealing of candidate slots to the ``lanes`` lanes of a home row
+    in the unidyn kernels (csrc/sph_unidyn.cu): (row, j, lane, q), each
+    (S,) int64, one entry per walked slot, where ``row`` is the sorted
+    home row, ``j`` the sorted candidate row, and the slot is the t-th
+    that the row walks (its 9 runs in RUN_OFFSETS order, every slot of
+    the walked cells counted, pair or not; sub-binned and capped runs
+    walk only their cells and rows), lane = t mod lanes and q = t div
+    lanes its place in its lane.  The entries go by row, then t."""
+    n = bt.cid.shape[0]
+    run_start, run_len = run_table(bt, cfg, caps)
+    k = int(run_len.max()) if n else 0
+    if k == 0:
+        none = torch.zeros(0, dtype=torch.int64, device=bt.cid.device)
+        return none, none, none, none
+    slot = torch.arange(k, device=bt.cid.device)
+    step = max(1, CHUNK_SLOTS // (9 * k))
+    out = []
+    for a in range(0, n, step):
+        b = min(n, a + step)
+        idx = run_start[a:b, :, None] + slot                   # (c, 9, k)
+        walked = slot < run_len[a:b, :, None]
+        if subbin_threshold is not None:
+            walked = walked & _subbin_ok(bt, cfg, a, b, idx,
+                                         subbin_threshold)
+        walked = walked.reshape(b - a, -1)
+        t = torch.cumsum(walked, dim=1) - 1
+        r, s = walked.nonzero(as_tuple=True)
+        ts = t[r, s]
+        out.append((r + a, idx.reshape(b - a, -1)[r, s], ts % lanes,
+                    ts // lanes))
+    return tuple(torch.cat(x) for x in zip(*out))
+
+
+def lane_butterfly(v: torch.Tensor) -> torch.Tensor:
+    """(n, lanes, ...) per-lane sums -> (n, ...): the kernels' shuffle
+    butterfly, each lane adding its partner's value at lane offsets
+    lanes/2, ..., 2, 1 (``x += __shfl_xor_sync(.., x, off)``), read at
+    lane 0."""
+    ids = torch.arange(v.shape[1], device=v.device)
+    off = v.shape[1] // 2
+    while off:
+        v = v + v[:, ids ^ off]
+        off //= 2
+    return v[:, 0]
+
+
+def nearer(d, j, bd, bj):
+    """The kernels' merge-partner order: nearer, or as near and earlier
+    in run order (the smaller sorted row), which is the plain version's
+    first of equals."""
+    return (d < bd) | ((d == bd) & (j < bj))
+
+
+def _by_place(q):
+    """Index sets of the slots at each place q in their lanes, in order:
+    one slot per (row, lane) in each."""
+    by_q = torch.argsort(q, stable=True)
+    return torch.split(by_q, torch.bincount(q).tolist())
+
+
+def _sum_by_lane(row, lane, q, terms, n: int, lanes: int):
+    """(n, lanes, cols): each lane's sum of its slots' ``terms`` (S, cols),
+    added one by one in its slot order."""
+    acc = terms.new_zeros((n, lanes, terms.shape[1]))
+    for sel in _by_place(q):
+        acc[row[sel], lane[sel]] += terms[sel]
+    return acc
+
+
+def _lane_partner(row, lane, q, j, d, n: int, lanes: int):
+    """(n,) sorted partner row of each home row (n: none): each lane keeps
+    the ``nearer`` of its eligible slots (d < inf) in its slot order, then
+    the butterfly keeps the ``nearer`` of each pair of lanes."""
+    bd = d.new_full((n, lanes), math.inf)
+    bj = torch.full((n, lanes), n, dtype=torch.int64, device=d.device)
+    j = torch.where(d < math.inf, j, n)
+    for sel in _by_place(q):
+        r, ln = row[sel], lane[sel]
+        take = nearer(d[sel], j[sel], bd[r, ln], bj[r, ln])
+        bd[r, ln] = torch.where(take, d[sel], bd[r, ln])
+        bj[r, ln] = torch.where(take, j[sel], bj[r, ln])
+    ids = torch.arange(lanes, device=d.device)
+    off = lanes // 2
+    while off:
+        od, oj = bd[:, ids ^ off], bj[:, ids ^ off]
+        take = nearer(od, oj, bd, bj)
+        bd, bj = torch.where(take, od, bd), torch.where(take, oj, bj)
+        off //= 2
+    return bj[:, 0]
+
+
+def lane_sums(state: ParticleState, bt: BinTable, cfg: SPHConfig,
+              lanes: int, subbin_threshold=None, drift_fix=None, caps=None):
+    """The two unidyn passes in the kernels' lane schedule: (out_a (N,
+    A_COLS), out_b (N, B_COLS), partner (N,) sorted rows or N for none),
+    in sorted order, and the drifts pass B read, (solid, fluid) in pool
+    order.  The terms of a pair are the plain version's
+    (``_unidyn_a_chunk`` and ``_unidyn_b_chunk`` on one candidate),
+    summed lane by lane in ``lane_slots`` order, the lanes combined by
+    ``lane_butterfly``."""
+    n = state.capacity
+    order = bt.order
+    rows = pack_unidyn_rows(state, order, bt.in_dom, cfg)
+    hx = torch.cat([state.delpress, state.stress.reshape(n, 9)],
+                   dim=1)[order]
+    row, j, lane, q = lane_slots(bt, cfg, lanes, subbin_threshold, caps)
+    chunks = [(a, min(row.shape[0], a + CHUNK_SLOTS))
+              for a in range(0, row.shape[0], CHUNK_SLOTS)]
+    one = torch.ones((min(row.shape[0], CHUNK_SLOTS), 1), dtype=torch.bool,
+                     device=rows.device)
+    terms_a, dist = [rows.new_zeros((0, A_COLS))], [rows.new_zeros(0)]
+    for a, b in chunks:
+        home, cand = rows[row[a:b]], rows[j[a:b]]
+        t, best = _unidyn_a_chunk(home, hx[row[a:b]], cand[:, None],
+                                  one[:b - a], cfg)
+        rab = [home[:, _X + c] - cand[:, _X + c] for c in range(3)]
+        ds = torch.sqrt(rab[0] * rab[0] + rab[1] * rab[1] + rab[2] * rab[2])
+        terms_a.append(t)
+        dist.append(torch.where(best == 0, ds, math.inf))
+    out_a = lane_butterfly(_sum_by_lane(row, lane, q, torch.cat(terms_a), n,
+                                      lanes))
+    partner = _lane_partner(row, lane, q, j, torch.cat(dist), n, lanes)
+    res_a = to_pool(out_a, order)
+    sdv = res_a[:, A_SDV:A_SDV + 3]
+    fdv = res_a[:, A_FDV:A_FDV + 3]
+    if drift_fix is not None:
+        sdv, fdv = drift_fix(sdv, fdv)
+    drift = torch.cat([sdv, fdv], dim=1)[order]
+    terms_b = [rows.new_zeros((0, B_COLS))] + [
+        _unidyn_b_chunk(rows[row[a:b]], drift[row[a:b]],
+                        rows[j[a:b]][:, None], drift[j[a:b]][:, None],
+                        one[:b - a], cfg) for a, b in chunks]
+    out_b = lane_butterfly(_sum_by_lane(row, lane, q, torch.cat(terms_b), n,
+                                      lanes))
+    return out_a, out_b, partner, sdv, fdv
+
+
+def unidyn_lane_pass(state: ParticleState, bt: BinTable, cfg: SPHConfig,
+                     lanes: int, subbin_threshold=None, drift_fix=None,
+                     caps=None) -> dict:
+    """``unidyn_pair_pass`` summed in the CUDA kernels' order, ``lanes``
+    lanes a home row (``lane_sums``): the result dict of
+    ``unidyn_result`` in pool order.  The emulation the kernels are held
+    against on the card."""
+    n = state.capacity
+    order = bt.order
+    out_a, out_b, partner, sdv, fdv = lane_sums(
+        state, bt, cfg, lanes, subbin_threshold, drift_fix, caps)
+    partner = torch.where(partner < n, order[partner.clamp(max=n - 1)], -1)
+    return unidyn_result(to_pool(out_a, order), to_pool(out_b, order),
+                         to_pool(partner, order), state.dens, sdv, fdv)
+
+
 def granular_pass(state: ParticleState, vel_grad: torch.Tensor,
                   cfg: SPHConfig):
     """Per-particle granular pass (FluidGPU-unidyn.cu:410-446), as

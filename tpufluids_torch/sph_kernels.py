@@ -13,7 +13,9 @@ PyTorch versions: the counterpart of ``tpufluids/sph_pallas.py``.
   (``config.column_caps``), fresh or stale, with the overflow count.
 * ``unidyn_forces_resident`` and ``unidyn_forces_rowblock`` replace the
   Pallas kernels of the same names: the two unidyn pair passes, as the
-  pair of kernels of ``csrc/sph_unidyn.cu``.  The resident wrapper
+  pair of kernels of ``csrc/sph_unidyn.cu``, ``UNIDYN_LANES`` lanes a
+  home row (``forces.unidyn_lane_pass`` emulates their order of sums).
+  The resident wrapper
   launches pass B right after pass A, which leaves the drift velocities
   in sorted order for it; the row-block wrapper runs the ``drift_fix``
   hook on pass A's drifts in pool order and gathers them by ``order``
@@ -27,6 +29,9 @@ and so does a failed build or launch: nothing falls back from the kernel.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -167,6 +172,27 @@ def base_forces_column(state: ParticleState, bt: BinTable, cfg: SPHConfig,
     return sum_w, dpress, binning.column_overflow(bt, cfg, caps[0])
 
 
+# lanes a home row in the unidyn passes (kLanes of csrc/sph_unidyn.cu,
+# which ``unidyn_info`` reports), chosen by a probe on the card (PERF.md)
+UNIDYN_LANES = 32
+
+
+@functools.cache
+def unidyn_info(device_index: int) -> dict:
+    """The unidyn passes' launch shape on CUDA device ``device_index``:
+    lanes a home row, threads a block, and the blocks of pass A and of
+    pass B a multiprocessor keeps resident."""
+    lib = _build.load()
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    with torch.cuda.device(device_index):
+        rc = lib.tf_unidyn_info(*map(ctypes.byref, vals))
+    if rc:
+        raise RuntimeError(f"tf_unidyn_info: CUDA error {rc} "
+                           f"({lib.tf_error_string(rc).decode()})")
+    return dict(zip(("lanes", "threads", "resident_a", "resident_b"),
+                    (v.value for v in vals)))
+
+
 def _unidyn_on_cuda(state: ParticleState, bt: BinTable, order, cfg,
                     subbin_threshold) -> bool:
     if cfg.variant == "base":
@@ -246,9 +272,9 @@ def unidyn_forces_resident(state: ParticleState, bt: BinTable,
 
     Replaces unidyn_forces_resident (tpufluids/sph_pallas.py), which
     keeps the whole pool in VMEM and splices pass A's drifts into it for
-    pass B.  On the card pass A (one thread per sorted row) writes the
-    drifts in sorted order and pass B, launched right after it on the
-    same stream, reads them there (csrc/sph_unidyn.cu)."""
+    pass B.  On the card pass A (``UNIDYN_LANES`` lanes a sorted row)
+    writes the drifts in sorted order and pass B, launched right after it
+    on the same stream, reads them there (csrc/sph_unidyn.cu)."""
     if not _unidyn_on_cuda(state, bt, order, cfg, subbin_threshold):
         return unidyn_forces_resident_plain(state, bt, cfg, order,
                                             subbin_threshold)
@@ -327,10 +353,10 @@ def unidyn_forces_column(state: ParticleState, bt: BinTable,
 
     Replaces unidyn_forces_pallas (tpufluids/sph_pallas.py), whose two
     column kernels sweep capped VMEM window tiles and splice pass A's
-    drifts into the packed pool for pass B.  On the card pass A (one
-    thread per sorted row) writes the drifts in sorted order and pass B,
-    launched right after it, reads them there (csrc/sph_unidyn.cu, the
-    resident passes with the caps)."""
+    drifts into the packed pool for pass B.  On the card pass A
+    (``UNIDYN_LANES`` lanes a sorted row) writes the drifts in sorted
+    order and pass B, launched right after it, reads them there
+    (csrc/sph_unidyn.cu, the resident passes with the caps)."""
     if not _unidyn_on_cuda(state, bt, order, cfg, subbin_threshold):
         return unidyn_forces_column_plain(state, bt, cfg, order,
                                           subbin_threshold)
