@@ -81,9 +81,16 @@
    residual step against the plain one.  Every grid path then runs 10
    more steps under torch.profiler: device busy time, device ops a step,
    the device's idle share against the timed ms/step, the top kernels.
-5. Holds the SPH force kernel (base_forces_rowblock) against its plain
-   version at the base_dam scene and at a 262144-particle uniform fill,
-   on seeded dens, press and vel, and times both with CUDA events.  The
+5. The base force kernels (csrc/sph_forces.cu): ptxas's registers,
+   stack frame and spills of the four instances (row-block and column,
+   fresh and stale) and of the pack kernel (a stack frame or a spill
+   fails), and their launch shape.  Holds the SPH force kernel
+   (base_forces_rowblock) against its plain version and against
+   forces.base_lane_pass, the emulation of its lane schedule run on the
+   card (1e-6 of max, the pair count exact), at the base_dam scene and
+   at a 262144-particle uniform fill, on seeded dens, press and vel, and
+   its pack kernel against the plain pack bit for bit, and times them
+   with CUDA events.  The
    SPH force wrappers (here and in steps 8 and 11) also print the device
    time of their kernels alone (torch.profiler kernel events of
    csrc/sph_forces.cu's and csrc/sph_unidyn.cu's kernels over the timed
@@ -124,11 +131,14 @@
     (xy_cells) at a 524288-particle uniform fill at its suggest_col_cap
     (584) and at base_dam forced to cap 32, over which its columns run;
     unidyn_forces_column (csrc/sph_unidyn.cu) on the mixed tank at cap
-    128, and on the mixed 46656 fill at cap 64, also against the lane
-    emulation.  Holds the row-block
-    kernel's stale mode against its plain version at base_dam and the
-    fill.  The overflow counts must be equal and the rows over the cap
-    zero.  Then the identities, bit for bit: the column kernel equals
+    128, and on the mixed 46656 fill at cap 64; each also against its
+    lane emulation.  Holds the row-block
+    kernel's stale mode against its plain version and its emulation at
+    base_dam and the fill.  The overflow counts and the emulated stale
+    window's pair counts (against the whole columns') must be equal and
+    the rows over the cap zero; the stale window must walk fewer slots
+    than the whole columns, and the pack kernel's column shifts equal
+    forces.column_shift.  Then the identities, bit for bit: the column kernel equals
     the row-block kernel where no column overflows; with caps above every
     column its stale pass equals the row-block stale pass; on a
     just-sorted pool its stale pass equals its fresh one.
@@ -369,6 +379,21 @@ SPH_KERNELS = {
                              "tpufluids/sph_pallas.py:1438", 1e-5),
 }
 SPH_FILL = 262144             # step.ROWBLOCK_MAX_POOL
+# the four instances of the base force kernel and its pack kernel in
+# ptxas's output (mangled names)
+BASE_ENTRIES = {f"{'column' if c else 'rowblock'}, "
+                f"{'stale' if s else 'fresh'}":
+                f"base_forces_kernelILb{int(c)}ELb{int(s)}E"
+                for c in (False, True) for s in (False, True)}
+BASE_ENTRIES["pack"] = "base_pack_kernel"
+# the base force kernels alone before the lane schedule and the stale
+# window (PERF.md rows 13 and 15), device-ms, and #15's wrapper and its
+# row pack (torch ops then) at the 262144 fill, ms
+BASE_BEFORE_MS = {"base_forces_rowblock, fresh, fill": 0.3956,
+                  "base_forces_column, fresh, fill-524k": 1.278,
+                  "base_forces_column, stale, fill-524k": 8.236,
+                  "base_forces_rowblock wrapper, fill": 0.627,
+                  "row pack, fill": 0.226}
 # (warm-up, timed) steps.  The random fill is not a stable scene: in
 # both packages its close pairs drive the max speed up about tenfold
 # every 3 steps from step ~12, to overflow by step ~25, so it is timed
@@ -394,6 +419,8 @@ UNIDYN_FIELDS = ("sum_w", "dpress", "diffusion", "vel_grad", "stress_accel",
 # so only the per-pair arithmetic of torch and of the kernels rounds apart;
 # 1e-6 * max|emulation| per output column
 UNIDYN_LANE_TOL = 1e-6
+# the base kernels against forces.base_lane_pass, likewise: 1e-6 * max
+BASE_LANE_TOL = 1e-6
 # the four instances of the unidyn passes in ptxas's output (mangled names)
 UNIDYN_ENTRIES = {f"pass {p.upper()}, {'capped' if c else 'uncapped'}":
                   f"unidyn_pass_{p}_kernelILb{int(c)}E"
@@ -1585,9 +1612,91 @@ def sph_work(st, bt, order, fields, outs, pairs, pair_ops):
     return nbytes, pairs * pair_ops
 
 
+def check_base_build(sph, build_log):
+    """The base force kernels' builds (ptxas: registers, stack frame and
+    spills of the four instances and the pack kernel; a stack frame or a
+    spill fails) and their launch shape: lanes a home row, blocks x
+    threads at each scene, blocks a multiprocessor keeps resident."""
+    for what, key in BASE_ENTRIES.items():
+        info = ptxas_entry(build_log, key)
+        log(f"base {what}: {info['registers']} registers, stack frame, "
+            f"spill stores, spill loads {info['stack_spill']} B")
+        check(not any(info["stack_spill"]),
+              f"base {what}: stack frame or spill {info['stack_spill']}")
+    shape = sph.sph_kernels.base_info(torch.cuda.current_device())
+    lanes, threads = shape["lanes"], shape["threads"]
+    check(lanes == sph.sph_kernels.BASE_LANES,
+          f"the base kernels take {lanes} lanes a row, "
+          f"sph_kernels.BASE_LANES is {sph.sph_kernels.BASE_LANES}")
+    for n in (8000, SPH_FILL, BIG_FILL):
+        log(f"base force kernels at {n} rows: {lanes} lanes a home row, "
+            f"{-(-n * lanes // threads)} blocks x {threads} threads; "
+            f"resident blocks a multiprocessor: {shape['resident']}")
+
+
+def check_base_lanes(sph, got, st, bt, cfg, caps, stale, pairs, what):
+    """A base wrapper's result ``got`` against forces.base_lane_pass on
+    the same inputs (the kernels' lane schedule and stale window emulated
+    in torch): each output column within BASE_LANE_TOL of max|emulation|,
+    and the emulation's pair count equal to ``pairs``, pair_count's (the
+    whole columns', stale)."""
+    lanes = sph.sph_kernels.BASE_LANES
+    want = sph.forces.base_lane_pass(st, bt, cfg, lanes, caps, stale)
+    worst, err, same = 0.0, 0.0, 0
+    for g, w in zip([got[0], *got[1].unbind(1)],
+                    [want[0], *want[1].unbind(1)]):
+        scale = float(w.abs().max())
+        e = float((g - w).abs().max())
+        check(scale > 0.0, f"{what}: a lane emulation column is 0")
+        worst, err = max(worst, e / scale), max(err, e)
+        same += int(torch.equal(g, w))
+    walked = int(want[2])
+    log(f"  {what} against the lane emulation ({lanes} lanes): max_abs_err "
+        f"{err:.3e} (worst column relative {worst:.3e}, tolerance "
+        f"{BASE_LANE_TOL:.0e}), {same} of 4 columns bit for bit; pairs "
+        f"{walked} (whole-column count {pairs})")
+    check(worst <= BASE_LANE_TOL, f"{what} disagrees with the lane emulation")
+    check(walked == pairs, f"{what}: the emulated walk sums {walked} pairs, "
+                           f"the whole columns hold {pairs}")
+
+
+def bits(t):
+    """A float tensor's bit patterns: NaN rows compare equal."""
+    return t.view(torch.int32)
+
+
+def check_base_pack(sph, st, bt, cfg, stale, what):
+    """The pack kernel against forces.pack_rows (and, stale, cell_trunc
+    and forces.column_shift), bit for bit; returns (the wrapper's ms a
+    call, the kernel alone in device-ms)."""
+    rows, cells, shift = sph.sph_kernels.base_pack(st, bt, cfg, bt.order,
+                                                   stale)
+    want = sph.forces.pack_rows(st, bt.order, bt.in_dom)
+    torch.cuda.synchronize()
+    same = torch.equal(bits(rows), bits(want))
+    if stale:
+        now = sph.binning.cell_trunc(want[:, 0:3], cfg)
+        same = (same and torch.equal(bits(cells[:, 0:3]), bits(now))
+                and not cells[:, 3].any()
+                and torch.equal(shift, sph.forces.column_shift(want, bt,
+                                                                cfg)))
+    else:
+        same = same and cells is None and shift is None
+    call = functools.partial(sph.sph_kernels.base_pack, st, bt, cfg,
+                             bt.order, stale)
+    ms = time_ms(call)
+    alone = kernel_alone_ms(call, names=("base_pack_kernel",))
+    log(f"  pack kernel @ {what}: bit for bit with pack_rows"
+        f"{', cell_trunc and column_shift' if stale else ''}: {same}; "
+        f"{ms:.4f} ms a call, the kernel alone {alone:.4f} device-ms")
+    check(same, f"the pack kernel differs from the plain pack at {what}")
+    return ms, alone
+
+
 def check_sph_kernel(sph, dev):
-    """The force kernel against its plain version at both scenes; returns
-    {"max_abs_err", "ms", "plain_ms"}, the times at the fill."""
+    """The force kernel against its plain version and its lane emulation
+    at both scenes, and its pack kernel; returns {"max_abs_err", "ms",
+    "plain_ms"}, the times at the fill."""
     kern = sph.sph_kernels.base_forces_rowblock
     plain = sph.sph_kernels.base_forces_rowblock_plain
     tol = SPH_KERNELS["base_forces_rowblock"][2]
@@ -1605,18 +1714,27 @@ def check_sph_kernel(sph, dev):
         check(float(want[1].abs().max()) > 0.0, "dpress is 0: no check")
         ms = time_ms(lambda: kern(st, bt, sph.cfg, order))
         plain_ms = time_ms(lambda: plain(st, bt, sph.cfg, order))
-        pack_ms = time_ms(lambda: sph.forces.pack_rows(st, order,
-                                                       bt.in_dom))
+        pack_ms, pack_alone = check_base_pack(sph, st, bt, sph.cfg, False,
+                                              name)
         kernel_ms = kernel_alone_ms(lambda: kern(st, bt, sph.cfg, order))
         log(f"kernel base_forces_rowblock @ {name} ({st.capacity} "
             f"particles): max_abs_err {e:.3e} (relative {r:.3e}, tolerance "
             f"{tol:.0e}); ms per call: kernel {ms:.4f} (of which the row "
-            f"pack {pack_ms:.4f}; the force kernel alone {kernel_ms:.4f} "
-            f"device-ms), plain {plain_ms:.4f}")
+            f"pack {pack_ms:.4f}, its kernel alone {pack_alone:.4f}; the "
+            f"force kernel alone {kernel_ms:.4f} device-ms), plain "
+            f"{plain_ms:.4f}")
+        if name == "fill":
+            log(f"  before the lane schedule: the force kernel alone "
+                f"{BASE_BEFORE_MS['base_forces_rowblock, fresh, fill']}, "
+                f"the wrapper "
+                f"{BASE_BEFORE_MS['base_forces_rowblock wrapper, fill']} "
+                f"(its row pack {BASE_BEFORE_MS['row pack, fill']})")
         check(r <= tol, f"base_forces_rowblock disagrees with its plain "
                         f"version at {name} ({r:.3e} > {tol:.0e})")
         worst = max(worst, e)
         pairs = pair_count(sph, st, bt, sph.cfg)
+        check_base_lanes(sph, got, st, bt, sph.cfg, None, False, pairs,
+                         f"base_forces_rowblock at {name}")
         bound_ms, bound_by = bound(*sph_work(st, bt, order, BASE_IN, got[:2],
                                              pairs, BASE_PAIR_OPS))
         log(f"  {pairs} pairs within 2h: bound {bound_ms:.4f} ms "
@@ -2021,18 +2139,25 @@ def fill_cfg(sph, st):
         st, sph.cfg))
 
 
-def check_base_column(sph, dev, build_log):
-    """base_forces_column against its plain version, fresh and stale, at
-    the 524288 fill (its suggest_col_cap) and at base_dam forced to cap
-    32; the row-block kernel's stale mode at base_dam and the fill.
-    Returns the column kernel's JSON entry (times and bound at the fill,
-    fresh: the main path's call) and the stale row-block times."""
+def window_slots(sph, st, bt, cfg, caps):
+    """(slots of the stale window walk, slots of the whole columns)."""
+    rows = sph.forces.pack_rows(st, bt.order, bt.in_dom)
+    cz = sph.binning.cell_trunc(rows[:, 0:3], cfg)[:, 2]
+    shift = sph.forces.column_shift(rows, bt, cfg)
+    window = sph.binning.run_table(bt, cfg, caps, window=(cz, shift))[1]
+    whole = sph.binning.run_table(bt, cfg, caps, whole=True)[1]
+    return int(window.sum()), int(whole.sum()), int(shift.max())
+
+
+def check_base_column(sph, dev):
+    """base_forces_column against its plain version and its lane
+    emulation, fresh and stale, at the 524288 fill (its suggest_col_cap)
+    and at base_dam forced to cap 32; the row-block kernel's stale mode
+    at base_dam and the fill.  Returns the column kernel's JSON entry
+    (times and bound at the fill, fresh: the main path's call)."""
     col = sph.sph_kernels.base_forces_column
     col_plain = sph.sph_kernels.base_forces_column_plain
     tol = COLUMN_KERNELS["base_forces_column"][2]
-    regs = {"fresh": registers(build_log, "base_forces_kernelILb1ELb0E"),
-            "xy_cells": registers(build_log, "base_forces_kernelILb1ELb1E")}
-    log(f"registers, base_forces_column: {regs}")
     entry, worst = None, 0.0
     for scene, cap in (("fill-524k", None), ("base_dam", 32)):
         st = randomised(sph_scene(sph, scene, dev), SEED + 4)
@@ -2066,15 +2191,30 @@ def check_base_column(sph, dev, build_log):
                                                  got[:2], pairs,
                                                  BASE_PAIR_OPS))
             mode = "xy_cells" if stale else "fresh"
+            before = BASE_BEFORE_MS.get(
+                f"base_forces_column, {'stale' if stale else 'fresh'}, "
+                f"{scene}")
             log(f"kernel base_forces_column, {mode}, @ {scene} "
                 f"({st.capacity} particles, pallas_col_cap "
                 f"{cfg.pallas_col_cap}: b {b}, w_cap {w_cap}): max_abs_err "
                 f"{e:.3e} (relative {r:.3e}, tolerance {tol:.0e}); overflow "
                 f"{ovf} (plain {ovf_plain}), {capped.numel()} rows over the "
                 f"cap, zero: {zeros}; ms per call: kernel {ms:.4f} (the "
-                f"force kernel alone {kernel_ms:.4f} device-ms), plain "
-                f"{plain_ms:.4f}; {pairs} pairs: bound {bound_ms:.4f} ms "
-                f"({bound_by})")
+                f"force kernel alone {kernel_ms:.4f} device-ms"
+                f"{f'; before the lane schedule {before}' if before else ''}"
+                f"), plain {plain_ms:.4f}; {pairs} pairs: bound "
+                f"{bound_ms:.4f} ms ({bound_by})")
+            check_base_lanes(sph, got, pool, bt, cfg, (b, w_cap), stale,
+                             pairs, f"base_forces_column ({mode}) at {scene}")
+            if stale:
+                walked, whole, d = window_slots(sph, pool, bt, cfg,
+                                                (b, w_cap))
+                log(f"  stale window: {walked} slots walked, whole columns "
+                    f"{whole} ({walked / whole:.4f}); largest column shift "
+                    f"{d} cells")
+                check(walked < whole, f"the stale window at {scene} walks "
+                                      f"no fewer slots than whole columns")
+                check_base_pack(sph, pool, bt, cfg, True, scene)
             check(r <= tol, f"base_forces_column ({mode}) disagrees with its "
                             f"plain version at {scene}")
             check(float(want[1].abs().max()) > 0.0, "dpress is 0: no check")
@@ -2092,8 +2232,6 @@ def check_base_column(sph, dev, build_log):
     row = sph.sph_kernels.base_forces_rowblock
     row_plain = sph.sph_kernels.base_forces_rowblock_plain
     tol = SPH_KERNELS["base_forces_rowblock"][2]
-    log(f"registers, base_forces_rowblock stale: "
-        f"{registers(build_log, 'base_forces_kernelILb0ELb1E')}")
     for scene in SPH_STEPS:
         st = randomised(sph_scene(sph, scene, dev), SEED + 6)
         _, bt, moved = sorted_and_moved(sph, st, sph.cfg, SEED + 7)
@@ -2107,16 +2245,22 @@ def check_base_column(sph, dev, build_log):
                        [want[0], *want[1].unbind(1)])
         ms = time_ms(lambda: call(row))
         plain_ms = time_ms(lambda: call(row_plain), *PLAIN_REPS)
+        kernel_ms = kernel_alone_ms(lambda: call(row))
         pairs = pair_count(sph, moved, bt, sph.cfg, stale=True)
         bound_ms, bound_by = bound(*sph_work(moved, bt, bt.order, BASE_IN,
                                              got[:2], pairs, BASE_PAIR_OPS))
+        walked, whole, d = window_slots(sph, moved, bt, sph.cfg, None)
         log(f"kernel base_forces_rowblock, stale, @ {scene} ({st.capacity} "
             f"particles): max_abs_err {e:.3e} (relative {r:.3e}, tolerance "
-            f"{tol:.0e}); ms per call: kernel {ms:.4f}, plain "
-            f"{plain_ms:.4f}; {pairs} pairs: bound {bound_ms:.4f} ms "
-            f"({bound_by})")
+            f"{tol:.0e}); ms per call: kernel {ms:.4f} (the force kernel "
+            f"alone {kernel_ms:.4f} device-ms), plain {plain_ms:.4f}; "
+            f"{pairs} pairs: bound {bound_ms:.4f} ms ({bound_by}); stale "
+            f"window {walked} of the whole columns' {whole} slots, largest "
+            f"column shift {d} cells")
         check(r <= tol, f"base_forces_rowblock (stale) disagrees with its "
                         f"plain version at {scene}")
+        check_base_lanes(sph, got, moved, bt, sph.cfg, None, True, pairs,
+                         f"base_forces_rowblock (stale) at {scene}")
     return entry
 
 
@@ -2651,6 +2795,7 @@ def main():
             counts[name] = counts.get(name, 0) + c
 
 
+    check_base_build(sph, build.log)
     checked["base_forces_rowblock"] = check_sph_kernel(sph, dev)
     check_sph_against_cpu(sph, dev)
     check_sph_determinism(sph, dev)
@@ -2661,7 +2806,7 @@ def main():
     check_unidyn_against_cpu(sph, dev)
     counts.update(run_unidyn_main_path(sph, dev))
 
-    checked["base_forces_column"] = check_base_column(sph, dev, build.log)
+    checked["base_forces_column"] = check_base_column(sph, dev)
     checked["unidyn_forces_column"] = check_unidyn_column(sph, dev,
                                                           build.log)
     check_column_identities(sph, dev)

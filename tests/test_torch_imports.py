@@ -51,6 +51,20 @@ def test_chip_smoke_imports_no_jax():
     assert not _imported_roots(REPO / "chip_smoke.py") & FORBIDDEN
 
 
+GPU_TEST_FILES = sorted(
+    [*(REPO / "tests").glob("test_torch_*gpu.py"),
+     *(REPO / "tests").glob("torch_*_inputs.py"),
+     REPO / "tests" / "torch_shard_workers.py"])
+
+
+@pytest.mark.parametrize("path", GPU_TEST_FILES,
+                         ids=lambda p: p.relative_to(REPO).as_posix())
+def test_gpu_test_files_import_no_jax(path):
+    """The GPU tests and the helpers they import run on the card's
+    machine, where JAX is not installed."""
+    assert not _imported_roots(path) & FORBIDDEN
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys\n"

@@ -10,23 +10,31 @@ card (tests/conftest.py sets up JAX, which these tests do not use):
 Tolerance: 1e-5 * max|plain| for sum_w and each dpress component.  The
 kernel is built with -fmad=false and follows the plain version's
 operations per pair, but sums its candidates one by one where torch
-reduces them in another order.  Overflow counts and the zeros of rows
-over the column cap are exact, and so are the identities: the column
-kernel equals the row-block kernel bit for bit when no column overflows
-(fresh and stale), and on a just-sorted pool the stale pass equals the
-fresh one."""
+reduces them in another order.  Against ``forces.base_lane_pass`` run
+on the card, the emulation of the kernels' lane schedule (the same
+pairs summed in the same order, so only torch's and the kernels'
+per-pair arithmetic round apart): 1e-6 * max|emulation|.  Overflow
+counts, the pair counts of the stale window and the zeros of rows over
+the column cap are exact, the pack kernel equals ``forces.pack_rows``
+and ``forces.column_shift`` bit for bit, and so are the identities: the
+column kernel equals the row-block kernel bit for bit when no column
+overflows (fresh and stale), and on a just-sorted pool the stale pass
+equals the fresh one."""
 
 import numpy as np
 import pytest
 import torch
 
-from tpufluids_torch import (binning, config, scenes, sph_kernels, state,
-                             step)
+from torch_base_inputs import blob_state
+from torch_base_inputs import sorted_and_moved as far_moved
+from tpufluids_torch import (binning, config, forces, scenes, sph_kernels,
+                             state, step)
 from tpufluids_torch.config import BASE_CONFIG
 
 pytestmark = pytest.mark.gpu
 
 TOL = 1e-5
+LANE_TOL = 1e-6
 FILL = 262144
 BIG_FILL = 524288
 
@@ -207,3 +215,114 @@ def test_fill_steps_are_bitwise_repeatable(cuda):
     for f in ("pos", "vel", "acc", "dens", "press", "delpress"):
         assert torch.equal(getattr(runs[0], f), getattr(runs[1], f)), f
         assert bool(torch.isfinite(getattr(runs[0], f)).all()), f
+
+
+def _lane_close(got, want):
+    """Each output column within LANE_TOL of max|want|; the number of
+    columns equal bit for bit."""
+    same = 0
+    for g, w in zip(got[:2], want[:2]):
+        for gc, wc in zip(g.reshape(g.shape[0], -1).T,
+                          w.reshape(w.shape[0], -1).T):
+            scale = float(wc.abs().max())
+            assert scale > 0.0
+            assert float((gc - wc).abs().max()) <= LANE_TOL * scale
+            same += int(torch.equal(gc, wc))
+    return same
+
+
+def _lane_case(name, dev, capped, stale):
+    """(pool, tables, cfg, caps) of a base_dam (cap 32, overflowing), fill
+    (its suggest_col_cap) or blob (cap 10) input; stale: the sorted pool
+    moved since, by 0.4 of a cell, the blob ``far`` (several cells, a
+    fast row, homes out of the domain, an infinite and a NaN row)."""
+    if name == "blob":
+        st = blob_state(dev)
+        cfg = BASE_CONFIG.replace(pallas_col_cap=10, pallas_w_chunk=0)
+    else:
+        st = _randomised(_scene(name, dev), 8)
+        cfg = BASE_CONFIG.replace(pallas_col_cap=32 if name == "base_dam"
+                                  else binning.suggest_col_cap(st,
+                                                               BASE_CONFIG))
+    if not capped:
+        cfg = BASE_CONFIG
+    if stale:
+        _, bt, st = far_moved(st, cfg, 9, far=name == "blob")
+    else:
+        _, bt = binning.sort_tables(st, cfg)
+    return st, bt, cfg, config.column_caps(cfg) if capped else None
+
+
+@pytest.mark.parametrize("capped", [False, True], ids=["rowblock", "column"])
+@pytest.mark.parametrize("stale", [False, True], ids=["fresh", "stale"])
+@pytest.mark.parametrize("name", ["base_dam", "fill", "blob"])
+def test_kernels_match_lane_emulation(cuda, name, stale, capped):
+    """The four instances against forces.base_lane_pass on the card at
+    sph_kernels.BASE_LANES (1e-6 of max) and against the plain version
+    (1e-5 of max)."""
+    st, bt, cfg, caps = _lane_case(name, cuda, capped, stale)
+    kern, plain = ((sph_kernels.base_forces_column,
+                    sph_kernels.base_forces_column_plain) if capped else
+                   (sph_kernels.base_forces_rowblock,
+                    sph_kernels.base_forces_rowblock_plain))
+    got = kern(st, bt, cfg, bt.order, stale)
+    lanes = sph_kernels.base_info(torch.cuda.current_device())["lanes"]
+    assert lanes == sph_kernels.BASE_LANES
+    want = forces.base_lane_pass(st, bt, cfg, lanes, caps, stale)
+    torch.cuda.synchronize()
+    same = _lane_close(got, want)
+    print(f"{name}, {'column' if capped else 'rowblock'}, "
+          f"{'stale' if stale else 'fresh'}: {same} of 4 columns bit for "
+          f"bit with the lane emulation")
+    _close(got, plain(st, bt, cfg, bt.order, stale))
+
+
+def test_far_stale_window_keeps_the_whole_columns_pairs(cuda):
+    """The fill moved far (a tenth of its rows by 2-4 cells in z, a fast
+    row, homes out of the domain, an infinite and a NaN row): the window
+    walk's pairs are the whole-column walk's (chip_smoke.pair_count),
+    in fewer slots, and the kernel agrees with the emulation and the
+    plain version."""
+    import chip_smoke
+    st = _randomised(_scene("fill", cuda), 10)
+    _, bt, moved = far_moved(st, BASE_CONFIG, 11, far=True)
+    rows = forces.pack_rows(moved, bt.order, bt.in_dom)
+    shift = forces.column_shift(rows, bt, BASE_CONFIG)
+    assert int(shift.max()) >= BASE_CONFIG.grid_size
+    assert int(((shift > 1) & (shift < BASE_CONFIG.grid_size)).sum()) > 100
+    got = sph_kernels.base_forces_rowblock(moved, bt, BASE_CONFIG, bt.order,
+                                           True)
+    want = forces.base_lane_pass(moved, bt, BASE_CONFIG,
+                                 sph_kernels.BASE_LANES, stale=True)
+    _lane_close(got, want)
+    _close(got, sph_kernels.base_forces_rowblock_plain(
+        moved, bt, BASE_CONFIG, bt.order, True))
+    sph = type("Sph", (), dict(forces=forces, binning=binning))
+    whole = chip_smoke.pair_count(sph, moved, bt, BASE_CONFIG, stale=True)
+    assert int(want[2]) == whole > 0
+    cz = binning.cell_trunc(rows[:, 0:3], BASE_CONFIG)[:, 2]
+    walked = binning.run_table(bt, BASE_CONFIG, window=(cz, shift))[1]
+    assert int(walked.sum()) < int(binning.run_table(
+        bt, BASE_CONFIG, whole=True)[1].sum())
+
+
+@pytest.mark.parametrize("stale", [False, True], ids=["fresh", "stale"])
+@pytest.mark.parametrize("name", ["base_dam", "blob"])
+def test_pack_kernel_is_the_plain_pack(cuda, name, stale):
+    """sph_kernels.base_pack on the card equals forces.pack_rows and, stale,
+    binning.cell_trunc and forces.column_shift, bit for bit (the far
+    blob's NaN row is NaN in both: bit patterns are compared)."""
+    st, bt, cfg, _ = _lane_case(name, cuda, False, stale)
+    rows, cells, shift = sph_kernels.base_pack(st, bt, cfg, bt.order, stale)
+    want = forces.pack_rows(st, bt.order, bt.in_dom)
+    torch.cuda.synchronize()
+    assert torch.equal(rows.view(torch.int32), want.view(torch.int32))
+    if stale:
+        now = binning.cell_trunc(want[:, 0:3], cfg)
+        assert torch.equal(cells[:, 0:3].view(torch.int32),
+                           now.view(torch.int32))
+        assert not cells[:, 3].any()
+        assert torch.equal(shift, forces.column_shift(want, bt, cfg))
+        assert int(shift.max()) > 0
+    else:
+        assert cells is None and shift is None

@@ -54,8 +54,9 @@ SIGNATURES = {
     "tf_barrier_probe": [_INT] * 3 + [_P],
     "tf_lin_solve2d": [_P] * 4 + [_INT] * 3 + [_F] * 2 + [_P],
     "tf_step2d_whole": [_P] * 9 + [_INT] * 14 + [_F] * 15 + [_P],
-    "tf_sph_base_forces": [_P] * 6 + [_INT] * 3 + [_F] * 13 + [_P],
-    "tf_sph_base_column": [_P] * 6 + [_INT] * 5 + [_F] * 13 + [_P],
+    "tf_sph_base_forces": [_P] * 8 + [_INT] * 2 + [_F] * 9 + [_P],
+    "tf_sph_base_column": [_P] * 8 + [_INT] * 4 + [_F] * 9 + [_P],
+    "tf_sph_base_pack": [_P] * 12 + [_INT] * 2 + [_F] * 4 + [_P],
     "tf_unidyn_pass_a": [_P] * 10 + [_INT] * 3 + [_F] * 19 + [_P],
     "tf_unidyn_pass_b": [_P] * 7 + [_INT] * 3 + [_F] * 3 + [_P],
     "tf_unidyn_column_a": [_P] * 10 + [_INT] * 5 + [_F] * 19 + [_P],
@@ -152,6 +153,8 @@ def load() -> ctypes.CDLL:
     lib.tf_step3d_whole_info.restype = ctypes.c_int
     lib.tf_step2d_whole_info.argtypes = [ctypes.POINTER(_INT)] * 3
     lib.tf_step2d_whole_info.restype = ctypes.c_int
+    lib.tf_sph_base_info.argtypes = [ctypes.POINTER(_INT)] * 3
+    lib.tf_sph_base_info.restype = ctypes.c_int
     lib.tf_unidyn_info.argtypes = [ctypes.POINTER(_INT)] * 4
     lib.tf_unidyn_info.restype = ctypes.c_int
     lib.tf_error_string.argtypes = [ctypes.c_int]

@@ -216,7 +216,25 @@ def suggest_col_cap(state: ParticleState, cfg: SPHConfig,
     return max(minimum, want)
 
 
-def run_table(bt: BinTable, cfg: SPHConfig, caps=None, whole=False):
+def stale_window(cz: torch.Tensor, d: torch.Tensor, g: int):
+    """(z0, z1) int64: the cells of a stale neighbour column that the
+    stale force kernels walk (``tf_sph::stale_window``,
+    csrc/sph_common.cuh), for a home row now at z-cell ``cz`` (float,
+    ``cell_trunc``) and a column whose rows moved at most ``d`` z-cells
+    (int, ``forces.column_shift``; d >= g: the whole column).  A kept
+    candidate's stale z-cell lies in [cz - 1 - d, cz + 1 + d].  cz is
+    clamped to [-2g - 2, 2g + 2] before it becomes an int, and NaN (a
+    home that keeps no pair) goes to the low end.  Empty where z0 > z1."""
+    edge = 2.0 * g + 2.0
+    c = torch.clamp(torch.where(torch.isnan(cz), -edge, cz), -edge,
+                    edge).to(torch.int64)
+    whole = d >= g
+    return (torch.where(whole, 0, torch.clamp(c - 1 - d, min=0)),
+            torch.where(whole, g - 1, torch.clamp(c + 1 + d, max=g - 1)))
+
+
+def run_table(bt: BinTable, cfg: SPHConfig, caps=None, whole=False,
+              window=None):
     """(run_start, run_len), each (N, 9) int64 in sorted order: the 9
     (dx, dy) neighbour runs of cells (z-1, z, z+1) of every sorted row,
     in RUN_OFFSETS order, as ``tpufluids.binning.build_bins`` builds
@@ -225,6 +243,9 @@ def run_table(bt: BinTable, cfg: SPHConfig, caps=None, whole=False):
 
     ``whole``: each run is the whole neighbour column (the stale
     passes, which mask pairs by their current cells instead).
+    ``window`` = (cz (N,) the sorted rows' current z-cells, shift (g*g,)
+    each column's z-cell shift): each run is the ``stale_window`` of its
+    column, the stale force kernels' walk.
     ``caps`` = (b, w_cap): the column family's pair set.  A row at rank b
     or more in its column gets no runs, and a run ends at rank w_cap of
     its column."""
@@ -248,6 +269,12 @@ def run_table(bt: BinTable, cfg: SPHConfig, caps=None, whole=False):
     base = nx * (g * g) + ny * g
     if whole:
         lo_cell, hi_cell = base, base + g
+    elif window is not None:
+        col = torch.clamp(nx * g + ny, 0, g * g - 1)
+        z0, z1 = stale_window(window[0][:, None],
+                              window[1].to(torch.int64)[col], g)
+        valid = valid & (z0 <= z1)
+        lo_cell, hi_cell = base + z0, base + z1 + 1
     else:
         lo_cell = base + torch.clamp(cz - 1, min=0)[:, None]
         hi_cell = base + torch.clamp(cz + 1, max=g - 1)[:, None] + 1

@@ -1,5 +1,5 @@
-// Smoothing kernels and candidate-walk helpers shared by the SPH pair
-// passes (sph_forces.cu, sph_unidyn.cu), with the operations per pair of
+// Smoothing kernels and the candidate walk shared by the SPH pair passes
+// (sph_forces.cu, sph_unidyn.cu), with the operations per pair of
 // tpufluids_torch/kernels.py; the sources are built with -fmad=false.
 #pragma once
 
@@ -30,29 +30,65 @@ __device__ __forceinline__ float spiky_over_ds(float ds, float h,
   return (ds < h ? spiky * (hr * hr) : 0.f) / ds;
 }
 
-// How a home row walks its candidates beyond the plain 27-cell runs.
-struct Walk {
-  int b, w_cap;                 // column caps (config.column_caps)
-  float xmin, ymin, zmin, cs;   // domain minimum and cell size (stale)
-};
-
-// Current truncated cell coordinates of a row (x, y, z, ...), as
-// binning.cell_trunc: trunc((x - xmin) / cs), a true division.
-__device__ __forceinline__ void cells_now(const float4& a, const Walk& w,
-                                          float c[3]) {
-  c[0] = truncf((a.x - w.xmin) / w.cs);
-  c[1] = truncf((a.y - w.ymin) / w.cs);
-  c[2] = truncf((a.z - w.zmin) / w.cs);
+// Calls f(j) for the sorted rows j that lane ``lane`` of a home row's
+// kLanes lanes takes of the 9 (dx, dy) runs around column (cx, cy), in
+// binning.RUN_OFFSETS order.  Run (dx, dy) is the contiguous rows of
+// cells z0..z1 of its column col = (cx + dx) g + cy + dy, where
+// zrange(dx, dy, col, z0, z1) sets them and returns false to skip the
+// run (z0 <= z1 within [0, g - 1] when it returns true); capped, only the
+// first w_cap rows of each column.  The t-th walked slot, counted over
+// all runs, pair or not, goes to lane t mod kLanes: the split follows
+// the bin tables, not the positions.
+template <int kLanes, bool kCapped, class Z, class F>
+__device__ __forceinline__ void for_each_candidate(
+    const int* __restrict__ cell_start, int cx, int cy, int g, int w_cap,
+    int lane, Z&& zrange, F&& f) {
+  static_assert(kLanes > 0 && (kLanes & (kLanes - 1)) == 0,
+                "kLanes is a power of two");
+  int t = 0;  // slots walked in the runs before this one
+  for (int dx = -1; dx <= 1; ++dx) {
+    const int nx = cx + dx;
+    if (nx < 0 || nx >= g) continue;
+    for (int dy = -1; dy <= 1; ++dy) {
+      const int ny = cy + dy;
+      if (ny < 0 || ny >= g) continue;
+      const int col = nx * g + ny;
+      int z0, z1;
+      if (!zrange(dx, dy, col, z0, z1)) continue;
+      const int base = col * g;
+      const int lo = cell_start[base + z0];
+      int len = cell_start[base + z1 + 1] - lo;
+      if (kCapped) len = min(len, max(cell_start[base] + w_cap - lo, 0));
+      for (int s = (lane - t) & (kLanes - 1); s < len; s += kLanes) {
+        f(lo + s);
+      }
+      t += len;
+    }
+  }
 }
 
-// The stale walks' pair mask (forces.near_cells): the candidate's
-// current cells are within one of the home row's cells ci on each axis.
-__device__ __forceinline__ bool near_now(const float ci[3], const float4& a,
-                                         const Walk& w) {
-  float cj[3];
-  cells_now(a, w, cj);
-  return fabsf(ci[0] - cj[0]) <= 1.f && fabsf(ci[1] - cj[1]) <= 1.f &&
-         fabsf(ci[2] - cj[2]) <= 1.f;
+// The stale walks' z-window of one neighbour column (binning.stale_window):
+// the cells z0..z1 of the column whose rows can be within one cell of a
+// home row now at z-cell cz (binning.cell_trunc, a float), when no row
+// of the column has moved more than d z-cells since the tables were
+// built (d from forces.column_shift, d >= g for "unknown": the whole
+// column).  A kept candidate's stale z-cell lies in [cz - 1 - d,
+// cz + 1 + d].  cz is clamped to [-2g - 2, 2g + 2] before it becomes an
+// int, which changes no window (one beyond that range is empty either
+// way, as d < g); a NaN home, which keeps no pair, gets the low end, and
+// so no window.  Returns false for an empty window.
+__device__ __forceinline__ bool stale_window(float cz, int d, int g, int& z0,
+                                             int& z1) {
+  if (d >= g) {
+    z0 = 0;
+    z1 = g - 1;
+    return true;
+  }
+  const float edge = 2.f * (float)g + 2.f;
+  const int c = (int)fminf(fmaxf(cz, -edge), edge);
+  z0 = max(c - 1 - d, 0);
+  z1 = min(c + 1 + d, g - 1);
+  return z0 <= z1;
 }
 
 }  // namespace tf_sph

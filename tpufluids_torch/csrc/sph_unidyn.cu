@@ -17,7 +17,8 @@
 // first w_cap rows of each neighbour column are candidates.  The TPU
 // kernels hold the packed pool or column windows in VMEM and sweep home
 // blocks over candidate chunks; here a group of lanes owns one
-// cell-sorted row and walks its candidates straight from device memory.
+// cell-sorted row and walks its candidates straight from device memory
+// (the walk of sph_common.cuh, which the base pass shares).
 // The two passes are two launches on one stream: pass A writes the drift
 // velocities in sorted order (drift_sorted; zeros for a capped-out row),
 // and pass B reads them there.  The resident and column wrappers launch
@@ -107,12 +108,11 @@ __device__ __forceinline__ Row load_row(const float4* __restrict__ rows,
 }
 
 // Calls f(j) for the sorted rows j of the 27-cell stencil of cell c that
-// lane ``lane`` of the row's kLanes takes: the 9 (dx, dy) runs in
-// RUN_OFFSETS order, each the contiguous rows of its cells z-1..z+1, the
-// t-th walked slot (over all runs) to lane t mod kLanes.  With
-// sub-binning on (threshold >= 0) and more than threshold rows in cell c,
-// only the cells at offsets {0, dir} per axis.  Capped (the column
-// family): only the first w_cap rows of each neighbour column.
+// lane ``lane`` of the row's kLanes takes (tf_sph::for_each_candidate):
+// each run the cells z-1..z+1 of its column.  With sub-binning on
+// (threshold >= 0) and more than threshold rows in cell c, only the cells
+// at offsets {0, dir} per axis.  Capped (the column family): only the
+// first w_cap rows of each neighbour column.
 template <bool kCapped, class F>
 __device__ __forceinline__ void for_each_candidate(
     const int* __restrict__ cell_start, int c, int g, int threshold,
@@ -125,23 +125,17 @@ __device__ __forceinline__ void for_each_candidate(
   const int dirz = (octant & 4) ? -1 : 1;
   const int z0 = max(sub ? min(cz, cz + dirz) : cz - 1, 0);
   const int z1 = min(sub ? max(cz, cz + dirz) : cz + 1, g - 1);
-  int t = 0;  // slots walked in the runs before this one
-  for (int dx = -1; dx <= 1; ++dx) {
-    const int nx = cx + dx;
-    if (nx < 0 || nx >= g || (sub && dx != 0 && dx != dirx)) continue;
-    for (int dy = -1; dy <= 1; ++dy) {
-      const int ny = cy + dy;
-      if (ny < 0 || ny >= g || (sub && dy != 0 && dy != diry)) continue;
-      const int base = (nx * g + ny) * g;
-      const int lo = cell_start[base + z0];
-      int len = cell_start[base + z1 + 1] - lo;
-      if (kCapped) len = min(len, max(cell_start[base] + w_cap - lo, 0));
-      for (int s = (lane - t) & (kLanes - 1); s < len; s += kLanes) {
-        f(lo + s);
-      }
-      t += len;
-    }
-  }
+  tf_sph::for_each_candidate<kLanes, kCapped>(
+      cell_start, cx, cy, g, w_cap, lane,
+      [&](int dx, int dy, int, int& lo, int& hi) {
+        if (sub && ((dx != 0 && dx != dirx) || (dy != 0 && dy != diry))) {
+          return false;
+        }
+        lo = z0;
+        hi = z1;
+        return true;
+      },
+      f);
 }
 
 // Whether sorted row i, of cell c (sentinel: out of the domain), gets

@@ -47,8 +47,9 @@ from tpufluids_torch.kernels import grad_w_spiky, w_cubic
 from tpufluids_torch.state import ParticleState
 
 # packed row: pos 0:3, vel 3:6, dens 6, press 7, boundary 8, alive 9 (as
-# 0/1, and 0 outside the domain), then zeros to 12 columns, so that a
-# row is three 16-byte loads for the CUDA kernel
+# 0/1, and 0 outside the domain), press / dens^2 10 (the base kernels'
+# per-row pressure term), then zeros to 12 columns, so that a row is
+# three 16-byte loads for the CUDA kernels
 ROW_WIDTH = 12
 _X, _V, _DENS, _PRESS, _BND, _ALIVE = 0, 3, 6, 7, 8, 9
 # candidate slots per chunk of home rows in the plain pass
@@ -99,7 +100,8 @@ def pack_rows(state: ParticleState, order: torch.Tensor,
     cols = torch.cat([
         state.pos, state.vel, state.dens[:, None], state.press[:, None],
         state.boundary.to(f32)[:, None], state.alive.to(f32)[:, None],
-        torch.zeros((n, ROW_WIDTH - 10), dtype=f32, device=state.pos.device),
+        (state.press / (state.dens * state.dens))[:, None],
+        torch.zeros((n, ROW_WIDTH - 11), dtype=f32, device=state.pos.device),
     ], dim=1)
     rows = cols[order]
     rows[:, _ALIVE] *= in_dom
@@ -150,6 +152,27 @@ def near_cells(cells_i: torch.Tensor, cells_j: torch.Tensor) -> torch.Tensor:
     return (torch.abs(cells_i[:, None, :] - cells_j) <= 1.0).all(dim=-1)
 
 
+def column_shift(rows: torch.Tensor, bt: BinTable,
+                 cfg: SPHConfig) -> torch.Tensor:
+    """(g*g,) int32: for each (x, y) column of the stale tables ``bt``,
+    the largest |current - stale| z-cell of its rows, capped at g (0 for
+    an empty column).  Rows count that are in the column, alive in
+    ``rows`` (pack_rows) and whose current z-cell (``cell_trunc``) is not
+    NaN: a dead or NaN row keeps no pair.  The stale force kernels walk
+    ``binning.stale_window`` of each column by it; their pack kernel
+    computes it with integer atomicMax."""
+    g = cfg.grid_size
+    cid = bt.cid.to(torch.int64)
+    cz = cell_trunc(rows[:, _X:_X + 3], cfg)[:, 2]
+    d = torch.clamp(torch.abs(cz - (cid % g).to(cz.dtype)), max=float(g))
+    keep = (cid < g ** 3) & (rows[:, _ALIVE] > 0.5) & ~torch.isnan(cz)
+    d = torch.where(keep, d, 0.0).to(torch.int32)
+    return torch.zeros(g * g, dtype=torch.int32, device=rows.device
+                       ).scatter_reduce(0, torch.clamp(cid // g,
+                                                       max=g * g - 1),
+                                        d, "amax")
+
+
 def pair_sums(rows: torch.Tensor, bt: BinTable, cfg: SPHConfig, caps=None,
               stale: bool = False):
     """(sum_w (N,), dpress (N, 3)) of the sorted ``rows`` (pack_rows),
@@ -157,7 +180,10 @@ def pair_sums(rows: torch.Tensor, bt: BinTable, cfg: SPHConfig, caps=None,
     zeros.  ``caps`` = (b, w_cap): the column family's capped pair set
     (``binning.run_table``).  ``stale``: ``bt`` was built on earlier
     positions; the candidates are the whole neighbour columns, masked by
-    the rows' current cells (``near_cells``)."""
+    the rows' current cells (``near_cells``).  The kernels walk only each
+    column's ``binning.stale_window`` (``column_shift``), which holds
+    every candidate this mask keeps: this whole-column walk is the
+    independent reference of their pair set."""
     n = rows.shape[0]
     run_start, run_len = run_table(bt, cfg, caps, whole=stale)
     k = int(run_len.max()) if n else 0       # the plain path's host sync
@@ -463,25 +489,17 @@ def unidyn_pair_pass(state: ParticleState, bt: BinTable, cfg: SPHConfig,
 # --- the CUDA passes' lane schedule, emulated -----------------------------
 
 
-def lane_slots(bt: BinTable, cfg: SPHConfig, lanes: int,
-               subbin_threshold=None, caps=None):
-    """The dealing of candidate slots to the ``lanes`` lanes of a home row
-    in the unidyn kernels (csrc/sph_unidyn.cu): (row, j, lane, q), each
-    (S,) int64, one entry per walked slot, where ``row`` is the sorted
-    home row, ``j`` the sorted candidate row, and the slot is the t-th
-    that the row walks (its 9 runs in RUN_OFFSETS order, every slot of
-    the walked cells counted, pair or not; sub-binned and capped runs
-    walk only their cells and rows), lane = t mod lanes and q = t div
-    lanes its place in its lane.  The entries go by row, then t."""
+def _lane_slot_chunks(bt: BinTable, cfg: SPHConfig, lanes: int,
+                      subbin_threshold=None, caps=None, runs=None):
+    """``lane_slots`` in chunks of home rows: (row, j, lane, q) of each."""
     n = bt.cid.shape[0]
-    run_start, run_len = run_table(bt, cfg, caps)
+    run_start, run_len = runs if runs is not None else run_table(bt, cfg,
+                                                                 caps)
     k = int(run_len.max()) if n else 0
     if k == 0:
-        none = torch.zeros(0, dtype=torch.int64, device=bt.cid.device)
-        return none, none, none, none
+        return
     slot = torch.arange(k, device=bt.cid.device)
     step = max(1, CHUNK_SLOTS // (9 * k))
-    out = []
     for a in range(0, n, step):
         b = min(n, a + step)
         idx = run_start[a:b, :, None] + slot                   # (c, 9, k)
@@ -492,10 +510,30 @@ def lane_slots(bt: BinTable, cfg: SPHConfig, lanes: int,
         walked = walked.reshape(b - a, -1)
         t = torch.cumsum(walked, dim=1) - 1
         r, s = walked.nonzero(as_tuple=True)
-        ts = t[r, s]
-        out.append((r + a, idx.reshape(b - a, -1)[r, s], ts % lanes,
-                    ts // lanes))
-    return tuple(torch.cat(x) for x in zip(*out))
+        if r.numel():
+            ts = t[r, s]
+            yield (r + a, idx.reshape(b - a, -1)[r, s], ts % lanes,
+                   ts // lanes)
+
+
+def lane_slots(bt: BinTable, cfg: SPHConfig, lanes: int,
+               subbin_threshold=None, caps=None, runs=None):
+    """The dealing of candidate slots to the ``lanes`` lanes of a home row
+    in the SPH force kernels (csrc/sph_unidyn.cu, csrc/sph_forces.cu):
+    (row, j, lane, q), each (S,) int64, one entry per walked slot, where
+    ``row`` is the sorted home row, ``j`` the sorted candidate row, and
+    the slot is the t-th that the row walks (its 9 runs in RUN_OFFSETS
+    order, every slot of the walked cells counted, pair or not;
+    sub-binned and capped runs walk only their cells and rows), lane = t
+    mod lanes and q = t div lanes its place in its lane.  The entries go
+    by row, then t.  ``runs``: (run_start, run_len) of another walk than
+    ``binning.run_table(bt, cfg, caps)``, such as the stale window's."""
+    chunks = list(_lane_slot_chunks(bt, cfg, lanes, subbin_threshold, caps,
+                                    runs))
+    if not chunks:
+        none = torch.zeros(0, dtype=torch.int64, device=bt.cid.device)
+        return none, none, none, none
+    return tuple(torch.cat(x) for x in zip(*chunks))
 
 
 def lane_butterfly(v: torch.Tensor) -> torch.Tensor:
@@ -525,10 +563,11 @@ def _by_place(q):
     return torch.split(by_q, torch.bincount(q).tolist())
 
 
-def _sum_by_lane(row, lane, q, terms, n: int, lanes: int):
+def _sum_by_lane(row, lane, q, terms, n: int, lanes: int, acc=None):
     """(n, lanes, cols): each lane's sum of its slots' ``terms`` (S, cols),
-    added one by one in its slot order."""
-    acc = terms.new_zeros((n, lanes, terms.shape[1]))
+    added one by one in its slot order (into ``acc``, when given)."""
+    if acc is None:
+        acc = terms.new_zeros((n, lanes, terms.shape[1]))
     for sel in _by_place(q):
         acc[row[sel], lane[sel]] += terms[sel]
     return acc
@@ -616,6 +655,53 @@ def unidyn_lane_pass(state: ParticleState, bt: BinTable, cfg: SPHConfig,
     partner = torch.where(partner < n, order[partner.clamp(max=n - 1)], -1)
     return unidyn_result(to_pool(out_a, order), to_pool(out_b, order),
                          to_pool(partner, order), state.dens, sdv, fdv)
+
+
+def base_lane_sums(rows: torch.Tensor, bt: BinTable, cfg: SPHConfig,
+                   lanes: int, runs, cells=None):
+    """The base pair pass in the CUDA kernels' lane schedule over the
+    walk ``runs`` (``binning.run_table``): (sums (N, 4) sum_w and dpress
+    in sorted order, pairs, an int64 device scalar).  The terms of a
+    slot are ``_chunk_sums``' on one candidate, masked by ``near_cells``
+    of ``cells`` (the current cells, stale) when given, summed lane by
+    lane in ``lane_slots`` order and joined by ``lane_butterfly``; the
+    home rows go in chunks."""
+    n = rows.shape[0]
+    acc = rows.new_zeros((n, lanes, 4))
+    pairs = torch.zeros((), dtype=torch.int64, device=rows.device)
+    for row, j, lane, q in _lane_slot_chunks(bt, cfg, lanes, runs=runs):
+        home, cand = rows[row], rows[j][:, None]
+        valid = (near_cells(cells[row], cells[j][:, None]) if cells is not None
+                 else torch.ones_like(row, dtype=torch.bool)[:, None])
+        sum_w, dpress = _chunk_sums(home, cand, valid, cfg)
+        _sum_by_lane(row, lane, q, torch.cat([sum_w[:, None], dpress], 1),
+                     n, lanes, acc)
+        rab = home[:, _X:_X + 3] - cand[:, 0, _X:_X + 3]
+        ds = torch.sqrt(torch.sum(rab * rab, dim=-1))
+        pairs += (valid[:, 0] & (cand[:, 0, _ALIVE] > 0.5) & (ds > 0)
+                  & (ds <= 2 * cfg.cutoff)).sum()
+    return lane_butterfly(acc), pairs
+
+
+def base_lane_pass(state: ParticleState, bt: BinTable, cfg: SPHConfig,
+                   lanes: int, caps=None, stale: bool = False):
+    """``pair_sums`` summed in the base CUDA kernels' order, ``lanes``
+    lanes a home row (csrc/sph_forces.cu): (sum_w (N,), dpress (N, 3)) in
+    pool order and the pairs summed (an int64 device scalar).  ``caps``:
+    the column family's caps; ``stale``: ``bt`` is an earlier step's, and
+    the walk is each stale column's ``binning.stale_window`` by
+    ``column_shift``, as the kernels walk it.  The emulation the kernels
+    are held against on the card."""
+    order = bt.order
+    rows = pack_rows(state, order, bt.in_dom)
+    cells = window = None
+    if stale:
+        cells = cell_trunc(rows[:, _X:_X + 3], cfg)
+        window = (cells[:, 2], column_shift(rows, bt, cfg))
+    sums, pairs = base_lane_sums(rows, bt, cfg, lanes,
+                                 run_table(bt, cfg, caps, window=window),
+                                 cells)
+    return to_pool(sums[:, 0], order), to_pool(sums[:, 1:], order), pairs
 
 
 def granular_pass(state: ParticleState, vel_grad: torch.Tensor,

@@ -4,13 +4,20 @@ PyTorch versions: the counterpart of ``tpufluids/sph_pallas.py``.
 * ``base_forces_rowblock`` replaces the Pallas kernel of the same name
   (``_base_rowblock_kernel``): ``sum_w`` and ``dpress`` of every particle
   over its exact 27-cell stencil, with no capacity cap, in pool order.
-  The wrapper packs the sorted rows with one gather by ``order``
-  (``forces.pack_rows``) and launches ``csrc/sph_forces.cu`` (one thread
-  per sorted row, which writes its results at its pool index).  Its
-  stale mode serves the sort cadence.
+  The wrapper makes two launches of ``csrc/sph_forces.cu``: the pack
+  kernel (``base_pack``: the sorted rows of ``forces.pack_rows``, one
+  gather by ``order``, and in stale mode the rows' current cells and
+  each column's z-cell shift),
+  then the force kernel, ``BASE_LANES`` lanes of one warp a sorted row,
+  whose lane 0 writes the row's results at its pool index
+  (``forces.base_lane_pass`` emulates their order of sums).  Its stale
+  mode serves the sort cadence: a row walks only the cells of each stale
+  column that its shift leaves within reach (``binning.stale_window``),
+  a set that holds the whole column's pairs.
 * ``base_forces_column`` replaces ``base_forces_pallas``: the same
   pairs, capped per (x, y) column as the column family caps them
-  (``config.column_caps``), fresh or stale, with the overflow count.
+  (``config.column_caps``), fresh or stale, with the overflow count:
+  the same kernels, capped.
 * ``unidyn_forces_resident`` and ``unidyn_forces_rowblock`` replace the
   Pallas kernels of the same names: the two unidyn pair passes, as the
   pair of kernels of ``csrc/sph_unidyn.cu``, ``UNIDYN_LANES`` lanes a
@@ -78,19 +85,88 @@ def _base_plain(state: ParticleState, bt: BinTable, cfg: SPHConfig,
     return forces.to_pool(sum_w, order), forces.to_pool(dpress, order)
 
 
+# lanes a home row in the base force kernels (kLanes of csrc/sph_forces.cu,
+# which ``base_info`` reports), chosen by a probe on the card (PERF.md)
+BASE_LANES = 4
+
+
+@functools.cache
+def base_info(device_index: int) -> dict:
+    """The base force kernels' launch shape on CUDA device
+    ``device_index``: lanes a home row, threads a block, and the blocks a
+    multiprocessor keeps resident."""
+    lib = _build.load()
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(device_index):
+        rc = lib.tf_sph_base_info(*map(ctypes.byref, vals))
+    if rc:
+        raise RuntimeError(f"tf_sph_base_info: CUDA error {rc} "
+                           f"({lib.tf_error_string(rc).decode()})")
+    return dict(zip(("lanes", "threads", "resident"),
+                    (v.value for v in vals)))
+
+
+def _base_on_cuda(state: ParticleState, bt: BinTable, order: torch.Tensor,
+                  cfg: SPHConfig) -> bool:
+    """``_on_cuda`` with the fields the pack kernel reads."""
+    n = state.capacity
+    return _on_cuda(state, bt, order, cfg, [
+        ("vel", state.vel, torch.float32, (n, 3)),
+        ("dens", state.dens, torch.float32, (n,)),
+        ("press", state.press, torch.float32, (n,)),
+        ("boundary", state.boundary, torch.bool, (n,)),
+        ("alive", state.alive, torch.bool, (n,))])
+
+
+def _pack_launch(state: ParticleState, bt: BinTable, cfg: SPHConfig,
+                 order: torch.Tensor, stale: bool):
+    n = state.capacity
+    g = cfg.grid_size
+    dev = state.pos.device
+    rows = torch.empty((n, forces.ROW_WIDTH), dtype=torch.float32,
+                       device=dev)
+    cells = shift = None
+    if stale:
+        cells = torch.empty((n, 4), dtype=torch.float32, device=dev)
+        shift = torch.zeros(g * g, dtype=torch.int32, device=dev)
+    _build.launch("tf_sph_base_pack", state.pos, state.vel, state.dens,
+                  state.press, state.boundary, state.alive, order, bt.in_dom,
+                  bt.cid, rows, cells, shift, n, g, cfg.xmin, cfg.ymin,
+                  cfg.zmin, cfg.cell_size)
+    return rows, cells, shift
+
+
+def base_pack(state: ParticleState, bt: BinTable, cfg: SPHConfig,
+              order: torch.Tensor, stale: bool = False):
+    """(rows, cells, shift): the sorted rows the base force kernels read
+    (``forces.pack_rows``) and, ``stale``, the rows' current cells ((N,
+    4): ``binning.cell_trunc`` and a zero) and each stale column's z-cell
+    shift (``forces.column_shift``); None for both when fresh.  On the
+    card one launch of the pack kernel of csrc/sph_forces.cu, equal to
+    the plain versions bit for bit; the plain versions on CPU tensors.
+    The two base wrappers launch it, and their launch counts cover it."""
+    if _base_on_cuda(state, bt, order, cfg):
+        return _pack_launch(state, bt, cfg, order, stale)
+    rows = forces.pack_rows(state, order, bt.in_dom)
+    if not stale:
+        return rows, None, None
+    cells = torch.nn.functional.pad(
+        binning.cell_trunc(rows[:, 0:3], cfg), (0, 1))
+    return rows, cells, forces.column_shift(rows, bt, cfg)
+
+
 def _base_launch(entry: str, state: ParticleState, bt: BinTable,
                  cfg: SPHConfig, order: torch.Tensor, stale: bool, caps=()):
-    """Launch a base force kernel of csrc/sph_forces.cu; returns (sum_w,
-    dpress) in pool order."""
+    """Launch the pack kernel and a base force kernel of
+    csrc/sph_forces.cu; returns (sum_w, dpress) in pool order."""
     n = state.capacity
     h = cfg.cutoff
-    rows = forces.pack_rows(state, order, bt.in_dom)
+    rows, cells, shift = _pack_launch(state, bt, cfg, order, stale)
     sum_w = torch.empty(n, dtype=torch.float32, device=rows.device)
     dpress = torch.empty((n, 3), dtype=torch.float32, device=rows.device)
-    _build.launch(entry, rows, bt.cid, bt.cell_start, order, sum_w, dpress,
-                  n, cfg.grid_size, *caps, bool(stale), cfg.xmin, cfg.ymin,
-                  cfg.zmin, cfg.cell_size, h, 2 * h, PI_REF * h ** 3,
-                  -45.0 / (PI_REF * h ** 6), 0.01 * h * h,
+    _build.launch(entry, rows, cells, bt.cid, bt.cell_start, shift, order,
+                  sum_w, dpress, n, cfg.grid_size, *caps, h, 2 * h,
+                  PI_REF * h ** 3, -45.0 / (PI_REF * h ** 6), 0.01 * h * h,
                   cfg.alpha_fluid * cfg.sound,
                   cfg.visc_quadratic / cfg.sound, cfg.alpha_boundary,
                   cfg.bdensfactor)
@@ -114,19 +190,23 @@ def base_forces_rowblock(state: ParticleState, bt: BinTable,
     and ``order`` from ``binning.sort_tables``; returns (sum_w (N,),
     dpress (N, 3), overflow = 0) in pool order, zero for rows that are
     dead or outside the domain.  ``stale``: ``bt`` is an earlier step's
-    (``binning.sort_by_cell``, the sort cadence); every row then walks
-    the whole neighbour columns of its stale column and keeps the
-    candidates whose current cells are within one of its own.
+    (``binning.sort_by_cell``, the sort cadence); every row then keeps
+    the candidates of its stale neighbour columns whose current cells are
+    within one of its own.
 
     Replaces base_forces_rowblock (tpufluids/sph_pallas.py).  The TPU
     kernel's 128-row home blocks, DMA double buffer and chunk knobs are
-    VMEM plumbing; on the card one thread per sorted row loops over its
-    9 neighbour runs from device memory, and the loads of neighbouring
-    threads, which share most of their candidates, hit the caches
-    (csrc/sph_forces.cu)."""
+    VMEM plumbing; on the card the pack kernel gathers the sorted rows
+    (and, stale, their current cells and each column's z-cell shift),
+    and ``BASE_LANES`` lanes of
+    one warp own each sorted row, dealing its walked candidates round
+    robin and joining their sums by a fixed shuffle butterfly
+    (csrc/sph_forces.cu; ``forces.base_lane_pass`` emulates the order).
+    The stale walk reads only each column's ``binning.stale_window``,
+    which holds the whole column's pairs."""
     if cfg.variant != "base":
         raise ValueError("base_forces_rowblock takes the base variant")
-    if not _on_cuda(state, bt, order, cfg):
+    if not _base_on_cuda(state, bt, order, cfg):
         return base_forces_rowblock_plain(state, bt, cfg, order, stale)
     sum_w, dpress = _base_launch("tf_sph_base_forces", state, bt, cfg, order,
                                  stale)
@@ -156,14 +236,13 @@ def base_forces_column(state: ParticleState, bt: BinTable, cfg: SPHConfig,
     rows over the home cap, summed over the columns.
 
     Replaces base_forces_pallas (tpufluids/sph_pallas.py), one program
-    per (x, y) column over capped VMEM window tiles.  On the card one
-    thread per sorted row walks the capped columns from device memory
-    (csrc/sph_forces.cu, the row-block kernel's pair loop with the caps):
+    per (x, y) column over capped VMEM window tiles.  On the card the
+    row-block kernel's lanes and walk with the caps (csrc/sph_forces.cu):
     the TPU kernel's tiles, home chunks, z-skip and banded sweep leave its
     results unchanged and are not carried over."""
     if cfg.variant != "base":
         raise ValueError("base_forces_column takes the base variant")
-    if not _on_cuda(state, bt, order, cfg):
+    if not _base_on_cuda(state, bt, order, cfg):
         return base_forces_column_plain(state, bt, cfg, order, stale)
     caps = column_caps(cfg)
     sum_w, dpress = _base_launch("tf_sph_base_column", state, bt, cfg,
