@@ -7,7 +7,8 @@
    shared-memory lines.
 2. Holds each grid kernel against its plain PyTorch version, on seeded
    inputs with set_bnd-consistent ghosts, and times both with CUDA
-   events at the main path's shapes: the stencil kernels and the
+   events at the main path's shapes: the stencil kernels (advection and
+   forcing, the x-march kernels, bit for bit) and the
    streamed Jacobi and red-black pressure solves (a = 1, c = 6, b = 0)
    at 256^3, their bfloat16 versions at 512^3, the whole tier (the
    whole solve in float32 and bfloat16, Jacobi and red-black, the
@@ -17,7 +18,13 @@
    solves and the whole solve must equal their plain versions bit for
    bit, the whole solve
    the streamed solve of its type, and the bfloat16 solve must differ
-   from the float32 one; the whole step of configs 2 and 4, and of
+   from the float32 one; the x-march kernels (csrc/advect.cu,
+   csrc/forcing.cu): their compiled tiles, ptxas's registers, stack frame
+   and spills of every instance (a stack frame or a spill fails), shared
+   memory a block, and their device time alone at 256^3 (torch.profiler,
+   "kernel_ms" in their rows of the kernels line) with the bytes/s and
+   share of the bound it gives, beside the parent's time; the whole step
+   of configs 2 and 4, and of
    config 4 at 78^3 (the gate's edge), must equal the separate kernels
    (stam.step3d_multi) bit for bit.  Then the whole step's kernel
    itself (csrc/step.cu): ptxas's registers, stack frame and spills (a
@@ -170,7 +177,10 @@
     scene): 1 warm-up and 3 timed steps each, collected on rank 0 and held
     against the dense steps on the card, bit for bit (the DCT leg within
     1e-5 of max|field|, residual <= 1e-8); ms/step and staged bytes a
-    step, correctness runs on one shared card, not scaling.
+    step, correctness runs on one shared card, not scaling.  Before the
+    worlds, the device-busy ms/step and idle share of the paths the
+    x-march kernels move (the DCT step, config 3 at 256^3 and 512^3,
+    config 5 at world 1) beside the card's name and power limit.
 
 Prints the kernels' JSON line, with each kernel's least time on the card
 (its bound: the bytes it must move at 3.35 TB/s, or its float32
@@ -218,10 +228,11 @@ BF16_OPS_PER_S = 133.8e12
 # kernel name -> (source, Pallas kernel it replaces, tolerance relative
 # to max|plain output|)
 KERNELS = {
+    # bit for bit: the x-march kernels
     "advect3d_multi": ("tpufluids_torch/csrc/advect.cu",
-                       "tpufluids/grid/pallas_kernels.py:1523", 3e-6),
+                       "tpufluids/grid/pallas_kernels.py:1523", 0.0),
     "forcing3d": ("tpufluids_torch/csrc/forcing.cu",
-                  "tpufluids/grid/pallas_kernels.py:836", 3e-6),
+                  "tpufluids/grid/pallas_kernels.py:836", 0.0),
     "div3d": ("tpufluids_torch/csrc/divgrad.cu",
               "tpufluids/grid/pallas_kernels.py:971", 1e-6),
     "gradsub3d": ("tpufluids_torch/csrc/divgrad.cu",
@@ -655,11 +666,16 @@ def device_profile(run, steps):
     return wall, busy, len(events) / steps, top
 
 
+# path -> (device busy ms/step, idle share) of its profile window
+PROFILES = {}
+
+
 def log_profile(path, run, ms):
     """The device's busy time and ops a step of ``run``, and its idle
     share against the timed run's ``ms`` a step: the profiler's own host
     cost slows the steps it records."""
     wall, busy, ops, top = device_profile(run, PROFILE_STEPS)
+    PROFILES[path] = (busy, 1.0 - busy / ms)
     log(f"{path}: {PROFILE_STEPS} steps under torch.profiler ({wall:.4f} "
         f"ms/step there): device busy {busy:.4f} ms/step, {ops:.1f} device "
         f"ops a step; device idle share {1.0 - busy / ms:.3f} of the timed "
@@ -766,19 +782,9 @@ def check_blocked(stam, kernels, dev, build_log):
     at 512^3 (config 3 with the bf16 solver) by half-sweeps and sweeps:
     what one level costs.  (The solves themselves are held bit for bit
     against the plain ones and timed in check_kernels.)"""
-    entry = None
-    found = {}
-    for line in build_log.splitlines():
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1]
-            entry = entry if "blocked_kernel" in entry else None
-        elif entry and "stack frame" in line:
-            nums = [int(w) for w in line.replace(",", " ").split()
-                    if w.isdigit()]
-            found.setdefault(entry, {})["stack_spill"] = nums
-        elif entry and "registers" in line:
-            found.setdefault(entry, {})["registers"] = int(
-                line.split("Used ")[1].split()[0])
+    found = {entry: {"registers": regs, "stack_spill": stack_spill}
+             for entry, regs, stack_spill in ptxas_entries(build_log,
+                                                           "blocked_kernel")}
     check(len(found) == len(BLOCKED_ENTRIES),
           f"ptxas lines of {len(found)} blocked kernels, expected "
           f"{len(BLOCKED_ENTRIES)}")
@@ -1041,6 +1047,102 @@ def check_whole_solve(kernels, args, got):
     check(same, "lin_solve3d_whole differs from the streamed solve")
 
 
+# the x-march kernels (csrc/advect.cu, csrc/forcing.cu): row -> the name
+# of their kernel in ptxas's and torch.profiler's output, the instances
+# it is compiled in (K 1, 2, 3 and the self-advection; with and without
+# buoyancy), and the parent's device-ms a call at the main path's shapes
+# (PERF.md rows 1 and 2: k = 3 and k = 2; the two launches)
+MARCH_KERNELS = {"advect3d_multi": ("advect_march_kernel", 4, (0.443, 0.345)),
+                 "forcing3d": ("forcing_march_kernel", 2, (0.430,))}
+# the paths whose device-busy time the march kernels move
+MARCH_PATHS = ("bench (DCT)", "config 3 (red-black Jacobi)",
+               "config 3, float32", "config 5, world 1")
+
+
+def ptxas_entries(build_log, key):
+    """[(mangled name, registers, [stack frame, spill stores, spill loads]
+    in bytes)] of every kernel entry whose mangled name holds ``key``."""
+    found, entry = [], None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            entry = entry if key in entry else None
+            if entry:
+                found.append([entry, None, None])
+        elif entry and "stack frame" in line:
+            found[-1][2] = [int(w) for w in line.replace(",", " ").split()
+                            if w.isdigit()]
+        elif entry and "registers" in line:
+            found[-1][1] = int(line.split("Used ")[1].split()[0])
+    return found
+
+
+def check_march(stam, kernels, dev, build_log, checked):
+    """The x-march kernels of rows 1 and 2: their compiled shapes (the
+    ones kernels.ADVECT_TILE and FORCING_TILE emulate), ptxas's registers,
+    stack frame and spills of every instance (a stack frame or a spill
+    fails) and shared memory a block; then their device time alone
+    (torch.profiler's kernel events) at the main path's 256^3 call shapes,
+    the achieved bytes/s and the share of the bound, added to their rows
+    of the kernels line as "kernel_ms", beside the parent's time."""
+    shapes = kernels.march_shapes()
+    check(shapes["advect3d_multi"][0] == kernels.ADVECT_TILE
+          and shapes["forcing3d"][0] == kernels.FORCING_TILE,
+          f"compiled march shapes {shapes} are not kernels.ADVECT_TILE, "
+          f"FORCING_TILE")
+    for name, (key, count, _) in MARCH_KERNELS.items():
+        tile, threads, smem = shapes[name]
+        entries = ptxas_entries(build_log, key)
+        check(len(entries) == count, f"{name}: {len(entries)} ptxas entries "
+                                     f"of {key}, expected {count}")
+        for entry, regs, stack_spill in entries:
+            inst = entry.split(key)[1][:24]
+            log(f"{key} {inst}: {regs} registers, stack frame, spill stores, "
+                f"spill loads {stack_spill} B")
+            check(stack_spill is not None and not any(stack_spill),
+                  f"{key} {inst}: stack frame or spill {stack_spill}")
+        log(f"{name}: tile {tile.ty}x{tile.tz}, {tile.z} z-cells a thread, "
+            f"segments of {tile.seg} rows, {threads} threads and {smem} B of "
+            f"shared memory a block"
+            f"{' (k = 3; k = 2 takes 2/3)' if name == 'advect3d_multi' else ''}")
+    rng = np.random.default_rng(SEED + 12)
+    n = N_BIG
+    cfg = grid_config(stam, "bench (DCT)", n)
+    dt0 = cfg.dt * n
+
+    def field(b, lo, hi):
+        a = rng.uniform(lo, hi, (n + 2,) * 3).astype(np.float32)
+        return stam.set_bnd3d(b, torch.from_numpy(a).to(dev))
+
+    u, v, w = (field(b, -1.2 / dt0, 1.2 / dt0) for b in (1, 2, 3))
+    d, t = (field(0, 0.0, 1.0) for _ in range(2))
+    calls = {"advect3d_multi": [
+        lambda: kernels.advect3d_multi((u, v, w), (1, 2, 3), u, v, w, dt0),
+        lambda: kernels.advect3d_multi((d, t), (0, 0), u, v, w, dt0)],
+        "forcing3d": [lambda: kernels.forcing3d(u, v, w, d, t, cfg)]}
+    field_bytes = u.nbytes
+    passes = {"advect3d_multi": (6, 7), "forcing3d": (8,)}
+    card = card_line()
+    for name, fns in calls.items():
+        key, _, before = MARCH_KERNELS[name]
+        row = checked[name]
+        bounds = ([c["bound_ms"] for c in row["calls"]] if "calls" in row
+                  else [row["bound_ms"]])
+        alone = []
+        for i, fn in enumerate(fns):
+            ms = kernel_alone_ms(fn, (key,))
+            nbytes = passes[name][i] * field_bytes
+            alone.append(ms)
+            if "calls" in row:
+                row["calls"][i]["kernel_ms"] = ms
+            log(f"{name} @ {n}^3, call {i} ({passes[name][i]} field passes): "
+                f"the kernel alone {ms:.4f} device-ms (before the redesign "
+                f"{before[i]} ms), {nbytes / (ms / 1e3):.4e} B/s, "
+                f"{bounds[i] / ms:.3f} of its bound {bounds[i]:.4f} ms "
+                f"({card})")
+        row["kernel_ms"] = float(np.mean(alone))
+
+
 # kernel #7's time at config 4, 64^3, before its redesign (PERF.md row 7)
 STEP_WHOLE_BEFORE_MS = 0.548
 # kernel #9's time at config 1, 128^2, before its redesign (PERF.md row 9)
@@ -1051,19 +1153,10 @@ def ptxas_entry(build_log, key):
     """{"registers", "stack_spill": [stack frame, spill stores, spill
     loads] in bytes} from nvcc's -Xptxas -v lines of the one kernel entry
     whose mangled name holds ``key``."""
-    entry, info = None, {}
-    for line in build_log.splitlines():
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1]
-            entry = entry if key in entry else None
-        elif entry and "stack frame" in line:
-            info["stack_spill"] = [int(w) for w in line.replace(
-                ",", " ").split() if w.isdigit()]
-        elif entry and "registers" in line:
-            info["registers"] = int(line.split("Used ")[1].split()[0])
-    check(set(info) == {"stack_spill", "registers"},
-          f"ptxas lines of {key}: {info}")
-    return info
+    found = ptxas_entries(build_log, key)
+    check(len(found) == 1 and None not in found[0],
+          f"ptxas lines of {key}: {found}")
+    return {"registers": found[0][1], "stack_spill": found[0][2]}
 
 
 def barrier_us(grid, threads):
@@ -2770,6 +2863,7 @@ def main():
             log("  ptxas: " + line.strip())
 
     checked = check_kernels(stam, kernels, dev)
+    check_march(stam, kernels, dev, build.log, checked)
     check_step_whole(stam, kernels, dev, build.log, checked)
     check_step2d_whole(stam, kernels, dev, build.log, checked)
     check_blocked(stam, kernels, dev, build.log)
@@ -2820,6 +2914,11 @@ def main():
     c, ms["config 5, world 1"] = run_config5(stam, kernels, shard, dev,
                                              ms["config 3, float32"])
     add_counts(counts, c)
+    card = card_line()
+    for path in MARCH_PATHS:
+        busy, idle = PROFILES[path]
+        log(f"{path}: {ms[path]:.4f} ms/step, device busy {busy:.4f} ms/step "
+            f"under torch.profiler, idle share {idle:.3f} ({card})")
     run_shared_card_worlds(shard)
 
     rows = []

@@ -9,8 +9,9 @@ use):
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 The kernels are built with -fmad=false, so they round like their plain
-versions; the tolerances (relative to max|plain output|) are those of
-the JAX package's Pallas tests: 3e-6 for advection and forcing, 1e-6
+versions: advection and forcing (the x-march kernels, also at 63^3 and
+100^3) equal theirs bit for bit; the other tolerances (relative to
+max|plain output|) are those of the JAX package's Pallas tests: 1e-6
 for divergence, gradient subtraction and the Jacobi solves, 1e-5 for
 whole steps.  The whole tier (one cooperative launch) must equal the
 streamed kernels bit for bit, and the 2D kernels, the bfloat16 solves
@@ -25,6 +26,8 @@ from tpufluids_torch.grid import kernels, stam
 pytestmark = pytest.mark.gpu
 
 SIZES = [64, 256]
+# the x-march kernels also at sizes that no tile or segment divides
+STENCIL_SIZES = [63, 64, 100, 256]
 
 
 @pytest.fixture
@@ -48,6 +51,11 @@ def _close(got, want, tol):
         assert float((g - w).abs().max()) <= tol * scale
 
 
+def _equal(got, want):
+    return all(g.shape == w.shape and torch.equal(g, w)
+               for g, w in zip(got, want))
+
+
 def _bench(n, **kw):
     return stam.StamConfig(**{**dict(
         n=n, dt=0.5 / n, vorticity_eps=2.0, buoyancy_beta=0.5,
@@ -63,18 +71,22 @@ def _seeded(cfg, dev):
     return s
 
 
-@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("n", STENCIL_SIZES)
 def test_advect_kernel_matches_plain(cuda, n):
+    """Bit for bit: the self-advection (the velocity read from the ring),
+    the scalars, one field, and three fields that are not the velocity;
+    at sizes the march's tiles and segments divide and do not."""
     dt0 = 0.5
     u, v, w = _fields(cuda, n, 1, (1, 2, 3), -1.2 / dt0, 1.2 / dt0)
     d, t = _fields(cuda, n, 2, (0, 0), 0.0, 1.0)
     before = kernels.advect3d_multi.launches
-    for fields, bnds in (((u, v, w), (1, 2, 3)), ((d, t), (0, 0)),
-                         ((d,), (3,))):
+    cases = (((u, v, w), (1, 2, 3)), ((d, t), (0, 0)), ((d,), (3,)),
+             ((d, t, u), (0, 2, 1)))
+    for fields, bnds in cases:
         got = kernels.advect3d_multi(fields, bnds, u, v, w, dt0)
         want = kernels.advect3d_multi_plain(fields, bnds, u, v, w, dt0)
-        _close(got, want, 3e-6)
-    assert kernels.advect3d_multi.launches == before + 3
+        assert _equal(got, want), bnds
+    assert kernels.advect3d_multi.launches == before + len(cases)
 
 
 @pytest.mark.parametrize("coeffs", [
@@ -82,15 +94,43 @@ def test_advect_kernel_matches_plain(cuda, n):
     dict(buoyancy_alpha=0.05, buoyancy_beta=0.5, ambient_temp=0.2),
     dict(vorticity_eps=2.0),
 ], ids=["both", "buoyancy", "vorticity"])
-@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("n", STENCIL_SIZES)
 def test_forcing_kernel_matches_plain(cuda, n, coeffs):
+    """Bit for bit, one launch a call, in each of the three modes."""
     cfg = stam.StamConfig(n=n, dt=0.5 / n, **coeffs)
     u, v, w = _fields(cuda, n, 3, (1, 2, 3), -1.0, 1.0)
     d, t = _fields(cuda, n, 4, (0, 0), 0.0, 1.0)
-    before = kernels.forcing3d.launches
+    before = kernels.launch_counts()
     got = kernels.forcing3d(u, v, w, d, t, cfg)
-    _close(got, kernels.forcing3d_plain(u, v, w, d, t, cfg), 3e-6)
-    assert kernels.forcing3d.launches == before + 1
+    after = kernels.launch_counts()
+    assert _equal(got, kernels.forcing3d_plain(u, v, w, d, t, cfg))
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {"forcing3d": 1}
+
+
+@pytest.mark.parametrize("kernel", ["advect_march_kernel",
+                                    "forcing_march_kernel"])
+def test_march_kernels_have_no_stack_frame(cuda, kernel):
+    """ptxas's lines for every instance of the two x-march kernels (K 1,
+    2, 3 and the self-advection; with and without buoyancy): no stack
+    frame, no spill."""
+    from tpufluids_torch import _build
+    lines = _build.build().log.splitlines()
+    at = [i for i, line in enumerate(lines)
+          if "Function properties for" in line and kernel in line]
+    assert len(at) == {"advect_march_kernel": 4,
+                       "forcing_march_kernel": 2}[kernel]
+    for i in at:
+        assert "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill " \
+            "loads" in lines[i + 1], lines[i:i + 3]
+
+
+def test_march_shapes_are_the_compiled_ones(cuda):
+    """kernels.ADVECT_TILE and FORCING_TILE, which the CPU emulations
+    march with, are the shapes the sources compile."""
+    shapes = kernels.march_shapes()
+    assert shapes["advect3d_multi"][0] == kernels.ADVECT_TILE
+    assert shapes["forcing3d"][0] == kernels.FORCING_TILE
 
 
 @pytest.mark.parametrize("n", SIZES)

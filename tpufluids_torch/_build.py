@@ -38,8 +38,7 @@ _P, _INT, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # returns a cudaError_t as int
 SIGNATURES = {
     "tf_advect3d": [_P] * 9 + [_INT] * 7 + [_F, _P],
-    "tf_forcing_a": [_P] * 7 + [_INT] * 5 + [_F] * 5 + [_P],
-    "tf_forcing_b": [_P] * 7 + [_INT] * 3 + [_F] * 3 + [_P],
+    "tf_forcing3d": [_P] * 8 + [_INT] * 5 + [_F] * 6 + [_P],
     "tf_div3d": [_P] * 4 + [_INT] * 3 + [_F, _P],
     "tf_gradsub3d": [_P] * 7 + [_INT] * 3 + [_F, _P],
     "tf_lin_solve3d": [_P] * 4 + [_INT] * 3 + [_F] * 2 + [_P],
@@ -157,6 +156,9 @@ def load() -> ctypes.CDLL:
     lib.tf_sph_base_info.restype = ctypes.c_int
     lib.tf_unidyn_info.argtypes = [ctypes.POINTER(_INT)] * 4
     lib.tf_unidyn_info.restype = ctypes.c_int
+    for shape in ("tf_advect3d_shape", "tf_forcing3d_shape"):
+        getattr(lib, shape).argtypes = [ctypes.POINTER(_INT)]
+        getattr(lib, shape).restype = None
     lib.tf_error_string.argtypes = [ctypes.c_int]
     lib.tf_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,10 +1,11 @@
 // Shared indexing for the grid kernels of tpufluids_torch.
 //
 // Every field is a dense (n+2)^3 float32 array, C order, z contiguous,
-// with one ghost layer per face.  The kernels run one thread per output
-// cell, ghost cells included, and every output cell is written by
-// exactly one thread (no atomics, no shared memory), so results are
-// deterministic.
+// with one ghost layer per face.  Every output cell is written by
+// exactly one thread (no atomics), so results are deterministic: one
+// thread per output cell, ghosts included, or, in the x-march of the
+// advection and the forcing (stencil_march.cuh), the thread that
+// computes the cell's clamped cell.
 //
 // A ghost cell never needs a second pass: stam.set_bnd3d writes the x
 // faces, then the y faces, then the z faces, each face as a full plane,

@@ -12,10 +12,14 @@ kernel to the plain version.  Each wrapper counts its launches in its
 
 Device-memory bytes bound every 3D kernel here.  The four stencil
 stages (advection, forcing, divergence, gradient subtraction) are single
-passes over a few (n+2)^3 float32 fields, one thread per output cell,
-ghosts included; a ghost output is the interior value at its clamped
-index times the set_bnd sign (csrc/grid_common.cuh), so no second
-boundary pass is needed.  The float32 Jacobi solve (csrc/jacobi.cu)
+passes over a few (n+2)^3 float32 fields; a ghost output is the interior
+value at its clamped index times the set_bnd sign
+(csrc/grid_common.cuh), so no second boundary pass is needed.  The
+divergence and the gradient subtraction run one thread per output cell,
+ghosts included; the advection and the forcing march each block's tile
+along x through a ring of planes in shared memory
+(csrc/stencil_march.cuh; ``march_plan``, and the emulations
+``advect3d_march`` and ``forcing3d_march``).  The float32 Jacobi solve (csrc/jacobi.cu)
 streams one pass per sweep; the red-black solves, dense and sharded in
 float32 and dense in bfloat16 (each operation rounded to bfloat16, 2 B a
 cell), do up to k half-sweeps a pass in shared memory
@@ -133,7 +137,187 @@ def _placed(core, b: int, rows):
 
 
 # ---------------------------------------------------------------------------
+# the x-march of the streamed stencil kernels (csrc/stencil_march.cuh)
+
+
+@dataclasses.dataclass(frozen=True)
+class MarchTile:
+    """A shape of a marching stencil kernel: a ``ty`` x ``tz`` (y, z)
+    tile of interior cells, ``z`` cells a thread, ``seg`` centre rows a
+    segment."""
+    ty: int
+    tz: int
+    z: int
+    seg: int
+
+
+# The shapes csrc/advect.cu and csrc/forcing.cu compile (their
+# ``Shipped``; ``march_shapes`` reads them back): change both together.
+ADVECT_TILE = MarchTile(8, 64, 2, 8)
+FORCING_TILE = MarchTile(8, 32, 1, 32)
+
+
+@dataclasses.dataclass(frozen=True)
+class MarchBlock:
+    """One block of a march: its tile's interior cells y0 .. y1 and
+    z0 .. z1, its centre rows s0 .. s1 (none when s0 > s1), and whether
+    it is in the first and in the last segment."""
+    y0: int
+    y1: int
+    z0: int
+    z1: int
+    s0: int
+    s1: int
+    first: bool
+    last: bool
+
+
+@dataclasses.dataclass(frozen=True)
+class MarchPlan:
+    """tf::March of a (rows, n+2, n+2) field at global row gx0: the
+    centre rows c_lo .. c_hi (the local rows whose cells have a stencil)
+    cut into segments of ``tile.seg`` from c_lo up, and the tiles over
+    [1, n]^2, y-major; block i is tile i % tiles of segment i // tiles."""
+    n: int
+    rows: int
+    gx0: int
+    tile: MarchTile
+    c_lo: int
+    c_hi: int
+
+    @property
+    def tiles_z(self) -> int:
+        return -(-self.n // self.tile.tz)
+
+    @property
+    def tiles(self) -> int:
+        return self.tiles_z * -(-self.n // self.tile.ty)
+
+    @property
+    def segments(self) -> int:
+        return max(1, -(-(self.c_hi - self.c_lo + 1) // self.tile.seg))
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.segments
+
+    def block(self, i: int) -> MarchBlock:
+        t, tile, s = self.tile, i % self.tiles, i // self.tiles
+        y0 = 1 + tile // self.tiles_z * t.ty
+        z0 = 1 + tile % self.tiles_z * t.tz
+        s0 = self.c_lo + s * t.seg
+        s1 = min(s0 + t.seg - 1, self.c_hi)
+        return MarchBlock(y0, min(y0 + t.ty - 1, self.n), z0,
+                          min(z0 + t.tz - 1, self.n), s0, s1, s == 0,
+                          s1 >= self.c_hi)
+
+    def rows_lo(self, c: int) -> int:
+        """The first output row that clamps to centre row c."""
+        return 0 if self.gx0 + c == 1 else c
+
+    def rows_hi(self, c: int) -> int:
+        """The last output row that clamps to centre row c."""
+        return self.rows - 1 if self.gx0 + c == self.n else c
+
+
+def march_plan(n: int, rows: int, gx0: int, tile: MarchTile) -> MarchPlan:
+    return MarchPlan(n, rows, gx0, tile, max(1, 1 - gx0),
+                     min(n - gx0, rows - 2))
+
+
+@functools.cache
+def march_shapes() -> dict:
+    """The shapes csrc/advect.cu and csrc/forcing.cu were compiled with:
+    name -> (MarchTile, threads a block, shared memory bytes a block, at
+    K = 3 for advection)."""
+    lib = _build.load()
+    found = {}
+    for name, entry in (("advect3d_multi", "tf_advect3d_shape"),
+                        ("forcing3d", "tf_forcing3d_shape")):
+        out = (ctypes.c_int * 6)()
+        getattr(lib, entry)(out)
+        found[name] = (MarchTile(*out[:4]), out[4], out[5])
+    return found
+
+
+def _owned(lo: int, hi: int, n: int):
+    """Along y or z: the output indices whose clamped index lies in
+    lo .. hi, their positions in lo .. hi, and the ghost sign of each."""
+    idx, src = list(range(lo, hi + 1)), list(range(hi - lo + 1))
+    sign = [1.0] * len(idx)
+    if lo == 1:
+        idx, src, sign = [0] + idx, [0] + src, [-1.0] + sign
+    if hi == n:
+        idx, src, sign = idx + [n + 1], src + [hi - lo], sign + [-1.0]
+    return idx, src, sign
+
+
+def _put(out, value, b: int, x: int, blk: MarchBlock, plan: MarchPlan):
+    """tf::for_outputs over a block's tile: ``value`` (its interior cells
+    y0 .. y1 x z0 .. z1 of centre row x) into every output cell that
+    clamps to one of them, times that cell's set_bnd3d(b) sign."""
+    jy, sj, gy = _owned(blk.y0, blk.y1, plan.n)
+    kz, sk, gz = _owned(blk.z0, blk.z1, plan.n)
+    dev = value.device
+    v = value[torch.tensor(sj, device=dev)][:, torch.tensor(sk, device=dev)]
+    at = (torch.tensor(jy, device=dev)[:, None],
+          torch.tensor(kz, device=dev)[None, :])
+    sy = torch.tensor(gy, device=dev)[:, None]
+    sz = torch.tensor(gz, device=dev)[None, :]
+    for i in range(plan.rows_lo(x), plan.rows_hi(x) + 1):
+        sx = -1.0 if i != x else 1.0
+        sign = {0: 1.0, 1: sx, 2: sy, 3: sz}[b]
+        out[i][at] = sign * v
+
+
+def _zero_rows(outs, plan: MarchPlan, blk: MarchBlock):
+    """tf::zero_rows: 0 in the block's output cells (its tile and the
+    ghosts beside it) of the rows without a stencil, below the centre
+    rows (first segment) and above them (last segment)."""
+    n, any_ = plan.n, plan.c_lo <= plan.c_hi
+    below = ((plan.rows_lo(plan.c_lo) if any_ else plan.rows)
+             if blk.first else 0)
+    above = plan.rows_hi(plan.c_hi) + 1 if blk.last and any_ else plan.rows
+    js = slice(0 if blk.y0 == 1 else blk.y0,
+               n + 2 if blk.y1 == n else blk.y1 + 1)
+    ks = slice(0 if blk.z0 == 1 else blk.z0,
+               n + 2 if blk.z1 == n else blk.z1 + 1)
+    for out in outs:
+        out[:below, js, ks] = 0.0
+        out[above:, js, ks] = 0.0
+
+
+def _staged(fields, p: int, lo_y: int, lo_z: int, hy: int, hz: int,
+            shape):
+    """A ring plane: the fields' plane p from (lo_y, lo_z) on, clipped to
+    the array, placed at the same offset in a NaN plane of ``shape`` (the
+    kernel's shared memory holds stale values where nothing is
+    staged)."""
+    N = fields.shape[-1]
+    plane = torch.full(shape, float("nan"), device=fields.device)
+    y0, z0 = max(lo_y, 0), max(lo_z, 0)
+    y1, z1 = min(lo_y + hy, N), min(lo_z + hz, N)
+    plane[:, y0 - lo_y:y1 - lo_y, z0 - lo_z:z1 - lo_z] = \
+        fields[:, p, y0:y1, z0:z1]
+    return plane
+
+
+# ---------------------------------------------------------------------------
 # advection
+
+
+def _advect_hats(vels, ias, n: int, dt0: float):
+    """The backtrace hats of tf::advect_hats, per axis the three
+    max(0, 1 - |off - d|) for d = -1, 0, 1: the offset -dt0 * vel clamped
+    to one cell and to the source range [0.5, n + 0.5] around index
+    ia."""
+    hats = []
+    for vel, ia in zip(vels, ias):
+        off = torch.clamp(-dt0 * vel, -1.0, 1.0)
+        off = torch.clamp(off, 0.5 - ia, n + 0.5 - ia)
+        hats.append([torch.clamp(1.0 - torch.abs(off - d), min=0.0)
+                     for d in (-1, 0, 1)])
+    return hats
 
 
 def advect3d_multi_plain(fields, bnds, u, v, w, dt0: float, gx0=None):
@@ -144,13 +328,9 @@ def advect3d_multi_plain(fields, bnds, u, v, w, dt0: float, gx0=None):
     inner = (slice(1, -1),) * 3
     gi = (torch.arange(1, rows - 1, device=u.device) + gx0).to(
         torch.float32).reshape(-1, 1, 1)
-    hats = []
-    for vel, ia in ((u, gi), (v, stam._axis_index(n, 1, 3, u.device)),
-                    (w, stam._axis_index(n, 2, 3, u.device))):
-        off = torch.clamp(-dt0 * vel[inner], -1.0, 1.0)
-        off = torch.clamp(off, 0.5 - ia, n + 0.5 - ia)
-        hats.append([torch.clamp(1.0 - torch.abs(off - d), min=0.0)
-                     for d in (-1, 0, 1)])
+    hats = _advect_hats((u[inner], v[inner], w[inner]),
+                        (gi, stam._axis_index(n, 1, 3, u.device),
+                         stam._axis_index(n, 2, 3, u.device)), n, dt0)
     outs = [torch.zeros((rows - 2, n, n), dtype=torch.float32,
                         device=u.device) for _ in fields]
     for d in stam._SHIFTS[3]:
@@ -163,6 +343,69 @@ def advect3d_multi_plain(fields, bnds, u, v, w, dt0: float, gx0=None):
     return tuple(_placed(out, b, place) for out, b in zip(outs, bnds))
 
 
+def advect3d_march(fields, bnds, u, v, w, dt0: float, gx0=None,
+                   tile: MarchTile = ADVECT_TILE):
+    """csrc/advect.cu's x-march in torch ops, block by block and plane by
+    plane.  A block stages planes of its tile widened by one cell,
+    clipped to the array, into a ring of 4 slots (NaN where the kernel's
+    shared memory holds whatever it held); at centre row x it reads the
+    velocity (the ring's centre slot when the fields are u, v, w
+    themselves, else the field), computes the tile from slots x - 1, x
+    and x + 1 with the plain version's arithmetic, writes every output
+    cell that clamps to one of its cells with that cell's sign, then
+    stages plane x + 2.  The first and the last segment write the rows
+    without a stencil as 0.  Every output starts as NaN, so a cell that
+    no block writes shows."""
+    fields = tuple(fields)
+    k, gx0 = len(fields), 0 if gx0 is None else int(gx0)
+    rows, n = u.shape[0], u.shape[1] - 2
+    plan = march_plan(n, rows, gx0, tile)
+    self_advect = k == 3 and all(q is p for q, p in zip(fields, (u, v, w)))
+    stacked, vels = torch.stack(fields), torch.stack((u, v, w))
+    outs = [torch.full_like(u, float("nan")) for _ in fields]
+    ty, tz = tile.ty, tile.tz
+    dev = u.device
+    for i in range(plan.blocks):
+        blk = plan.block(i)
+        _zero_rows(outs, plan, blk)
+        if blk.s0 > blk.s1:
+            continue
+        my, mz = blk.y1 - blk.y0 + 1, blk.z1 - blk.z0 + 1
+        ring = [None] * 4
+
+        def stage(p):
+            ring[p % 4] = _staged(stacked, p, blk.y0 - 1, blk.z0 - 1, my + 2,
+                                  mz + 2, (k, ty + 2, tz + 2))
+
+        for p in range(blk.s0 - 1, blk.s0 + 2):
+            stage(p)
+        iy = torch.arange(blk.y0, blk.y0 + ty, device=dev).to(
+            torch.float32)[:, None]
+        iz = torch.arange(blk.z0, blk.z0 + tz, device=dev).to(
+            torch.float32)[None, :]
+        for x in range(blk.s0, blk.s1 + 1):
+            if self_advect:
+                vel = ring[x % 4][:, 1:1 + ty, 1:1 + tz]
+            else:
+                vel = torch.full((3, ty, tz), float("nan"), device=dev)
+                vel[:, :my, :mz] = vels[:, x, blk.y0:blk.y1 + 1,
+                                        blk.z0:blk.z1 + 1]
+            ix = torch.full((1, 1), float(gx0 + x), device=dev)
+            hats = _advect_hats(vel, (ix, iy, iz), n, dt0)
+            acc = [torch.zeros((ty, tz), device=dev) for _ in fields]
+            for d in stam._SHIFTS[3]:
+                wgt = hats[0][d[0] + 1] * hats[1][d[1] + 1] * hats[2][d[2] + 1]
+                src = ring[(x + d[0]) % 4]
+                for q in range(k):
+                    acc[q] = acc[q] + wgt * src[q, 1 + d[1]:1 + d[1] + ty,
+                                                1 + d[2]:1 + d[2] + tz]
+            for q in range(k):
+                _put(outs[q], acc[q][:my, :mz], bnds[q], x, blk, plan)
+            if x + 2 <= blk.s1 + 1:
+                stage(x + 2)
+    return tuple(outs)
+
+
 def advect3d_multi(fields, bnds, u, v, w, dt0: float, gx0=None):
     """27-tap stencil advection of ``fields`` (1 to 3) by (u, v, w), then
     set_bnd3d(b) per field with b from ``bnds``; as
@@ -170,10 +413,12 @@ def advect3d_multi(fields, bnds, u, v, w, dt0: float, gx0=None):
     whose row 0 is global row gx0 (None: cubic fields).
 
     Replaces advect3d_multi_pallas (tpufluids/grid/pallas_kernels.py),
-    its gx0/gn slab placement included.
-    Bound by bytes: 3 + k fields in, k out.  One thread per output cell
-    computes the backtrace weights once and sums the 27 taps of each
-    field (csrc/advect.cu)."""
+    its gx0/gn slab placement included.  One launch of csrc/advect.cu's
+    x-march (``advect3d_march`` emulates it): a block owns a (y, z) tile
+    and a segment of x rows, stages each x-plane of the fields in shared
+    memory once, and computes a cell's backtrace weights once for all
+    its fields.  Bound by bytes: the fields and the velocity in (3 fields
+    when a velocity advects itself), k out."""
     fields, bnds = tuple(fields), tuple(bnds)
     if not 1 <= len(fields) <= 3 or len(bnds) != len(fields):
         raise ValueError("advect3d_multi takes 1 to 3 fields, one b each")
@@ -194,14 +439,73 @@ advect3d_multi.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# forcing
+# forcing: the plain version's arithmetic as value functions of a cell's
+# neighbours, which forcing3d_plain and the emulation share (csrc/forcing.cuh)
+
+
+def _half_diff(hi, lo, h: float):
+    """0.5 (hi - lo) / h.  On the card torch's division by the Python
+    scalar h runs as a product with fl(1 / h), which the kernels take as
+    inv_h."""
+    return 0.5 * (hi - lo) / h
+
+
+def _curl(u_yp, u_ym, u_zp, u_zm, v_zp, v_zm, v_xp, v_xm, w_yp, w_ym, w_xp,
+          w_xm, h: float):
+    """tf::curl_of: the curl at cells from their neighbours' values."""
+    return (_half_diff(w_yp, w_ym, h) - _half_diff(v_zp, v_zm, h),
+            _half_diff(u_zp, u_zm, h) - _half_diff(w_xp, w_xm, h),
+            _half_diff(v_xp, v_xm, h) - _half_diff(u_yp, u_ym, h))
+
+
+def _curl_mag(wx, wy, wz):
+    return torch.sqrt(wx * wx + wy * wy + wz * wz)
+
+
+def _confine(u, v, w, wx, wy, wz, m_xp, m_xm, m_yp, m_ym, m_zp, m_zm,
+             dt: float, eps_h: float, h: float):
+    """tf::confine: u, v, w plus dt eps h (N x curl), N the normalised
+    gradient of |curl|."""
+    gx = _half_diff(m_xp, m_xm, h)
+    gy = _half_diff(m_yp, m_ym, h)
+    gz = _half_diff(m_zp, m_zm, h)
+    norm = torch.sqrt(gx * gx + gy * gy + gz * gz) + 1e-5
+    gx, gy, gz = gx / norm, gy / norm, gz / norm
+    return (u + dt * (eps_h * (gy * wz - gz * wy)),
+            v + dt * (eps_h * (gz * wx - gx * wz)),
+            w + dt * (eps_h * (gx * wy - gy * wx)))
+
+
+def _w_prime(w, dens, temp, cfg: stam.StamConfig, ci):
+    """w after buoyancy at every row's clamped global row ``ci``, the y
+    and z ghosts by set_bnd3d(3): the w the curl reads."""
+    f = (-cfg.buoyancy_alpha * dens[:, 1:-1, 1:-1]
+         + cfg.buoyancy_beta * (temp[:, 1:-1, 1:-1] - cfg.ambient_temp))
+    full = torch.zeros_like(w)
+    full[:, 1:-1, 1:-1] = w[:, 1:-1, 1:-1] + cfg.dt * f
+    return _set_bnd_yz_(3, full)[ci]
+
+
+def _neighbour(q, axis: int, s: int):
+    """q at the interior cells' neighbour s (-1 or 1) along ``axis``."""
+    sl = [slice(1, -1)] * 3
+    sl[axis] = slice(1 + s, q.shape[axis] - 1 + s)
+    return q[tuple(sl)]
+
+
+def _curl_at_interior(u, v, w, h: float):
+    nb = _neighbour
+    return _curl(nb(u, 1, 1), nb(u, 1, -1), nb(u, 2, 1), nb(u, 2, -1),
+                 nb(v, 2, 1), nb(v, 2, -1), nb(v, 0, 1), nb(v, 0, -1),
+                 nb(w, 1, 1), nb(w, 1, -1), nb(w, 0, 1), nb(w, 0, -1), h)
 
 
 def forcing3d_plain(u, v, w, dens, temp, cfg: stam.StamConfig, gx0=None):
-    """The two halves of csrc/forcing.cu as torch ops, on cubic fields or
-    slabs: half A writes w' = stam.buoyancy3d's w and |curl| (0 on the
-    ghosts), half B the confined u, v, w of
-    stam.vorticity_confinement3d."""
+    """Buoyancy and vorticity confinement as torch ops, on cubic fields or
+    slabs, in the two halves the whole step of csrc/step.cu runs: half A
+    gives w' = stam.buoyancy3d's w (0 on the rows without a stencil) and
+    |curl| of (u, v, w') (0 off the interior), half B the confined u, v,
+    w of stam.vorticity_confinement3d from half A's w' and |curl|."""
     gx0 = 0 if gx0 is None else int(gx0)
     n = u.shape[1] - 2
     h = 1.0 / n
@@ -211,40 +515,113 @@ def forcing3d_plain(u, v, w, dens, temp, cfg: stam.StamConfig, gx0=None):
     inner = (slice(1, -1),) * 3
     wp = w
     if buoy:
-        # w' at every row's clamped global row: what the curl reads
-        f = (-cfg.buoyancy_alpha * dens[:, 1:-1, 1:-1]
-             + cfg.buoyancy_beta * (temp[:, 1:-1, 1:-1] - cfg.ambient_temp))
-        full = torch.zeros_like(w)
-        full[:, 1:-1, 1:-1] = w[:, 1:-1, 1:-1] + cfg.dt * f
-        wp = _set_bnd_yz_(3, full)[ci]
+        wp = _w_prime(w, dens, temp, cfg, ci)
         w = torch.where(ok[:, None, None], wp, 0.0)
     if not cfg.vorticity_eps:
         return u, v, w
-
-    def d(q, axis):
-        hi, lo = [slice(1, -1)] * 3, [slice(1, -1)] * 3
-        hi[axis] = slice(2, None)
-        lo[axis] = slice(0, -2)
-        return 0.5 * (q[tuple(hi)] - q[tuple(lo)]) / h
-
-    wx = d(wp, 1) - d(v, 2)
-    wy = d(u, 2) - d(wp, 0)
-    wz = d(v, 0) - d(u, 1)
     mag = torch.zeros_like(u)
-    mag[inner] = torch.sqrt(wx * wx + wy * wy + wz * wz)
+    mag[inner] = _curl_mag(*_curl_at_interior(u, v, wp, h))
     mag = torch.where((ok & ~flip)[:, None, None], mag, 0.0)
     # half B reads half A's w'
-    wx = d(w, 1) - d(v, 2)
-    wy = d(u, 2) - d(w, 0)
-    wz = d(v, 0) - d(u, 1)
-    gx, gy, gz = d(mag, 0), d(mag, 1), d(mag, 2)
-    norm = torch.sqrt(gx * gx + gy * gy + gz * gz) + 1e-5
-    gx, gy, gz = gx / norm, gy / norm, gz / norm
-    eps_h = cfg.vorticity_eps * h
-    return tuple(_placed(q[inner] + cfg.dt * (eps_h * f), b, place)
-                 for b, q, f in ((1, u, gy * wz - gz * wy),
-                                 (2, v, gz * wx - gx * wz),
-                                 (3, w, gx * wy - gy * wx)))
+    nb = _neighbour
+    outs = _confine(u[inner], v[inner], w[inner], *_curl_at_interior(u, v, w, h),
+                    nb(mag, 0, 1), nb(mag, 0, -1), nb(mag, 1, 1),
+                    nb(mag, 1, -1), nb(mag, 2, 1), nb(mag, 2, -1), cfg.dt,
+                    cfg.vorticity_eps * h, h)
+    return tuple(_placed(f, b, place) for b, f in zip((1, 2, 3), outs))
+
+
+def forcing3d_march(u, v, w, dens, temp, cfg: stam.StamConfig, gx0=None,
+                    tile: MarchTile = FORCING_TILE):
+    """csrc/forcing.cu's x-march in torch ops, block by block and plane
+    by plane.  A block stages planes of u, v and w' (w' computed at the
+    clamped cell, as the kernel computes it when it stages a cell) over
+    its tile widened by 2, clipped to the array, into a ring of 6 slots
+    (NaN where nothing is staged); |curl| of plane x + 1 over the tile
+    widened by 1 into a ring of 4 (0 off the interior); then the
+    confined cells of plane x, reading half A's w' as 0 on a row without
+    a stencil; then it stages plane x + 3.  Outputs start as NaN, as in
+    advect3d_march.  With buoyancy alone the kernel is one elementwise
+    pass, as forcing3d_plain."""
+    buoy = bool(cfg.buoyancy_alpha or cfg.buoyancy_beta)
+    if not cfg.vorticity_eps:
+        return forcing3d_plain(u, v, w, dens, temp, cfg, gx0)
+    gx0 = 0 if gx0 is None else int(gx0)
+    rows, n = u.shape[0], u.shape[1] - 2
+    h = 1.0 / n
+    ci, _, ok = _slab_rows(u, gx0)
+    wp = _w_prime(w, dens, temp, cfg, ci) if buoy else w
+    stacked = torch.stack((u, v, wp))
+    plan = march_plan(n, rows, gx0, tile)
+    outs = [torch.full_like(u, float("nan")) for _ in range(3)]
+    ty, tz = tile.ty, tile.tz
+    dev = u.device
+    for i in range(plan.blocks):
+        blk = plan.block(i)
+        _zero_rows(outs, plan, blk)
+        if blk.s0 > blk.s1:
+            continue
+        my, mz = blk.y1 - blk.y0 + 1, blk.z1 - blk.z0 + 1
+        ring, mags = [None] * 6, [None] * 4
+        yy = torch.arange(blk.y0 - 1, blk.y0 + ty + 1, device=dev)
+        zz = torch.arange(blk.z0 - 1, blk.z0 + tz + 1, device=dev)
+        interior = (((yy >= 1) & (yy <= n))[:, None]
+                    & ((zz >= 1) & (zz <= n))[None, :])
+
+        def stage(p):
+            if 0 <= p <= rows - 1:
+                ring[p % 6] = _staged(stacked, p, blk.y0 - 2, blk.z0 - 2,
+                                      my + 4, mz + 4, (3, ty + 4, tz + 4))
+
+        def at(p, f, dy, dz, e):
+            """Field f of ring plane p over the tile widened by e, shifted
+            by (dy, dz)."""
+            return ring[p % 6][f, 2 - e + dy:2 + ty + e + dy,
+                               2 - e + dz:2 + tz + e + dz]
+
+        def curl_plane(p):
+            mag = torch.zeros((ty + 2, tz + 2), device=dev)
+            if 1 <= p <= rows - 2 and 1 <= gx0 + p <= n:
+                def a(f, dy, dz, dx=0):
+                    return at(p + dx, f, dy, dz, 1)
+                m = _curl_mag(*_curl(a(0, 1, 0), a(0, -1, 0), a(0, 0, 1),
+                                     a(0, 0, -1), a(1, 0, 1), a(1, 0, -1),
+                                     a(1, 0, 0, 1), a(1, 0, 0, -1),
+                                     a(2, 1, 0), a(2, -1, 0), a(2, 0, 0, 1),
+                                     a(2, 0, 0, -1), h))
+                mag = torch.where(interior, m, 0.0)
+            mags[p % 4] = mag
+
+        for p in range(blk.s0 - 2, blk.s0 + 3):
+            stage(p)
+        curl_plane(blk.s0 - 1)
+        curl_plane(blk.s0)
+        for x in range(blk.s0, blk.s1 + 1):
+            curl_plane(x + 1)
+
+            def c(f, dy, dz, dx=0):
+                return at(x + dx, f, dy, dz, 0)
+
+            def m(dx, dy, dz):
+                return mags[(x + dx) % 4][1 + dy:1 + dy + ty,
+                                          1 + dz:1 + dz + tz]
+
+            zero = torch.zeros((ty, tz), device=dev)
+            w_xp = c(2, 0, 0, 1) if not buoy or ok[x + 1] else zero
+            w_xm = c(2, 0, 0, -1) if not buoy or ok[x - 1] else zero
+            wx, wy, wz = _curl(c(0, 1, 0), c(0, -1, 0), c(0, 0, 1),
+                               c(0, 0, -1), c(1, 0, 1), c(1, 0, -1),
+                               c(1, 0, 0, 1), c(1, 0, 0, -1), c(2, 1, 0),
+                               c(2, -1, 0), w_xp, w_xm, h)
+            forced = _confine(c(0, 0, 0), c(1, 0, 0), c(2, 0, 0), wx, wy, wz,
+                              m(1, 0, 0), m(-1, 0, 0), m(0, 1, 0),
+                              m(0, -1, 0), m(0, 0, 1), m(0, 0, -1), cfg.dt,
+                              cfg.vorticity_eps * h, h)
+            for q, f in enumerate(forced):
+                _put(outs[q], f[:my, :mz], q + 1, x, blk, plan)
+            if x + 3 <= blk.s1 + 2:
+                stage(x + 3)
+    return tuple(outs)
 
 
 def forcing3d(u, v, w, dens, temp, cfg: stam.StamConfig, gx0=None):
@@ -255,11 +632,13 @@ def forcing3d(u, v, w, dens, temp, cfg: stam.StamConfig, gx0=None):
     two rows a side have no stencil.
 
     Replaces forcing3d_pallas (tpufluids/grid/pallas_kernels.py), its
-    gx0/gn slab placement included.  Bound
-    by bytes.  The TPU kernel's halo of 2 is cut into two launches
-    through two scratch fields (csrc/forcing.cu): A writes w' and
-    |curl|, B the confined u, v, w.  A half whose coefficients are 0 is
-    skipped."""
+    gx0/gn slab placement included.  One launch of csrc/forcing.cu: with
+    vorticity, an x-march (``forcing3d_march`` emulates it) that stages
+    u, v and w' (w after buoyancy) with a halo of 2 and |curl| with a
+    halo of 1 in shared memory, as the TPU kernel held its halo of 2 in
+    VMEM; with buoyancy alone, an elementwise pass writing w'.  Bound by
+    bytes: u, v, w, dens and temp in and u, v, w out (without buoyancy
+    u, v, w in)."""
     if not _on_cuda(u, v, w, dens, temp, slab=gx0 is not None):
         return forcing3d_plain(u, v, w, dens, temp, cfg, gx0)
     buoy = bool(cfg.buoyancy_alpha or cfg.buoyancy_beta)
@@ -268,22 +647,16 @@ def forcing3d(u, v, w, dens, temp, cfg: stam.StamConfig, gx0=None):
         return u, v, w
     place = _place_args(u, gx0)
     h = 1.0 / place[0]
-    w1 = torch.empty_like(w) if buoy else None
-    mag = torch.empty_like(u) if vort else None
+    outs = (tuple(torch.empty_like(u) for _ in range(3)) if vort
+            else (None, None, torch.empty_like(w)))
     # the plain version's tensor / h runs on the card as tensor * fl(1 / h),
-    # the reciprocal taken in double: the kernels multiply by 1 / h
-    _build.launch("tf_forcing_a", u, v, w, dens, temp, w1, mag, *place,
-                  buoy, vort, cfg.dt, cfg.buoyancy_alpha, cfg.buoyancy_beta,
-                  cfg.ambient_temp, 1.0 / h)
-    if buoy:
-        w = w1
-    if vort:
-        outs = tuple(torch.empty_like(u) for _ in range(3))
-        _build.launch("tf_forcing_b", u, v, w, mag, *outs, *place, cfg.dt,
-                      cfg.vorticity_eps * h, 1.0 / h)
-        u, v, w = outs
+    # the reciprocal taken in double: the kernel multiplies by 1 / h
+    _build.launch("tf_forcing3d", u, v, w, dens, temp, *outs, *place,
+                  int(buoy), int(vort), cfg.dt, cfg.buoyancy_alpha,
+                  cfg.buoyancy_beta, cfg.ambient_temp,
+                  cfg.vorticity_eps * h, 1.0 / h)
     forcing3d.launches += 1
-    return u, v, w
+    return outs if vort else (u, v, outs[2])
 
 
 forcing3d.launches = 0
