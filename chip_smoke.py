@@ -37,17 +37,26 @@
    time at config 4 as a yardstick.
    The 2D kernels at config 1's 130^2 fields: the solve
    (csrc/grid2d.cu; a = 1, c = 4, b = 0, and config 1's diffusion at
-   b = 1) and the whole step (csrc/step2d.cu; config 1, config 1 with
-   buoyancy and vorticity, and config 1 at 1119^2, the gate's edge,
-   where a block takes several diffusing (field, tile) pairs) must equal their plain versions bit for bit, and the
-   whole step the multi-call step (stam.step2d_multi).  Then the whole
+   b = 1; checked also at 15^2, 16^2, 200^2 and 1026^2, every b, zero,
+   consistent and raw guesses) and the whole step (csrc/step2d.cu;
+   config 1, config 1 with buoyancy and vorticity, and config 1 at
+   1119^2, the gate's edge, where a block takes several diffusing
+   (field, tile) pairs) must equal their plain versions bit for bit, and
+   the whole step the multi-call step (stam.step2d_multi).  Then the whole
    2D step's kernel itself: ptxas's registers, stack frame and spills (a
    stack frame or a spill fails), its blocks x threads, its plan and
    grid-wide barriers a step for config 1 and the forcing case, its
    barrier floor (barriers x an empty barrier on its own grid) and its
    device time alone (torch.profiler) in its row of the kernels line,
-   and its time without diffusion and at 1 and 10 iterations.  The
-   blocked solves' floors are printed beside their bounds: one
+   and its time without diffusion and at 1 and 10 iterations.  Then the
+   whole solves' kernels (csrc/jacobi.cu's whole solve in its four
+   instances, checked at 64^3 in every mode for every b from zero,
+   consistent and raw guesses too, and csrc/grid2d.cu's 2D solve):
+   ptxas's registers, stack frame and spills (a stack frame or a spill
+   fails), their plans, grid-wide barriers a call and barrier floor,
+   their device time alone at 64^3 in the four modes, at 130^2 and at
+   1026^2, and their times at other levels a pass (bit for bit) and
+   threads a block.  The blocked solves' floors are printed beside their bounds: one
    device-memory pass a (half-)sweep, and the blocked kernels' passes
    (csrc/rb_blocked.cu in float32 and bfloat16, csrc/jacobi_blocked.cu),
    at the bytes of their storage type.  Then the blocked kernels themselves: ptxas's registers, stack
@@ -207,9 +216,11 @@ N_512 = 512              # verify/bench_bf16_512.py: the bfloat16 solver
 N_WHOLE = 64             # BASELINE configs 2 and 4: the whole tier
 N_STEP_EDGE = 78         # the largest n the whole step's gate admits
 N_2D = 128               # BASELINE config 1
-N_2D_BIG = 1119          # the whole 2D step's gate's edge: past the
-                         # one-block design's gate (168), more diffusing
-                         # (field, tile) pairs than blocks
+N_2D_BIG = 1119          # the whole 2D step's gate's edge: more
+                         # diffusing (field, tile) pairs than blocks
+N_SOLVE2D_BIG = 1024     # the 2D solve past the one-block design's
+                         # shared memory (168)
+N_SOLVE2D_CHECKED = (13, 14, 198, N_SOLVE2D_BIG)  # besides N_2D
 SEED = 0
 FIELDS = ("u", "v", "w", "dens", "temp")
 TIME_REPS = 20
@@ -881,6 +892,16 @@ def check_kernels(stam, kernels, dev):
     # the bf16 solver) and 64^3
     p512 = field(N_512, 0, 0.0, 1.0)
     p64 = field(N_WHOLE, 0, 0.0, 1.0)
+
+    def raw(shape):
+        return torch.from_numpy(rng.normal(0, 1, shape).astype(
+            np.float32)).to(dev)
+
+    # guesses and right-hand sides whose ghosts set_bnd would change: the
+    # whole solve at 64^3, the 2D solve at 15^2, 16^2, 200^2 and 1026^2
+    r64, r64b = (raw((N_WHOLE + 2,) * 3) for _ in range(2))
+    raw2d = [tuple(raw((m + 2,) * 2) for _ in range(2))
+             for m in N_SOLVE2D_CHECKED]
     f32, bf16 = torch.float32, torch.bfloat16
     # the main path's call shapes, timed
     calls = {
@@ -917,7 +938,15 @@ def check_kernels(stam, kernels, dev):
         "lin_solve3d_bf16": [(1, u64, u64, a2, 1 + 6 * a2, 20)],
         "lin_solve3d_rb_bf16": [(1, u64, u64, a2, 1 + 6 * a2, 20)],
         "lin_solve3d_whole": [(1, u64, u64, a2, 1 + 6 * a2, 20, rb, dt)
-                              for dt in (f32, bf16) for rb in (False, True)],
+                              for dt in (f32, bf16) for rb in (False, True)]
+        + [(b, g, r64b, 0.3, 2.8, 7, rb, dt)
+           for dt in (f32, bf16) for rb in (False, True) for b in range(4)
+           for g in (None, stam.set_bnd3d(b, r64), r64)],
+        "lin_solve2d": [(b, g, r2b, a, c, it)
+                        for r2, r2b in raw2d for b in range(3)
+                        for g in (None, stam.set_bnd2d(b, r2), r2)
+                        for (a, c), it in (((1.0, 4.0), 20),
+                                           ((0.3, 2.2), 7))],
         "step3d_whole": [(u64, v64, w64, d64, t64, c2),
                          (u64, v64, w64, d64, t64,
                           c4.replace(red_black=False)),
@@ -1309,6 +1338,189 @@ def check_step2d_whole(stam, kernels, dev, build_log, checked):
         f"ms ({row['bound_by']}), barrier floor "
         f"{row['barrier_floor_ms']:.4f} ms ({row['barriers']} barriers x "
         f"{per_ms * 1e3:.4f} us)")
+
+
+# the whole solves before their redesign (PERF.md rows 11b whole and 8),
+# device-ms a call: 64^3, 20 iterations, one cooperative launch with a
+# grid barrier a sweep or half-sweep; 130^2, 20 sweeps on one block
+WHOLE_SOLVE_BEFORE_MS = {"float32, Jacobi": 0.109,
+                         "float32, red-black": 0.181,
+                         "bfloat16, Jacobi": 0.122,
+                         "bfloat16, red-black": 0.187}
+SOLVE2D_BEFORE_MS = {N_2D: 0.1252}
+# the whole solves' instances in ptxas's output (mangled names)
+SOLVE_ENTRIES = {"float32, Jacobi": "solve_whole_kernelIfLb0E",
+                 "float32, red-black": "solve_whole_kernelIfLb1E",
+                 "bfloat16, Jacobi": "solve_whole_kernelI13__nv_bfloat16Lb0E",
+                 "bfloat16, red-black":
+                     "solve_whole_kernelI13__nv_bfloat16Lb1E",
+                 "2D": "solve2d_kernel"}
+# other shapes of the whole solves, timed beside the shipped one: levels
+# a pass (red-black half-sweeps, Jacobi sweeps, 2D sweeps) and threads a
+# block
+SOLVE_LEVELS_TRIED = {True: (2, 4, 6, 8), False: (2, 3, 4, 6), "2D": (5, 10,
+                                                                      20)}
+SOLVE_THREADS_TRIED = {"3D": (256, 384, 512), "2D": (256, 384, 512, 1024)}
+
+
+def solve_label(dtype, red_black):
+    return (f"{str(dtype).removeprefix('torch.')}, "
+            f"{'red-black' if red_black else 'Jacobi'}")
+
+
+def check_whole_solves(stam, kernels, dev, build_log, checked):
+    """The whole solves' kernels (csrc/jacobi.cu's whole solve, PERF.md row
+    11b whole, and csrc/grid2d.cu's 2D solve, row 8): ptxas's registers,
+    stack frame and spills of every instance (a stack frame or a spill
+    fails); their plans, grid-wide barriers a call and barrier floor
+    (barriers x an empty barrier on the solve's own grid); their device
+    time alone (torch.profiler) at the main path's shapes, 64^3 in the
+    four modes and 130^2, and at 1026^2, beside the time before the
+    redesign, added to their rows of the kernels line; and their device
+    time alone at other levels a pass (bit for bit) and threads a
+    block."""
+    for label, key in SOLVE_ENTRIES.items():
+        info = ptxas_entry(build_log, key)
+        log(f"{key}: {info['registers']} registers, stack frame, spill "
+            f"stores, spill loads {info['stack_spill']} B ({label})")
+        check(not any(info["stack_spill"]),
+              f"{key}: stack frame or spill {info['stack_spill']}")
+    card = card_line()
+    cur = torch.cuda.current_device()
+    rng = np.random.default_rng(SEED + 13)
+    barrier_ms = {}
+
+    def per_barrier_ms(plan):
+        grid = (plan.blocks, plan.threads)
+        if grid not in barrier_ms:
+            barrier_ms[grid] = barrier_us(*grid) / 1e3
+        return barrier_ms[grid]
+
+    def swept(launch, plan, iters, red_black, tried, threads_tried, key):
+        """Device-ms alone (torch.profiler's events of kernel ``key``) of
+        ``plan(levels, threads)``'s variants of the shipped plan: other
+        levels a pass (``tried``), other threads a block."""
+        out = {}
+        for name, p in ([(f"levels {v}", plan(v, None)) for v in tried]
+                        + [(f"threads {v}", plan(None, v))
+                           for v in threads_tried]):
+            out[name] = (kernel_alone_ms(lambda p=p: launch(p), (key,)),
+                         kernels.solve_barriers(iters, red_black, p))
+        return out
+
+    # 3D: the pressure solve at 64^3 from a zero guess, as check_kernels
+    # times it
+    blocks, smem = kernels.solve_info(cur)
+    p64 = stam.set_bnd3d(0, torch.from_numpy(rng.uniform(
+        0.0, 1.0, (N_WHOLE + 2,) * 3).astype(np.float32)).to(dev))
+    row = checked["lin_solve3d_whole"]
+    iters = 20
+    for i, dt in enumerate((torch.float32, torch.float32, torch.bfloat16,
+                            torch.bfloat16)):
+        rb = bool(i % 2)
+        label = solve_label(dt, rb)
+        plan = kernels.solve_plan(N_WHOLE, rb, dt, blocks, smem)
+        count = kernels.solve_barriers(iters, rb, plan)
+        floor = count * per_barrier_ms(plan)
+        ms = kernel_alone_ms(
+            lambda: kernels.lin_solve3d_whole(0, None, p64, 1.0, 6.0, iters,
+                                              rb, dt), ("solve_whole_kernel",))
+        t = plan.tile
+        log(f"lin_solve3d_whole @ {N_WHOLE}^3, {label}, {iters} iterations: "
+            f"the kernel alone {ms:.4f} device-ms (before the redesign "
+            f"{WHOLE_SOLVE_BEFORE_MS[label]} ms); {count} grid-wide barriers "
+            f"(before {2 * iters if rb else iters - 1}), barrier floor "
+            f"{floor:.4f} ms ({per_barrier_ms(plan) * 1e3:.4f} us an empty "
+            f"barrier on {plan.blocks} x {plan.threads}); passes of "
+            f"{plan.levels} on {t.count(N_WHOLE)} tiles of {t.tx}x{t.ty}x"
+            f"{t.tz} (halo {t.halo}), {plan.smem} B of shared memory a block "
+            f"({card})")
+        call = row["calls"][i]
+        check(call["call"] == label, f"lin_solve3d_whole call {i}: "
+                                     f"{call['call']} is not {label}")
+        call.update(kernel_ms=ms, barriers=count, barrier_floor_ms=floor)
+
+        def variant(levels, threads, plan=plan, rb=rb, dt=dt):
+            # the shipped tiles with another halo, where they still fit
+            levels = levels or plan.levels
+            tile, boxes = plan.tile, 2 if rb else 3
+            if levels != plan.levels:
+                tile = kernels.StepTile(tile.tx, tile.ty, tile.tz, levels)
+                if dt.itemsize * boxes * tile.box_cells(N_WHOLE) > smem:
+                    tile = kernels._step_tile(N_WHOLE, blocks, levels, 1,
+                                              boxes, smem, dt.itemsize)
+            return kernels.SolvePlan(
+                min(blocks, tile.count(N_WHOLE)), threads or plan.threads,
+                dt.itemsize * boxes * tile.box_cells(N_WHOLE), levels, tile)
+
+        want = kernels.lin_solve3d_whole_plain(0, None, p64, 1.0, 6.0, iters,
+                                               rb, dt)
+        for name, (t_ms, bars) in swept(
+                lambda p, rb=rb, dt=dt: kernels._solve_whole_launch(
+                    0, None, p64, 1.0, 6.0, iters, rb, dt, p),
+                variant, iters, rb, SOLVE_LEVELS_TRIED[rb],
+                SOLVE_THREADS_TRIED["3D"], "solve_whole_kernel").items():
+            log(f"  lin_solve3d_whole @ {N_WHOLE}^3, {label}, {name}: the "
+                f"kernel alone {t_ms:.4f} device-ms ({bars} barriers)")
+        for levels in SOLVE_LEVELS_TRIED[rb]:
+            got = kernels._solve_whole_launch(0, None, p64, 1.0, 6.0, iters,
+                                              rb, dt, variant(levels, None))
+            check(torch.equal(got, want), f"lin_solve3d_whole, {label}, "
+                                          f"{levels} levels: not bit for bit")
+    for key in ("kernel_ms", "barrier_floor_ms"):
+        row[key] = float(np.mean([c[key] for c in row["calls"]]))
+    row["barriers"] = [c["barriers"] for c in row["calls"]]
+
+    # 2D: the smoke2d default's pressure solve at 130^2, and at 1026^2
+    blocks, smem = kernels.solve2d_info(cur)
+    row = checked["lin_solve2d"]
+    for n in (N_2D, N_SOLVE2D_BIG):
+        x0 = stam.set_bnd2d(0, torch.from_numpy(rng.uniform(
+            0.0, 1.0, (n + 2,) * 2).astype(np.float32)).to(dev))
+        plan = kernels.solve2d_plan(n, blocks, smem)
+        count = kernels.solve_barriers(iters, False, plan)
+        floor = count * per_barrier_ms(plan)
+        ms = kernel_alone_ms(
+            lambda: kernels.lin_solve2d(0, None, x0, 1.0, 4.0, iters),
+            ("solve2d_kernel",))
+        t = plan.tile
+        before = SOLVE2D_BEFORE_MS.get(n)
+        log(f"lin_solve2d @ {n}^2, {iters} sweeps: the kernel alone "
+            f"{ms:.4f} device-ms (before the redesign, on one block: "
+            f"{f'{before} ms' if before else 'not measured'}); "
+            f"{count} grid-wide barriers, barrier floor {floor:.4f} ms "
+            f"({per_barrier_ms(plan) * 1e3:.4f} us an empty barrier on "
+            f"{plan.blocks} x {plan.threads}); passes of {plan.levels} on "
+            f"{t.count(n)} tiles of {t.tx}x{t.ty} (halo {t.halo}), "
+            f"{plan.smem} B of shared memory a block ({card})")
+        if n == N_2D:
+            row.update(kernel_ms=ms, barriers=count, barrier_floor_ms=floor)
+        else:
+            row["kernel_ms_1026"] = ms
+
+        def variant(levels, threads, plan=plan, n=n):
+            # the planner's tiles for another halo
+            tile = plan.tile
+            if levels and levels != plan.levels:
+                tile = kernels._step2d_tile(n, blocks, levels, 1, smem)
+            return kernels.SolvePlan(min(blocks, tile.count(n)),
+                                     threads or plan.threads,
+                                     12 * tile.box_cells(n),
+                                     levels or plan.levels, tile)
+
+        want = kernels.lin_solve2d_plain(0, None, x0, 1.0, 4.0, iters)
+        for name, (t_ms, bars) in swept(
+                lambda p, x0=x0: kernels._solve2d_launch(
+                    0, None, x0, 1.0, 4.0, iters, p),
+                variant, iters, False, SOLVE_LEVELS_TRIED["2D"],
+                SOLVE_THREADS_TRIED["2D"], "solve2d_kernel").items():
+            log(f"  lin_solve2d @ {n}^2, {name}: the kernel alone {t_ms:.4f} "
+                f"device-ms ({bars} barriers)")
+        for levels in SOLVE_LEVELS_TRIED["2D"]:
+            got = kernels._solve2d_launch(0, None, x0, 1.0, 4.0, iters,
+                                          variant(levels, None))
+            check(torch.equal(got, want), f"lin_solve2d @ {n}^2, {levels} "
+                                          f"levels: not bit for bit")
 
 
 def check_small_against_cpu(stam, dev):
@@ -2866,6 +3078,7 @@ def main():
     check_march(stam, kernels, dev, build.log, checked)
     check_step_whole(stam, kernels, dev, build.log, checked)
     check_step2d_whole(stam, kernels, dev, build.log, checked)
+    check_whole_solves(stam, kernels, dev, build.log, checked)
     check_blocked(stam, kernels, dev, build.log)
     check_small_against_cpu(stam, dev)
     counts, ms = {}, {}

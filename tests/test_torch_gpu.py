@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, at 64^3 and at the main path's 256^3 (the 2D kernels at 15^2 to
-200^2 fields, the bfloat16 solves at 15^3 to 130^3 and the whole solve
-at 15^3 and 48^3), and the
+4096^2 fields, the bfloat16 solves at 15^3 to 130^3 and the whole solve
+at 15^3 to 128^3), and the
 steps' launch counts and final residual.  Marked ``gpu`` and skipped without a CUDA device;
 on the card (tests/conftest.py sets up JAX, which these tests do not
 use):
@@ -502,6 +502,60 @@ def test_whole_solve_is_bitwise_plain_and_streamed(cuda, n, dtype,
     assert kernels.lin_solve3d_whole.launches == before + 24
 
 
+@pytest.mark.parametrize("n,dtype", [(99, torch.float32), (126, BF16)],
+                         ids=["f32_99", "bf16_126"])
+@pytest.mark.parametrize("red_black", [False, True], ids=["jacobi", "rb"])
+def test_whole_solve_at_the_gates_edge(cuda, n, dtype, red_black):
+    """The largest n solve_whole_ok admits in each storage type, where the
+    boxes take the most shared memory: bit for bit against the plain
+    version from a raw guess."""
+    field = torch.empty((n + 2,) * 3, device="meta")
+    assert kernels.solve_whole_ok(field, dtype)
+    x, x0 = _raw(cuda, n, 45, 2)
+    for b in (0, 3):
+        got = kernels.lin_solve3d_whole(b, x, x0, 1.0, 6.0, 20, red_black,
+                                        dtype)
+        want = kernels.lin_solve3d_whole_plain(b, x, x0, 1.0, 6.0, 20,
+                                               red_black, dtype)
+        assert torch.equal(got, want), b
+
+
+# (n, dtype, red_black, blocks, shared memory bytes): few blocks with
+# little shared memory, so that each block takes several tiles a pass and
+# reloads its x0 with each
+SEVERAL_TILES = [(15, torch.float32, False, 5, 40000),
+                 (15, torch.float32, True, 3, 30000),
+                 (18, BF16, False, 7, 24000),
+                 (18, BF16, True, 4, 16000)]
+
+
+@pytest.mark.parametrize("n,dtype,red_black,blocks,smem", SEVERAL_TILES,
+                         ids=[f"n{c[0]}_{str(c[1])[6:]}_"
+                              f"{'rb' if c[2] else 'jacobi'}"
+                              for c in SEVERAL_TILES])
+def test_whole_solve_with_several_tiles_a_block(cuda, n, dtype, red_black,
+                                                blocks, smem):
+    """The whole solve's kernel on a plan of fewer blocks than tiles,
+    every b, zero, consistent and raw guesses, bit for bit against its
+    plain version."""
+    x, x0 = _raw(cuda, n, 44, 2)
+    card_blocks, card_smem = kernels.solve_info(cuda.index or 0)
+    assert blocks < card_blocks and smem <= card_smem
+    plan = kernels.solve_plan(n, red_black, dtype, 4 * blocks, smem)
+    plan = kernels.SolvePlan(blocks, plan.threads, plan.smem, plan.levels,
+                             plan.tile)
+    assert plan.tile.count(n) > blocks
+    for b in range(4):
+        for guess in (None, stam.set_bnd3d(b, x), x):
+            for coeffs, iters in (((1.0, 6.0), 9), ((0.3, 2.8), 4)):
+                got = kernels._solve_whole_launch(b, guess, x0, *coeffs,
+                                                  iters, red_black, dtype,
+                                                  plan)
+                want = kernels.lin_solve3d_whole_plain(
+                    b, guess, x0, *coeffs, iters, red_black, dtype)
+                assert torch.equal(got, want), (b, coeffs)
+
+
 def test_bf16_solve_differs_from_float32_and_rejects_bf16_fields(cuda):
     x, x0 = _raw(cuda, 48, 42, 2)
     f32 = kernels.lin_solve3d_rb(0, None, x0, 1.0, 6.0, 20)
@@ -596,11 +650,11 @@ def test_scalar_division_rounds_as_the_2d_kernel_takes_it(cuda):
         assert torch.equal(x / h, x * (1.0 / h))
 
 
-@pytest.mark.parametrize("n", [13, 14, 128, 198])
+@pytest.mark.parametrize("n", [13, 14, 128, 198, 1024, 4094])
 def test_lin_solve2d_kernel_is_bitwise_plain(cuda, n):
-    """Fields of 15^2, 16^2, 130^2 and 200^2 cells (the last past shared
-    memory: its buffers in device memory); every b, zero, consistent and
-    raw guesses, pressure and diffusion coefficients, odd and even sweep
+    """Fields of 15^2, 16^2, 130^2, 200^2, 1026^2 and 4096^2 cells (the
+    last with more tiles than blocks); every b, zero, consistent and raw
+    guesses, pressure and diffusion coefficients, odd and even sweep
     counts."""
     x, x0 = _fields2d(cuda, n, 20, (0, 0), -1.0, 1.0, raw=True)
     a = 0.1 * 1e-5 * n * n
@@ -615,7 +669,26 @@ def test_lin_solve2d_kernel_is_bitwise_plain(cuda, n):
                 assert torch.equal(got, want), (b, coeffs, iters)
                 calls += 1
     assert kernels.lin_solve2d.launches == before + calls
-    assert kernels.solve2d_smem_ok(x0) == (n < 169)
+
+
+@pytest.mark.parametrize("n,blocks,smem", [(20, 3, 6000), (41, 7, 20000)])
+def test_lin_solve2d_with_several_tiles_a_block(cuda, n, blocks, smem):
+    """The 2D solve's kernel on a plan of fewer blocks than tiles (each
+    block reloading its x0 with each tile), every b, zero, consistent and
+    raw guesses, bit for bit against its plain version."""
+    x, x0 = _fields2d(cuda, n, 21, (0, 0), -1.0, 1.0, raw=True)
+    plan = kernels.solve2d_plan(n, 4 * blocks, smem)
+    plan = kernels.SolvePlan(blocks, plan.threads, plan.smem, plan.levels,
+                             plan.tile)
+    assert plan.tile.count(n) > blocks
+    for b in range(3):
+        for guess in (None, stam.set_bnd2d(b, x), x):
+            for coeffs, iters in (((1.0, 4.0), 23), ((0.3, 2.2), 7)):
+                got = kernels._solve2d_launch(b, guess, x0, *coeffs, iters,
+                                              plan)
+                want = kernels.lin_solve2d_plain(b, guess, x0, *coeffs,
+                                                 iters)
+                assert torch.equal(got, want), (b, coeffs, iters)
 
 
 def _config1(n, **kw):

@@ -427,12 +427,6 @@ def test_step2d_whole_rejects_other_steps(bad):
 def test_2d_gates():
     def field(n):
         return torch.empty((n + 2,) * 2, device="meta")
-    # lin_solve2d: its two buffers fit one block's 227 KB of shared memory
-    # up to 170^2 cells (n = 168)
-    assert kernels.solve2d_smem_ok(field(128))
-    assert kernels.solve2d_smem_ok(field(168))
-    assert not kernels.solve2d_smem_ok(field(169))
-    assert not kernels.solve2d_smem_ok(field(510))
     # the whole step: the reference's gate, nx ny 4 B x 20 <= 96 MiB, up
     # to 1121^2 cells (n = 1119), as pallas_kernels.step2d_whole_ok
     for n in (128, 168, 169, 510, 1119, 1120):

@@ -35,7 +35,8 @@ def test_port_has_sources():
     assert {"grid_common.cuh", "advect.cuh", "advect.cu", "forcing.cuh",
             "forcing.cu", "divgrad.cuh", "divgrad.cu", "jacobi.cuh",
             "jacobi.cu", "jacobi_shard.cu", "step.cu", "grid2d.cu",
-            "step2d.cu", "stencil_march.cuh",
+            "step2d.cu", "step2d_blocked.cuh", "step_blocked.cuh",
+            "stencil_march.cuh",
             "sph_common.cuh", "sph_forces.cu", "sph_unidyn.cu"} <= csrc
 
 

@@ -46,12 +46,12 @@ SIGNATURES = {
     "tf_rb_ghosts": [_P] + [_INT] * 3 + [_P],
     "tf_jacobi_blocked_pass": [_P] * 3 + [_INT] * 7 + [_F] * 2 + [_P],
     "tf_rb_shard_finish": [_P] * 2 + [_INT] * 4 + [_P],
-    "tf_lin_solve3d_whole": [_P] * 4 + [_INT] * 5 + [_F] * 2 + [_P],
+    "tf_lin_solve3d_whole": [_P] * 4 + [_INT] * 12 + [_F] * 2 + [_P],
     "tf_diffuse3d_multi": [_P] * 9 + [_INT] * 6 + [_F] * 6 + [_P],
     "tf_project3d_whole": [_P] * 9 + [_INT] * 3 + [_F] * 3 + [_P],
     "tf_step3d_whole": [_P] * 11 + [_INT] * 18 + [_F] * 15 + [_P],
     "tf_barrier_probe": [_INT] * 3 + [_P],
-    "tf_lin_solve2d": [_P] * 4 + [_INT] * 3 + [_F] * 2 + [_P],
+    "tf_lin_solve2d": [_P] * 4 + [_INT] * 9 + [_F] * 2 + [_P],
     "tf_step2d_whole": [_P] * 9 + [_INT] * 14 + [_F] * 15 + [_P],
     "tf_sph_base_forces": [_P] * 8 + [_INT] * 2 + [_F] * 9 + [_P],
     "tf_sph_base_column": [_P] * 8 + [_INT] * 4 + [_F] * 9 + [_P],
@@ -146,8 +146,10 @@ def load() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.tf_rb_blocked_info.argtypes = [_INT] + [ctypes.POINTER(_INT)] * 2
     lib.tf_rb_blocked_info.restype = ctypes.c_int
-    lib.tf_jacobi_blocked_info.argtypes = [ctypes.POINTER(_INT)] * 2
-    lib.tf_jacobi_blocked_info.restype = ctypes.c_int
+    for info in ("tf_jacobi_blocked_info", "tf_lin_solve3d_whole_info",
+                 "tf_lin_solve2d_info"):
+        getattr(lib, info).argtypes = [ctypes.POINTER(_INT)] * 2
+        getattr(lib, info).restype = ctypes.c_int
     lib.tf_step3d_whole_info.argtypes = [ctypes.POINTER(_INT)] * 3
     lib.tf_step3d_whole_info.restype = ctypes.c_int
     lib.tf_step2d_whole_info.argtypes = [ctypes.POINTER(_INT)] * 3

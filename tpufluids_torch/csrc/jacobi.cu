@@ -5,6 +5,7 @@
 // Replaces (tpufluids/grid/pallas_kernels.py):
 //   lin_solve3d_pallas / _solve_kernel                      -> tf_lin_solve3d
 //   lin_solve3d_pallas / _solve_whole_kernel (both dtypes)  -> tf_lin_solve3d_whole
+//                                           (step_blocked.cuh's blocked_solve)
 //   lin_solve3d_rb_packed / _solve_rb_packed_*_kernel, and  -> the passes of
 //   lin_solve3d_pallas(red_black=True, dtype=bfloat16)         rb_blocked.cu,
 //                                                              then tf_rb_ghosts
@@ -28,11 +29,24 @@
 //
 // The whole tier: at 64^3 a field is 66^3 * 4 B = 1.15 MB, and one launch
 // per sweep would leave the card waiting on the host.  One cooperative
-// launch runs every sweep; its fields stay in the 50 MB L2.  The whole
-// solve and the fused projection call the cell bodies of the streamed
-// kernels (and divgrad.cuh's), in the order of the streamed launches, so
-// the two give the same bits.
-#include "jacobi.cuh"
+// launch runs every sweep; its fields stay in the 50 MB L2.  The
+// multi-field diffusion and the fused projection call the cell bodies of
+// the streamed kernels (and divgrad.cuh's), in the order of the streamed
+// launches, so the two give the same bits.
+//
+// The whole solve.  What bounds it is neither bytes nor operations (at
+// 64^3 a 20-iteration solve is 0.7 us of bytes) but its chain of
+// dependent sweeps: a design that runs a grid-wide barrier after every
+// sweep, or half-sweep, pays some 1.1 us a barrier, 19 or 40 of them a
+// solve, besides a thread a cell decoding its index each sweep.  Here the
+// solve runs the whole step's blocked passes (step_blocked.cuh's
+// blocked_solve): a persistent block a multiprocessor loads its tile
+// with a halo into shared memory, runs up to ``levels`` sweeps or
+// half-sweeps there and writes the tile back, and only then comes a grid
+// barrier: ceil(sweeps / levels) - 1 barriers a solve (kernels.solve_plan,
+// solve_barriers).  One instance a storage type and mode; the host plans
+// the tiles, the threads and every buffer.
+#include "step_blocked.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -85,13 +99,58 @@ __global__ void project_whole_kernel(tf::ProjectArgs g) {
   tf::project_phase(grid, tf::GridLoop(), g);
 }
 
+// The most threads a block of the whole solve takes (the host picks
+// its count: kernels.SOLVE_THREADS), one block a multiprocessor: 128
+// registers a thread, which its passes need without a spill (at 96 the
+// float32 Jacobi instance spills).
+constexpr int kSolveMaxThreads = 512;
+
 template <typename T>
-__global__ void solve_whole_kernel(tf::SolveArgs<T> g) {
+using Solve = tf::BlockedSolve<T, 1>;
+
+template <typename T, bool RB>
+__global__ void __launch_bounds__(kSolveMaxThreads, 1)
+    solve_whole_kernel(const Solve<T> g, int n) {
   cg::grid_group grid = cg::this_grid();
-  tf::solve_phase(grid, tf::GridLoop(), g);
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  tf::blocked_solve<T, RB, true>(grid, g, reinterpret_cast<T*>(smem_bytes),
+                                 n);
 }
 
 using bf16 = __nv_bfloat16;
+
+template <typename T, bool RB>
+int launch_solve_whole(const void* x, const void* x0, void* out, void* tmp,
+                       int b, int n, int iters, int blocks, int threads,
+                       int smem, int levels, int tx, int ty, int tz,
+                       float a, float c_inv, cudaStream_t stream) {
+  Solve<T> g{};
+  g.f[0] = tf::SolveField<T>{(const T*)x, (const T*)x0, (T*)out, (T*)tmp,
+                             b, a, c_inv};
+  g.fields = 1;
+  g.iters = iters;
+  g.levels = levels;
+  const int cx = (n + tx - 1) / tx, cy = (n + ty - 1) / ty,
+            cz = (n + tz - 1) / tz;
+  g.tiles = tf::StepTiles{tx, ty, tz, levels, cy, cz, cx * cy * cz};
+  void* params[] = {&g, &n};
+  return (int)cudaLaunchCooperativeKernel(
+      (const void*)solve_whole_kernel<T, RB>, dim3((unsigned)blocks),
+      dim3((unsigned)threads), params, (size_t)smem, stream);
+}
+
+template <typename T, bool RB>
+cudaError_t allow_solve_smem(int bytes, int* per_sm) {
+  cudaError_t e = cudaFuncSetAttribute(
+      solve_whole_kernel<T, RB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  int k = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &k, solve_whole_kernel<T, RB>, kSolveMaxThreads, bytes);
+  if (e == cudaSuccess && k < *per_sm) *per_sm = k;
+  return e;
+}
 
 }  // namespace
 
@@ -117,23 +176,63 @@ extern "C" int tf_rb_ghosts(void* x, int n, int b, int bf16_storage,
   return tf::launch_status();
 }
 
-// x, x0, out and tmp hold float, or bfloat16 when ``bf16``; x NULL is a
-// zero initial guess, tmp NULL for red-black.
+// x, x0, out and tmp hold float, or bfloat16 when ``bf16_storage``; x
+// NULL is a zero initial guess; the passes alternate between out and tmp
+// so that the last lands in out.  ``blocks`` persistent blocks of
+// ``threads`` (at most one tile each, or several: then each reloads its
+// x0 every pass), ``smem`` bytes of shared memory each; passes of
+// ``levels`` sweeps or half-sweeps on tiles of tx x ty x tz cells with a
+// halo of ``levels`` (kernels.solve_plan).  tf_lin_solve3d_whole_info
+// must have run on the device first.  A launch the card refuses returns
+// its error.
 extern "C" int tf_lin_solve3d_whole(const void* x, const void* x0, void* out,
                                     void* tmp, int b, int n, int iters,
-                                    int red_black, int bf16_storage, float a,
-                                    float c_inv, void* stream) {
+                                    int red_black, int bf16_storage,
+                                    int blocks, int threads, int smem,
+                                    int levels, int tx, int ty, int tz,
+                                    float a, float c_inv, void* stream) {
+  if (levels < 1 || iters < 1 || blocks < 1 || threads < 1 ||
+      threads > kSolveMaxThreads || tx < 1 || ty < 1 || tz < 1 || !tmp)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16_storage) {
-    const tf::SolveArgs<bf16> g{(const bf16*)x, (const bf16*)x0, (bf16*)out,
-                                (bf16*)tmp, b, n, iters, red_black, a,
-                                c_inv};
-    return tf::launch_cooperative(solve_whole_kernel<bf16>, g, n, s);
-  }
-  const tf::SolveArgs<float> g{(const float*)x, (const float*)x0,
-                               (float*)out, (float*)tmp, b, n, iters,
-                               red_black, a, c_inv};
-  return tf::launch_cooperative(solve_whole_kernel<float>, g, n, s);
+  if (bf16_storage && red_black)
+    return launch_solve_whole<bf16, true>(x, x0, out, tmp, b, n, iters,
+                                          blocks, threads, smem, levels, tx,
+                                          ty, tz, a, c_inv, s);
+  if (bf16_storage)
+    return launch_solve_whole<bf16, false>(x, x0, out, tmp, b, n, iters,
+                                           blocks, threads, smem, levels, tx,
+                                           ty, tz, a, c_inv, s);
+  if (red_black)
+    return launch_solve_whole<float, true>(x, x0, out, tmp, b, n, iters,
+                                           blocks, threads, smem, levels, tx,
+                                           ty, tz, a, c_inv, s);
+  return launch_solve_whole<float, false>(x, x0, out, tmp, b, n, iters,
+                                          blocks, threads, smem, levels, tx,
+                                          ty, tz, a, c_inv, s);
+}
+
+// The whole solve's shape on the current device: its persistent blocks
+// (one a multiprocessor at the most shared memory a block may take) and
+// that shared memory in bytes; it sets the four instances' shared-memory
+// attribute to that size.
+extern "C" int tf_lin_solve3d_whole_info(int* blocks, int* smem) {
+  int dev = 0, sms = 0, optin = 0, per_sm = 1 << 30;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) e = allow_solve_smem<float, false>(optin, &per_sm);
+  if (e == cudaSuccess) e = allow_solve_smem<float, true>(optin, &per_sm);
+  if (e == cudaSuccess) e = allow_solve_smem<bf16, false>(optin, &per_sm);
+  if (e == cudaSuccess) e = allow_solve_smem<bf16, true>(optin, &per_sm);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  *blocks = sms * per_sm;
+  *smem = optin;
+  return 0;
 }
 
 extern "C" int tf_diffuse3d_multi(const float* x_0, const float* x_1,

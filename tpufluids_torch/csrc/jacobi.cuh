@@ -29,13 +29,14 @@
 // which is what set_bnd3d left there after the previous half-sweep.  One
 // pass after the last half-sweep writes the ghosts.
 //
-// The whole tier runs a whole solve, or more, in one cooperative launch
-// with a grid-wide barrier between sweeps and phases.  66^3 cells (64^3)
-// are more than the card keeps resident, so the threads stride over the
-// cells, and the grid is sized by the occupancy query.  Inside a
-// cooperative kernel no pointer is __restrict__: fields written in one
-// phase are read in the next, and must not come through the non-coherent
-// read-only path.
+// The whole tier's multi-field diffusion and fused projection run in one
+// cooperative launch with a grid-wide barrier between sweeps and phases
+// (the whole solve and the whole step run blocked passes instead:
+// step_blocked.cuh).  66^3 cells (64^3) are more than the card keeps
+// resident, so the threads stride over the cells, and the grid is sized
+// by the occupancy query.  Inside a cooperative kernel no pointer is
+// __restrict__: fields written in one phase are read in the next, and
+// must not come through the non-coherent read-only path.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -384,10 +385,11 @@ struct SolveArgs {
   float a, c_inv;
 };
 
-// A whole solve, every sweep of the streamed kernels' launches in turn:
-// Jacobi sweeps out of place between out and tmp, the first reading x's
-// stored ghosts, or red-black half-sweeps in place on out after the
-// first (the ghost-race scheme above), then the ghost pass.
+// A whole solve, every sweep of the streamed kernels' launches in turn
+// (the fused projection's pressure solve): Jacobi sweeps out of place
+// between out and tmp, the first reading x's stored ghosts, or red-black
+// half-sweeps in place on out after the first (the ghost-race scheme
+// above), then the ghost pass.
 template <typename T>
 __device__ __forceinline__ void solve_phase(cg::grid_group& grid,
                                             const GridLoop& loop,

@@ -99,7 +99,8 @@ __global__ void __launch_bounds__(kStepThreads, 1)
       grid.sync();
     }
   }
-  if (g.diffuse.fields) tf::blocked_diffuse(grid, g.diffuse, smem, n);
+  if (g.diffuse.fields)
+    tf::blocked_solve<float, false, false>(grid, g.diffuse, smem, n);
   tf::blocked_project(grid, g.project_first, smem, n);
   for (int idx = loop.start; idx < cells; idx += loop.stride)
     tf::advect_cell<3>(idx, g.advect_by.u, g.advect_by.v, g.advect_by.w,
@@ -189,19 +190,20 @@ extern "C" int tf_step3d_whole(
     float* tmp[3] = {uo, vo, wo};
     for (int f = 0; f < 3; ++f)
       d.f[d.fields++] =
-          tf::DiffuseField{in[f], o[f], tmp[f], f + 1, visc_a, visc_c_inv};
+          tf::DiffuseField{in[f], in[f], o[f], tmp[f], f + 1, visc_a,
+                           visc_c_inv};
     cur = {o[0], o[1], o[2]};
     in_x = !in_x;
   }
   const float* sd = dens;
   const float* st = temp;
   if (diff) {
-    d.f[d.fields++] = tf::DiffuseField{dens, S[0], dens_o, 0, diff_a,
+    d.f[d.fields++] = tf::DiffuseField{dens, dens, S[0], dens_o, 0, diff_a,
                                        diff_c_inv};
     sd = S[0];
   }
   if (temp_diff) {
-    d.f[d.fields++] = tf::DiffuseField{temp, S[1], temp_o, 0, temp_a,
+    d.f[d.fields++] = tf::DiffuseField{temp, temp, S[1], temp_o, 0, temp_a,
                                        temp_c_inv};
     st = S[1];
   }

@@ -64,292 +64,22 @@
 // Python.  So the step equals stam.step2d_multi bit for bit
 // (tests/test_torch_step2d_blocked.py emulates it tile by tile).
 //
-// The host plans every buffer and tile (tf_step2d_whole below and
-// kernels.step2d_plan); the kernel plans nothing.  No pointer is
-// __restrict__: a phase reads what the phase before wrote.
-#include <cooperative_groups.h>
+// The tiles, boxes, levels and stores of the blocked passes, and the
+// diffusions' passes themselves, are step2d_blocked.cuh's, shared with
+// the whole 2D solve (grid2d.cu).  The host plans every buffer and tile
+// (tf_step2d_whole below and kernels.step2d_plan); the kernel plans
+// nothing.  No pointer is __restrict__: a phase reads what the phase
+// before wrote.
 #include <math.h>
 
-#include "grid2d.cuh"
-#include "grid_common.cuh"
-
-namespace cg = cooperative_groups;
+#include "step2d_blocked.cuh"
 
 namespace {
 
+using namespace tf2d;
+
 constexpr int kStepThreads = 256;
 constexpr int kScratch = 8;
-constexpr int kFields = 4;
-
-using tf::bnd;
-using tf::bnd_for;
-using tf::Bnd;
-
-// ---------------------------------------------------------------------------
-// tiles and boxes
-
-// The tiles of a blocked phase: tx x ty interior cells, cy tiles a row
-// of x, ``count`` in all, in C order; a box is a tile widened by
-// ``halo``.
-struct Tiles {
-  int tx, ty, halo;
-  int cy, count;
-};
-
-// One block's box: its tile, interior cells [x0, x1] x [y0, y1], and the
-// box, nx x ny cells from array cell (bx, by), y contiguous.
-struct Box {
-  int x0, x1, y0, y1;
-  int bx, by, nx, ny;
-  __device__ __forceinline__ int at(int i, int j) const {
-    return (i - bx) * ny + (j - by);
-  }
-  __device__ __forceinline__ int cells() const { return nx * ny; }
-};
-
-__device__ __forceinline__ Box box_of(const Tiles& t, int tile, int n) {
-  Box b;
-  const int iy = tile % t.cy, ix = tile / t.cy;
-  b.x0 = 1 + ix * t.tx;
-  b.y0 = 1 + iy * t.ty;
-  b.x1 = min(b.x0 + t.tx - 1, n);
-  b.y1 = min(b.y0 + t.ty - 1, n);
-  b.bx = max(b.x0 - t.halo, 0);
-  b.by = max(b.y0 - t.halo, 0);
-  b.nx = min(b.x1 + t.halo, n + 1) - b.bx + 1;
-  b.ny = min(b.y1 + t.halo, n + 1) - b.by + 1;
-  return b;
-}
-
-// Cells [i0, i0 + ni) x [j0, j0 + nj).
-struct Region {
-  int i0, j0, ni, nj;
-};
-
-// The tile widened by e, clipped to [lo, hi] on both axes.
-__device__ __forceinline__ Region widen(const Box& b, int e, int lo,
-                                        int hi) {
-  Region r;
-  r.i0 = max(b.x0 - e, lo);
-  r.j0 = max(b.y0 - e, lo);
-  r.ni = min(b.x1 + e, hi) - r.i0 + 1;
-  r.nj = min(b.y1 + e, hi) - r.j0 + 1;
-  return r;
-}
-
-// The output cells whose clamped interior cell lies in the tile: the
-// tile, and the ghosts beside it where it touches a face of the grid.
-__device__ __forceinline__ Region owned(const Box& b, int n) {
-  Region r;
-  r.i0 = b.x0 == 1 ? 0 : b.x0;
-  r.j0 = b.y0 == 1 ? 0 : b.y0;
-  r.ni = (b.x1 == n ? n + 1 : b.x1) - r.i0 + 1;
-  r.nj = (b.y1 == n ? n + 1 : b.y1) - r.j0 + 1;
-  return r;
-}
-
-// How the threads of a block walk a region: each takes a run of rows
-// along x of one column j, the columns cut into ``seg`` runs so that
-// about every thread has one; a warp's threads hold neighbouring j, so
-// their shared and device accesses are consecutive words.  A cell costs
-// no index arithmetic beyond a step along the run.
-struct Runs {
-  int nj, seg, len;
-  __device__ __forceinline__ explicit Runs(const Region& r) {
-    nj = r.nj;
-    seg = min(r.ni, max(1, (int)blockDim.x / nj));
-    len = (r.ni + seg - 1) / seg;
-  }
-  __device__ __forceinline__ int count() const { return nj * seg; }
-  // run t: column j, rows [i, i_end)
-  __device__ __forceinline__ void at(const Region& r, int t, int& i,
-                                     int& i_end, int& j) const {
-    j = r.j0 + t % nj;
-    i = r.i0 + (t / nj) * len;
-    i_end = min(i + len, r.i0 + r.ni);
-  }
-};
-
-// Box cells of region r from device memory: S0 from g0, and S1 from g1
-// unless g1 is NULL; four rows of a run at a time, their loads in flight
-// together.  The fields were written before the last grid barrier: loads
-// through L2 (__ldcg), not the read-only path.
-__device__ __forceinline__ void load_region(float* S0, const float* g0,
-                                            float* S1, const float* g1,
-                                            const Box& b, const Region& r,
-                                            int N) {
-  constexpr int kRows = 4;
-  const Runs R(r);
-  for (int t = threadIdx.x; t < R.count(); t += blockDim.x) {
-    int i, ie, j;
-    R.at(r, t, i, ie, j);
-    int s = b.at(i, j), c = i * N + j;
-    for (; i < ie; i += kRows, s += kRows * b.ny, c += kRows * N) {
-      float v[kRows], w[kRows];
-#pragma unroll
-      for (int q = 0; q < kRows; ++q) {
-        if (i + q < ie) {
-          v[q] = __ldcg(g0 + c + q * N);
-          if (g1) w[q] = __ldcg(g1 + c + q * N);
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < kRows; ++q) {
-        if (i + q < ie) {
-          S0[s + q * b.ny] = v[q];
-          if (g1) S1[s + q * b.ny] = w[q];
-        }
-      }
-    }
-  }
-}
-
-// A Jacobi sweep over the interior cells of region r, from S into D:
-// (x0 + a nb) c_inv, nb the neighbours x-1, x+1, y-1, y+1 summed in that
-// order.  A run carries the cell and the one below it to the next row.
-// ``first``: read the stored neighbours; else a tap across a face of the
-// grid is the cell's own value times the face's sign.
-__device__ __forceinline__ void jacobi_level(const float* S, float* D,
-                                             const float* X0, const Box& b,
-                                             const Region& r, int n,
-                                             bool first, Bnd sg, float a,
-                                             float c_inv) {
-  const Runs R(r);
-  const int sx = b.ny;
-  for (int t = threadIdx.x; t < R.count(); t += blockDim.x) {
-    int i, ie, j;
-    R.at(r, t, i, ie, j);
-    if (i >= ie) continue;
-    const bool y_face = !first && (j == 1 || j == n);
-    int s = b.at(i, j);
-    float xm = S[s - sx], own = S[s];
-    for (; i < ie; ++i, s += sx) {
-      const float xp = S[s + sx];
-      float ym = S[s - 1], yp = S[s + 1];
-      float tm = xm, tp = xp;
-      if (!first) {
-        tm = i == 1 ? sg.sx * own : tm;
-        tp = i == n ? sg.sx * own : tp;
-      }
-      if (y_face) {
-        ym = j == 1 ? sg.sy * own : ym;
-        yp = j == n ? sg.sy * own : yp;
-      }
-      float nb = tm + tp;
-      nb = nb + ym;
-      nb = nb + yp;
-      D[s] = (X0[s] + a * nb) * c_inv;
-      xm = own;
-      own = xp;
-    }
-  }
-}
-
-// The tile's interior cells of S to dst.
-__device__ __forceinline__ void store_tile(const float* S, const Box& b,
-                                           float* dst, int n) {
-  const Region r = widen(b, 0, 1, n);
-  const Runs R(r);
-  const int N = n + 2;
-  for (int t = threadIdx.x; t < R.count(); t += blockDim.x) {
-    int i, ie, j;
-    R.at(r, t, i, ie, j);
-    int s = b.at(i, j), c = i * N + j;
-    for (; i < ie; ++i, s += b.ny, c += N) dst[c] = S[s];
-  }
-}
-
-// The owned output cells to dst, each set_bnd2d(sg)'s value from its
-// clamped cell in S.
-__device__ __forceinline__ void store_owned(const float* S, const Box& b,
-                                            float* dst, int n, Bnd sg) {
-  const Region r = owned(b, n);
-  const Runs R(r);
-  const int N = n + 2;
-  for (int t = threadIdx.x; t < R.count(); t += blockDim.x) {
-    int i, ie, j;
-    R.at(r, t, i, ie, j);
-    const int cj = tf::clamp_interior(j, n);
-    for (; i < ie; ++i) {
-      const int ci = tf::clamp_interior(i, n);
-      dst[i * N + j] = bnd(ci != i, cj != j, sg, S[b.at(ci, cj)]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// the diffusions
-
-struct DiffuseField {
-  const float* in;   // the field, and x0
-  float *out, *tmp;  // the last pass lands in out; tmp alternates with it
-  int b;
-  float a, c_inv;
-};
-
-struct BlockedDiffuse {
-  DiffuseField f[kFields];
-  int fields, iters;
-  int levels;  // sweeps a pass
-  Tiles tiles;  // halo levels
-};
-
-// Field f of d by selects over constant indices: a runtime index into the
-// parameter array would copy it to local memory.
-__device__ __forceinline__ DiffuseField field_of(const BlockedDiffuse& d,
-                                                 int f) {
-  DiffuseField r = d.f[0];
-#pragma unroll
-  for (int i = 1; i < kFields; ++i)
-    if (f == i) r = d.f[i];
-  return r;
-}
-
-// Every field of d diffused by ``iters`` Jacobi sweeps (x0 the field
-// itself), in ceil(iters / levels) passes with a grid-wide barrier after
-// each; the blocks take the (field, tile) pairs in turn.  Pass i writes
-// out or tmp so that the last lands in out, each owned cell with its
-// ghosts.  ``smem`` holds three boxes.
-__device__ __forceinline__ void blocked_diffuse(cg::grid_group& grid,
-                                                const BlockedDiffuse& d,
-                                                float* smem, int n) {
-  const int N = n + 2;
-  const int passes = (d.iters + d.levels - 1) / d.levels;
-  const int items = d.fields * d.tiles.count;
-  const bool resident = items <= (int)gridDim.x;
-  for (int pass = 0; pass < passes; ++pass) {
-    const int H = min(d.levels, d.iters - pass * d.levels);
-    for (int item = blockIdx.x; item < items; item += gridDim.x) {
-      const DiffuseField f = field_of(d, item / d.tiles.count);
-      const Box b = box_of(d.tiles, item % d.tiles.count, n);
-      const int vol = b.cells();
-      float* X0 = smem;
-      float* cur = smem + vol;
-      float* nxt = cur + vol;
-      const float* src =
-          pass == 0 ? f.in : ((passes - pass) & 1 ? f.tmp : f.out);
-      float* dst = (passes - 1 - pass) & 1 ? f.tmp : f.out;
-      // x0 over the same cells as the field, in the same loop; a block
-      // that keeps one (field, tile) pair for every pass keeps its x0
-      const bool x0 = pass == 0 || !resident;
-      load_region(cur, src, x0 ? X0 : nullptr, x0 ? f.in : nullptr, b,
-                  widen(b, H, 0, n + 1), N);
-      __syncthreads();
-      const Bnd sg = bnd_for(f.b);
-      for (int h = 0; h < H; ++h) {
-        jacobi_level(cur, nxt, X0, b, widen(b, H - 1 - h, 1, n), n, h == 0,
-                     sg, f.a, f.c_inv);
-        float* t = cur;
-        cur = nxt;
-        nxt = t;
-        __syncthreads();
-      }
-      store_owned(cur, b, dst, n, sg);
-      __syncthreads();
-    }
-    grid.sync();
-  }
-}
 
 // ---------------------------------------------------------------------------
 // the projection
@@ -381,10 +111,6 @@ __device__ __forceinline__ void divergence_box(float* X0,
       X0[s] = g.coef * (((g.u[c + N] - g.u[c - N]) + g.v[c + 1])
                         - g.v[c - 1]);
   }
-}
-
-__device__ __forceinline__ void zero_box(float* S, const Box& b) {
-  for (int t = threadIdx.x; t < b.cells(); t += blockDim.x) S[t] = 0.0f;
 }
 
 // q - 0.5 (p+ - p-) / h on the owned cells, then set_bnd2d(1) for u and
@@ -551,7 +277,7 @@ struct Step2dArgs {
   OutPair vort_out;
   // the diffusions of u, v (visc) and dens, temp, in the same passes;
   // then the two projections around the self-advection
-  BlockedDiffuse diffuse;
+  BlockedSolve diffuse;
   BlockedProject project_first;
   Pair advect_by;    // self-advection of advect_by into advect_out
   OutPair advect_out;
@@ -610,7 +336,7 @@ __global__ void __launch_bounds__(kStepThreads, 1)
       }
     grid.sync();
   }
-  if (g.diffuse.fields) blocked_diffuse(grid, g.diffuse, smem, n);
+  if (g.diffuse.fields) blocked_solve(grid, g.diffuse, smem, n, true);
   blocked_project(grid, g.project_first, smem, n);
   for (int i = L.i0; i < N; i += L.istep)
     for (int j = L.j0; j < N; j += L.jstep)
@@ -622,11 +348,6 @@ __global__ void __launch_bounds__(kStepThreads, 1)
   for (int i = L.i0; i < N; i += L.istep)
     for (int j = L.j0; j < N; j += L.jstep)
       advect_cell(i, j, n, g.dt0, fin, g.scalars, g.scalars_out, 0, 0);
-}
-
-Tiles tiles_of(int n, int tx, int ty, int halo) {
-  const int cx = (n + tx - 1) / tx, cy = (n + ty - 1) / ty;
-  return Tiles{tx, ty, halo, cy, cx * cy};
 }
 
 }  // namespace
@@ -690,25 +411,27 @@ extern "C" int tf_step2d_whole(
     cur = {X.u, X.v};
     in_x = true;
   }
-  BlockedDiffuse& d = g.diffuse;
+  BlockedSolve& d = g.diffuse;
   d.iters = iters;
   d.levels = levels;
   d.tiles = tiles_of(n, dtx, dty, levels);
   if (visc) {
     const OutPair o = other();
-    d.f[d.fields++] = DiffuseField{cur.u, o.u, uo, 1, visc_a, visc_c_inv};
-    d.f[d.fields++] = DiffuseField{cur.v, o.v, vo, 2, visc_a, visc_c_inv};
+    d.f[d.fields++] =
+        SolveField{cur.u, cur.u, o.u, uo, 1, visc_a, visc_c_inv};
+    d.f[d.fields++] =
+        SolveField{cur.v, cur.v, o.v, vo, 2, visc_a, visc_c_inv};
     cur = {o.u, o.v};
     in_x = !in_x;
   }
   g.scalars = {dens, temp};
   if (diff) {
-    d.f[d.fields++] = DiffuseField{dens, S[0], dens_o, 0, diff_a,
+    d.f[d.fields++] = SolveField{dens, dens, S[0], dens_o, 0, diff_a,
                                    diff_c_inv};
     g.scalars.u = S[0];
   }
   if (temp_diff) {
-    d.f[d.fields++] = DiffuseField{temp, S[1], temp_o, 0, temp_a,
+    d.f[d.fields++] = SolveField{temp, temp, S[1], temp_o, 0, temp_a,
                                    temp_c_inv};
     g.scalars.v = S[1];
   }

@@ -1,7 +1,8 @@
-// The blocked phases of the whole 3D step (step.cu): the two
-// projections and the diffusions, each a few passes of several
-// (half-)sweeps in shared memory with one grid-wide barrier after each
-// pass, where the whole tier of jacobi.cuh runs one barrier a sweep.
+// The blocked phases of the whole 3D step (step.cu) and of the whole
+// solve (jacobi.cu): the two projections, the diffusions and a lone
+// Jacobi or red-black solve, each a few passes of several (half-)sweeps
+// in shared memory with one grid-wide barrier after each pass, where the
+// rest of the whole tier of jacobi.cuh runs one barrier a sweep.
 //
 // Tiles and boxes.  A phase cuts the interior into tiles of tx x ty x tz
 // cells (the host chooses them: kernels.step_plan); a block's box is its
@@ -37,9 +38,18 @@
 // clamped cell's value.  So a projection costs one barrier a pass and
 // nothing more.
 //
+// The solve.  blocked_solve runs the diffusions and the whole solve:
+// Jacobi or red-black, any b, from a given initial guess (read with its
+// stored ghosts by the first (half-)sweep) or from zeros, the fields
+// stored as float or as __nv_bfloat16 (every operation rounded to the
+// storage type, tf::cell_update).  Red-black passes write the tile's
+// interior cells, the last pass every owned cell with its ghosts (the
+// set_bnd3d signs of tf::ghost_cell), so no ghost pass follows.
+//
 // Per cell the arithmetic is tf::cell_update's, in the order of the
 // streamed kernels, so a blocked phase equals the separate kernels bit
-// for bit (tests/test_torch_step_blocked.py emulates it tile by tile).
+// for bit (tests/test_torch_step_blocked.py and
+// tests/test_torch_solve_blocked.py emulate it tile by tile).
 #pragma once
 
 #include "jacobi.cuh"
@@ -148,14 +158,21 @@ struct Runs {
   }
 };
 
+// A stored cell read through L2 (__ldcg), not the read-only path: the
+// fields were written before the last grid barrier.
+__device__ __forceinline__ float ld_l2(const float* p) { return __ldcg(p); }
+
+__device__ __forceinline__ __nv_bfloat16 ld_l2(const __nv_bfloat16* p) {
+  return __ushort_as_bfloat16(
+      __ldcg(reinterpret_cast<const unsigned short*>(p)));
+}
+
 // Box cells of region r of two fields from device memory, S0 from g0 and
-// S1 from g1 (g1 NULL: one field), eight rows of a run at a time.  The
-// fields were written before the last grid barrier: loads through L2
-// (__ldcg), not the read-only path.
-__device__ __forceinline__ void load_region(float* S0, const float* g0,
-                                            float* S1, const float* g1,
-                                            const Box& b, const Region& r,
-                                            int N) {
+// S1 from g1 (g1 NULL: one field), eight rows of a run at a time.
+template <typename T>
+__device__ __forceinline__ void load_region(T* S0, const T* g0, T* S1,
+                                            const T* g1, const Box& b,
+                                            const Region& r, int N) {
   constexpr int kRows = 8;
   const Runs R(r);
   const int sx = b.sx(), NN = N * N;
@@ -164,12 +181,12 @@ __device__ __forceinline__ void load_region(float* S0, const float* g0,
     R.at(r, t, i, ie, j, k);
     int s = b.at(i, j, k), c = flat(i, j, k, N);
     for (; i < ie; i += kRows, s += kRows * sx, c += kRows * NN) {
-      float v[kRows], w[kRows];
+      T v[kRows], w[kRows];
 #pragma unroll
       for (int q = 0; q < kRows; ++q) {
         if (i + q < ie) {
-          v[q] = __ldcg(g0 + c + q * NN);
-          if (g1) w[q] = __ldcg(g1 + c + q * NN);
+          v[q] = ld_l2(g0 + c + q * NN);
+          if (g1) w[q] = ld_l2(g1 + c + q * NN);
         }
       }
 #pragma unroll
@@ -183,15 +200,17 @@ __device__ __forceinline__ void load_region(float* S0, const float* g0,
   }
 }
 
-__device__ __forceinline__ void zero_box(float* S, const Box& b) {
-  for (int t = threadIdx.x; t < b.cells(); t += blockDim.x) S[t] = 0.0f;
+template <typename T>
+__device__ __forceinline__ void zero_box(T* S, const Box& b) {
+  const T zero = Store<T>::round(0.0f);
+  for (int t = threadIdx.x; t < b.cells(); t += blockDim.x) S[t] = zero;
 }
 
 // Taps across a face of the grid replaced by the cell's own value times
 // the face's sign (what set_bnd3d leaves in the ghost).
-__device__ __forceinline__ void face_taps(float& xm, float& xp, float& ym,
-                                          float& yp, float& zm, float& zp,
-                                          float own, int i, int j, int k,
+template <typename T>
+__device__ __forceinline__ void face_taps(T& xm, T& xp, T& ym, T& yp, T& zm,
+                                          T& zp, T own, int i, int j, int k,
                                           int n, Signs sg) {
   xm = i == 1 ? mul_rn(sg.x, own) : xm;
   xp = i == n ? mul_rn(sg.x, own) : xp;
@@ -206,11 +225,11 @@ __device__ __forceinline__ void face_taps(float& xm, float& xp, float& ym,
 // to the next row.  ``first``: read the stored neighbours; else a tap
 // across a face of the grid is the cell's own value times the face's
 // sign.
-__device__ __forceinline__ void jacobi_level(const float* S, float* D,
-                                             const float* X0, const Box& b,
-                                             const Region& r, int n,
-                                             bool first, Signs sg, float a,
-                                             float c_inv) {
+template <typename T>
+__device__ __forceinline__ void jacobi_level(const T* S, T* D, const T* X0,
+                                             const Box& b, const Region& r,
+                                             int n, bool first, Signs sg,
+                                             float a, float c_inv) {
   const Runs R(r);
   const int sx = b.sx(), sy = b.sy();
   for (int t = threadIdx.x; t < R.count(); t += blockDim.x) {
@@ -219,11 +238,11 @@ __device__ __forceinline__ void jacobi_level(const float* S, float* D,
     if (i >= ie) continue;
     const bool column_face = j == 1 || j == n || k == 1 || k == n;
     int s = b.at(i, j, k);
-    float xm = S[s - sx], own = S[s];
+    T xm = S[s - sx], own = S[s];
     for (; i < ie; ++i, s += sx) {
-      const float xp = S[s + sx];
-      float ym = S[s - sy], yp = S[s + sy], zm = S[s - 1], zp = S[s + 1];
-      float tm = xm, tp = xp;
+      const T xp = S[s + sx];
+      T ym = S[s - sy], yp = S[s + sy], zm = S[s - 1], zp = S[s + 1];
+      T tm = xm, tp = xp;
       if (!first && (column_face || i == 1 || i == n))
         face_taps(tm, tp, ym, yp, zm, zp, own, i, j, k, n, sg);
       D[s] = cell_update(X0[s], tm, tp, ym, yp, zm, zp, a, c_inv);
@@ -234,16 +253,17 @@ __device__ __forceinline__ void jacobi_level(const float* S, float* D,
 }
 
 // A red-black half-sweep of parity p over the interior cells of region r,
-// in place in S, b = 0 (a tap across a face is the cell's own value):
-// tf::rb_cell's update.  A run visits the rows of its column whose cell
-// has parity p ((i + j + k + 1) % 2 == p), every second row; they read
-// only cells of the other parity, which the level does not write, and
-// the x neighbour above one is the one below the next.  ``first``: the
-// solve's first half-sweep, which reads the stored neighbours (zeros: the
-// zero guess).
-__device__ __forceinline__ void rb_level(float* S, const float* X0,
-                                         const Box& b, const Region& r,
-                                         int n, int p, bool first, float a,
+// in place in S: tf::rb_cell's update.  A run visits the rows of its
+// column whose cell has parity p ((i + j + k + 1) % 2 == p), every
+// second row; they read only cells of the other parity, which the level
+// does not write, and the x neighbour above one is the one below the
+// next.  ``first``: the solve's first half-sweep, which reads the stored
+// neighbours (the guess's, ghosts included, or zeros); else a tap across
+// a face of the grid is the cell's own value times the face's sign.
+template <typename T>
+__device__ __forceinline__ void rb_level(T* S, const T* X0, const Box& b,
+                                         const Region& r, int n, int p,
+                                         bool first, Signs sg, float a,
                                          float c_inv) {
   const Runs R(r);
   const int sx = b.sx(), sy = b.sy();
@@ -254,14 +274,13 @@ __device__ __forceinline__ void rb_level(float* S, const float* X0,
     if (i >= ie) continue;
     const bool column_face = j == 1 || j == n || k == 1 || k == n;
     int s = b.at(i, j, k);
-    float xm = S[s - sx];
+    T xm = S[s - sx];
     for (; i < ie; i += 2, s += 2 * sx) {
-      const float xp = S[s + sx];
-      float ym = S[s - sy], yp = S[s + sy], zm = S[s - 1], zp = S[s + 1];
-      float tm = xm, tp = xp;
+      const T xp = S[s + sx];
+      T ym = S[s - sy], yp = S[s + sy], zm = S[s - 1], zp = S[s + 1];
+      T tm = xm, tp = xp;
       if (!first && (column_face || i == 1 || i == n))
-        face_taps(tm, tp, ym, yp, zm, zp, S[s], i, j, k, n,
-                  Signs{1.0f, 1.0f, 1.0f});
+        face_taps(tm, tp, ym, yp, zm, zp, S[s], i, j, k, n, sg);
       S[s] = cell_update(X0[s], tm, tp, ym, yp, zm, zp, a, c_inv);
       xm = xp;
     }
@@ -269,8 +288,9 @@ __device__ __forceinline__ void rb_level(float* S, const float* X0,
 }
 
 // The tile's interior cells of S to dst.
-__device__ __forceinline__ void store_tile(const float* S, const Box& b,
-                                           float* dst, int N) {
+template <typename T>
+__device__ __forceinline__ void store_tile(const T* S, const Box& b, T* dst,
+                                           int N) {
   const Region r = widen(b, 0, 1, N - 2);
   const Runs R(r);
   const int sx = b.sx(), NN = N * N;
@@ -292,9 +312,10 @@ __device__ __forceinline__ float bnd_sign(int b, int i, int j, int k,
 }
 
 // The owned output cells to dst, each the clamped cell's value times its
-// set_bnd3d(bnd) sign (tf::jacobi_cell's rule).
-__device__ __forceinline__ void store_owned(const float* S, const Box& b,
-                                            float* dst, int n, int bnd) {
+// set_bnd3d(bnd) sign (tf::jacobi_cell's and tf::ghost_cell's rule).
+template <typename T>
+__device__ __forceinline__ void store_owned(const T* S, const Box& b, T* dst,
+                                            int n, int bnd) {
   const Region r = owned(b, n);
   const Runs R(r);
   const int N = n + 2;
@@ -367,8 +388,8 @@ __device__ __forceinline__ void blocked_project(cg::grid_group& grid,
     const int extra = last ? 1 : 0;
     if (owns) {
       if (pass > 0)
-        load_region(A, pass & 1 ? g.p0 : g.p1, nullptr, nullptr, b,
-                    widen(b, H + extra, 0, n + 1), N);
+        load_region<float>(A, pass & 1 ? g.p0 : g.p1, nullptr, nullptr, b,
+                           widen(b, H + extra, 0, n + 1), N);
       __syncthreads();
       float* cur = A;
       float* nxt = B;
@@ -377,8 +398,8 @@ __device__ __forceinline__ void blocked_project(cg::grid_group& grid,
         // in place, Jacobi from cur into nxt
         const Region r = widen(b, H - 1 - h + extra, 1, n);
         if (g.red_black) {
-          rb_level(cur, X0, b, r, n, (h0 + h) & 1, h0 + h == 0, 1.0f,
-                   g.c_inv);
+          rb_level(cur, X0, b, r, n, (h0 + h) & 1, h0 + h == 0,
+                   Signs{1.0f, 1.0f, 1.0f}, 1.0f, g.c_inv);
         } else {
           jacobi_level(cur, nxt, X0, b, r, n, h0 + h == 0,
                        Signs{1.0f, 1.0f, 1.0f}, 1.0f, g.c_inv);
@@ -441,79 +462,117 @@ __device__ __forceinline__ void blocked_project(cg::grid_group& grid,
 }
 
 // ---------------------------------------------------------------------------
-// the diffusions
+// the diffusions and the whole solve
 
 constexpr int kStepFields = 5;
 
-struct DiffuseField {
-  const float* in;  // the field, and x0
-  float *out, *tmp;  // the last pass lands in out; tmp alternates with it
+template <typename T>
+struct SolveField {
+  const T* x;   // the initial guess, read by the first pass; NULL: zeros
+  const T* x0;
+  T *out, *tmp;  // the last pass lands in out; tmp alternates with it
   int b;
   float a, c_inv;
 };
 
-struct BlockedDiffuse {
-  DiffuseField f[kStepFields];
+// A diffusion: x and x0 the field itself.
+using DiffuseField = SolveField<float>;
+
+// Up to F fields solved in the same passes.
+template <typename T, int F>
+struct BlockedSolve {
+  SolveField<T> f[F];
   int fields, iters;
-  int levels;  // sweeps a pass
+  int levels;  // (half-)sweeps a pass
   StepTiles tiles;  // halo levels
 };
 
+using BlockedDiffuse = BlockedSolve<float, kStepFields>;
+
 // Field f of d by selects over constant indices: a runtime index into the
 // parameter array would copy it to local memory.
-__device__ __forceinline__ DiffuseField field_of(const BlockedDiffuse& d,
-                                                 int f) {
-  DiffuseField r = d.f[0];
+template <typename T, int F>
+__device__ __forceinline__ SolveField<T> field_of(const BlockedSolve<T, F>& d,
+                                                  int f) {
+  SolveField<T> r = d.f[0];
 #pragma unroll
-  for (int i = 1; i < kStepFields; ++i)
+  for (int i = 1; i < F; ++i)
     if (f == i) r = d.f[i];
   return r;
 }
 
-// Every field of d diffused by ``iters`` Jacobi sweeps (x0 the field
-// itself, as tf::diffuse_phase), in ceil(iters / levels) passes with a
-// grid-wide barrier after each; the blocks take the (field, tile) pairs
-// in turn.  Pass i writes out or tmp so that the last lands in out, each
-// owned cell with its ghosts.  ``smem`` holds three boxes.
-__device__ __forceinline__ void blocked_diffuse(cg::grid_group& grid,
-                                                const BlockedDiffuse& d,
-                                                float* smem, int n) {
+// Every field of d solved by ``iters`` Jacobi sweeps, or red-black
+// iterations of two half-sweeps (RB), in ceil(sweeps / levels) passes
+// with a grid-wide barrier after each; the blocks take the (field, tile)
+// pairs in turn.  Pass i reads the guess (i = 0) or the buffer pass i - 1
+// wrote, and writes out or tmp so that the last lands in out.  Jacobi
+// writes every owned cell with its ghosts each pass, and level 0 of every
+// pass reads the stored neighbours (the guess's ghosts, or the ones the
+// pass before stored); red-black reads stored neighbours on the solve's
+// first half-sweep only, writes the tile's interior until the last pass,
+// and every owned cell with its ghosts then.  A block that keeps one pair
+// for every pass keeps its x0 too.  ``smem`` holds three boxes (two for
+// red-black).  The whole step's diffusions (LONE false) take x0 from the
+// field itself and end with a barrier; a lone solve (the whole solve)
+// reads its own x0, takes a NULL guess for zeros, and has no barrier
+// after its last pass: compile-time choices, so that the step's code is
+// the diffusion's alone.
+template <typename T, bool RB, bool LONE, int F>
+__device__ __forceinline__ void blocked_solve(cg::grid_group& grid,
+                                              const BlockedSolve<T, F>& d,
+                                              T* smem, int n) {
   const int N = n + 2;
-  const int passes = (d.iters + d.levels - 1) / d.levels;
+  const int total = RB ? 2 * d.iters : d.iters;
+  const int passes = (total + d.levels - 1) / d.levels;
   const bool resident = d.fields * d.tiles.count <= (int)gridDim.x;
   for (int pass = 0; pass < passes; ++pass) {
-    const int H = min(d.levels, d.iters - pass * d.levels);
+    const bool last = pass == passes - 1;
+    const int h0 = pass * d.levels, H = min(d.levels, total - h0);
     for (int item = blockIdx.x; item < d.fields * d.tiles.count;
          item += gridDim.x) {
-      const DiffuseField f = field_of(d, item / d.tiles.count);
+      const SolveField<T> f = field_of(d, item / d.tiles.count);
       const Box b = box_of(d.tiles, item % d.tiles.count, n);
       const int vol = b.cells();
-      float* X0 = smem;
-      float* cur = smem + vol;
-      float* nxt = cur + vol;
-      const float* src =
-          pass == 0 ? f.in : ((passes - pass) & 1 ? f.tmp : f.out);
-      float* dst = (passes - 1 - pass) & 1 ? f.tmp : f.out;
+      T* X0 = smem;
+      T* cur = smem + vol;
+      T* nxt = cur + vol;
+      const T* src =
+          pass == 0 ? f.x : ((passes - pass) & 1 ? f.tmp : f.out);
+      T* dst = (passes - 1 - pass) & 1 ? f.tmp : f.out;
       // x0 over the same cells as the field (more than the levels read),
-      // in the same loop; a block that keeps one (field, tile) pair for
-      // every pass keeps its x0 too
-      load_region(cur, src, pass == 0 || !resident ? X0 : nullptr,
-                  pass == 0 || !resident ? f.in : nullptr, b,
-                  widen(b, H, 0, n + 1), N);
+      // in the same loop
+      const bool x0 = pass == 0 || !resident;
+      const T* x0_src = LONE ? f.x0 : f.x;
+      const Region r = widen(b, H, 0, n + 1);
+      if (LONE && !src) {
+        zero_box(cur, b);
+        load_region<T>(X0, x0_src, nullptr, nullptr, b, r, N);
+      } else {
+        load_region(cur, src, x0 ? X0 : nullptr, x0 ? x0_src : nullptr, b,
+                    r, N);
+      }
       __syncthreads();
       const Signs sg = signs_for(f.b);
       for (int h = 0; h < H; ++h) {
-        jacobi_level(cur, nxt, X0, b, widen(b, H - 1 - h, 1, n), n, h == 0,
-                     sg, f.a, f.c_inv);
-        float* t = cur;
-        cur = nxt;
-        nxt = t;
+        const Region lr = widen(b, H - 1 - h, 1, n);
+        if (RB) {
+          rb_level(cur, X0, b, lr, n, (h0 + h) & 1, h0 + h == 0, sg, f.a,
+                   f.c_inv);
+        } else {
+          jacobi_level(cur, nxt, X0, b, lr, n, h == 0, sg, f.a, f.c_inv);
+          T* t = cur;
+          cur = nxt;
+          nxt = t;
+        }
         __syncthreads();
       }
-      store_owned(cur, b, dst, n, f.b);
+      if (RB && !last)
+        store_tile(cur, b, dst, N);
+      else
+        store_owned(cur, b, dst, n, f.b);
       __syncthreads();
     }
-    grid.sync();
+    if (!LONE || !last) grid.sync();
   }
 }
 

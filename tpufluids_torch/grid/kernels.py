@@ -29,7 +29,9 @@ bfloat16 Jacobi solve two sweeps a pass (csrc/jacobi_blocked.cu,
 whole solve in either type, the multi-field diffusion, the fused
 projection and the whole step) runs a whole solve, or a whole step, in
 one cooperative launch, for grids whose fields stay in the card's L2
-(``solve_whole_ok``).
+(``solve_whole_ok``); the whole solve and the whole step run blocked
+passes in shared memory, a grid barrier a pass (``solve_plan``,
+``step_plan``).
 
 The four stencil stages also take an x-slab of the sharded step
 (``tpufluids_torch.shard``): a (rows, n+2, n+2) field placed at global
@@ -40,11 +42,10 @@ red-black solve (``lin_solve3d_rb_shard``) runs its blocked passes on
 such a slab padded with a deep halo.
 
 A 2D field is small (130^2 float32 is 68 KB).  The 2D solve
-(csrc/grid2d.cu) runs one thread block that does every sweep, with a
-block barrier between sweeps, its two buffers in the block's shared
-memory; the whole 2D step (csrc/step2d.cu) is one cooperative launch of
-a persistent block a multiprocessor, its solves and diffusions blocked
-in shared memory as the whole 3D step's are.
+(csrc/grid2d.cu) and the whole 2D step (csrc/step2d.cu) are each one
+cooperative launch of a persistent block a multiprocessor, their solves
+and diffusions blocked in shared memory as the whole 3D step's are
+(csrc/step2d_blocked.cuh; ``solve2d_plan``, ``step2d_plan``).
 """
 
 from __future__ import annotations
@@ -1214,11 +1215,14 @@ def lin_solve3d_whole(b, x, x0, a, c, iters, red_black, dtype):
     streamed lin_solve3d, lin_solve3d_rb and their bfloat16 versions.
 
     Replaces the whole-solve mode of lin_solve3d_pallas
-    (_solve_whole_kernel, tpufluids/grid/pallas_kernels.py).  One
-    cooperative launch runs every sweep, with a grid-wide barrier
-    between sweeps and half-sweeps, with the cell bodies of the streamed
-    kernels; its buffers stay in the card's L2 (csrc/jacobi.cu).  Only
-    for fields that pass ``solve_whole_ok``."""
+    (_solve_whole_kernel, tpufluids/grid/pallas_kernels.py).  Bound by
+    its chain of dependent sweeps.  One cooperative launch of a
+    persistent block a multiprocessor runs blocked passes in shared
+    memory, up to SOLVE_RB_LEVELS half-sweeps or SOLVE_JACOBI_LEVELS
+    sweeps a pass and a grid barrier between passes (solve_plan,
+    solve_barriers; csrc/jacobi.cu, csrc/step_blocked.cuh); its buffers
+    stay in the card's L2.  Only for fields that pass
+    ``solve_whole_ok``."""
     _check_solve_dtype(dtype)
     if not _solve_on_cuda(b, x, x0, iters):
         return lin_solve3d_whole_plain(b, x, x0, a, c, iters, red_black,
@@ -1226,16 +1230,27 @@ def lin_solve3d_whole(b, x, x0, a, c, iters, red_black, dtype):
     if not solve_whole_ok(x0, dtype):
         raise ValueError(f"{tuple(x0.shape)} fields in {dtype} are outside "
                          f"the whole tier (solve_whole_ok)")
+    blocks, smem = solve_info(_device_index(x0))
+    plan = solve_plan(x0.shape[0] - 2, red_black, dtype, blocks, smem)
+    out = _solve_whole_launch(b, x, x0, a, c, iters, red_black, dtype, plan)
+    lin_solve3d_whole.launches += 1
+    return out
+
+
+def _solve_whole_launch(b, x, x0, a, c, iters, red_black, dtype,
+                        plan: SolvePlan):
+    """lin_solve3d_whole's launch on CUDA fields with ``plan`` (one the
+    card takes: at most its resident blocks and shared memory)."""
     if dtype == torch.bfloat16:
         x, x0, a, c_inv = _bf16_operands(x, x0, a, c)
     else:
         c_inv = 1.0 / c
-    out = torch.empty_like(x0)
-    tmp = None if red_black else torch.empty_like(x0)
+    out, tmp = torch.empty_like(x0), torch.empty_like(x0)
+    t = plan.tile
     _build.launch("tf_lin_solve3d_whole", x, x0, out, tmp, b,
                   x0.shape[0] - 2, iters, bool(red_black),
-                  dtype == torch.bfloat16, a, c_inv)
-    lin_solve3d_whole.launches += 1
+                  dtype == torch.bfloat16, plan.blocks, plan.threads,
+                  plan.smem, plan.levels, t.tx, t.ty, t.tz, a, c_inv)
     return out.float()
 
 
@@ -1387,12 +1402,12 @@ def step_fields(cfg: stam.StamConfig) -> int:
 
 
 @functools.cache
-def _step_tile(n, blocks, halo, fields, boxes, smem):
-    """The tile of a blocked phase with ``fields`` fields, ``boxes`` float32
-    boxes a block in ``smem`` bytes: the least rounds x box cells, rounds =
-    ceil(fields x tiles / blocks), on ties the widest (y, z) plane, then
-    the longest z rows; a single field (the pressure) takes at most one
-    tile a block."""
+def _step_tile(n, blocks, halo, fields, boxes, smem, itemsize=4):
+    """The tile of a blocked phase with ``fields`` fields, ``boxes`` boxes
+    of ``itemsize`` bytes a cell a block in ``smem`` bytes: the least
+    rounds x box cells, rounds = ceil(fields x tiles / blocks), on ties
+    the widest (y, z) plane, then the longest z rows; a single field (the
+    pressure, a whole solve) takes at most one tile a block."""
     sizes = sorted({-(-n // c) for c in range(1, n + 1)})
     best = None
     for tx in sizes:
@@ -1402,7 +1417,7 @@ def _step_tile(n, blocks, halo, fields, boxes, smem):
                 count = t.count(n)
                 if fields == 1 and count > blocks:
                     continue
-                if 4 * boxes * t.box_cells(n) > smem:
+                if itemsize * boxes * t.box_cells(n) > smem:
                     continue
                 rounds = -(-fields * count // blocks)
                 key = (rounds * t.box_cells(n), -ty * tz, -tz)
@@ -1435,6 +1450,68 @@ def _step_plan(n, rb, fields, blocks, smem):
                3 * diffuse.box_cells(n) if fields else 0)
     return StepPlan(blocks, 4 * need, STEP_RB_LEVELS, STEP_JACOBI_LEVELS,
                     project, diffuse)
+
+
+# the whole solve's blocked passes (csrc/jacobi.cu, with the bodies of
+# csrc/step_blocked.cuh): red-black half-sweeps or Jacobi sweeps a pass,
+# and threads a block (at most 512, one block a multiprocessor); chosen
+# by a probe on the card at 64^3 (PERF.md, the whole solves)
+SOLVE_RB_LEVELS = 4
+SOLVE_JACOBI_LEVELS = 3
+SOLVE_THREADS = 512
+
+
+@dataclasses.dataclass(frozen=True)
+class SolvePlan:
+    """How a whole solve runs at one size: ``blocks`` persistent blocks
+    of ``threads`` threads (no more blocks than tiles), ``smem`` bytes of
+    shared memory each, passes of ``levels`` sweeps (red-black:
+    half-sweeps) on the tiles of ``tile`` (a StepTile in 3D, a
+    Step2dTile in 2D) with a halo of ``levels``.  A block takes tiles t,
+    t + blocks, ...; one that holds one tile keeps its x0 in shared
+    memory for the whole solve."""
+    blocks: int
+    threads: int
+    smem: int
+    levels: int
+    tile: StepTile | Step2dTile
+
+
+def solve_plan(n: int, red_black: bool, dtype: torch.dtype, blocks: int,
+               smem: int) -> SolvePlan:
+    """The whole solve's plan at size n, stored as ``dtype``, on ``blocks``
+    blocks of at most ``smem`` bytes of shared memory: one tile a block,
+    in two boxes (red-black: x0 and the field, updated in place) or three
+    (Jacobi: its second buffer), with a halo of its levels."""
+    return _solve_plan(n, bool(red_black), dtype.itemsize, blocks, smem)
+
+
+@functools.cache
+def _solve_plan(n, rb, itemsize, blocks, smem):
+    levels = SOLVE_RB_LEVELS if rb else SOLVE_JACOBI_LEVELS
+    boxes = 2 if rb else 3
+    tile = _step_tile(n, blocks, levels, 1, boxes, smem, itemsize)
+    return SolvePlan(min(blocks, tile.count(n)), SOLVE_THREADS,
+                     itemsize * boxes * tile.box_cells(n), levels, tile)
+
+
+def solve_passes(iters: int, red_black: bool, plan: SolvePlan) -> int:
+    """The passes of a whole solve, 3D or 2D: its sweeps (red-black:
+    half-sweeps), ``plan.levels`` a pass."""
+    return -(-(2 * iters if red_black else iters) // plan.levels)
+
+
+def solve_barriers(iters: int, red_black: bool, plan: SolvePlan) -> int:
+    """The grid-wide barriers of a whole solve: one between passes."""
+    return solve_passes(iters, red_black, plan) - 1
+
+
+@functools.cache
+def solve_info(device_index: int):
+    """(persistent blocks, shared memory bytes a block may take) of the
+    whole solve on CUDA device ``device_index``; it also sets the
+    kernel's shared-memory attribute, once a device."""
+    return _tile_info("tf_lin_solve3d_whole_info", device_index)
 
 
 def step_passes(cfg: stam.StamConfig, plan: StepPlan):
@@ -1561,10 +1638,6 @@ step3d_whole.launches = 0
 # ---------------------------------------------------------------------------
 # the 2D kernels
 
-# shared memory one block may use on the H100 (227 KB, opt-in above 48 KB)
-BLOCK_SMEM_BYTES = 232448
-
-
 def step2d_whole_ok(x: torch.Tensor) -> bool:
     """True for 2D fields shaped like ``x`` that the whole 2D step takes:
     the reference's gate (step2d_whole_ok in
@@ -1572,13 +1645,6 @@ def step2d_whole_ok(x: torch.Tensor) -> bool:
     1121^2 cells (n = 1119)."""
     nx, ny = x.shape
     return nx * ny * 4 * 20 <= 96 * 1024 * 1024
-
-
-def solve2d_smem_ok(x: torch.Tensor) -> bool:
-    """True when the two Jacobi buffers of a 2D solve on fields shaped
-    like ``x`` fit one block's shared memory (up to 170^2 cells, ghosts
-    included): lin_solve2d keeps them there, or else in device memory."""
-    return 2 * x.numel() * x.element_size() <= BLOCK_SMEM_BYTES
 
 
 def lin_solve2d_plain(b, x, x0, a, c, iters):
@@ -1591,20 +1657,30 @@ def lin_solve2d(b, x, x0, a, c, iters):
     stam.lin_solve2d.  ``x`` None is a zero initial guess.
 
     Replaces lin_solve2d_pallas (tpufluids/grid/pallas_kernels.py).  Bound
-    by latency: a sweep is a few microseconds of work, and the sweeps are
-    serial.  One block of 1024 threads runs every sweep with a block
-    barrier between sweeps, its two buffers in shared memory, or in
-    device memory past ``solve2d_smem_ok`` (csrc/grid2d.cu)."""
+    by its chain of dependent sweeps.  One cooperative launch of
+    persistent blocks across the multiprocessors runs the whole 2D
+    step's blocked passes, SOLVE2D_LEVELS sweeps in shared memory a pass
+    and a grid barrier between passes, at every n (solve2d_plan,
+    solve_barriers; csrc/grid2d.cu, csrc/step2d_blocked.cuh)."""
     if b not in (0, 1, 2):
         raise ValueError(f"set_bnd2d mode must be 0..2, got {b}")
     _check_solve(b, iters)
     if not (_on_cuda(x0, ndim=2) if x is None else _on_cuda(x, x0, ndim=2)):
         return lin_solve2d_plain(b, x, x0, a, c, iters)
-    out = torch.empty_like(x0)
-    tmp = None if solve2d_smem_ok(x0) else torch.empty_like(x0)
-    _build.launch("tf_lin_solve2d", x, x0, out, tmp, b, x0.shape[0] - 2,
-                  iters, a, 1.0 / c)
+    blocks, smem = solve2d_info(_device_index(x0))
+    plan = solve2d_plan(x0.shape[0] - 2, blocks, smem)
+    out = _solve2d_launch(b, x, x0, a, c, iters, plan)
     lin_solve2d.launches += 1
+    return out
+
+
+def _solve2d_launch(b, x, x0, a, c, iters, plan: SolvePlan):
+    """lin_solve2d's launch on CUDA fields with ``plan`` (one the card
+    takes: at most its resident blocks and shared memory)."""
+    out, tmp = torch.empty_like(x0), torch.empty_like(x0)
+    _build.launch("tf_lin_solve2d", x, x0, out, tmp, b, x0.shape[0] - 2,
+                  iters, plan.blocks, plan.threads, plan.smem, plan.levels,
+                  plan.tile.tx, plan.tile.ty, a, 1.0 / c)
     return out
 
 
@@ -1706,6 +1782,38 @@ def _step2d_plan(n, fields, blocks, smem):
     diffuse = _step2d_tile(n, blocks, STEP2D_LEVELS, max(fields, 1), smem)
     need = max(project.box_cells(n), diffuse.box_cells(n) if fields else 0)
     return Step2dPlan(blocks, 4 * 3 * need, STEP2D_LEVELS, project, diffuse)
+
+
+# the whole 2D solve's blocked passes (csrc/grid2d.cu, with the bodies of
+# csrc/step2d_blocked.cuh): Jacobi sweeps a pass and threads a block (at
+# most 1024), on at most STEP2D_BLOCKS persistent blocks; chosen by a
+# probe on the card at 130^2 and 1026^2 (PERF.md, the whole solves)
+SOLVE2D_LEVELS = 10
+SOLVE2D_THREADS = 384
+
+
+def solve2d_plan(n: int, blocks: int, smem: int) -> SolvePlan:
+    """The whole 2D solve's plan at size n on ``blocks`` blocks of at most
+    ``smem`` bytes of shared memory: the whole 2D step's tiles for one
+    field, three boxes, a halo of SOLVE2D_LEVELS."""
+    return _solve2d_plan(n, blocks, smem)
+
+
+@functools.cache
+def _solve2d_plan(n, blocks, smem):
+    tile = _step2d_tile(n, blocks, SOLVE2D_LEVELS, 1, smem)
+    return SolvePlan(min(blocks, tile.count(n)), SOLVE2D_THREADS,
+                     4 * 3 * tile.box_cells(n), SOLVE2D_LEVELS, tile)
+
+
+@functools.cache
+def solve2d_info(device_index: int):
+    """(persistent blocks, shared memory bytes a block may take) of the
+    whole 2D solve on CUDA device ``device_index``: at most STEP2D_BLOCKS
+    blocks, and no more than the card keeps resident; it also sets the
+    kernel's shared-memory attribute, once a device."""
+    resident, smem = _tile_info("tf_lin_solve2d_info", device_index)
+    return min(STEP2D_BLOCKS, resident), smem
 
 
 def step2d_passes(cfg: stam.StamConfig, plan: Step2dPlan):
