@@ -9,14 +9,16 @@
    inputs with set_bnd-consistent ghosts, and times both with CUDA
    events at the main path's shapes: the stencil kernels (advection and
    forcing, the x-march kernels, bit for bit) and the
-   streamed Jacobi and red-black pressure solves (a = 1, c = 6, b = 0)
+   dense Jacobi and red-black pressure solves (a = 1, c = 6, b = 0)
    at 256^3, their bfloat16 versions at 512^3, the whole tier (the
    whole solve in float32 and bfloat16, Jacobi and red-black, the
    three-field diffusion, the fused projection and the whole step of
    config 4) at 64^3.  The solves are checked, untimed, at config 2's
-   diffusion coefficients (b = 1) too; the red-black solve, the bfloat16
-   solves and the whole solve must equal their plain versions bit for
-   bit, the whole solve
+   diffusion coefficients (b = 1) too, the float32 Jacobi solve also at
+   63^3 and 64^3 for every b and guess and an odd sweep count, the
+   diffusion with one and two fields and with raw ghosts; the dense
+   solves, the bfloat16 solves, the whole solve and the diffusion must
+   equal their plain versions bit for bit, the whole solve
    the streamed solve of its type, and the bfloat16 solve must differ
    from the float32 one; the x-march kernels (csrc/advect.cu,
    csrc/forcing.cu): their compiled tiles, ptxas's registers, stack frame
@@ -56,16 +58,23 @@
    fails), their plans, grid-wide barriers a call and barrier floor,
    their device time alone at 64^3 in the four modes, at 130^2 and at
    1026^2, and their times at other levels a pass (bit for bit) and
-   threads a block.  The blocked solves' floors are printed beside their bounds: one
+   threads a block, and the multi-field diffusion's (csrc/jacobi.cu on
+   the same passes: ptxas, barriers, floor and device time alone for
+   1 to 3 fields at 64^3).  Then the float32 blocked Jacobi kernel's
+   probe (check_jacobi_probe: csrc/jacobi_blocked.cu's probe shapes,
+   sweeps a pass, tiles, threads, cells a slot; ptxas of each, a stack
+   frame or spill fails; each bit for bit and its device time alone at
+   256^3, 20 sweeps, beside the time before the redesign).
+   The blocked solves' floors are printed beside their bounds: one
    device-memory pass a (half-)sweep, and the blocked kernels' passes
-   (csrc/rb_blocked.cu in float32 and bfloat16, csrc/jacobi_blocked.cu),
-   at the bytes of their storage type.  Then the blocked kernels themselves: ptxas's registers, stack
-   frame and spills of the red-black kernel in float32 and in bfloat16
-   and of the bfloat16 Jacobi kernel (a stack frame or a spill fails),
-   their shared memory a block and resident blocks, and their pass
-   times by levels a pass: the float32 red-black pass at 256^3 by
-   half-sweeps, the bfloat16 passes at 512^3 by half-sweeps and by
-   sweeps.
+   (csrc/rb_blocked.cu and csrc/jacobi_blocked.cu, each in float32
+   and bfloat16), at the bytes of their storage type.  Then the blocked
+   kernels themselves: ptxas's registers, stack frame and spills of the
+   red-black and Jacobi kernels' shipped instances in float32 and in
+   bfloat16 (a stack frame or a spill fails), their shared memory a
+   block and resident blocks, and their pass times by levels a pass:
+   the float32 passes at 256^3, the bfloat16 passes at 512^3, by
+   half-sweeps and by sweeps.
 3. Runs 4 steps of the bench.py scene and of BASELINE configs 2 and 4
    at 16^3, and of BASELINE config 1 at 32^2, on the card and on the CPU
    (plain versions) and compares them.
@@ -248,8 +257,9 @@ KERNELS = {
               "tpufluids/grid/pallas_kernels.py:971", 1e-6),
     "gradsub3d": ("tpufluids_torch/csrc/divgrad.cu",
                   "tpufluids/grid/pallas_kernels.py:1057", 1e-6),
-    "lin_solve3d": ("tpufluids_torch/csrc/jacobi.cu",
-                    "tpufluids/grid/pallas_kernels.py:2455", 1e-6),
+    # bit for bit: the float32 Jacobi solve, through the blocked passes
+    "lin_solve3d": ("tpufluids_torch/csrc/jacobi_blocked.cu",
+                    "tpufluids/grid/pallas_kernels.py:2455", 0.0),
     # bit for bit: the red-black solves, dense and sharded (config 5's
     # pressure solve), both through the temporally blocked kernel
     "lin_solve3d_rb": ("tpufluids_torch/csrc/rb_blocked.cu",
@@ -263,8 +273,9 @@ KERNELS = {
                             "tpufluids/grid/pallas_kernels.py:2455", 0.0),
     "lin_solve3d_whole": ("tpufluids_torch/csrc/jacobi.cu",
                           "tpufluids/grid/pallas_kernels.py:136", 0.0),
+    # bit for bit: the whole solve's blocked passes
     "diffuse3d_multi": ("tpufluids_torch/csrc/jacobi.cu",
-                        "tpufluids/grid/pallas_kernels.py:247", 1e-6),
+                        "tpufluids/grid/pallas_kernels.py:247", 0.0),
     "project3d_whole": ("tpufluids_torch/csrc/jacobi.cu",
                         "tpufluids/grid/pallas_kernels.py:1174", 1e-6),
     "step3d_whole": ("tpufluids_torch/csrc/step.cu",
@@ -754,17 +765,15 @@ def log_blocked_floors(name, x0, tile, chunks, halo_z, passes, written,
 def log_solve_floors(kernels, name, x0, iters, bound_ms):
     """The floors of a dense blocked solve from a zero guess at x0's
     shape, in its kernel's storage type: the red-black passes and their
-    ghost pass, or the bfloat16 Jacobi passes, which write every cell."""
+    ghost pass, or the Jacobi passes (float32 or bfloat16), which write
+    every cell."""
     dtype = torch.bfloat16 if name.endswith("_bf16") else torch.float32
     x0 = torch.empty(x0.shape, dtype=dtype, device="meta")
     n = x0.shape[0] - 2
-    if name == "lin_solve3d_bf16":
-        tile = kernels.JACOBI_TILE
-        passes = [(h, i > 0) for i, h in
-                  enumerate(kernels.jacobi_passes(iters, tile.k))]
-        return log_blocked_floors(name, x0, tile,
-                                  kernels._jacobi_chunks_on(x0), tile.k + 1,
-                                  passes, x0.numel(), 0, iters, bound_ms)
+    if name in ("lin_solve3d", "lin_solve3d_bf16"):
+        tile = kernels.jacobi_tile(dtype)
+        return jacobi_floor(kernels, name, x0, tile,
+                            kernels._jacobi_chunks_on(x0), iters, bound_ms)
     tile = kernels.rb_tile(dtype)
     passes = [(p.half_sweeps, not p.first)
               for p in kernels.rb_passes(2 * iters, tile.k)]
@@ -775,38 +784,78 @@ def log_solve_floors(kernels, name, x0, iters, bound_ms):
                               bound_ms)
 
 
+def jacobi_floor(kernels, name, x0, tile, chunks, iters, bound_ms):
+    """log_blocked_floors of ``iters`` Jacobi sweeps from a zero guess in
+    passes of ``tile`` (z halo k + 1, or k + 2 for odd k: its cell pairs
+    start at even K)."""
+    passes = [(h, i > 0) for i, h in
+              enumerate(kernels.jacobi_passes(iters, tile.k))]
+    return log_blocked_floors(name, x0, tile, chunks,
+                              tile.k + 1 + tile.k % 2, passes, x0.numel(),
+                              0, iters, bound_ms)
+
+
 # the blocked kernels' instantiations in ptxas's output: name -> (the
-# mangled entry holds each of these, and not these)
+# mangled entry holds each of these, and not these); the float32 Jacobi
+# kernel's shipped instance is told from the probe's by its shape
 BLOCKED_ENTRIES = {
     "rb_blocked float32": (("rb_blocked_kernel",), ("__nv_bfloat16",)),
     "rb_blocked bfloat16": (("rb_blocked_kernel", "__nv_bfloat16"), ()),
-    "jacobi_blocked bfloat16": (("jacobi_blocked_kernel",), ()),
+    "jacobi_blocked bfloat16": (("jacobi_blocked_kernel", "__nv_bfloat16"),
+                                ()),
 }
+
+
+def probe_label(shape):
+    t = shape.tile
+    return (f"F {t.k}, {t.ty}x{t.tz}, {shape.threads} threads, "
+            f"{shape.cells} cells a slot"
+            f"{' (shipped)' if shape.shipped else ''}")
+
+
+def jacobi_mangled(shape):
+    """The mangled template arguments of a float32 JTile in ptxas's
+    lines."""
+    t = shape.tile
+    return (f"JTileILi{t.k}ELi{t.ty}ELi{t.tz}ELi{shape.threads}EfLi"
+            f"{shape.cells}EE")
 
 
 def check_blocked(stam, kernels, dev, build_log):
     """The blocked kernels' builds (ptxas: registers, stack frame, spills
-    of the red-black kernel in float32 and bfloat16 and of the bfloat16
-    Jacobi kernel; a stack frame or a spill fails) and shared memory per
-    block, then their pass times by levels a pass: the float32 red-black
-    pass at the main path's 256^3 by half-sweeps, and the bfloat16 passes
-    at 512^3 (config 3 with the bf16 solver) by half-sweeps and sweeps:
-    what one level costs.  (The solves themselves are held bit for bit
-    against the plain ones and timed in check_kernels.)"""
+    of the red-black and Jacobi kernels' shipped instances in float32 and
+    bfloat16; a stack frame or a spill fails) and shared memory per
+    block, then their pass times by levels a pass: the float32 passes at
+    the main path's 256^3 by half-sweeps and sweeps, and the bfloat16
+    passes at 512^3 (config 3 with the bf16 solver): what one level
+    costs.  (The solves themselves are held bit for bit against the plain
+    ones and timed in check_kernels; the float32 Jacobi probe's instances
+    in check_jacobi_probe.)"""
     found = {entry: {"registers": regs, "stack_spill": stack_spill}
              for entry, regs, stack_spill in ptxas_entries(build_log,
                                                            "blocked_kernel")}
-    check(len(found) == len(BLOCKED_ENTRIES),
-          f"ptxas lines of {len(found)} blocked kernels, expected "
-          f"{len(BLOCKED_ENTRIES)}")
-    jt = kernels.JACOBI_TILE
     cur = torch.cuda.current_device()
+    probe = kernels.jacobi_probe_shapes(cur)
+    check(len(found) == len(BLOCKED_ENTRIES) + len(probe),
+          f"ptxas lines of {len(found)} blocked kernels, expected "
+          f"{len(BLOCKED_ENTRIES)} and the {len(probe)} float32 Jacobi "
+          f"instances")
+    jt = kernels.JACOBI_TILE_BF16
+    shipped = [s for s in probe if s.shipped]
+    check(len(shipped) == 1 and shipped[0].tile == kernels.JACOBI_TILE,
+          f"the shipped float32 Jacobi shape {shipped} is not "
+          f"kernels.JACOBI_TILE")
+    entries = {**BLOCKED_ENTRIES, "jacobi_blocked float32": (
+        ("jacobi_blocked_kernel", jacobi_mangled(shipped[0])), ())}
     infos = {"rb_blocked float32": (kernels.RB_TILE,
                                     kernels.rb_tile_info(cur)),
              "rb_blocked bfloat16": (kernels.RB_TILE_BF16, kernels.rb_tile_info(
                  cur, torch.bfloat16)),
-             "jacobi_blocked bfloat16": (jt, kernels.jacobi_tile_info(cur))}
-    for kind, (has, lacks) in BLOCKED_ENTRIES.items():
+             "jacobi_blocked bfloat16": (jt, kernels.jacobi_tile_info(
+                 cur, torch.bfloat16)),
+             "jacobi_blocked float32": (kernels.JACOBI_TILE,
+                                        kernels.jacobi_tile_info(cur))}
+    for kind, (has, lacks) in entries.items():
         names = [e for e in found if all(k in e for k in has)
                  and not any(k in e for k in lacks)]
         check(len(names) == 1, f"{kind}: ptxas entries {names}")
@@ -833,15 +882,79 @@ def check_blocked(stam, kernels, dev, build_log):
             log(f"rb_blocked {str(dtype).removeprefix('torch.')} pass @ "
                 f"{n}^3, {h} half-sweeps: {ms:.4f} ms ({ms / h:.4f} ms a "
                 f"half-sweep)")
-        if dtype == torch.bfloat16:
-            chunks = kernels._jacobi_chunks_on(p)
-            for h in range(1, jt.k + 1):
-                ms = time_ms(lambda h=h: kernels._jacobi_pass(
-                    p, p, out, chunks, h, 0, 1.0, 1 / 6))
-                log(f"jacobi_blocked bfloat16 pass @ {n}^3, {h} sweeps: "
-                    f"{ms:.4f} ms ({ms / h:.4f} ms a sweep)")
+        chunks = kernels._jacobi_chunks_on(p)
+        for h in range(1, kernels.jacobi_tile(dtype).k + 1):
+            ms = time_ms(lambda h=h: kernels._jacobi_pass(
+                p, p, out, chunks, h, 0, 1.0, 1 / 6))
+            log(f"jacobi_blocked {str(dtype).removeprefix('torch.')} pass @ "
+                f"{n}^3, {h} sweeps: {ms:.4f} ms ({ms / h:.4f} ms a sweep)")
         del out, p
         torch.cuda.empty_cache()
+
+
+# kernel #11's device-ms at 256^3, 20 sweeps, before its redesign
+# (PERF.md row 11: one launch a sweep; two measurements)
+JACOBI_BEFORE_MS = (2.271, 1.953)
+
+
+def check_jacobi_probe(stam, kernels, dev, build_log, checked):
+    """The float32 blocked Jacobi kernel's probe (PERF.md row 11): ptxas's
+    registers, stack frame and spills of each of its instances (a stack
+    frame or a spill fails), its shape, resident blocks and shared memory;
+    then, at the main path's 256^3, 20 sweeps from a zero guess (the
+    pressure solve, as check_kernels times it), each shape's device time
+    alone (torch.profiler) and its floor, every shape bit for bit with
+    the plain solve; the shipped shape's time (lin_solve3d itself) goes
+    into its row of the kernels line as "kernel_ms", beside the time
+    before the redesign."""
+    cur = torch.cuda.current_device()
+    shapes = kernels.jacobi_probe_shapes(cur)
+    found = ptxas_entries(build_log, "jacobi_blocked_kernel")
+    for shape in shapes:
+        names = [e for e in found if jacobi_mangled(shape) in e[0]]
+        check(len(names) == 1 and None not in names[0],
+              f"ptxas lines of probe shape {shape}: {names}")
+        _, regs, stack_spill = names[0]
+        t = shape.tile
+        log(f"jacobi_blocked float32 {probe_label(shape)}: {regs} "
+            f"registers, stack frame, spill stores, spill loads "
+            f"{stack_spill} B; {shape.smem} B shared memory a block, "
+            f"{shape.slots} resident blocks")
+        check(not any(stack_spill), f"jacobi_blocked float32 {shape}: stack "
+                                    f"frame or spill {stack_spill}")
+    rng = np.random.default_rng(SEED + 14)
+    n, iters = N_BIG, 20
+    p = stam.set_bnd3d(0, torch.from_numpy(rng.uniform(
+        0.0, 1.0, (n + 2,) * 3).astype(np.float32)).to(dev))
+    want = kernels.lin_solve3d_plain(0, None, p, 1.0, 6.0, iters)
+    row = checked["lin_solve3d"]
+    card = card_line()
+    times = {}
+    for shape in shapes:
+        got = kernels.lin_solve3d_probe(shape, 0, None, p, 1.0, 6.0, iters)
+        check(torch.equal(got, want), f"jacobi probe shape {shape}: not bit "
+                                      f"for bit")
+        del got
+        ms = kernel_alone_ms(lambda shape=shape: kernels.lin_solve3d_probe(
+            shape, 0, None, p, 1.0, 6.0, iters), ("jacobi_blocked_kernel",))
+        t = shape.tile
+        chunks = kernels.rb_chunks(n + 2, 0, n, t, shape.slots)
+        floor = jacobi_floor(kernels, f"  probe {probe_label(shape)}", p, t,
+                             chunks, iters, row["bound_ms"])
+        times[shape] = ms
+        log(f"  jacobi probe @ {n}^3, {iters} sweeps, {probe_label(shape)}, "
+            f"{t.tiles(n) * chunks.count} blocks ({chunks.count} x-chunks of "
+            f"{chunks.length}): the kernel alone {ms:.4f} device-ms, "
+            f"{floor / ms:.3f} of its bytes floor")
+    best = min(times, key=times.get)
+    ms = kernel_alone_ms(
+        lambda: kernels.lin_solve3d(0, None, p, 1.0, 6.0, iters),
+        ("jacobi_blocked_kernel",))
+    row["kernel_ms"] = ms
+    log(f"lin_solve3d @ {n}^3, {iters} sweeps: the kernel alone {ms:.4f} "
+        f"device-ms (before the redesign {JACOBI_BEFORE_MS[0]}, then "
+        f"{JACOBI_BEFORE_MS[1]} ms, one launch a sweep); the probe's fastest "
+        f"shape {probe_label(best)} at {times[best]:.4f} ({card})")
 
 
 def check_kernels(stam, kernels, dev):
@@ -900,6 +1013,9 @@ def check_kernels(stam, kernels, dev):
     # guesses and right-hand sides whose ghosts set_bnd would change: the
     # whole solve at 64^3, the 2D solve at 15^2, 16^2, 200^2 and 1026^2
     r64, r64b = (raw((N_WHOLE + 2,) * 3) for _ in range(2))
+    # the same at 63^3 (n + 2 odd: the Jacobi passes' pairs straddle
+    # 8-byte words on every other row)
+    r63, r63b = (raw((N_WHOLE + 1,) * 3) for _ in range(2))
     raw2d = [tuple(raw((m + 2,) * 2) for _ in range(2))
              for m in N_SOLVE2D_CHECKED]
     f32, bf16 = torch.float32, torch.bfloat16
@@ -933,7 +1049,20 @@ def check_kernels(stam, kernels, dev):
     # whole step of config 2, and of config 4 with plain Jacobi; the 2D
     # whole step with buoyancy and vorticity, and past 168
     checked_only = {
-        "lin_solve3d": [(1, u, u, a2, 1 + 6 * a2, 20)],
+        # and the float32 Jacobi passes at odd and even n + 2, every b,
+        # zero, consistent and raw guesses, an even and an odd sweep count
+        "lin_solve3d": [(1, u, u, a2, 1 + 6 * a2, 20)]
+        + [(b, g, rb_, a, c, it)
+           for r, rb_ in ((r63, r63b), (r64, r64b)) for b in range(4)
+           for g in (None, stam.set_bnd3d(b, r), r)
+           for (a, c), it in (((1.0, 6.0), 20), ((0.3, 2.8), 7))],
+        # one and two fields, and three whose ghosts set_bnd would change
+        "diffuse3d_multi": [((u64,), ((1, a2, 1 + 6 * a2),), 20),
+                            ((d64, t64), ((0, a2, 1 + 6 * a2),
+                                          (0, 2 * a2, 1 + 12 * a2)), 7),
+                            ((r64, r64b, r64 - r64b),
+                             ((1, 0.3, 2.8), (2, 0.2, 2.3), (3, 0.4, 3.5)),
+                             20)],
         "lin_solve3d_rb": [(1, u, u, a2, 1 + 6 * a2, 20)],
         "lin_solve3d_bf16": [(1, u64, u64, a2, 1 + 6 * a2, 20)],
         "lin_solve3d_rb_bf16": [(1, u64, u64, a2, 1 + 6 * a2, 20)],
@@ -1354,7 +1483,11 @@ SOLVE_ENTRIES = {"float32, Jacobi": "solve_whole_kernelIfLb0E",
                  "bfloat16, Jacobi": "solve_whole_kernelI13__nv_bfloat16Lb0E",
                  "bfloat16, red-black":
                      "solve_whole_kernelI13__nv_bfloat16Lb1E",
-                 "2D": "solve2d_kernel"}
+                 "2D": "solve2d_kernel",
+                 "diffusion": "diffuse_multi_kernel"}
+# kernel #5's device-ms for 3 fields at 64^3, 20 sweeps, before its
+# redesign (PERF.md row 5: a grid barrier a sweep)
+DIFFUSE_BEFORE_MS = 0.219
 # other shapes of the whole solves, timed beside the shipped one: levels
 # a pass (red-black half-sweeps, Jacobi sweeps, 2D sweeps) and threads a
 # block
@@ -1470,6 +1603,37 @@ def check_whole_solves(stam, kernels, dev, build_log, checked):
     for key in ("kernel_ms", "barrier_floor_ms"):
         row[key] = float(np.mean([c[key] for c in row["calls"]]))
     row["barriers"] = [c["barriers"] for c in row["calls"]]
+
+    # the multi-field diffusion (row 5) at 64^3, config 2's coefficients,
+    # 1 to 3 fields; the main path's call (and its row) is 3
+    a2 = 0.1 * 1e-5 * N_WHOLE ** 2
+    xs = [stam.set_bnd3d(b, torch.from_numpy(rng.uniform(
+        -1.0, 1.0, (N_WHOLE + 2,) * 3).astype(np.float32)).to(dev))
+        for b in (1, 2, 3)]
+    row = checked["diffuse3d_multi"]
+    for k in (1, 2, 3):
+        params = tuple((b, a2, 1 + 6 * a2) for b in (1, 2, 3)[:k])
+        plan = kernels.diffuse_plan(N_WHOLE, k, blocks, smem)
+        count = kernels.solve_barriers(iters, False, plan)
+        floor = count * per_barrier_ms(plan)
+        ms = kernel_alone_ms(
+            lambda k=k, params=params: kernels.diffuse3d_multi(
+                xs[:k], params, iters), ("diffuse_multi_kernel",))
+        t = plan.tile
+        pairs = k * t.count(N_WHOLE)
+        before = (f" (before the redesign {DIFFUSE_BEFORE_MS} ms)" if k == 3
+                  else "")
+        log(f"diffuse3d_multi @ {N_WHOLE}^3, {k} field(s), {iters} sweeps: "
+            f"the kernel alone {ms:.4f} device-ms{before}; "
+            f"{count} grid-wide barriers (before {iters}), barrier floor "
+            f"{floor:.4f} ms ({per_barrier_ms(plan) * 1e3:.4f} us an empty "
+            f"barrier on {plan.blocks} x {plan.threads}); passes of "
+            f"{plan.levels} on {pairs} (field, tile) pairs of {t.tx}x{t.ty}x"
+            f"{t.tz} (halo {t.halo}) over {plan.blocks} blocks"
+            f"{' (x0 reloaded every pass)' if pairs > plan.blocks else ''}, "
+            f"{plan.smem} B of shared memory a block ({card})")
+        if k == 3:
+            row.update(kernel_ms=ms, barriers=count, barrier_floor_ms=floor)
 
     # 2D: the smoke2d default's pressure solve at 130^2, and at 1026^2
     blocks, smem = kernels.solve2d_info(cur)
@@ -3079,6 +3243,7 @@ def main():
     check_step_whole(stam, kernels, dev, build.log, checked)
     check_step2d_whole(stam, kernels, dev, build.log, checked)
     check_whole_solves(stam, kernels, dev, build.log, checked)
+    check_jacobi_probe(stam, kernels, dev, build.log, checked)
     check_blocked(stam, kernels, dev, build.log)
     check_small_against_cpu(stam, dev)
     counts, ms = {}, {}

@@ -12,10 +12,11 @@ The kernels are built with -fmad=false, so they round like their plain
 versions: advection and forcing (the x-march kernels, also at 63^3 and
 100^3) equal theirs bit for bit; the other tolerances (relative to
 max|plain output|) are those of the JAX package's Pallas tests: 1e-6
-for divergence, gradient subtraction and the Jacobi solves, 1e-5 for
-whole steps.  The whole tier (one cooperative launch) must equal the
-streamed kernels bit for bit, and the 2D kernels, the bfloat16 solves
-and the whole solve their plain versions."""
+for divergence, gradient subtraction and the fused projection, 1e-5
+for whole steps.  The whole tier (one cooperative launch) must equal
+the streamed kernels bit for bit, and the dense solves, the
+multi-field diffusion, the 2D kernels, the bfloat16 solves and the
+whole solve their plain versions."""
 
 import numpy as np
 import pytest
@@ -182,10 +183,11 @@ def _raw(dev, n, seed, count):
         np.float32)).to(dev) for _ in range(count)]
 
 
-# (n, red_black): the Jacobi solve at 15^3-64^3; the red-black solve
-# from n = 4 (multigrid's coarsest) up, odd n, n below the kernel's tile
-# and n not a multiple of it
-SOLVE_CASES = ([(n, False) for n in (15, 16, 64)]
+# (n, red_black): the Jacobi solve at 15^3-131^3 (n + 2 odd and even;
+# at 131 a tile other than the first ends in the last slot before the
+# face); the red-black solve from n = 4 (multigrid's coarsest) up, odd
+# n, n below the kernel's tile and n not a multiple of it
+SOLVE_CASES = ([(n, False) for n in (15, 16, 64, 131)]
                + [(n, True) for n in (4, 7, 8, 15, 16, 64, 130)])
 
 
@@ -194,25 +196,44 @@ SOLVE_CASES = ([(n, False) for n in (15, 16, 64)]
                               for n, rb in SOLVE_CASES])
 def test_solve_kernels_match_plain(cuda, n, red_black):
     """Every b, pressure and diffusion coefficients, zero, consistent
-    and raw initial guesses; odd n puts both parities on each face.  The
-    red-black solve bit for bit at 1, 2, 3, 5 and 20 iterations (passes
-    of every length the blocked kernel runs), the Jacobi solve within
-    1e-6 at 5."""
+    and raw initial guesses; odd n puts both parities on each face.  Bit
+    for bit at 1, 2, 3, 5 and 20 iterations: passes of every length the
+    blocked kernels run (the Jacobi solve's last pass of one sweep at an
+    odd count)."""
     kern = kernels.lin_solve3d_rb if red_black else kernels.lin_solve3d
     plain = (kernels.lin_solve3d_rb_plain if red_black
              else kernels.lin_solve3d_plain)
     x, x0 = _raw(cuda, n, 6, 2)
     a = 0.05 * 1e-5 * n * n
-    for iters in ((1, 2, 3, 5, 20) if red_black else (5,)):
+    for iters in (1, 2, 3, 5, 20):
         for b in range(4):
             for guess in (None, stam.set_bnd3d(b, x), x):
                 for coeffs in ((1.0, 6.0), (a, 1 + 6 * a)):
                     got = kern(b, guess, x0, *coeffs, iters)
                     want = plain(b, guess, x0, *coeffs, iters)
-                    if red_black:
-                        assert torch.equal(got, want), (iters, b, coeffs)
-                    else:
-                        _close((got,), (want,), 1e-6)
+                    assert torch.equal(got, want), (iters, b, coeffs)
+
+
+@pytest.mark.parametrize("n", [15, 16, 131])
+def test_jacobi_probe_shapes_are_bitwise_plain(cuda, n):
+    """Every float32 shape of the blocked Jacobi kernel's probe (sweeps a
+    pass 1 to 4, tiles, threads) against the plain solve, bit for bit, at
+    1, 3 and 7 sweeps, every b, raw and zero guesses; at n 15, 16 (n + 2
+    odd and even) and 131 (a middle tile of 64 ending in the last slot
+    before the face); the shipped one is kernels.JACOBI_TILE."""
+    shapes = kernels.jacobi_probe_shapes(torch.cuda.current_device())
+    assert [s.tile for s in shapes if s.shipped] == [kernels.JACOBI_TILE]
+    assert sorted({s.tile.k for s in shapes}) == [1, 2, 3, 4]
+    x, x0 = _raw(cuda, n, 46, 2)
+    for shape in shapes:
+        for iters in (1, 3, 7):
+            for b in range(4):
+                for guess in (None, x):
+                    got = kernels.lin_solve3d_probe(shape, b, guess, x0,
+                                                    0.3, 2.8, iters)
+                    want = kernels.lin_solve3d_plain(b, guess, x0, 0.3, 2.8,
+                                                     iters)
+                    assert torch.equal(got, want), (shape, iters, b)
 
 
 @pytest.mark.parametrize("n", [16, 64])
@@ -221,7 +242,7 @@ def test_whole_tier_matches_plain_and_streamed(cuda, n):
     a = 0.05 * 1e-5 * n * n
     params = ((1, a, 1 + 6 * a), (2, 2 * a, 1 + 12 * a), (0, a, 1 + 6 * a))
     got = kernels.diffuse3d_multi((u, v, w), params, 20)
-    _close(got, kernels.diffuse3d_multi_plain((u, v, w), params, 20), 1e-6)
+    assert _equal(got, kernels.diffuse3d_multi_plain((u, v, w), params, 20))
     for g, q, (b, a_, c) in zip(got, (u, v, w), params):
         assert torch.equal(g, kernels.lin_solve3d(b, q, q, a_, c, 20))
     for red_black in (False, True):
@@ -234,6 +255,46 @@ def test_whole_tier_matches_plain_and_streamed(cuda, n):
                                      v, w)
         for g, r in zip(got, streamed):
             assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("n", [15, 48])
+def test_diffusion_is_bitwise_plain(cuda, n, k):
+    """The multi-field diffusion of 1 to 3 fields, whose ghosts set_bnd
+    would change, bit for bit against its plain version at 1, 7 and 20
+    sweeps, on the card's plan and on one of few blocks (several (field,
+    tile) pairs a block, x0 reloaded every pass); one launch a call."""
+    xs = _raw(cuda, n, 47 + k, k)
+    params = ((1, 0.3, 2.8), (2, 0.2, 2.3), (0, 0.4, 3.5))[:k]
+    blocks, smem = kernels.solve_info(torch.cuda.current_device())
+    plan = kernels.diffuse_plan(n, k, blocks, smem)
+    tile = kernels.StepTile(-(-n // 3), -(-n // 3), -(-n // 2), plan.levels)
+    few = kernels.SolvePlan(3, plan.threads, 12 * tile.box_cells(n),
+                            plan.levels, tile)
+    assert k * tile.count(n) > few.blocks and few.smem <= smem
+    for iters in (1, 7, 20):
+        want = kernels.diffuse3d_multi_plain(xs, params, iters)
+        before = kernels.diffuse3d_multi.launches
+        assert _equal(kernels.diffuse3d_multi(xs, params, iters), want)
+        assert kernels.diffuse3d_multi.launches == before + 1
+        assert _equal(kernels._diffuse_launch(xs, params, iters, few), want)
+
+
+def test_float32_jacobi_solve_launches(cuda, monkeypatch):
+    """Device launches a float32 Jacobi solve: ceil(iters / k) blocked
+    passes of csrc/jacobi_blocked.cu, nothing else."""
+    from tpufluids_torch import _build
+    entries = []
+    launch = _build.launch
+    monkeypatch.setattr(_build, "launch",
+                        lambda name, *a: (entries.append(name),
+                                          launch(name, *a))[1])
+    x0 = _raw(cuda, 48, 48, 1)[0]
+    k = kernels.JACOBI_TILE.k
+    for iters in (1, 20, 21):
+        entries.clear()
+        kernels.lin_solve3d(0, None, x0, 1.0, 6.0, iters)
+        assert entries == ["tf_jacobi_blocked_pass"] * -(-iters // k)
 
 
 @pytest.mark.parametrize("n", [15, 48])
@@ -423,6 +484,22 @@ def test_bf16_solve_kernels_are_bitwise_plain(cuda, n, red_black):
                     assert torch.equal(got, want), (iters, b, coeffs)
                     calls += 1
     assert kern.launches == before + calls
+
+
+@pytest.mark.parametrize("n", [257])
+def test_bf16_jacobi_middle_tile_ending_before_the_face(cuda, n):
+    """At n = 257 the bfloat16 Jacobi kernel's middle z-tile (cells 129
+    to 256) ends one cell before the face, so its last pair holds a face
+    cell: the cell before it must still be written.  1, 2 and 3 sweeps,
+    every b, zero and raw guesses, bit for bit."""
+    x, x0 = _raw(cuda, n, 49, 2)
+    for iters in (1, 2, 3):
+        for b in range(4):
+            for guess in (None, x):
+                got = kernels.lin_solve3d_bf16(b, guess, x0, 1.0, 6.0, iters)
+                want = kernels.lin_solve3d_bf16_plain(b, guess, x0, 1.0,
+                                                      6.0, iters)
+                assert torch.equal(got, want), (iters, b)
 
 
 @pytest.mark.parametrize("n", [15, 48])

@@ -52,6 +52,11 @@ def test_chip_smoke_imports_no_jax():
     assert not _imported_roots(REPO / "chip_smoke.py") & FORBIDDEN
 
 
+def test_ab_solves_imports_no_jax():
+    """The solves' A/B timing script runs on the card's machine too."""
+    assert not _imported_roots(REPO / "ab_solves.py") & FORBIDDEN
+
+
 GPU_TEST_FILES = sorted(
     [*(REPO / "tests").glob("test_torch_*gpu.py"),
      *(REPO / "tests").glob("torch_*_inputs.py"),

@@ -306,9 +306,10 @@ def test_passes_cover_every_half_sweep_and_end_in_out(k, iters):
 
 
 # the kernel's shape, and shapes of other depths and tiles
-CHUNK_TILES = [kernels.RB_TILE, kernels.RB_TILE_BF16, kernels.JACOBI_TILE,
-               _tile(2, 4, 4), _tile(6, 16, 64),
-               _tile(8, 32, 32)]
+CHUNK_TILES = list(dict.fromkeys([
+    kernels.RB_TILE, kernels.RB_TILE_BF16, kernels.JACOBI_TILE_BF16,
+    kernels.JACOBI_TILE, _tile(2, 4, 4), _tile(6, 16, 64),
+    _tile(8, 32, 32)]))
 
 
 @pytest.mark.parametrize("tile", CHUNK_TILES,
@@ -341,7 +342,8 @@ def test_chunks_fill_the_card_at_256(slots):
     assert 0.75 * slots <= blocks <= slots
 
 
-@pytest.mark.parametrize("tile", [kernels.RB_TILE_BF16, kernels.JACOBI_TILE],
+@pytest.mark.parametrize("tile", [kernels.RB_TILE_BF16,
+                                  kernels.JACOBI_TILE_BF16],
                          ids=["rb_bf16", "jacobi_bf16"])
 def test_bf16_chunks_fill_the_card_at_512(tile):
     """At config 3's 512^3 the bfloat16 kernels' tiles run in x-chunks

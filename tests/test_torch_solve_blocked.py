@@ -1,16 +1,17 @@
 """The whole solves' blocked schedules on the CPU: a tile-by-tile,
-level-by-level torch emulation of the 3D whole solve (csrc/jacobi.cu with
-the passes of csrc/step_blocked.cuh) and of the 2D solve (csrc/grid2d.cu
-with those of csrc/step2d_blocked.cuh), with their plans
-(kernels.solve_plan, solve2d_plan), halo cones, ghost rules, x0 kept or
-reloaded, and buffer plans, held bit for bit against
-kernels.lin_solve3d_whole_plain and kernels.lin_solve2d_plain; the plans
-against the card's blocks and shared memory; and a hand count of each
-call's grid-wide barriers.
+level-by-level torch emulation of the 3D whole solve and the multi-field
+diffusion (csrc/jacobi.cu with the passes of csrc/step_blocked.cuh) and
+of the 2D solve (csrc/grid2d.cu with those of csrc/step2d_blocked.cuh),
+with their plans (kernels.solve_plan, diffuse_plan, solve2d_plan), halo
+cones, ghost rules, x0 kept or reloaded, and buffer plans, held bit for
+bit against kernels.lin_solve3d_whole_plain, diffuse3d_multi_plain and
+lin_solve2d_plain; the plans against the card's blocks and shared
+memory; and a hand count of each call's grid-wide barriers.
 
 The emulation does what the blocks of a kernel do, pass by pass: block k
-takes tiles k, k + blocks, ...; each loads its box from the guess (a
-zero box for none) or from the buffer the previous pass wrote, runs the
+takes tiles (in the diffusion, (field, tile) pairs) k, k + blocks, ...;
+each loads its box from the guess (a zero box for none) or from the
+buffer the previous pass wrote, runs the
 levels inside the shrinking cone, a level's cells written into a box
 whose other cells are NaN (the kernel's shared memory holds stale values
 there), and writes its tile, or its owned cells with their ghosts.  A
@@ -154,30 +155,36 @@ def owned_values(S, box, b):
     return torch.where(clamped[b - 1] != at[b - 1], -val, val)
 
 
-def emulate(b, x, x0, a, c_inv, iters, red_black, plan):
-    """The kernel's passes on x (None: zeros) and x0 in their storage
-    type, with ``plan``: returns the buffer the last pass wrote."""
-    n = x0.shape[0] - 2
-    out, tmp = torch.full_like(x0, NAN), torch.full_like(x0, NAN)
+def emulate_fields(fields, iters, red_black, plan):
+    """The kernel's passes on ``fields``, each (b, x (None: zeros), x0,
+    a, c_inv) in its storage type, with ``plan``: block k takes the
+    (field, tile) pairs k, k + blocks, ... (field-major); returns the
+    buffer each field's last pass wrote."""
+    n = fields[0][2].shape[0] - 2
+    outs = [torch.full_like(f[2], NAN) for f in fields]
+    tmps = [torch.full_like(f[2], NAN) for f in fields]
     tile, levels = plan.tile, plan.levels
     total = 2 * iters if red_black else iters
     passes = -(-total // levels)
     count = tile.count(n)
-    resident = count <= plan.blocks
+    resident = len(fields) * count <= plan.blocks
     shared_x0 = {}  # block -> the x0 box in its shared memory
-    signs = stam._bnd_signs(b)
     for p in range(passes):
         last = p == passes - 1
         h0, H = p * levels, min(levels, total - p * levels)
-        src = x if p == 0 else (tmp if (passes - p) % 2 else out)
-        dst = tmp if (passes - 1 - p) % 2 else out
-        for t in range(count):
+        for item in range(len(fields) * count):
+            f, t, blk = item // count, item % count, item % plan.blocks
+            b, x, x0, a, c_inv = fields[f]
+            out, tmp = outs[f], tmps[f]
+            src = x if p == 0 else (tmp if (passes - p) % 2 else out)
+            dst = tmp if (passes - 1 - p) % 2 else out
+            signs = stam._bnd_signs(b)
             box = Box(tile, t, n, levels, x0.dtype)
             r = box.widen(H, 0, n + 1)
             if p == 0 or not resident:
-                shared_x0[t % plan.blocks] = box.empty()
-                load(shared_x0[t % plan.blocks], box, r, x0)
-            X0 = shared_x0[t % plan.blocks]
+                shared_x0[blk] = box.empty()
+                load(shared_x0[blk], box, r, x0)
+            X0 = shared_x0[blk]
             if src is None:
                 S = torch.zeros_like(box.empty())
             else:
@@ -201,7 +208,14 @@ def emulate(b, x, x0, a, c_inv, iters, red_black, plan):
                 dst[glob(inner)] = S[box.local(inner)]
             else:
                 dst[glob(box.owned())] = owned_values(S, box, b)
-    return out
+    return outs
+
+
+def emulate(b, x, x0, a, c_inv, iters, red_black, plan):
+    """The kernel's passes on x (None: zeros) and x0 in their storage
+    type, with ``plan``: returns the buffer the last pass wrote."""
+    return emulate_fields([(b, x, x0, a, c_inv)], iters, red_black,
+                          plan)[0]
 
 
 def emulate_solve3d(b, x, x0, a, c, iters, red_black, dtype, plan):
@@ -366,6 +380,86 @@ def test_emulated_solve2d_matches_jax_pallas():
     np.testing.assert_array_equal(got, ref)
     np.testing.assert_array_equal(
         got, np.asarray(jstam.lin_solve2d(b, jx, jx0, 1.0, 4.0, iters)))
+
+
+def emulate_diffuse(xs, params, iters, plan):
+    """kernels.diffuse3d_multi's launch: x0 each field itself."""
+    return emulate_fields([(b, x, x, a, 1.0 / c) for x, (b, a, c)
+                           in zip(xs, params)], iters, False, plan)
+
+
+def _diffusions(n, k, seed):
+    """k fields whose ghosts set_bnd would change (b 1, 2, 0 in turn),
+    each with its own coefficients, scaled so that the neighbours,
+    halos and buffers show."""
+    xs = _raw(n, seed, 3) + _raw(n, seed + 1, 3)
+    params = ((1, 0.3, 2.8), (2, 0.2, 2.3), (0, 0.4, 3.5))
+    return xs[:k], params[:k]
+
+
+# (n, fields, iters, plan): the card's plan (its tiles for 1 to 3 fields,
+# one pair a block), and few blocks (several (field, tile) pairs a block,
+# x0 reloaded every pass, uneven tiles)
+DIFFUSIONS = [(9, 3, 5, "card"), (12, 2, 7, "card"), (11, 1, 4, "card"),
+              (10, 3, 4, (5, (5, 4, 10))), (13, 2, 3, (4, (7, 13, 5)))]
+
+
+@pytest.mark.parametrize(
+    "n,k,iters,plan", DIFFUSIONS,
+    ids=[f"n{c[0]}_f{c[1]}_i{c[2]}_"
+         f"{'card' if c[3] == 'card' else 'b' + str(c[3][0])}"
+         for c in DIFFUSIONS])
+def test_emulated_diffusion_is_bitwise_plain(n, k, iters, plan):
+    """The multi-field diffusion's plan (kernels.diffuse_plan) and passes
+    against kernels.diffuse3d_multi_plain, bit for bit."""
+    xs, params = _diffusions(n, k, 13 * n + k)
+    if plan == "card":
+        plan = kernels.diffuse_plan(n, k, *CARD)
+        assert k * plan.tile.count(n) <= plan.blocks
+    else:
+        blocks, tile = plan
+        plan = kernels.SolvePlan(blocks, kernels.SOLVE_THREADS, 0,
+                                 kernels.SOLVE_JACOBI_LEVELS,
+                                 kernels.StepTile(*tile,
+                                                  kernels.SOLVE_JACOBI_LEVELS))
+        assert k * plan.tile.count(n) > plan.blocks
+    got = emulate_diffuse(xs, params, iters, plan)
+    want = kernels.diffuse3d_multi_plain(xs, params, iters)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_emulated_diffusion_matches_jax_whole_multi():
+    """The three-field emulation against the reference's
+    diffuse3d_whole_multi in interpret mode, at 9^3, on
+    set_bnd-consistent fields, within 1e-6 of max|reference|."""
+    n, iters = 9, 4
+    xs, params = _diffusions(n, 3, 92)
+    xs = [stam.set_bnd3d(b, x) for x, (b, _, _) in zip(xs, params)]
+    with pltpu.force_tpu_interpret_mode():
+        refs = pk.diffuse3d_whole_multi(
+            tuple(jnp.asarray(x.numpy()) for x in xs), params, iters)
+    got = emulate_diffuse(xs, params, iters,
+                          kernels.diffuse_plan(n, 3, *CARD))
+    for g, r in zip(got, refs):
+        r = np.asarray(r)
+        np.testing.assert_allclose(g.numpy(), r, rtol=0,
+                                   atol=1e-6 * float(np.abs(r).max()))
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("n", [4, 16, 63, 64, 99])
+def test_diffuse_plan_fits_the_card(n, k):
+    """At every size the gate admits (float32, to 99), every box within
+    the shared memory the plan asks for and that within what a block may
+    take, at most the card's blocks and no more than the pairs; 20
+    sweeps take ceil(20 / levels) - 1 barriers."""
+    plan = kernels.diffuse_plan(n, k, *CARD)
+    assert 4 * 3 * plan.tile.box_cells(n) == plan.smem <= CARD[1]
+    assert plan.blocks == min(CARD[0], k * plan.tile.count(n))
+    assert plan.tile.halo == plan.levels == kernels.SOLVE_JACOBI_LEVELS
+    assert 1 <= plan.threads <= 512  # csrc/jacobi.cu's kSolveMaxThreads
+    assert kernels.solve_barriers(20, False, plan) == _hand_barriers(
+        20, False, plan.levels) == 6
 
 
 def _hand_barriers(iters, red_black, levels):

@@ -41,13 +41,13 @@ SIGNATURES = {
     "tf_forcing3d": [_P] * 8 + [_INT] * 5 + [_F] * 6 + [_P],
     "tf_div3d": [_P] * 4 + [_INT] * 3 + [_F, _P],
     "tf_gradsub3d": [_P] * 7 + [_INT] * 3 + [_F, _P],
-    "tf_lin_solve3d": [_P] * 4 + [_INT] * 3 + [_F] * 2 + [_P],
     "tf_rb_blocked_pass": [_P] * 3 + [_INT] * 12 + [_F] * 2 + [_P],
     "tf_rb_ghosts": [_P] + [_INT] * 3 + [_P],
-    "tf_jacobi_blocked_pass": [_P] * 3 + [_INT] * 7 + [_F] * 2 + [_P],
+    "tf_jacobi_blocked_pass": [_P] * 3 + [_INT] * 8 + [_F] * 2 + [_P],
+    "tf_jacobi_probe_pass": [_INT] + [_P] * 3 + [_INT] * 7 + [_F] * 2 + [_P],
     "tf_rb_shard_finish": [_P] * 2 + [_INT] * 4 + [_P],
     "tf_lin_solve3d_whole": [_P] * 4 + [_INT] * 12 + [_F] * 2 + [_P],
-    "tf_diffuse3d_multi": [_P] * 9 + [_INT] * 6 + [_F] * 6 + [_P],
+    "tf_diffuse3d_multi": [_P] * 9 + [_INT] * 13 + [_F] * 6 + [_P],
     "tf_project3d_whole": [_P] * 9 + [_INT] * 3 + [_F] * 3 + [_P],
     "tf_step3d_whole": [_P] * 11 + [_INT] * 18 + [_F] * 15 + [_P],
     "tf_barrier_probe": [_INT] * 3 + [_P],
@@ -144,10 +144,12 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    lib.tf_rb_blocked_info.argtypes = [_INT] + [ctypes.POINTER(_INT)] * 2
-    lib.tf_rb_blocked_info.restype = ctypes.c_int
-    for info in ("tf_jacobi_blocked_info", "tf_lin_solve3d_whole_info",
-                 "tf_lin_solve2d_info"):
+    for info in ("tf_rb_blocked_info", "tf_jacobi_blocked_info"):
+        getattr(lib, info).argtypes = [_INT] + [ctypes.POINTER(_INT)] * 2
+        getattr(lib, info).restype = ctypes.c_int
+    lib.tf_jacobi_probe_info.argtypes = [_INT] + [ctypes.POINTER(_INT)] * 3
+    lib.tf_jacobi_probe_info.restype = ctypes.c_int
+    for info in ("tf_lin_solve3d_whole_info", "tf_lin_solve2d_info"):
         getattr(lib, info).argtypes = [ctypes.POINTER(_INT)] * 2
         getattr(lib, info).restype = ctypes.c_int
     lib.tf_step3d_whole_info.argtypes = [ctypes.POINTER(_INT)] * 3

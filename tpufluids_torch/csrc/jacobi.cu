@@ -3,49 +3,46 @@
 // built on them: the multi-field diffusion and the fused projection.
 //
 // Replaces (tpufluids/grid/pallas_kernels.py):
-//   lin_solve3d_pallas / _solve_kernel                      -> tf_lin_solve3d
+//   lin_solve3d_pallas / _solve_kernel (both dtypes)        -> the passes of
+//                                                              jacobi_blocked.cu
 //   lin_solve3d_pallas / _solve_whole_kernel (both dtypes)  -> tf_lin_solve3d_whole
 //                                           (step_blocked.cuh's blocked_solve)
 //   lin_solve3d_rb_packed / _solve_rb_packed_*_kernel, and  -> the passes of
 //   lin_solve3d_pallas(red_black=True, dtype=bfloat16)         rb_blocked.cu,
 //                                                              then tf_rb_ghosts
-//   lin_solve3d_pallas(dtype=bfloat16) / _solve_kernel      -> the passes of
-//                                                              jacobi_blocked.cu
 //   diffuse3d_whole_multi / _solve_whole_multi_kernel       -> tf_diffuse3d_multi
+//                                           (step_blocked.cuh's blocked_solve)
 //   project3d_whole_pallas / _project_whole_kernel          -> tf_project3d_whole
 //
 // The cell bodies, the ghost scheme, the storage types and the
-// whole-tier phases are in jacobi.cuh.
+// fused projection's phases are in jacobi.cuh.
 //
 // What bounds them on the H100: on paper device-memory bytes.  A sweep
 // does 8 flops a cell and moves at least three fields (x and x0 in, the
-// result out): 12 B a cell in float32, 6 B in bfloat16.  The streamed
-// float32 Jacobi solve makes one pass per sweep, so it cannot come nearer
-// the bound than that one pass; measured, one thread a cell with its
-// index decode and ghost branch is bound by instruction issue, a sweep at
-// 1.7 TB/s (PERF.md).  The red-black solves in both types and the
-// bfloat16 Jacobi solve do several (half-)sweeps a pass in shared memory
-// (rb_blocked.cu, jacobi_blocked.cu), as the TPU kernels did in VMEM.
+// result out): 12 B a cell in float32, 6 B in bfloat16.  The dense solves
+// do several (half-)sweeps a pass in shared memory (rb_blocked.cu,
+// jacobi_blocked.cu), as the TPU kernels did in VMEM.
 //
 // The whole tier: at 64^3 a field is 66^3 * 4 B = 1.15 MB, and one launch
 // per sweep would leave the card waiting on the host.  One cooperative
-// launch runs every sweep; its fields stay in the 50 MB L2.  The
-// multi-field diffusion and the fused projection call the cell bodies of
-// the streamed kernels (and divgrad.cuh's), in the order of the streamed
-// launches, so the two give the same bits.
+// launch runs every sweep; its fields stay in the 50 MB L2.  The fused
+// projection calls the cell bodies of the streamed kernels (and
+// divgrad.cuh's), in the order of the streamed launches, so the two give
+// the same bits.
 //
-// The whole solve.  What bounds it is neither bytes nor operations (at
-// 64^3 a 20-iteration solve is 0.7 us of bytes) but its chain of
-// dependent sweeps: a design that runs a grid-wide barrier after every
-// sweep, or half-sweep, pays some 1.1 us a barrier, 19 or 40 of them a
-// solve, besides a thread a cell decoding its index each sweep.  Here the
-// solve runs the whole step's blocked passes (step_blocked.cuh's
-// blocked_solve): a persistent block a multiprocessor loads its tile
-// with a halo into shared memory, runs up to ``levels`` sweeps or
-// half-sweeps there and writes the tile back, and only then comes a grid
-// barrier: ceil(sweeps / levels) - 1 barriers a solve (kernels.solve_plan,
-// solve_barriers).  One instance a storage type and mode; the host plans
-// the tiles, the threads and every buffer.
+// The whole solve and the multi-field diffusion.  What bounds them is
+// neither bytes nor operations (at 64^3 a 20-iteration solve is 0.7 us of
+// bytes) but their chain of dependent sweeps: a design that runs a
+// grid-wide barrier after every sweep, or half-sweep, pays some 1.1 us a
+// barrier, 19 or 40 of them a solve, besides a thread a cell decoding its
+// index each sweep.  Here both run the whole step's blocked passes
+// (step_blocked.cuh's blocked_solve): a persistent block a multiprocessor
+// loads its tile with a halo into shared memory, runs up to ``levels``
+// sweeps or half-sweeps there and writes the tile back, and only then
+// comes a grid barrier: ceil(sweeps / levels) - 1 barriers a solve
+// (kernels.solve_plan, diffuse_plan, solve_barriers).  The diffusion's
+// blocks take its (field, tile) pairs in turn.  One instance a storage
+// type and mode; the host plans the tiles, the threads and every buffer.
 #include "step_blocked.cuh"
 
 namespace cg = cooperative_groups;
@@ -54,45 +51,13 @@ namespace {
 
 using tf::blocks_of;
 
-// ---------------------------------------------------------------------------
-// streamed: one launch per sweep (the float32 Jacobi solve)
-
-__global__ void jacobi_kernel(const float* __restrict__ src,
-                              const float* __restrict__ x0,
-                              float* __restrict__ dst, int n, int b, float a,
-                              float c_inv) {
-  tf::jacobi_cell(blockIdx.x * blockDim.x + threadIdx.x, src, x0, dst, n, b,
-                  a, c_inv);
-}
-
 template <typename T>
 __global__ void ghost_kernel(T* x, int n, int b) {
   tf::ghost_cell(blockIdx.x * blockDim.x + threadIdx.x, x, n, b);
 }
 
-int lin_solve3d_streamed(const float* x, const float* x0, float* out,
-                         float* tmp, int b, int n, int iters, float a,
-                         float c_inv, cudaStream_t st) {
-  const float* src = x;
-  for (int s = 0; s < iters; ++s) {
-    float* dst = tf::sweep_dst(s, iters, out, tmp);
-    jacobi_kernel<<<tf::blocks_for(n), tf::kThreads, 0, st>>>(
-        src, x0, dst, n, b, a, c_inv);
-    const int rc = tf::launch_status();
-    if (rc) return rc;
-    src = dst;
-  }
-  return 0;
-}
-
 // ---------------------------------------------------------------------------
 // whole tier: one cooperative launch
-
-template <int K>
-__global__ void diffuse_multi_kernel(tf::DiffuseArgs d) {
-  cg::grid_group grid = cg::this_grid();
-  tf::diffuse_phase<K>(grid, tf::GridLoop(), d);
-}
 
 __global__ void project_whole_kernel(tf::ProjectArgs g) {
   cg::grid_group grid = cg::this_grid();
@@ -117,7 +82,26 @@ __global__ void __launch_bounds__(kSolveMaxThreads, 1)
                                  n);
 }
 
+// Up to three diffusions, x0 each field itself, in the same passes: a
+// lone solve's instance (its own x0, here the field; no barrier after the
+// last pass) of the diffusion flavour (Jacobi, float32).
+using Diffuse = tf::BlockedSolve<float, 3>;
+
+__global__ void __launch_bounds__(kSolveMaxThreads, 1)
+    diffuse_multi_kernel(const Diffuse d, int n) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  tf::blocked_solve<float, false, true>(
+      grid, d, reinterpret_cast<float*>(smem_bytes), n);
+}
+
 using bf16 = __nv_bfloat16;
+
+tf::StepTiles tiles_of(int n, int tx, int ty, int tz, int halo) {
+  const int cx = (n + tx - 1) / tx, cy = (n + ty - 1) / ty,
+            cz = (n + tz - 1) / tz;
+  return tf::StepTiles{tx, ty, tz, halo, cy, cz, cx * cy * cz};
+}
 
 template <typename T, bool RB>
 int launch_solve_whole(const void* x, const void* x0, void* out, void* tmp,
@@ -130,36 +114,27 @@ int launch_solve_whole(const void* x, const void* x0, void* out, void* tmp,
   g.fields = 1;
   g.iters = iters;
   g.levels = levels;
-  const int cx = (n + tx - 1) / tx, cy = (n + ty - 1) / ty,
-            cz = (n + tz - 1) / tz;
-  g.tiles = tf::StepTiles{tx, ty, tz, levels, cy, cz, cx * cy * cz};
+  g.tiles = tiles_of(n, tx, ty, tz, levels);
   void* params[] = {&g, &n};
   return (int)cudaLaunchCooperativeKernel(
       (const void*)solve_whole_kernel<T, RB>, dim3((unsigned)blocks),
       dim3((unsigned)threads), params, (size_t)smem, stream);
 }
 
-template <typename T, bool RB>
-cudaError_t allow_solve_smem(int bytes, int* per_sm) {
+template <typename Args>
+cudaError_t allow_solve_smem(void (*kernel)(Args, int), int bytes,
+                             int* per_sm) {
   cudaError_t e = cudaFuncSetAttribute(
-      solve_whole_kernel<T, RB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   int k = 0;
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &k, solve_whole_kernel<T, RB>, kSolveMaxThreads, bytes);
+        &k, kernel, kSolveMaxThreads, bytes);
   if (e == cudaSuccess && k < *per_sm) *per_sm = k;
   return e;
 }
 
 }  // namespace
-
-extern "C" int tf_lin_solve3d(const float* x, const float* x0, float* out,
-                              float* tmp, int b, int n, int iters, float a,
-                              float c_inv, void* stream) {
-  return lin_solve3d_streamed(x, x0, out, tmp, b, n, iters, a, c_inv,
-                              (cudaStream_t)stream);
-}
 
 // The ghost pass that ends the dense red-black solves (their half-sweeps
 // are rb_blocked.cu's passes): every ghost of x by set_bnd3d(b); x holds
@@ -214,8 +189,8 @@ extern "C" int tf_lin_solve3d_whole(const void* x, const void* x0, void* out,
 
 // The whole solve's shape on the current device: its persistent blocks
 // (one a multiprocessor at the most shared memory a block may take) and
-// that shared memory in bytes; it sets the four instances' shared-memory
-// attribute to that size.
+// that shared memory in bytes; it sets the shared-memory attribute of the
+// four instances and of the multi-field diffusion to that size.
 extern "C" int tf_lin_solve3d_whole_info(int* blocks, int* smem) {
   int dev = 0, sms = 0, optin = 0, per_sm = 1 << 30;
   cudaError_t e = cudaGetDevice(&dev);
@@ -224,10 +199,16 @@ extern "C" int tf_lin_solve3d_whole_info(int* blocks, int* smem) {
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&optin,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e == cudaSuccess) e = allow_solve_smem<float, false>(optin, &per_sm);
-  if (e == cudaSuccess) e = allow_solve_smem<float, true>(optin, &per_sm);
-  if (e == cudaSuccess) e = allow_solve_smem<bf16, false>(optin, &per_sm);
-  if (e == cudaSuccess) e = allow_solve_smem<bf16, true>(optin, &per_sm);
+  if (e == cudaSuccess)
+    e = allow_solve_smem(solve_whole_kernel<float, false>, optin, &per_sm);
+  if (e == cudaSuccess)
+    e = allow_solve_smem(solve_whole_kernel<float, true>, optin, &per_sm);
+  if (e == cudaSuccess)
+    e = allow_solve_smem(solve_whole_kernel<bf16, false>, optin, &per_sm);
+  if (e == cudaSuccess)
+    e = allow_solve_smem(solve_whole_kernel<bf16, true>, optin, &per_sm);
+  if (e == cudaSuccess)
+    e = allow_solve_smem(diffuse_multi_kernel, optin, &per_sm);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   *blocks = sms * per_sm;
@@ -235,25 +216,41 @@ extern "C" int tf_lin_solve3d_whole_info(int* blocks, int* smem) {
   return 0;
 }
 
+// Diffuses x_0 .. x_{k-1} (k 1 to 3) by ``iters`` Jacobi sweeps each, x0
+// the field itself, with its own b, a and c_inv, into out_i (tmp_i the
+// second buffer): one cooperative launch of ``blocks`` persistent blocks
+// of ``threads``, ``smem`` bytes of shared memory each, taking the
+// (field, tile) pairs in turn (a block with several reloads its x0 every
+// pass); passes of ``levels`` sweeps on tiles of tx x ty x tz cells with a
+// halo of ``levels`` (kernels.diffuse_plan).  tf_lin_solve3d_whole_info
+// must have run on the device first.  A launch the card refuses returns
+// its error.
 extern "C" int tf_diffuse3d_multi(const float* x_0, const float* x_1,
                                   const float* x_2, float* out_0,
                                   float* out_1, float* out_2, float* tmp_0,
                                   float* tmp_1, float* tmp_2, int k, int b_0,
                                   int b_1, int b_2, int n, int iters,
+                                  int blocks, int threads, int smem,
+                                  int levels, int tx, int ty, int tz,
                                   float a_0, float a_1, float a_2,
                                   float c_inv_0, float c_inv_1,
                                   float c_inv_2, void* stream) {
-  const tf::DiffuseArgs d{{x_0, x_1, x_2},       {out_0, out_1, out_2},
-                          {tmp_0, tmp_1, tmp_2}, {b_0, b_1, b_2},
-                          {a_0, a_1, a_2},       {c_inv_0, c_inv_1, c_inv_2},
-                          n,                     iters};
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (k) {
-    case 1: return tf::launch_cooperative(diffuse_multi_kernel<1>, d, n, s);
-    case 2: return tf::launch_cooperative(diffuse_multi_kernel<2>, d, n, s);
-    case 3: return tf::launch_cooperative(diffuse_multi_kernel<3>, d, n, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (k < 1 || k > 3 || levels < 1 || iters < 1 || blocks < 1 ||
+      threads < 1 || threads > kSolveMaxThreads || tx < 1 || ty < 1 ||
+      tz < 1)
+    return (int)cudaErrorInvalidValue;
+  Diffuse d{};
+  d.f[0] = tf::SolveField<float>{x_0, x_0, out_0, tmp_0, b_0, a_0, c_inv_0};
+  d.f[1] = tf::SolveField<float>{x_1, x_1, out_1, tmp_1, b_1, a_1, c_inv_1};
+  d.f[2] = tf::SolveField<float>{x_2, x_2, out_2, tmp_2, b_2, a_2, c_inv_2};
+  d.fields = k;
+  d.iters = iters;
+  d.levels = levels;
+  d.tiles = tiles_of(n, tx, ty, tz, levels);
+  void* params[] = {&d, &n};
+  return (int)cudaLaunchCooperativeKernel(
+      (const void*)diffuse_multi_kernel, dim3((unsigned)blocks),
+      dim3((unsigned)threads), params, (size_t)smem, (cudaStream_t)stream);
 }
 
 extern "C" int tf_project3d_whole(const float* u, const float* v,

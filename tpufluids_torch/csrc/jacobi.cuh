@@ -29,9 +29,9 @@
 // which is what set_bnd3d left there after the previous half-sweep.  One
 // pass after the last half-sweep writes the ghosts.
 //
-// The whole tier's multi-field diffusion and fused projection run in one
-// cooperative launch with a grid-wide barrier between sweeps and phases
-// (the whole solve and the whole step run blocked passes instead:
+// The whole tier's fused projection runs in one cooperative launch with a
+// grid-wide barrier between sweeps and phases (the whole solve, the
+// multi-field diffusion and the whole step run blocked passes instead:
 // step_blocked.cuh).  66^3 cells (64^3) are more than the card keeps
 // resident, so the threads stride over the cells, and the grid is sized
 // by the occupancy query.  Inside a cooperative kernel no pointer is
@@ -340,41 +340,6 @@ struct GridLoop {
       : start(blockIdx.x * blockDim.x + threadIdx.x),
         stride(gridDim.x * blockDim.x) {}
 };
-
-constexpr int kMaxFields = 3;
-
-struct DiffuseArgs {
-  const float* in[kMaxFields];
-  float* out[kMaxFields];
-  float* tmp[kMaxFields];
-  int b[kMaxFields];
-  float a[kMaxFields];
-  float c_inv[kMaxFields];
-  int n, iters;
-};
-
-// K independent diffusions, x0 = the input field, every sweep of each,
-// with a barrier after each sweep.  K is a template argument so that the
-// field loop unrolls and the per-field arguments stay out of local memory
-// (a runtime index would copy them to the stack).
-template <int K>
-__device__ __forceinline__ void diffuse_phase(cg::grid_group& grid,
-                                              const GridLoop& loop,
-                                              const DiffuseArgs& d) {
-  const int cells = (d.n + 2) * (d.n + 2) * (d.n + 2);
-  for (int s = 0; s < d.iters; ++s) {
-#pragma unroll
-    for (int f = 0; f < K; ++f) {
-      const float* src =
-          s == 0 ? d.in[f] : sweep_dst(s - 1, d.iters, d.out[f], d.tmp[f]);
-      float* dst = sweep_dst(s, d.iters, d.out[f], d.tmp[f]);
-      for (int idx = loop.start; idx < cells; idx += loop.stride)
-        jacobi_cell(idx, src, d.in[f], dst, d.n, d.b[f], d.a[f],
-                    d.c_inv[f]);
-    }
-    grid.sync();
-  }
-}
 
 template <typename T>
 struct SolveArgs {

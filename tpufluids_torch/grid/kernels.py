@@ -775,14 +775,15 @@ def lin_solve3d(b, x, x0, a, c, iters):
     initial guess.
 
     Replaces lin_solve3d_pallas (tpufluids/grid/pallas_kernels.py).
-    Bound by bytes: x, x0 in and the result out, once per sweep here.
-    One launch per sweep, out of place between two buffers, one thread
-    per output cell (csrc/jacobi.cu)."""
+    Bound on paper by bytes; on the card, with the bytes cut, by the
+    multiprocessor's work a level (PERF.md).  ceil(iters / k) launches of
+    the blocked kernel in float32 storage, each up to k = JACOBI_TILE.k
+    sweeps with one read of x and x0 and one write of every cell, ghosts
+    included, alternating between out and a scratch buffer so that the
+    last lands in out (csrc/jacobi_blocked.cu)."""
     if not _solve_on_cuda(b, x, x0, iters):
         return lin_solve3d_plain(b, x, x0, a, c, iters)
-    out, tmp = torch.empty_like(x0), torch.empty_like(x0)
-    _build.launch("tf_lin_solve3d", x, x0, out, tmp, b, x0.shape[0] - 2,
-                  iters, a, 1.0 / c)
+    out = _jacobi_solve(b, x, x0, a, 1.0 / c, iters)
     lin_solve3d.launches += 1
     return out
 
@@ -1108,13 +1109,22 @@ def lin_solve3d_bf16_plain(b, x, x0, a, c, iters):
     return stam.lin_solve3d(b, x, x0, a, c, iters, dtype=torch.bfloat16)
 
 
-# the blocked bfloat16 Jacobi passes (csrc/jacobi_blocked.cu)
+# the blocked Jacobi passes (csrc/jacobi_blocked.cu)
 
 
-# The shape csrc/jacobi_blocked.cu compiles (its ``Shape``): k = 2 sweeps
-# a pass, the reference's fuse on the bfloat16 route, on a 16 x 128 tile
-# (its halo one cell deeper in z, so that its cell pairs start at even K).
-JACOBI_TILE = RbTile(2, 16, 128)
+# The shapes csrc/jacobi_blocked.cu compiles (its ``Shape``), in float32
+# and in bfloat16: k sweeps a pass on a ty x tz tile (its z halo deeper
+# than k, so that a slot's cells start at K = 0 mod the cells a slot: 4
+# in float32, 192 threads; 2 in bfloat16, 384 threads).  k = 2 is the
+# reference's fuse; the float32 shape is the fastest of the probe's at
+# 256^3 on the H100 (PERF.md), the bfloat16 one at 512^3.
+JACOBI_TILE = RbTile(2, 16, 64)
+JACOBI_TILE_BF16 = RbTile(2, 16, 128)
+
+
+def jacobi_tile(dtype: torch.dtype) -> RbTile:
+    """The blocked Jacobi kernel's shape in storage ``dtype``."""
+    return JACOBI_TILE_BF16 if dtype == torch.bfloat16 else JACOBI_TILE
 
 
 def jacobi_passes(iters: int, k: int):
@@ -1124,21 +1134,99 @@ def jacobi_passes(iters: int, k: int):
 
 
 @functools.cache
-def jacobi_tile_info(device_index: int):
-    """_tile_info of the blocked Jacobi kernel: once a device."""
-    return _tile_info("tf_jacobi_blocked_info", device_index)
+def jacobi_tile_info(device_index: int, dtype: torch.dtype = torch.float32):
+    """_tile_info of the blocked Jacobi kernel in storage ``dtype``
+    (float32 or bfloat16, one instantiation each): once a device and
+    type."""
+    return _tile_info("tf_jacobi_blocked_info", device_index,
+                      int(dtype == torch.bfloat16))
 
 
 def _jacobi_chunks_on(x0):
-    slots, _ = jacobi_tile_info(_device_index(x0))
+    slots, _ = jacobi_tile_info(_device_index(x0), x0.dtype)
     n = x0.shape[0] - 2
-    return rb_chunks(n + 2, 0, n, JACOBI_TILE, slots)
+    return rb_chunks(n + 2, 0, n, jacobi_tile(x0.dtype), slots)
 
 
 def _jacobi_pass(src, x0, dst, chunks, sweeps, b, a, c_inv):
     _build.launch("tf_jacobi_blocked_pass", src, x0, dst, x0.shape[0] - 2,
                   chunks.r_lo, chunks.r_hi, chunks.length, chunks.count,
-                  sweeps, b, a, c_inv)
+                  sweeps, b, int(x0.dtype == torch.bfloat16), a, c_inv)
+
+
+@dataclasses.dataclass(frozen=True)
+class JacobiProbeShape:
+    """One float32 shape of csrc/jacobi_blocked.cu's probe (its
+    ``Probe``): ``tile`` (k sweeps a pass on ty x tz), ``threads`` a
+    block, ``cells`` a thread's slot, whether it is the shipped
+    ``Shape``, the card's resident blocks and the shared memory of
+    one."""
+    index: int
+    tile: RbTile
+    threads: int
+    cells: int
+    shipped: bool
+    slots: int
+    smem: int
+
+
+@functools.cache
+def jacobi_probe_shapes(device_index: int):
+    """The probe's shapes on CUDA device ``device_index`` (setting each
+    kernel's shared-memory attribute there): once a device."""
+    lib = _build.load()
+    shapes = []
+    with torch.cuda.device(device_index):
+        while True:
+            dims = (ctypes.c_int * 6)()
+            slots, smem = ctypes.c_int(0), ctypes.c_int(0)
+            rc = lib.tf_jacobi_probe_info(len(shapes), dims,
+                                          ctypes.byref(slots),
+                                          ctypes.byref(smem))
+            if rc == -1:
+                return tuple(shapes)
+            if rc:
+                raise RuntimeError(f"tf_jacobi_probe_info: CUDA error {rc} "
+                                   f"({lib.tf_error_string(rc).decode()})")
+            shapes.append(JacobiProbeShape(
+                len(shapes), RbTile(*dims[:3]), dims[3], dims[4],
+                bool(dims[5]), slots.value, smem.value))
+
+
+def lin_solve3d_probe(shape: JacobiProbeShape, b, x, x0, a, c, iters):
+    """lin_solve3d's passes on CUDA float32 fields with probe shape
+    ``shape`` (one of jacobi_probe_shapes): the shipped one runs
+    lin_solve3d's launches."""
+    n = x0.shape[0] - 2
+    chunks = rb_chunks(n + 2, 0, n, shape.tile, shape.slots)
+    return _alternating(x, x0, jacobi_passes(iters, shape.tile.k),
+                        lambda src, dst, sweeps: _build.launch(
+                            "tf_jacobi_probe_pass", shape.index, src, x0,
+                            dst, n, chunks.r_lo, chunks.r_hi, chunks.length,
+                            chunks.count, sweeps, b, a, 1.0 / c))
+
+
+def _alternating(x, x0, passes, launch):
+    """``launch(src, dst, sweeps)`` for each pass's sweeps, from x, the
+    passes alternating between out and a scratch buffer (shaped like x0)
+    so that the last lands in out; returns out."""
+    out, tmp = torch.empty_like(x0), torch.empty_like(x0)
+    src = x
+    for i, sweeps in enumerate(passes):
+        dst = out if rb_lands_in_out(i, len(passes)) else tmp
+        launch(src, dst, sweeps)
+        src = dst
+    return out
+
+
+def _jacobi_solve(b, x, x0, a, c_inv, iters):
+    """The dense blocked Jacobi solve in x0's storage type (float32 or
+    bfloat16): ceil(iters / k) passes, alternating between out and a
+    scratch buffer so that the last lands in out."""
+    chunks = _jacobi_chunks_on(x0)
+    return _alternating(x, x0, jacobi_passes(iters, jacobi_tile(x0.dtype).k),
+                        lambda src, dst, sweeps: _jacobi_pass(
+                            src, x0, dst, chunks, sweeps, b, a, c_inv))
 
 
 def lin_solve3d_bf16(b, x, x0, a, c, iters):
@@ -1148,22 +1236,12 @@ def lin_solve3d_bf16(b, x, x0, a, c, iters):
 
     Replaces lin_solve3d_pallas(dtype=bfloat16)
     (tpufluids/grid/pallas_kernels.py).  Bound on paper by bytes, at 2 B
-    a cell.  ceil(iters / k) launches of the blocked kernel, each up to k
-    = 2 sweeps with one read of x and x0 and one write of every cell,
-    ghosts included, two cells an operation in bf16x2, alternating
-    between two bfloat16 buffers so that the last lands in out
-    (csrc/jacobi_blocked.cu)."""
+    a cell.  lin_solve3d's passes in bfloat16 storage: the same blocked
+    kernel compiled for __nv_bfloat16 (k = JACOBI_TILE_BF16.k sweeps a
+    pass), two cells an operation in bf16x2 (csrc/jacobi_blocked.cu)."""
     if not _solve_on_cuda(b, x, x0, iters):
         return lin_solve3d_bf16_plain(b, x, x0, a, c, iters)
-    x, x0, a, c_inv = _bf16_operands(x, x0, a, c)
-    chunks = _jacobi_chunks_on(x0)
-    passes = jacobi_passes(iters, JACOBI_TILE.k)
-    out, tmp = torch.empty_like(x0), torch.empty_like(x0)
-    src = x
-    for i, sweeps in enumerate(passes):
-        dst = out if rb_lands_in_out(i, len(passes)) else tmp
-        _jacobi_pass(src, x0, dst, chunks, sweeps, b, a, c_inv)
-        src = dst
+    out = _jacobi_solve(b, *_bf16_operands(x, x0, a, c), iters)
     lin_solve3d_bf16.launches += 1
     return out.float()
 
@@ -1268,9 +1346,12 @@ def diffuse3d_multi(xs, params, iters):
     as lin_solve3d(b, x, x, a, c, iters) per field.
 
     Replaces diffuse3d_whole_multi (tpufluids/grid/pallas_kernels.py).
-    One cooperative launch runs every sweep of every field, with a
-    grid-wide barrier between sweeps (csrc/jacobi.cu); only for fields
-    that pass ``solve_whole_ok`` in float32."""
+    Bound by its chain of dependent sweeps.  One cooperative launch of
+    the whole solve's blocked passes (csrc/jacobi.cu,
+    csrc/step_blocked.cuh): SOLVE_JACOBI_LEVELS sweeps a pass on the
+    tiles of diffuse_plan, the blocks taking the (field, tile) pairs in
+    turn, and a grid barrier between passes (solve_barriers); only for
+    fields that pass ``solve_whole_ok`` in float32."""
     xs, params = tuple(xs), tuple(params)
     if not 1 <= len(xs) <= 3 or len(params) != len(xs):
         raise ValueError("diffuse3d_multi takes 1 to 3 fields, one "
@@ -1282,15 +1363,25 @@ def diffuse3d_multi(xs, params, iters):
     if not solve_whole_ok(xs[0], torch.float32):
         raise ValueError(f"{tuple(xs[0].shape)} fields are outside the "
                          f"whole tier (solve_whole_ok)")
+    blocks, smem = solve_info(_device_index(xs[0]))
+    plan = diffuse_plan(xs[0].shape[0] - 2, len(xs), blocks, smem)
+    outs = _diffuse_launch(xs, params, iters, plan)
+    diffuse3d_multi.launches += 1
+    return outs
+
+
+def _diffuse_launch(xs, params, iters, plan: SolvePlan):
+    """diffuse3d_multi's launch on CUDA fields with ``plan``."""
     k, pad = len(xs), (None,) * (3 - len(xs))
     outs = tuple(torch.empty_like(x) for x in xs)
     tmps = tuple(torch.empty_like(x) for x in xs)
     bs, as_, cs = zip(*params)
+    t = plan.tile
     _build.launch("tf_diffuse3d_multi", *xs, *pad, *outs, *pad, *tmps, *pad,
-                  k, *bs, *(0,) * (3 - k), xs[0].shape[0] - 2, iters, *as_,
-                  *(0.0,) * (3 - k), *(1.0 / c for c in cs),
-                  *(0.0,) * (3 - k))
-    diffuse3d_multi.launches += 1
+                  k, *bs, *(0,) * (3 - k), xs[0].shape[0] - 2, iters,
+                  plan.blocks, plan.threads, plan.smem, plan.levels, t.tx,
+                  t.ty, t.tz, *as_, *(0.0,) * (3 - k),
+                  *(1.0 / c for c in cs), *(0.0,) * (3 - k))
     return outs
 
 
@@ -1495,6 +1586,22 @@ def _solve_plan(n, rb, itemsize, blocks, smem):
                      itemsize * boxes * tile.box_cells(n), levels, tile)
 
 
+def diffuse_plan(n: int, fields: int, blocks: int, smem: int) -> SolvePlan:
+    """The multi-field diffusion's plan at size n for ``fields`` fields
+    (1 to 3) on ``blocks`` blocks of at most ``smem`` bytes of shared
+    memory: the whole Jacobi solve's levels and threads, tiles in three
+    float32 boxes chosen for the fewest rounds of (field, tile) pairs
+    times box cells (_step_tile), so a block may take several."""
+    return _diffuse_plan(n, fields, blocks, smem)
+
+
+@functools.cache
+def _diffuse_plan(n, fields, blocks, smem):
+    tile = _step_tile(n, blocks, SOLVE_JACOBI_LEVELS, fields, 3, smem)
+    return SolvePlan(min(blocks, fields * tile.count(n)), SOLVE_THREADS,
+                     4 * 3 * tile.box_cells(n), SOLVE_JACOBI_LEVELS, tile)
+
+
 def solve_passes(iters: int, red_black: bool, plan: SolvePlan) -> int:
     """The passes of a whole solve, 3D or 2D: its sweeps (red-black:
     half-sweeps), ``plan.levels`` a pass."""
@@ -1509,8 +1616,9 @@ def solve_barriers(iters: int, red_black: bool, plan: SolvePlan) -> int:
 @functools.cache
 def solve_info(device_index: int):
     """(persistent blocks, shared memory bytes a block may take) of the
-    whole solve on CUDA device ``device_index``; it also sets the
-    kernel's shared-memory attribute, once a device."""
+    whole solve and the multi-field diffusion on CUDA device
+    ``device_index``; it also sets their kernels' shared-memory
+    attribute, once a device."""
     return _tile_info("tf_lin_solve3d_whole_info", device_index)
 
 
