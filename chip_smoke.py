@@ -60,7 +60,15 @@
    1026^2, and their times at other levels a pass (bit for bit) and
    threads a block, and the multi-field diffusion's (csrc/jacobi.cu on
    the same passes: ptxas, barriers, floor and device time alone for
-   1 to 3 fields at 64^3).  Then the float32 blocked Jacobi kernel's
+   1 to 3 fields at 64^3).  Then the fused projection's kernel
+   (check_project_whole: csrc/jacobi.cu on the same passes, one tile a
+   block): ptxas (a stack frame or spill fails); bit for bit against its
+   plain version and the three-launch path (div3d, the streamed solve,
+   gradsub3d) in both modes at 64^3, 92^3, 93^3, 99^3 and 77^3; its plan,
+   grid-wide barriers and barrier floor, and its device time alone in
+   both modes at 64^3 (in its row of the kernels line) and 96^3, and at
+   64^3 on the Jacobi plan's fallback of 2 sweeps a pass.  Then the
+   float32 blocked Jacobi kernel's
    probe (check_jacobi_probe: csrc/jacobi_blocked.cu's probe shapes,
    sweeps a pass, tiles, threads, cells a slot; ptxas of each, a stack
    frame or spill fails; each bit for bit and its device time alone at
@@ -78,11 +86,14 @@
 3. Runs 4 steps of the bench.py scene and of BASELINE configs 2 and 4
    at 16^3, and of BASELINE config 1 at 32^2, on the card and on the CPU
    (plain versions) and compares them.
-4. Drives eleven 3D grid configurations through
+4. Drives thirteen 3D grid configurations through
    tpufluids_torch.grid.stam.run3d_python: the bench.py scene (DCT) and
    config 3 (red-black Jacobi, "jacobi continuity") at 256^3 for 3
    warm-up and 30 timed steps, config 3 with plain Jacobi for 3 and 10,
-   configs 2 and 4 at 64^3 for 3 and 400, as bench.py times them, the
+   configs 2 and 4 at 64^3 for 3 and 400, as bench.py times them,
+   config 4 and config 4 with plain Jacobi at 96^3 for 3 and 30 (above
+   the whole step's gate and inside the whole solve's: the separate
+   kernels and two fused projections a step), the
    CLI's plume3d scene (gather advection, no whole step) at 64^3 for 3
    and 20; config 3 at 512^3 in float32 and then with the bfloat16
    solver (verify/bench_bf16_512.py) for 3 and 10 each, and their
@@ -112,7 +123,8 @@
    fails), and their launch shape.  Holds the SPH force kernel
    (base_forces_rowblock) against its plain version and against
    forces.base_lane_pass, the emulation of its lane schedule run on the
-   card (1e-6 of max, the pair count exact), at the base_dam scene and
+   card (every column bit for bit and within 1e-6 of max, the pair
+   count exact), at the base_dam scene and
    at a 262144-particle uniform fill, on seeded dens, press and vel, and
    its pack kernel against the plain pack bit for bit, and times them
    with CUDA events.  The
@@ -137,8 +149,8 @@
    14040-particle tank and a 46656-particle uniform fill at the tank's
    lattice density, with merging on at the fill.  Every output column
    must be nonzero.  Holds them against forces.unidyn_lane_pass, the
-   emulation of their lane schedule, run on the card (1e-6 of max,
-   pair counts and partners exact).  Times both with CUDA events, and
+   emulation of their lane schedule, run on the card (every column bit
+   for bit and within 1e-6 of max, pair counts and partners exact).  Times both with CUDA events, and
    pass A and pass B alone.
 9. Runs 10 steps of the tank cut to 2808 particles on the card and on
    the CPU, and 3 steps of a merging mixed-phase blob, and compares
@@ -224,6 +236,14 @@ N_BIG = 256
 N_512 = 512              # verify/bench_bf16_512.py: the bfloat16 solver
 N_WHOLE = 64             # BASELINE configs 2 and 4: the whole tier
 N_STEP_EDGE = 78         # the largest n the whole step's gate admits
+# the Jacobi path above the whole step's gate and inside the whole
+# solve's (79 to 99): every step runs the separate kernels and two fused
+# projections (#6)
+N_PROJECT = 96
+# the fused projection's sizes held bit for bit: the whole tier's, the
+# edge of its Jacobi plan's fallback to 2 sweeps a pass (92 against 93),
+# the whole solve's gate's edge, and an odd n
+N_PROJECT_CHECKED = (N_WHOLE, 92, 93, 99, 77)
 N_2D = 128               # BASELINE config 1
 N_2D_BIG = 1119          # the whole 2D step's gate's edge: more
                          # diffusing (field, tile) pairs than blocks
@@ -277,7 +297,7 @@ KERNELS = {
     "diffuse3d_multi": ("tpufluids_torch/csrc/jacobi.cu",
                         "tpufluids/grid/pallas_kernels.py:247", 0.0),
     "project3d_whole": ("tpufluids_torch/csrc/jacobi.cu",
-                        "tpufluids/grid/pallas_kernels.py:1174", 1e-6),
+                        "tpufluids/grid/pallas_kernels.py:1174", 0.0),
     "step3d_whole": ("tpufluids_torch/csrc/step.cu",
                      "tpufluids/grid/pallas_kernels.py:1319", STEP_TOL),
     # bit for bit
@@ -354,6 +374,12 @@ GRID_PATHS = {
                                     red_black=False), N_BIG, 3, 10),
     "config 2": (CONFIG2_KW, N_WHOLE, 3, 400),
     "config 4": ({**CONFIG2_KW, **PLUME_KW}, N_WHOLE, 3, 400),
+    # config 4 above the whole step's gate: the separate kernels and two
+    # fused projections a step, red-black and Jacobi
+    "config 4 (no whole step)": ({**CONFIG2_KW, **PLUME_KW}, N_PROJECT, 3,
+                                 30),
+    "config 4, plain Jacobi (no whole step)": (
+        {**CONFIG2_KW, **PLUME_KW, "red_black": False}, N_PROJECT, 3, 30),
     # the CLI's plume3d (cli.py:190-197, 250-255): its defaults, gather
     "plume3d (gather)": (dict(PLUME3D_KW, advect_mode="gather"), N_WHOLE,
                          3, 20),
@@ -449,10 +475,10 @@ UNIDYN_FIELDS = ("sum_w", "dpress", "diffusion", "vel_grad", "stress_accel",
                  "delfluid")
 # the unidyn kernels against forces.unidyn_lane_pass, the emulation of their
 # lane schedule, run on the card: the same pairs summed in the same order,
-# so only the per-pair arithmetic of torch and of the kernels rounds apart;
-# 1e-6 * max|emulation| per output column
+# each term formed in the kernels' order and association; every output
+# column bit for bit, and within 1e-6 * max|emulation|
 UNIDYN_LANE_TOL = 1e-6
-# the base kernels against forces.base_lane_pass, likewise: 1e-6 * max
+# the base kernels against forces.base_lane_pass, likewise
 BASE_LANE_TOL = 1e-6
 # the four instances of the unidyn passes in ptxas's output (mangled names)
 UNIDYN_ENTRIES = {f"pass {p.upper()}, {'capped' if c else 'uncapped'}":
@@ -1038,7 +1064,7 @@ def check_kernels(stam, kernels, dev):
         "diffuse3d_multi": [((u64, v64, w64),
                              tuple((b, a2, 1 + 6 * a2) for b in (1, 2, 3)),
                              20)],
-        "project3d_whole": [(u64, v64, w64, 20, True)],
+        "project3d_whole": [(u64, v64, w64, 20, rb) for rb in (True, False)],
         "step3d_whole": [(u64, v64, w64, d64, t64, c4)],
         # the smoke2d default's projection and velocity diffusion solves
         "lin_solve2d": [(0, None, p2, 1.0, 4.0, 20),
@@ -1187,6 +1213,8 @@ def call_label(name, i, args):
     if name == "lin_solve3d_whole":
         return (f"{str(args[7]).removeprefix('torch.')}, "
                 f"{'red-black' if args[6] else 'Jacobi'}")
+    if name == "project3d_whole":
+        return "red-black" if args[4] else "Jacobi"
     return f"call {i}"
 
 
@@ -1687,6 +1715,120 @@ def check_whole_solves(stam, kernels, dev, build_log, checked):
                                           f"levels: not bit for bit")
 
 
+# kernel #6's device-ms a call at 64^3, 20 iterations, before its
+# redesign (PERF.md row 6: one cooperative launch of 256-thread blocks
+# sized by occupancy, a grid barrier a (half-)sweep); its Jacobi mode was
+# not timed then
+PROJECT_BEFORE_MS = {"red-black": 0.161, "Jacobi": None}
+
+
+def check_project_whole(stam, kernels, dev, build_log, checked):
+    """The fused projection's kernel (csrc/jacobi.cu on the blocked
+    passes of csrc/step_blocked.cuh, PERF.md row 6): ptxas's registers,
+    stack frame and spills (a stack frame or a spill fails); bit for bit
+    against its plain version and the three-launch path (div3d, the
+    streamed solve of its mode, gradsub3d) in both modes at
+    N_PROJECT_CHECKED, from velocities whose ghosts set_bnd would change;
+    its plans, grid-wide barriers a call and barrier floor (barriers x
+    an empty barrier on its own grid), and its device time alone
+    (torch.profiler) in both modes at 64^3, added to its row of the
+    kernels line, and at 96^3, beside the time before the redesign; and
+    its Jacobi mode at 64^3 on the fallback's 2 sweeps a pass."""
+    info = ptxas_entry(build_log, "project_whole_kernel")
+    log(f"project_whole_kernel: {info['registers']} registers, stack frame, "
+        f"spill stores, spill loads {info['stack_spill']} B")
+    check(not any(info["stack_spill"]),
+          f"project_whole_kernel: stack frame or spill {info['stack_spill']}")
+    card = card_line()
+    blocks, smem = kernels.solve_info(torch.cuda.current_device())
+    rng = np.random.default_rng(SEED + 17)
+    iters = 20
+
+    def velocities(n):
+        return tuple(torch.from_numpy(rng.normal(0, 1, (n + 2,) * 3).astype(
+            np.float32)).to(dev) for _ in range(3))
+
+    for n in N_PROJECT_CHECKED:
+        u, v, w = velocities(n)
+        for rb in (True, False):
+            got = kernels.project3d_whole(u, v, w, iters, rb)
+            want = kernels.project3d_whole_plain(u, v, w, iters, rb)
+            solve = kernels.lin_solve3d_rb if rb else kernels.lin_solve3d
+            three = kernels.gradsub3d(
+                solve(0, None, kernels.div3d(u, v, w), 1.0, 6.0, iters),
+                u, v, w)
+            torch.cuda.synchronize()
+            plain = all(torch.equal(g, x) for g, x in zip(got, want))
+            launches = all(torch.equal(g, x) for g, x in zip(got, three))
+            plan = kernels.project_plan(n, rb, blocks, smem)
+            log(f"project3d_whole @ {n}^3, {'red-black' if rb else 'Jacobi'}"
+                f", {iters} iterations, levels {plan.levels}: bitwise equal "
+                f"to its plain version: {plain}, to the three-launch path: "
+                f"{launches}")
+            check(plain and launches, f"project3d_whole @ {n}^3, red_black "
+                                      f"{rb}: not bit for bit")
+    barrier_ms = {}
+    row = checked["project3d_whole"]
+    row["ptxas"] = info
+    for n in (N_WHOLE, N_PROJECT):
+        u, v, w = velocities(n)
+        for i, rb in enumerate((True, False)):
+            label = "red-black" if rb else "Jacobi"
+            plan = kernels.project_plan(n, rb, blocks, smem)
+            grid = (plan.blocks, plan.threads)
+            if grid not in barrier_ms:
+                barrier_ms[grid] = barrier_us(*grid) / 1e3
+            count = kernels.solve_barriers(iters, rb, plan)
+            floor = count * barrier_ms[grid]
+            ms = kernel_alone_ms(
+                lambda: kernels.project3d_whole(u, v, w, iters, rb),
+                ("project_whole_kernel",))
+            t = plan.tile
+            before = PROJECT_BEFORE_MS[label] if n == N_WHOLE else None
+            log(f"project3d_whole @ {n}^3, {label}, {iters} iterations: the "
+                f"kernel alone {ms:.4f} device-ms (before the redesign "
+                f"{f'{before} ms' if before else 'not measured'}); {count} "
+                f"grid-wide barriers (before {2 * iters + 2 if rb else iters + 1}"
+                f"), barrier floor {floor:.4f} ms "
+                f"({barrier_ms[grid] * 1e3:.4f} us an empty barrier on "
+                f"{plan.blocks} x {plan.threads}); passes of {plan.levels} on "
+                f"{t.count(n)} tiles of {t.tx}x{t.ty}x{t.tz} (halo {t.halo}), "
+                f"{plan.smem} B of shared memory a block ({card})")
+            if n == N_WHOLE:
+                call = row["calls"][i]
+                check(call["call"] == label, f"project3d_whole call {i}: "
+                                             f"{call['call']} is not {label}")
+                call.update(kernel_ms=ms, barriers=count,
+                            barrier_floor_ms=floor,
+                            plan={"levels": plan.levels,
+                                  "tile": [t.tx, t.ty, t.tz, t.halo],
+                                  "blocks": plan.blocks,
+                                  "threads": plan.threads,
+                                  "smem": plan.smem})
+            else:
+                row[f"kernel_ms_{n}"] = {**row.get(f"kernel_ms_{n}", {}),
+                                         label: ms}
+        if n == N_WHOLE:
+            # the Jacobi plan's fallback, 2 sweeps a pass, where 3 fit
+            tile = kernels._step_tile(n, blocks, 3, 1, 3, smem)
+            plan = kernels.SolvePlan(tile.count(n), kernels.SOLVE_THREADS,
+                                     12 * tile.box_cells(n), 2, tile)
+            got = kernels._project_launch(u, v, w, iters, False, plan)
+            want = kernels.project3d_whole_plain(u, v, w, iters, False)
+            check(all(torch.equal(g, x) for g, x in zip(got, want)),
+                  "project3d_whole, Jacobi, 2 sweeps a pass: not bit for bit")
+            ms = kernel_alone_ms(
+                lambda: kernels._project_launch(u, v, w, iters, False, plan),
+                ("project_whole_kernel",))
+            log(f"  project3d_whole @ {n}^3, Jacobi, levels 2 (the plan's "
+                f"fallback at 93-99): the kernel alone {ms:.4f} device-ms "
+                f"({kernels.solve_barriers(iters, False, plan)} barriers, "
+                f"{tile.count(n)} tiles of {tile.tx}x{tile.ty}x{tile.tz})")
+    for key in ("kernel_ms", "barrier_floor_ms"):
+        row[key] = float(np.mean([c[key] for c in row["calls"]]))
+    row["barriers"] = [c["barriers"] for c in row["calls"]]
+
+
 def check_small_against_cpu(stam, dev):
     """4 steps at 16^3 on the card (kernels) against the CPU (plain
     versions): the bench scene, and configs 2 and 4 (the whole tier,
@@ -2063,11 +2205,10 @@ def pair_count(sph, st, bt, cfg, threshold=None, caps=None, stale=False):
         valid = valid.reshape(b - a, -1)
         if stale:
             valid = valid & f.near_cells(cells[a:b], cells[idx])
-        cand = rows[idx]
-        r = rows[a:b, None, 0:3] - cand[..., 0:3]
-        ds = torch.sqrt(torch.sum(r * r, dim=-1))
-        total += int((valid & (cand[..., f._ALIVE] > 0.5)
-                      & (ds > 0) & (ds <= 2 * cfg.cutoff)).sum())
+        # alive candidates within 2h, self excluded, the distance's
+        # squares summed x, y, z as the kernels sum them
+        mask = f._pair_geometry(rows[a:b], rows[idx], valid, cfg.cutoff)[3]
+        total += int(mask.sum())
     return total
 
 
@@ -2106,9 +2247,9 @@ def check_base_build(sph, build_log):
 def check_base_lanes(sph, got, st, bt, cfg, caps, stale, pairs, what):
     """A base wrapper's result ``got`` against forces.base_lane_pass on
     the same inputs (the kernels' lane schedule and stale window emulated
-    in torch): each output column within BASE_LANE_TOL of max|emulation|,
-    and the emulation's pair count equal to ``pairs``, pair_count's (the
-    whole columns', stale)."""
+    in torch): each output column bit for bit and within BASE_LANE_TOL of
+    max|emulation|, and the emulation's pair count equal to ``pairs``,
+    pair_count's (the whole columns', stale)."""
     lanes = sph.sph_kernels.BASE_LANES
     want = sph.forces.base_lane_pass(st, bt, cfg, lanes, caps, stale)
     worst, err, same = 0.0, 0.0, 0
@@ -2124,7 +2265,8 @@ def check_base_lanes(sph, got, st, bt, cfg, caps, stale, pairs, what):
         f"{err:.3e} (worst column relative {worst:.3e}, tolerance "
         f"{BASE_LANE_TOL:.0e}), {same} of 4 columns bit for bit; pairs "
         f"{walked} (whole-column count {pairs})")
-    check(worst <= BASE_LANE_TOL, f"{what} disagrees with the lane emulation")
+    check(worst <= BASE_LANE_TOL and same == 4,
+          f"{what} disagrees with the lane emulation")
     check(walked == pairs, f"{what}: the emulated walk sums {walked} pairs, "
                            f"the whole columns hold {pairs}")
 
@@ -2323,7 +2465,9 @@ def unidyn_scene(sph, name, device, cfg=None):
 def unidyn_errors(got, want, n, what):
     """(worst column error over max|want|, max abs error, columns equal
     bit for bit, columns) over the unidyn output columns; a column of
-    ``want`` that is 0 fails (it would check nothing)."""
+    ``want`` that is 0 fails (it would check nothing).  A column is bit
+    for bit when its finite rows are equal and its NaN rows (a dead row's
+    dens is 0) the same."""
     worst = err = 0.0
     same = cols = 0
     for k in UNIDYN_FIELDS:
@@ -2335,7 +2479,9 @@ def unidyn_errors(got, want, n, what):
             e = float((g[:, c] - w[:, c]).abs().max())
             check(scale > 0.0, f"{what} {k}[{c}] is 0: no check")
             worst, err = max(worst, e / scale), max(err, e)
-            same += int(torch.equal(g[:, c], w[:, c]))
+            ok = torch.isfinite(w[:, c])
+            same += int(torch.equal(ok, torch.isfinite(g[:, c]))
+                        and torch.equal(g[ok, c], w[ok, c]))
             cols += 1
     return worst, err, same, cols
 
@@ -2343,8 +2489,8 @@ def unidyn_errors(got, want, n, what):
 def check_against_lanes(sph, got, st, bt, cfg, caps, what):
     """A unidyn wrapper's result ``got`` against forces.unidyn_lane_pass
     on the same inputs (the kernels' lane schedule emulated in torch):
-    every column within UNIDYN_LANE_TOL of max|emulation|, pair counts
-    and merge partners equal."""
+    every column bit for bit and within UNIDYN_LANE_TOL of max|emulation|,
+    pair counts and merge partners equal."""
     lanes = sph.sph_kernels.unidyn_info(torch.cuda.current_device())["lanes"]
     want = sph.forces.unidyn_lane_pass(st, bt, cfg, lanes,
                                        cfg.subbin_threshold, caps=caps)
@@ -2355,7 +2501,7 @@ def check_against_lanes(sph, got, st, bt, cfg, caps, what):
         f"{err:.3e} (worst column relative {worst:.3e}, tolerance "
         f"{UNIDYN_LANE_TOL:.0e}), {same} of {cols} columns bit for bit; "
         f"pair counts and merge partners equal: {exact}")
-    check(worst <= UNIDYN_LANE_TOL and exact,
+    check(worst <= UNIDYN_LANE_TOL and same == cols and exact,
           f"{what} disagrees with the lane emulation")
 
 
@@ -3243,6 +3389,7 @@ def main():
     check_step_whole(stam, kernels, dev, build.log, checked)
     check_step2d_whole(stam, kernels, dev, build.log, checked)
     check_whole_solves(stam, kernels, dev, build.log, checked)
+    check_project_whole(stam, kernels, dev, build.log, checked)
     check_jacobi_probe(stam, kernels, dev, build.log, checked)
     check_blocked(stam, kernels, dev, build.log)
     check_small_against_cpu(stam, dev)

@@ -12,8 +12,9 @@ kernel is built with -fmad=false and follows the plain version's
 operations per pair, but sums its candidates one by one where torch
 reduces them in another order.  Against ``forces.base_lane_pass`` run
 on the card, the emulation of the kernels' lane schedule (the same
-pairs summed in the same order, so only torch's and the kernels'
-per-pair arithmetic round apart): 1e-6 * max|emulation|.  Overflow
+pairs summed in the same order, each term formed in the kernel's order
+and association): every column bit for bit, and within 1e-6 *
+max|emulation|.  Overflow
 counts, the pair counts of the stale window and the zeros of rows over
 the column cap are exact, the pack kernel equals ``forces.pack_rows``
 and ``forces.column_shift`` bit for bit, and so are the identities: the
@@ -218,8 +219,8 @@ def test_fill_steps_are_bitwise_repeatable(cuda):
 
 
 def _lane_close(got, want):
-    """Each output column within LANE_TOL of max|want|; the number of
-    columns equal bit for bit."""
+    """Each output column within LANE_TOL of max|want| and equal to it bit
+    for bit; returns the number of columns equal bit for bit."""
     same = 0
     for g, w in zip(got[:2], want[:2]):
         for gc, wc in zip(g.reshape(g.shape[0], -1).T,
@@ -227,7 +228,8 @@ def _lane_close(got, want):
             scale = float(wc.abs().max())
             assert scale > 0.0
             assert float((gc - wc).abs().max()) <= LANE_TOL * scale
-            same += int(torch.equal(gc, wc))
+            assert torch.equal(gc, wc)
+            same += 1
     return same
 
 
@@ -258,8 +260,8 @@ def _lane_case(name, dev, capped, stale):
 @pytest.mark.parametrize("name", ["base_dam", "fill", "blob"])
 def test_kernels_match_lane_emulation(cuda, name, stale, capped):
     """The four instances against forces.base_lane_pass on the card at
-    sph_kernels.BASE_LANES (1e-6 of max) and against the plain version
-    (1e-5 of max)."""
+    sph_kernels.BASE_LANES (bit for bit, and 1e-6 of max) and against
+    the plain version (1e-5 of max)."""
     st, bt, cfg, caps = _lane_case(name, cuda, capped, stale)
     kern, plain = ((sph_kernels.base_forces_column,
                     sph_kernels.base_forces_column_plain) if capped else

@@ -331,6 +331,47 @@ def test_emulated_projection_is_bitwise_plain(n, iters, red_black, tile,
         assert torch.equal(g, wv)
 
 
+# (n, iters, red_black, blocks, shared memory bytes, levels the plan
+# takes): kernels.project_plan's plans for the fused projection, on the
+# card's shape and on few blocks with little shared memory, where
+# Jacobi's three boxes of halo 4 fit no tiling of one tile a block and
+# the plan falls back to 2 sweeps a pass; odd n, and sweep counts the
+# levels do not divide
+LONE_PROJECTIONS = [(9, 5, True, *CARD, 4), (16, 9, True, *CARD, 4),
+                    (18, 4, False, *CARD, 3), (17, 7, False, *CARD, 3),
+                    (13, 7, False, 8, 24000, 2), (14, 20, False, 8, 30000, 2),
+                    (11, 3, True, 6, 20000, 4), (15, 5, False, 27, 20000, 2),
+                    (12, 4, False, 27, 12000, 2), (18, 3, False, 8, 60000, 3)]
+
+
+@pytest.mark.parametrize("n,iters,red_black,blocks,smem,levels",
+                         LONE_PROJECTIONS,
+                         ids=[f"n{p[0]}_i{p[1]}_{'rb' if p[2] else 'j'}"
+                              f"_b{p[3]}_L{p[5]}" for p in LONE_PROJECTIONS])
+def test_emulated_lone_projection_is_bitwise_plain(n, iters, red_black,
+                                                   blocks, smem, levels):
+    """The fused projection's launch (csrc/jacobi.cu on the passes of
+    csrc/step_blocked.cuh) on kernels.project_plan's tiles: one tile a
+    block, halo levels + 1, bit for bit against project3d_whole_plain."""
+    plan = kernels.project_plan(n, red_black, blocks, smem)
+    assert plan.levels == levels
+    assert plan.tile.count(n) == plan.blocks <= blocks
+    assert plan.tile.halo == levels + 1
+    assert 4 * (2 if red_black else 3) * plan.tile.box_cells(n) == \
+        plan.smem <= smem
+    rng = np.random.default_rng(200 + n)
+    u, v, w = (torch.from_numpy(rng.normal(0, 1, (n + 2,) * 3).astype(
+        np.float32)) for _ in range(3))
+    step = kernels.StepPlan(plan.blocks, plan.smem, plan.levels, plan.levels,
+                            plan.tile, plan.tile)
+    outs = tuple(torch.full_like(u, NAN) for _ in range(3))
+    pbufs = [torch.full_like(u, NAN) for _ in range(2)]
+    project_passes(u, v, w, outs, pbufs, n, iters, red_black, step)
+    want = kernels.project3d_whole_plain(u, v, w, iters, red_black)
+    for g, wv in zip(outs, want):
+        assert torch.equal(g, wv)
+
+
 # (n, iters, tile, levels, fields): raw ghosts, every b, diffusion and
 # pressure coefficients
 DIFFUSIONS = [(9, 3, (4, 4, 4), 2, 5), (12, 5, (5, 12, 7), 3, 2),
@@ -403,3 +444,53 @@ def test_step_plan_fits_the_card(n, case):
     assert plan.project.halo == levels + 1
     assert plan.diffuse.halo == plan.jacobi_levels
     assert kernels.step_whole_ok(torch.empty((n + 2,) * 3))
+
+
+def _hand_lone_barriers(iters, red_black, levels):
+    """Counted from the fused projection's kernel (blocked_project with
+    LONE): a barrier after every pass but the last."""
+    sweeps = 2 * iters if red_black else iters
+    return len(range(0, sweeps, levels)) - 1
+
+
+@pytest.mark.parametrize("n", [64, 96])
+@pytest.mark.parametrize("iters", [1, 2, 3, 7, 20])
+@pytest.mark.parametrize("red_black", [False, True], ids=["jacobi", "rb"])
+def test_lone_projection_barriers_match_a_hand_count(n, iters, red_black):
+    plan = kernels.project_plan(n, red_black, *CARD)
+    want = _hand_lone_barriers(iters, red_black, plan.levels)
+    assert kernels.solve_barriers(iters, red_black, plan) == want
+    if iters == 20:
+        # from 42 (red-black) and 21 (Jacobi): a barrier a half-sweep or
+        # sweep, and one each for the divergence and the gradient
+        assert want == (9 if red_black else 6 if n == 64 else 9)
+
+
+@pytest.mark.parametrize("red_black", [False, True], ids=["jacobi", "rb"])
+def test_project_plan_fits_the_card(red_black):
+    """At every size the gate admits (float32, n up to 99), one tile a
+    block, at most the card's blocks, every box within the shared memory
+    the plan asks for and that within what a block may take, and a halo
+    of the levels + 1.  The levels are the whole solve's except where
+    no tile of their halo fits one a block: Jacobi at n = 93 to 99 (F = 3
+    has a plan at 92, none at 93), which takes 2 sweeps a pass."""
+    boxes = 2 if red_black else 3
+    top = kernels.SOLVE_RB_LEVELS if red_black else kernels.SOLVE_JACOBI_LEVELS
+    fallback = []
+    for n in range(1, 100):
+        assert kernels.solve_whole_ok(torch.empty((n + 2,) * 3,
+                                                  device="meta"),
+                                      torch.float32)
+        plan = kernels.project_plan(n, red_black, *CARD)
+        assert plan.tile.count(n) == plan.blocks <= CARD[0], n
+        assert 4 * boxes * plan.tile.box_cells(n) == plan.smem <= CARD[1], n
+        assert plan.tile.halo == plan.levels + 1, n
+        assert 1 <= plan.threads <= 512  # csrc/jacobi.cu's kSolveMaxThreads
+        if plan.levels != top:
+            with pytest.raises(ValueError):
+                kernels._step_tile(n, CARD[0], top + 1, 1, boxes, CARD[1])
+            fallback.append((n, plan.levels))
+    assert fallback == ([] if red_black else
+                        [(n, 2) for n in range(93, 100)])
+    assert not kernels.solve_whole_ok(torch.empty((102,) * 3, device="meta"),
+                                      torch.float32)

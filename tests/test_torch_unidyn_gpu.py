@@ -16,10 +16,11 @@ torch reduces them in another order.
 
 The kernels are also held against ``forces.unidyn_lane_pass`` run on the
 card, the emulation of their lane schedule (UNIDYN_LANES lanes a home row,
-a fixed shuffle butterfly), at 1e-6 * max|emulation| per column: both
-sum the same pairs in the same order, so only the per-pair arithmetic of
-torch and of the kernels may round apart.  Merge partners and pair counts
-are exact.  These print how many columns are bit for bit (run with -s)."""
+a fixed shuffle butterfly), every column bit for bit and within 1e-6 *
+max|emulation|: both sum the same pairs in the same order, each term
+formed in the kernels' order and association.  Merge partners and pair
+counts are exact.  These print how many columns are bit for bit (run
+with -s)."""
 
 import numpy as np
 import pytest
@@ -192,6 +193,7 @@ def _against_lanes(st, cfg, threshold=6, caps=None, fix=None, what=""):
         worst, same, cols = held(got, want, FIELDS, LANE_TOL)
         print(f"{what} {name}: {same} of {cols} columns bit for bit with "
               f"the lane emulation, worst {worst:.3e} of max")
+        assert same == cols
         assert torch.equal(got["has_pair"], want["has_pair"])
         assert torch.equal(got["merge_partner"], want["merge_partner"])
         results[name] = got

@@ -48,7 +48,7 @@ SIGNATURES = {
     "tf_rb_shard_finish": [_P] * 2 + [_INT] * 4 + [_P],
     "tf_lin_solve3d_whole": [_P] * 4 + [_INT] * 12 + [_F] * 2 + [_P],
     "tf_diffuse3d_multi": [_P] * 9 + [_INT] * 13 + [_F] * 6 + [_P],
-    "tf_project3d_whole": [_P] * 9 + [_INT] * 3 + [_F] * 3 + [_P],
+    "tf_project3d_whole": [_P] * 8 + [_INT] * 10 + [_F] * 3 + [_P],
     "tf_step3d_whole": [_P] * 11 + [_INT] * 18 + [_F] * 15 + [_P],
     "tf_barrier_probe": [_INT] * 3 + [_P],
     "tf_lin_solve2d": [_P] * 4 + [_INT] * 9 + [_F] * 2 + [_P],

@@ -13,9 +13,10 @@
 //   diffuse3d_whole_multi / _solve_whole_multi_kernel       -> tf_diffuse3d_multi
 //                                           (step_blocked.cuh's blocked_solve)
 //   project3d_whole_pallas / _project_whole_kernel          -> tf_project3d_whole
+//                                           (step_blocked.cuh's blocked_project)
 //
-// The cell bodies, the ghost scheme, the storage types and the
-// fused projection's phases are in jacobi.cuh.
+// The cell bodies, the ghost scheme and the storage types are in
+// jacobi.cuh.
 //
 // What bounds them on the H100: on paper device-memory bytes.  A sweep
 // does 8 flops a cell and moves at least three fields (x and x0 in, the
@@ -23,26 +24,27 @@
 // do several (half-)sweeps a pass in shared memory (rb_blocked.cu,
 // jacobi_blocked.cu), as the TPU kernels did in VMEM.
 //
-// The whole tier: at 64^3 a field is 66^3 * 4 B = 1.15 MB, and one launch
-// per sweep would leave the card waiting on the host.  One cooperative
-// launch runs every sweep; its fields stay in the 50 MB L2.  The fused
-// projection calls the cell bodies of the streamed kernels (and
-// divgrad.cuh's), in the order of the streamed launches, so the two give
-// the same bits.
-//
-// The whole solve and the multi-field diffusion.  What bounds them is
-// neither bytes nor operations (at 64^3 a 20-iteration solve is 0.7 us of
-// bytes) but their chain of dependent sweeps: a design that runs a
-// grid-wide barrier after every sweep, or half-sweep, pays some 1.1 us a
-// barrier, 19 or 40 of them a solve, besides a thread a cell decoding its
-// index each sweep.  Here both run the whole step's blocked passes
-// (step_blocked.cuh's blocked_solve): a persistent block a multiprocessor
-// loads its tile with a halo into shared memory, runs up to ``levels``
-// sweeps or half-sweeps there and writes the tile back, and only then
-// comes a grid barrier: ceil(sweeps / levels) - 1 barriers a solve
-// (kernels.solve_plan, diffuse_plan, solve_barriers).  The diffusion's
-// blocks take its (field, tile) pairs in turn.  One instance a storage
-// type and mode; the host plans the tiles, the threads and every buffer.
+// The whole tier: the whole solve, the multi-field diffusion and the
+// fused projection.  At 64^3 a field is 66^3 * 4 B = 1.15 MB, and one
+// launch per sweep would leave the card waiting on the host; the fields
+// stay in the 50 MB L2.  What bounds them is neither bytes nor operations
+// (at 64^3 a 20-iteration solve is 0.7 us of bytes) but their chain of
+// dependent sweeps: a design that runs a grid-wide barrier after every
+// sweep, or half-sweep, pays some 1.1 us a barrier, 19 to 42 of them a
+// call, besides a thread a cell decoding its index each sweep.  Here all
+// three run the whole step's blocked passes (step_blocked.cuh's
+// blocked_solve and blocked_project) in one cooperative launch: a
+// persistent block a multiprocessor loads its tile with a halo into
+// shared memory, runs up to ``levels`` sweeps or half-sweeps there and
+// writes the tile back, and only then comes a grid barrier:
+// ceil(sweeps / levels) - 1 barriers a call (kernels.solve_plan,
+// diffuse_plan, project_plan, solve_barriers).  The diffusion's blocks
+// take its (field, tile) pairs in turn.  The projection keeps one tile a
+// block for the whole solve, its divergence in the block's x0, and
+// subtracts the gradient in its last pass, with the cell arithmetic of
+// the three-launch path (divgrad.cuh, cell_update), so the two give the
+// same bits.  One instance a storage type and mode; the host plans the
+// tiles, the threads and every buffer.
 #include "step_blocked.cuh"
 
 namespace cg = cooperative_groups;
@@ -59,16 +61,21 @@ __global__ void ghost_kernel(T* x, int n, int b) {
 // ---------------------------------------------------------------------------
 // whole tier: one cooperative launch
 
-__global__ void project_whole_kernel(tf::ProjectArgs g) {
-  cg::grid_group grid = cg::this_grid();
-  tf::project_phase(grid, tf::GridLoop(), g);
-}
-
-// The most threads a block of the whole solve takes (the host picks
-// its count: kernels.SOLVE_THREADS), one block a multiprocessor: 128
+// The most threads a block of the whole tier takes (the host picks its
+// count: kernels.SOLVE_THREADS), one block a multiprocessor: 128
 // registers a thread, which its passes need without a spill (at 96 the
 // float32 Jacobi instance spills).
 constexpr int kSolveMaxThreads = 512;
+
+// The fused projection: one tile a block, red-black or Jacobi (a runtime
+// flag, as in the whole step), no barrier after the last pass.
+__global__ void __launch_bounds__(kSolveMaxThreads, 1)
+    project_whole_kernel(const tf::BlockedProject g, int n) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  tf::blocked_project<true>(grid, g, reinterpret_cast<float*>(smem_bytes),
+                            n);
+}
 
 template <typename T>
 using Solve = tf::BlockedSolve<T, 1>;
@@ -187,10 +194,11 @@ extern "C" int tf_lin_solve3d_whole(const void* x, const void* x0, void* out,
                                           ty, tz, a, c_inv, s);
 }
 
-// The whole solve's shape on the current device: its persistent blocks
+// The whole tier's shape on the current device: its persistent blocks
 // (one a multiprocessor at the most shared memory a block may take) and
 // that shared memory in bytes; it sets the shared-memory attribute of the
-// four instances and of the multi-field diffusion to that size.
+// whole solve's four instances, of the multi-field diffusion and of the
+// fused projection to that size.
 extern "C" int tf_lin_solve3d_whole_info(int* blocks, int* smem) {
   int dev = 0, sms = 0, optin = 0, per_sm = 1 << 30;
   cudaError_t e = cudaGetDevice(&dev);
@@ -209,6 +217,8 @@ extern "C" int tf_lin_solve3d_whole_info(int* blocks, int* smem) {
     e = allow_solve_smem(solve_whole_kernel<bf16, true>, optin, &per_sm);
   if (e == cudaSuccess)
     e = allow_solve_smem(diffuse_multi_kernel, optin, &per_sm);
+  if (e == cudaSuccess)
+    e = allow_solve_smem(project_whole_kernel, optin, &per_sm);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   *blocks = sms * per_sm;
@@ -253,13 +263,33 @@ extern "C" int tf_diffuse3d_multi(const float* x_0, const float* x_1,
       dim3((unsigned)threads), params, (size_t)smem, (cudaStream_t)stream);
 }
 
+// The fused projection of u, v, w into uo, vo, wo: the divergence
+// (times ``coef``), ``iters`` red-black iterations or Jacobi sweeps of the
+// pressure from a zero guess (a = 1, b = 0, times ``c_inv``), the gradient
+// (times ``inv_h``) subtracted.  One cooperative launch of ``blocks``
+// persistent blocks of ``threads``, one tile each, ``smem`` bytes of
+// shared memory each; passes of ``levels`` half-sweeps or sweeps on tiles
+// of tx x ty x tz cells with a halo of ``levels`` + 1, the pressure
+// between passes alternating between p0 and p1 (kernels.project_plan).
+// tf_lin_solve3d_whole_info must have run on the device first.  A launch
+// the card refuses returns its error.
 extern "C" int tf_project3d_whole(const float* u, const float* v,
                                   const float* w, float* uo, float* vo,
-                                  float* wo, float* div, float* p, float* p2,
-                                  int n, int iters, int red_black, float coef,
-                                  float inv_h, float c_inv, void* stream) {
-  const tf::ProjectArgs g{u, v, w, uo, vo, wo, div, p, p2, n, iters,
-                          red_black, coef, inv_h, c_inv};
-  return tf::launch_cooperative(project_whole_kernel, g, n,
-                                (cudaStream_t)stream);
+                                  float* wo, float* p0, float* p1, int n,
+                                  int iters, int red_black, int blocks,
+                                  int threads, int smem, int levels, int tx,
+                                  int ty, int tz, float coef, float inv_h,
+                                  float c_inv, void* stream) {
+  if (levels < 1 || iters < 1 || blocks < 1 || threads < 1 ||
+      threads > kSolveMaxThreads || tx < 1 || ty < 1 || tz < 1)
+    return (int)cudaErrorInvalidValue;
+  tf::BlockedProject g{u, v, w, uo, vo, wo, p0, p1, iters, red_black,
+                       levels, coef, inv_h, c_inv,
+                       tiles_of(n, tx, ty, tz, levels + 1)};
+  // one tile a block, for the whole solve
+  if (g.tiles.count > blocks) return (int)cudaErrorInvalidConfiguration;
+  void* params[] = {&g, &n};
+  return (int)cudaLaunchCooperativeKernel(
+      (const void*)project_whole_kernel, dim3((unsigned)blocks),
+      dim3((unsigned)threads), params, (size_t)smem, (cudaStream_t)stream);
 }

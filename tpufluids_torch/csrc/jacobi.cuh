@@ -1,6 +1,7 @@
-// Cell bodies and whole-tier phases of the Jacobi and red-black solves,
-// shared by the streamed and cooperative kernels of jacobi.cu and the
-// whole step of step.cu.
+// Cell bodies of the Jacobi and red-black solves, shared by the blocked
+// kernels (rb_blocked.cu, jacobi_blocked.cu) and the blocked passes of
+// the whole tier (step_blocked.cuh: the whole solve, the multi-field
+// diffusion, the fused projection and the whole step).
 //
 // The arithmetic is the reference's (stam.lin_solve3d): the neighbours
 // summed as ((((x[i-1] + x[i+1]) + x[j-1]) + x[j+1]) + x[k-1]) + x[k+1],
@@ -29,14 +30,11 @@
 // which is what set_bnd3d left there after the previous half-sweep.  One
 // pass after the last half-sweep writes the ghosts.
 //
-// The whole tier's fused projection runs in one cooperative launch with a
-// grid-wide barrier between sweeps and phases (the whole solve, the
-// multi-field diffusion and the whole step run blocked passes instead:
-// step_blocked.cuh).  66^3 cells (64^3) are more than the card keeps
-// resident, so the threads stride over the cells, and the grid is sized
-// by the occupancy query.  Inside a cooperative kernel no pointer is
-// __restrict__: fields written in one phase are read in the next, and
-// must not come through the non-coherent read-only path.
+// The whole tier runs its solves as blocked passes in one cooperative
+// launch, a grid-wide barrier between passes (step_blocked.cuh).  Inside
+// a cooperative kernel no pointer is __restrict__: fields written in one
+// pass are read in the next, and must not come through the non-coherent
+// read-only path.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -214,79 +212,10 @@ __device__ __forceinline__ __nv_bfloat162 Pair<__nv_bfloat16>::tap(
                                : __high2bfloat16(stored));
 }
 
-// The Jacobi update of interior cell c from src (NULL: zeros).
-template <typename T>
-__device__ __forceinline__ T jacobi_at(const T* src, const T* x0, int c,
-                                       int N, float a, float c_inv) {
-  if (src)
-    return cell_update(x0[c], src[c - N * N], src[c + N * N], src[c - N],
-                       src[c + N], src[c - 1], src[c + 1], a, c_inv);
-  return mul_rn(c_inv, add_rn(x0[c], mul_rn(a, Store<T>::round(0.0f))));
-}
-
-// One output cell of a Jacobi sweep followed by set_bnd3d(b).
-template <typename T>
-__device__ __forceinline__ void jacobi_cell(int idx, const T* src,
-                                            const T* x0, T* dst, int n,
-                                            int b, float a, float c_inv) {
-  Cell cell;
-  if (!cell_at(idx, n, cell)) return;
-  dst[out_index(cell, n)] =
-      mul_rn(cell.sign(b), jacobi_at(src, x0, cell.c, n + 2, a, c_inv));
-}
-
-// Active cells of a red-black half-sweep.  Interior cell (I, J, K),
-// 1-based, has parity (I + J + K + 1) % 2: the reference's _checker sums
-// the 0-based interior indices, so cell (1, 1, 1) has parity 0.
-__device__ __forceinline__ int rb_threads(int n) {
-  return n * n * ((n + 1) / 2);
-}
-
-// Thread t of the half-sweep of parity p owns the pair of cells
-// K = 2q + 1, 2q + 2 of row (I, J); one of them is active.  ``first``:
-// src is the solve's input (or NULL), read with its stored ghosts, and
-// the inactive cell is copied to dst; otherwise src == dst (in place)
-// and a ghost tap is s * (the active cell's own value).
-template <typename T>
-__device__ __forceinline__ void rb_cell(int t, const T* src, const T* x0,
-                                        T* dst, int n, int p, bool first,
-                                        float sx, float sy, float sz,
-                                        float a, float c_inv) {
-  const int half = (n + 1) / 2;
-  if (t >= n * n * half) return;
-  const int I = 1 + t / (n * half);
-  const int J = 1 + (t / half) % n;
-  const int q = t % half;
-  const int odd = (p + I + J) & 1;
-  const int N = n + 2;
-  const int row = (I * N + J) * N;
-  const int Ki = 2 * q + 2 - odd;
-  if (first && Ki <= n)
-    dst[row + Ki] = src ? src[row + Ki] : Store<T>::round(0.0f);
-  const int K = 2 * q + 1 + odd;
-  if (K > n) return;
-  const int c = row + K;
-  if (first) {
-    dst[c] = jacobi_at(src, x0, c, N, a, c_inv);
-    return;
-  }
-  const T own = src[c];
-  dst[c] = cell_update(x0[c], I == 1 ? mul_rn(sx, own) : src[c - N * N],
-                       I == n ? mul_rn(sx, own) : src[c + N * N],
-                       J == 1 ? mul_rn(sy, own) : src[c - N],
-                       J == n ? mul_rn(sy, own) : src[c + N],
-                       K == 1 ? mul_rn(sz, own) : src[c - 1],
-                       K == n ? mul_rn(sz, own) : src[c + 1], a, c_inv);
-}
-
-// Ghost cells: the x faces (2 N^2 cells), then the y faces without the x
-// ghosts (2 n N), then the z faces without either (2 n^2): N^3 - n^3.
-__device__ __forceinline__ int ghost_threads(int n) {
-  const int N = n + 2;
-  return 2 * N * N + 2 * n * N + 2 * n * n;
-}
-
-// Ghost cell t of x set to the value set_bnd3d(b) gives it.
+// Ghost cell t of x set to the value set_bnd3d(b) gives it.  The ghost
+// cells in order: the x faces (2 N^2 cells), then the y faces without
+// the x ghosts (2 n N), then the z faces without either (2 n^2): N^3 -
+// n^3 in all.
 template <typename T>
 __device__ __forceinline__ void ghost_cell(int t, T* x, int n, int b) {
   const int N = n + 2;
@@ -320,122 +249,17 @@ __host__ __device__ inline Signs signs_for(int b) {
           b == 3 ? -1.0f : 1.0f};
 }
 
-// The buffer Jacobi sweep s of ``iters`` writes: out for the last sweep,
-// and alternately tmp and out before it.
-template <typename T>
-__host__ __device__ inline T* sweep_dst(int s, int iters, T* out, T* tmp) {
-  return ((iters - 1 - s) & 1) ? tmp : out;
-}
-
 inline unsigned blocks_of(long long threads) {
   return (unsigned)((threads + kThreads - 1) / kThreads);
 }
 
-// ---------------------------------------------------------------------------
-// whole tier: phases of one cooperative launch
-
+// The cells of a launch that strides over the grid: thread t takes
+// cells t, t + stride, ... (the whole step's elementwise phases).
 struct GridLoop {
   int start, stride;
   __device__ GridLoop()
       : start(blockIdx.x * blockDim.x + threadIdx.x),
         stride(gridDim.x * blockDim.x) {}
 };
-
-template <typename T>
-struct SolveArgs {
-  const T* x;  // the initial guess; NULL: zeros
-  const T* x0;
-  T *out, *tmp;  // tmp: the second Jacobi buffer (unused by red-black)
-  int b, n, iters, red_black;
-  float a, c_inv;
-};
-
-// A whole solve, every sweep of the streamed kernels' launches in turn
-// (the fused projection's pressure solve): Jacobi sweeps out of place
-// between out and tmp, the first reading x's stored ghosts, or red-black
-// half-sweeps in place on out after the first (the ghost-race scheme
-// above), then the ghost pass.
-template <typename T>
-__device__ __forceinline__ void solve_phase(cg::grid_group& grid,
-                                            const GridLoop& loop,
-                                            const SolveArgs<T>& g) {
-  const int n = g.n;
-  if (g.red_black) {
-    const Signs s = signs_for(g.b);
-    const int active = rb_threads(n);
-    for (int it = 0; it < g.iters; ++it) {
-      for (int par = 0; par < 2; ++par) {
-        const bool first = it == 0 && par == 0;
-        for (int t = loop.start; t < active; t += loop.stride)
-          rb_cell(t, first ? g.x : g.out, g.x0, g.out, n, par, first, s.x,
-                  s.y, s.z, g.a, g.c_inv);
-        grid.sync();
-      }
-    }
-    const int ghosts = ghost_threads(n);
-    for (int t = loop.start; t < ghosts; t += loop.stride)
-      ghost_cell(t, g.out, n, g.b);
-    return;
-  }
-  const int cells = (n + 2) * (n + 2) * (n + 2);
-  for (int s = 0; s < g.iters; ++s) {
-    const T* src = s == 0 ? g.x : sweep_dst(s - 1, g.iters, g.out, g.tmp);
-    T* dst = sweep_dst(s, g.iters, g.out, g.tmp);
-    for (int idx = loop.start; idx < cells; idx += loop.stride)
-      jacobi_cell(idx, src, g.x0, dst, n, g.b, g.a, g.c_inv);
-    if (s + 1 < g.iters) grid.sync();
-  }
-}
-
-struct ProjectArgs {
-  const float *u, *v, *w;
-  float *uo, *vo, *wo, *div, *p, *p2;
-  int n, iters, red_black;
-  float coef, inv_h, c_inv;
-};
-
-// divergence -> zero-guess pressure solve (a = 1, b = 0) -> gradient
-// subtraction, the phases of stam.project3d's three-launch path.  p2 is
-// the second Jacobi buffer (unused by red-black).  The caller syncs
-// before anything reads uo, vo, wo.
-__device__ __forceinline__ void project_phase(cg::grid_group& grid,
-                                              const GridLoop& loop,
-                                              const ProjectArgs& g) {
-  const int n = g.n;
-  const int cells = (n + 2) * (n + 2) * (n + 2);
-  for (int idx = loop.start; idx < cells; idx += loop.stride)
-    div_cell(idx, g.u, g.v, g.w, g.div, n, g.coef);
-  grid.sync();
-  const SolveArgs<float> solve{nullptr, g.div, g.p, g.p2, 0, n,
-                               g.iters, g.red_black, 1.0f, g.c_inv};
-  solve_phase(grid, loop, solve);
-  grid.sync();
-  for (int idx = loop.start; idx < cells; idx += loop.stride)
-    gradsub_cell(idx, g.p, g.u, g.v, g.w, g.uo, g.vo, g.wo, n, g.inv_h);
-}
-
-// Launches ``kernel`` cooperatively with as many blocks as the card keeps
-// resident (at most one thread per cell).  A launch the card refuses
-// returns its error; nothing falls back to the streamed path.
-template <typename Args>
-int launch_cooperative(void (*kernel)(Args), Args args, int n,
-                       cudaStream_t stream) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, 0);
-  if (e != cudaSuccess) return (int)e;
-  long long blocks = (long long)per_sm * sms;
-  const long long need = blocks_of((long long)(n + 2) * (n + 2) * (n + 2));
-  if (need < blocks) blocks = need;
-  if (blocks < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* params[] = {&args};
-  return (int)cudaLaunchCooperativeKernel((const void*)kernel,
-                                          dim3((unsigned)blocks),
-                                          dim3(kThreads), params, 0, stream);
-}
 
 }  // namespace tf

@@ -39,14 +39,14 @@
 //
 // Ghosts.  Level 0 reads the pass's input with its stored ghosts (the
 // solve's input, or the previous pass's output, which has every ghost),
-// or zeros for a zero guess, through x0 + a * 0 as tf::jacobi_at does.
+// or zeros for a zero guess, through x0 + a * 0 as the plain solve does.
 // A later level's tap across a face is the cell's own level h-1 value
 // times the face's sign, which is what set_bnd3d left in the ghost.  The
 // last level writes a slot with no cell on a face straight to dst, and
 // the rest to an output plane; a block with such a slot (its tile or
 // plane on a face of the grid, or its tile's last slot reaching one)
 // then stores those cells and every ghost whose clamped interior cell is
-// one of them, times the set_bnd3d(b) sign, as tf::jacobi_cell does.  So
+// one of them, times the set_bnd3d(b) sign (tf::ghost_cell's rule).  So
 // every output cell is written, ghosts included, and equals that of F
 // one-cell sweeps.
 //
@@ -421,7 +421,7 @@ __device__ __forceinline__ void update_level(
 // The cells of plane q of dst that the last level left in its output
 // plane Sw (those of slots on a face), and every ghost whose clamped
 // interior cell is one of them, times its set_bnd3d(b) sign
-// (tf::jacobi_cell's rule): the ghost row or column beside a face of the
+// (tf::ghost_cell's rule): the ghost row or column beside a face of the
 // tile, and at q = 1 or n the x ghost plane too.  A thread takes slots
 // (K0 .. K0 + V - 1), K0 = 0 mod V, of rows ty0 - 1 .. ty0 + TY and
 // cells tz0 - 1 .. tz0 + TZ (the tile and a cell beside it, a ghost at a

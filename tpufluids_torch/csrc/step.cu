@@ -101,12 +101,12 @@ __global__ void __launch_bounds__(kStepThreads, 1)
   }
   if (g.diffuse.fields)
     tf::blocked_solve<float, false, false>(grid, g.diffuse, smem, n);
-  tf::blocked_project(grid, g.project_first, smem, n);
+  tf::blocked_project<false>(grid, g.project_first, smem, n);
   for (int idx = loop.start; idx < cells; idx += loop.stride)
     tf::advect_cell<3>(idx, g.advect_by.u, g.advect_by.v, g.advect_by.w,
                        g.advect_vel, n, g.dt0);
   grid.sync();
-  tf::blocked_project(grid, g.project_final, smem, n);
+  tf::blocked_project<false>(grid, g.project_final, smem, n);
   const tf::BlockedProject& fin = g.project_final;
   for (int idx = loop.start; idx < cells; idx += loop.stride)
     tf::advect_cell<2>(idx, fin.uo, fin.vo, fin.wo, g.advect_scalars, n,

@@ -1,8 +1,8 @@
 // The blocked phases of the whole 3D step (step.cu) and of the whole
-// solve (jacobi.cu): the two projections, the diffusions and a lone
+// tier's lone calls (jacobi.cu): the projection, the diffusions and a
 // Jacobi or red-black solve, each a few passes of several (half-)sweeps
-// in shared memory with one grid-wide barrier after each pass, where the
-// rest of the whole tier of jacobi.cuh runs one barrier a sweep.
+// in shared memory with one grid-wide barrier after each pass, where a
+// design of one barrier a sweep would pay some 1.1 us a sweep.
 //
 // Tiles and boxes.  A phase cuts the interior into tiles of tx x ty x tz
 // cells (the host chooses them: kernels.step_plan); a block's box is its
@@ -26,7 +26,7 @@
 // (half-)sweep, from a zero guess (the box starts as zeros).  The
 // pressure's passes write interior cells only; a diffusion pass writes
 // every output cell whose clamped cell lies in its tile, ghosts
-// included, as tf::jacobi_cell does.
+// included, each the clamped cell's value times its set_bnd3d sign.
 //
 // The projection.  Its first pass computes the divergence over the box
 // into the box's x0 (div_value, the divergence kernel's own arithmetic),
@@ -220,11 +220,11 @@ __device__ __forceinline__ void face_taps(T& xm, T& xp, T& ym, T& yp, T& zm,
   zp = k == n ? mul_rn(sg.z, own) : zp;
 }
 
-// A Jacobi sweep over the interior cells of region r, from S into D:
-// tf::jacobi_cell's update.  A run carries the cell and the one below it
-// to the next row.  ``first``: read the stored neighbours; else a tap
-// across a face of the grid is the cell's own value times the face's
-// sign.
+// A Jacobi sweep over the interior cells of region r, from S into D,
+// each cell tf::cell_update of its six neighbours.  A run carries the
+// cell and the one below it to the next row.  ``first``: read the stored
+// neighbours; else a tap across a face of the grid is the cell's own
+// value times the face's sign.
 template <typename T>
 __device__ __forceinline__ void jacobi_level(const T* S, T* D, const T* X0,
                                              const Box& b, const Region& r,
@@ -253,7 +253,7 @@ __device__ __forceinline__ void jacobi_level(const T* S, T* D, const T* X0,
 }
 
 // A red-black half-sweep of parity p over the interior cells of region r,
-// in place in S: tf::rb_cell's update.  A run visits the rows of its
+// in place in S, each cell tf::cell_update.  A run visits the rows of its
 // column whose cell has parity p ((i + j + k + 1) % 2 == p), every
 // second row; they read only cells of the other parity, which the level
 // does not write, and the x neighbour above one is the one below the
@@ -312,7 +312,7 @@ __device__ __forceinline__ float bnd_sign(int b, int i, int j, int k,
 }
 
 // The owned output cells to dst, each the clamped cell's value times its
-// set_bnd3d(bnd) sign (tf::jacobi_cell's and tf::ghost_cell's rule).
+// set_bnd3d(bnd) sign (tf::ghost_cell's rule).
 template <typename T>
 __device__ __forceinline__ void store_owned(const T* S, const Box& b, T* dst,
                                             int n, int bnd) {
@@ -350,7 +350,11 @@ struct BlockedProject {
 // after each.  Block t owns tile t for the whole solve, and keeps its
 // x0 (the divergence) in shared memory; the pressure's box is loaded
 // anew each pass.  ``smem`` holds three boxes (the third for Jacobi's
-// second buffer).
+// second buffer; red-black takes two).  The whole step's projections
+// (LONE false) end with a barrier, which its advection needs; a lone
+// projection (the whole tier's fused projection) has none after its
+// last pass: a compile-time choice, so that the step's code is its own.
+template <bool LONE>
 __device__ __forceinline__ void blocked_project(cg::grid_group& grid,
                                                 const BlockedProject& g,
                                                 float* smem, int n) {
@@ -457,7 +461,7 @@ __device__ __forceinline__ void blocked_project(cg::grid_group& grid,
         }
       }
     }
-    grid.sync();
+    if (!LONE || !last) grid.sync();
   }
 }
 

@@ -29,8 +29,8 @@ bfloat16 Jacobi solve two sweeps a pass (csrc/jacobi_blocked.cu,
 whole solve in either type, the multi-field diffusion, the fused
 projection and the whole step) runs a whole solve, or a whole step, in
 one cooperative launch, for grids whose fields stay in the card's L2
-(``solve_whole_ok``); the whole solve and the whole step run blocked
-passes in shared memory, a grid barrier a pass (``solve_plan``,
+(``solve_whole_ok``), each as blocked passes in shared memory, a grid
+barrier a pass (``solve_plan``, ``diffuse_plan``, ``project_plan``,
 ``step_plan``).
 
 The four stencil stages also take an x-slab of the sharded step
@@ -1401,23 +1401,39 @@ def project3d_whole(u, v, w, iters, red_black):
     in turn.
 
     Replaces project3d_whole_pallas (tpufluids/grid/pallas_kernels.py).
-    One cooperative launch runs the three phases with the cell bodies of
-    the three-launch path (csrc/jacobi.cu, csrc/divgrad.cuh); only for
-    fields that pass ``solve_whole_ok`` in float32."""
+    Bound by its chain of dependent sweeps.  One cooperative launch of
+    the whole step's blocked projection (csrc/jacobi.cu,
+    csrc/step_blocked.cuh): a persistent block a tile, the divergence
+    kept in its shared memory for the whole solve, passes of
+    project_plan's levels and a grid barrier between passes
+    (solve_barriers), the gradient subtracted in the last pass with the
+    cell arithmetic of the three-launch path; only for fields that pass
+    ``solve_whole_ok`` in float32."""
     _check_solve(0, iters)
     if not _on_cuda(u, v, w):
         return project3d_whole_plain(u, v, w, iters, red_black)
     if not solve_whole_ok(u, torch.float32):
         raise ValueError(f"{tuple(u.shape)} fields are outside the whole "
                          f"tier (solve_whole_ok)")
+    blocks, smem = solve_info(_device_index(u))
+    plan = project_plan(u.shape[0] - 2, red_black, blocks, smem)
+    outs = _project_launch(u, v, w, iters, red_black, plan)
+    project3d_whole.launches += 1
+    return outs
+
+
+def _project_launch(u, v, w, iters, red_black, plan: SolvePlan):
+    """project3d_whole's launch on CUDA fields with ``plan`` (one tile a
+    block); the pressure alternates between two buffers."""
     n = u.shape[0] - 2
     h = 1.0 / n
     outs = tuple(torch.empty_like(u) for _ in range(3))
-    div, p = torch.empty_like(u), torch.empty_like(u)
-    p2 = None if red_black else torch.empty_like(u)
-    _build.launch("tf_project3d_whole", u, v, w, *outs, div, p, p2, n, iters,
-                  bool(red_black), -0.5 * h, 1.0 / h, 1.0 / 6.0)
-    project3d_whole.launches += 1
+    p0, p1 = torch.empty_like(u), torch.empty_like(u)
+    t = plan.tile
+    _build.launch("tf_project3d_whole", u, v, w, *outs, p0, p1, n, iters,
+                  bool(red_black), plan.blocks, plan.threads, plan.smem,
+                  plan.levels, t.tx, t.ty, t.tz, -0.5 * h, 1.0 / h,
+                  1.0 / 6.0)
     return outs
 
 
@@ -1558,9 +1574,9 @@ class SolvePlan:
     of ``threads`` threads (no more blocks than tiles), ``smem`` bytes of
     shared memory each, passes of ``levels`` sweeps (red-black:
     half-sweeps) on the tiles of ``tile`` (a StepTile in 3D, a
-    Step2dTile in 2D) with a halo of ``levels``.  A block takes tiles t,
-    t + blocks, ...; one that holds one tile keeps its x0 in shared
-    memory for the whole solve."""
+    Step2dTile in 2D) with a halo of ``levels`` (the fused projection's:
+    ``levels`` + 1).  A block takes tiles t, t + blocks, ...; one that
+    holds one tile keeps its x0 in shared memory for the whole solve."""
     blocks: int
     threads: int
     smem: int
@@ -1584,6 +1600,38 @@ def _solve_plan(n, rb, itemsize, blocks, smem):
     tile = _step_tile(n, blocks, levels, 1, boxes, smem, itemsize)
     return SolvePlan(min(blocks, tile.count(n)), SOLVE_THREADS,
                      itemsize * boxes * tile.box_cells(n), levels, tile)
+
+
+def project_plan(n: int, red_black: bool, blocks: int,
+                 smem: int) -> SolvePlan:
+    """The fused projection's plan at size n on ``blocks`` blocks of at
+    most ``smem`` bytes of shared memory: one tile a block for the whole
+    solve (its divergence stays in the block's x0), in two float32 boxes
+    (red-black: x0 and the pressure, updated in place) or three (Jacobi:
+    its second buffer), with a halo of its levels + 1 (the last pass
+    widens the cone by one for the gradient), SOLVE_THREADS threads.
+    The levels are SOLVE_RB_LEVELS half-sweeps or SOLVE_JACOBI_LEVELS
+    sweeps a pass where such a tile fits one a block, else the most
+    below that which fit: on the card's 132 blocks of 232448 B, Jacobi
+    takes 2 sweeps a pass at n = 93 to 99 (its three boxes of halo 4 fit
+    no tiling of 132 tiles or fewer there), and every other size and
+    mode its own levels."""
+    return _project_plan(n, bool(red_black), blocks, smem)
+
+
+@functools.cache
+def _project_plan(n, rb, blocks, smem):
+    boxes = 2 if rb else 3
+    for levels in range(SOLVE_RB_LEVELS if rb else SOLVE_JACOBI_LEVELS, 0,
+                        -1):
+        try:
+            tile = _step_tile(n, blocks, levels + 1, 1, boxes, smem)
+        except ValueError:
+            continue
+        return SolvePlan(tile.count(n), SOLVE_THREADS,
+                         4 * boxes * tile.box_cells(n), levels, tile)
+    raise ValueError(f"no tile of the fused projection fits one a block at "
+                     f"n = {n} in {smem} B on {blocks} blocks")
 
 
 def diffuse_plan(n: int, fields: int, blocks: int, smem: int) -> SolvePlan:

@@ -18,13 +18,21 @@ import torch
 from tpufluids_torch.config import PI_REF
 
 
+def _scalar(r: torch.Tensor, x: float) -> torch.Tensor:
+    """x as a scalar tensor on r's device: on CUDA, torch turns a
+    division by a Python number into a multiplication by its reciprocal;
+    a division by a device scalar divides, on every device, as the CUDA
+    kernels do (csrc/sph_common.cuh)."""
+    return torch.full((), x, dtype=r.dtype, device=r.device)
+
+
 def w_cubic(r: torch.Tensor, h: float) -> torch.Tensor:
     """Cubic-spline density kernel W(r); support 2h."""
-    q = r / h
+    q = r / _scalar(r, h)
     inner = 1.0 - 1.5 * q * q + 0.75 * q * q * q          # 0 <= r <= h
     outer = 0.25 * (2.0 - q) ** 3                          # h < r < 2h
     val = torch.where(q <= 1.0, inner, torch.where(q < 2.0, outer, 0.0))
-    return val / (PI_REF * h ** 3)
+    return val / _scalar(r, PI_REF * h ** 3)
 
 
 def w_cubic_deriv(r: torch.Tensor, h: float) -> torch.Tensor:
