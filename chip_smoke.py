@@ -212,6 +212,25 @@
     x-march kernels move (the DCT step, config 3 at 256^3 and 512^3,
     config 5 at world 1) beside the card's name and power limit.
 
+14. The sharded SPH step (tpufluids_torch.shard.particles).  Holds the
+    slab instances of the four SPH force kernels against their plain
+    versions and their lane emulations (bit for bit) and times them,
+    the kernels alone beside the same wrapper on the cube: #13 and #15
+    fresh on base_dam's slab GridSpec(40, 22, 19), #14 and #16 on the
+    mixed tank at the JAX package's sharded unidyn configuration
+    (grid 16, cell 0.125; the tank's 17 planes split over no world
+    above 1) with a drift fix of the halo rows between the passes.
+    Drives make_sharded_step on a world of 1: base_dam and the tank,
+    10 steps bit for bit against the dense card step, then base_dam for
+    3 warm-up and 300 timed steps beside the dense step (dense, sharded,
+    sharded, dense).  Spawns worlds of 2 and 4 gloo processes sharing the
+    card: base_dam on the row-block and column families and the tank at
+    grid 16 on both (merge_dist 0.05 on the row-block leg), 1 warm-up and
+    5 timed steps each, every overflow counter 0, one slab kernel launch
+    a step, held by particle id against the dense card step.  Then
+    base_dam with subbin_parity (the JAX package's XLA pair path: torch
+    ops, no kernel), 10 steps on the card against the CPU.
+
 Prints the kernels' JSON line, with each kernel's least time on the card
 (its bound: the bytes it must move at 3.35 TB/s, or its float32
 operations at 67 TFLOP/s, whichever is larger), the card's name and
@@ -2598,8 +2617,9 @@ def check_unidyn_kernels(sph, dev):
     return results
 
 
-def compare_by_pid(sph, gpu, cpu, tols, what):
-    """Alive rows of the card's and the CPU's states, by particle id."""
+def compare_by_pid(sph, gpu, cpu, tols, what, against="CPU"):
+    """Alive rows of the card's and the CPU's states (or another
+    reference, ``against``), by particle id."""
     g, c = state_by_pid(sph, gpu), state_by_pid(sph, cpu)
     g = {k: v[g["alive"]] for k, v in g.items()}
     c = {k: v[c["alive"]] for k, v in c.items()}
@@ -2608,7 +2628,7 @@ def compare_by_pid(sph, gpu, cpu, tols, what):
         a, b = g[key].astype(np.float64), c[key].astype(np.float64)
         atol = 1e-5 * max(1.0, float(np.abs(b).max()))
         excess = float((np.abs(a - b) - rtol * np.abs(b) - atol).max())
-        log(f"{what}, card vs CPU, {key}: max_abs_err "
+        log(f"{what}, card vs {against}, {key}: max_abs_err "
             f"{float(np.abs(a - b).max()):.3e} (rtol {rtol:.0e}, atol "
             f"{atol:.1e}); finite {bool(np.isfinite(a).all())}")
         check(np.isfinite(a).all() and excess <= 0.0,
@@ -2740,7 +2760,7 @@ def capped_rows(sph, st, bt, cfg, b):
 def sorted_and_moved(sph, st, cfg, seed):
     """(the pool sorted into cell order, its tables, the pool moved by up
     to 0.4 of a cell since): a stale step's inputs."""
-    st, bt = sph.binning.sort_by_cell(st, cfg)
+    st, bt, _ = sph.binning.sort_by_cell(st, cfg)
     rng = np.random.default_rng(seed)
     shift = torch.from_numpy(rng.uniform(-0.02, 0.02, (st.capacity, 3))
                              .astype(np.float32)).to(st.pos.device)
@@ -3348,6 +3368,332 @@ def run_shared_card_worlds(shard):
             f"process start-up included")
 
 
+# the sharded SPH step (tpufluids_torch.shard.particles): the slab
+# instances of #13-#16, each held against its plain version (1e-5 *
+# max|plain| a column, as on the cube) and its lane emulation (bit for
+# bit); base_dam's grid of 40 cut as world 2's rank 1 cuts it,
+# GridSpec(g, g/2 + 2, g/2 - 1); the JAX package's sharded unidyn
+# configuration (tests/test_particles_sharded.py:65-74), the tank's grid
+# of 17 planes splitting over no world above 1, cut as world 2's rank 1
+# cuts it
+SLAB_KERNELS = {
+    "base_forces_rowblock, slab": ("base_forces_rowblock",
+                                   "tpufluids_torch/csrc/sph_forces.cu",
+                                   "tpufluids/sph_pallas.py:1438"),
+    "base_forces_column, slab": ("base_forces_column",
+                                 "tpufluids_torch/csrc/sph_forces.cu",
+                                 "tpufluids/sph_pallas.py:504"),
+    "unidyn_forces_rowblock, slab": ("unidyn_forces_rowblock",
+                                     "tpufluids_torch/csrc/sph_unidyn.cu",
+                                     "tpufluids/sph_pallas.py:1656"),
+    "unidyn_forces_column, slab": ("unidyn_forces_column",
+                                   "tpufluids_torch/csrc/sph_unidyn.cu",
+                                   "tpufluids/sph_pallas.py:1105"),
+}
+SLAB_TOL = 1e-5
+SHARD_UNIDYN = dict(grid_size=16, cell_size=0.125)
+SHARD_SPH_STEPS = 10           # world 1 against the dense step, bit for bit
+SHARD_SPH_TIMED = (3, 300)     # base_dam at world 1 beside the dense step
+# worlds 2 and 4: (warm-up, timed) steps, against as many dense card steps
+SHARD_SPH_WORLD_STEPS = (1, 5)
+# the worlds' legs: (name, scene, configuration changes); the unidyn legs
+# run the tank on SHARD_UNIDYN (it fits that domain)
+SHARD_SPH_LEGS = (
+    ("base_dam, row-block", "base_dam", {}),
+    ("base_dam, column", "base_dam", {"pallas_kernel": "column"}),
+    ("unidyn tank, row-block, merge_dist 0.05", "tank",
+     {"merge_dist": 0.05}),
+    ("unidyn tank, column", "tank", {"pallas_kernel": "column"}),
+)
+SUBBIN_STEPS = 10              # base_dam with subbin_parity, card vs CPU
+
+
+def slab_scene(sph, variant, dev):
+    """(state, cfg, slab) of a slab instance: base_dam with seeded dens,
+    press and vel, or the mixed-phase tank on SHARD_UNIDYN."""
+    if variant == "base":
+        st = randomised(sph_scene(sph, "base_dam", dev), SEED + 13)
+        return st, sph.cfg, sph.binning.GridSpec(g=40, x_planes=22,
+                                                 x_offset=19)
+    cfg = sph.ucfg.replace(**SHARD_UNIDYN)
+    st = sph.scenes.mixed_phase(sph.scenes.unidyn_tank(cfg, device=dev),
+                                SEED + 14)
+    return st, cfg, sph.binning.GridSpec(g=16, x_planes=10, x_offset=7)
+
+
+def halo_drift_fix(sph, st, cfg, slab):
+    """A drift_fix that changes the drifts of the rows in the slab's two
+    halo planes (pool order), as the sharded step's owners' values do."""
+    cx = sph.binning.cell_coords(st.pos, cfg)[:, 0]
+    halo = ((cx == slab.x_offset)
+            | (cx == slab.x_offset + slab.x_planes - 1))[:, None]
+
+    def fix(s, f):
+        return torch.where(halo, 0.5 * s, s), torch.where(halo, -f, f)
+    return fix
+
+
+def check_slab_kernels(sph, dev):
+    """Each slab instance of #13-#16 against its plain version and its
+    lane emulation, timed (the wrapper with CUDA events, the kernels
+    alone with the profiler) beside the same wrapper on the cube; returns
+    their rows of the kernels line."""
+    rows = {}
+    for name, (wrapper, _, _) in SLAB_KERNELS.items():
+        variant = "base" if wrapper.startswith("base") else "unidyn"
+        st, cfg, slab = slab_scene(sph, variant, dev)
+        order, bt = sph.binning.sort_tables(st, cfg, slab)
+        order_c, bt_c = sph.binning.sort_tables(st, cfg)
+        kern = getattr(sph.sph_kernels, wrapper)
+        plain = getattr(sph.sph_kernels, wrapper + "_plain")
+        caps = (sph.config.column_caps(cfg) if wrapper.endswith("column")
+                else None)
+        if variant == "base":
+            def call(fn, b=bt, o=order):
+                return fn(st, b, cfg, o)
+            got, want = call(kern), call(plain)
+            emu = sph.forces.base_lane_pass(st, bt, cfg,
+                                            sph.sph_kernels.BASE_LANES, caps)
+            torch.cuda.synchronize()
+            got_cols = [got[0], *got[1].unbind(1)]
+            e, r = rel_err(got_cols, [want[0], *want[1].unbind(1)])
+            same = sum(int(torch.equal(g, w)) for g, w in zip(
+                got_cols, [emu[0], *emu[1].unbind(1)]))
+            cols = 4
+            overflow = (int(got[2]), int(want[2]))
+            pairs = pair_count(sph, st, bt, cfg, caps=caps)
+            check(int(emu[2]) == pairs, f"{name}: emulated pairs")
+            work = sph_work(st, bt, order, BASE_IN, got[:2], pairs,
+                            BASE_PAIR_OPS)
+        else:
+            fix = halo_drift_fix(sph, st, cfg, slab)
+            th = cfg.subbin_threshold
+
+            def call(fn, b=bt, o=order):
+                return fn(st, b, cfg, o, drift_fix=fix, subbin_threshold=th)
+            got, want = call(kern), call(plain)
+            emu = sph.forces.unidyn_lane_pass(
+                st, bt, cfg, sph.sph_kernels.UNIDYN_LANES, th, fix, caps)
+            torch.cuda.synchronize()
+            r, e, _, _ = unidyn_errors(got, want, st.capacity, name)
+            _, _, same, cols = unidyn_errors(got, emu, st.capacity, name)
+            check(torch.equal(got["has_pair"], emu["has_pair"])
+                  and torch.equal(got["merge_partner"], emu["merge_partner"]),
+                  f"{name}: pair counts or partners differ from the lanes")
+            overflow = (int(got["overflow"]), int(want["overflow"]))
+            pairs = pair_count(sph, st, bt, cfg, th, caps)
+            outs = [t for t in got.values() if isinstance(t, torch.Tensor)]
+            work = sph_work(st, bt, order, UNIDYN_IN, outs, pairs,
+                            UNIDYN_PAIR_OPS)
+        ms = time_ms(lambda: call(kern))
+        plain_ms = time_ms(lambda: call(plain), reps=PLAIN_REPS[0],
+                           warm=PLAIN_REPS[1])
+        alone = kernel_alone_ms(lambda: call(kern))
+        cube = kernel_alone_ms(lambda: call(kern, bt_c, order_c))
+        bound_ms, bound_by = bound(*work)
+        inside = int(bt.in_dom.sum())
+        log(f"kernel {name} @ {slab} ({inside} of {st.capacity} rows in "
+            f"the slab{', halo drift fix' if variant != 'base' else ''}): "
+            f"max_abs_err {e:.3e} (relative {r:.3e}, tolerance "
+            f"{SLAB_TOL:.0e}); {same} of {cols} columns bit for bit with "
+            f"the lane emulation; overflow {overflow}; {pairs} pairs, bound "
+            f"{bound_ms:.4f} ms ({bound_by}); ms per call: kernel {ms:.4f} "
+            f"(the kernels alone {alone:.4f} device-ms; on the cube "
+            f"{cube:.4f}), plain {plain_ms:.4f}")
+        check(r <= SLAB_TOL, f"{name} disagrees with its plain version")
+        check(same == cols, f"{name} differs from its lane emulation")
+        check(overflow[0] == overflow[1] == 0, f"{name}: overflow")
+        rows[name] = {"max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": None, "kernel_ms": alone,
+                      "cube_kernel_ms": cube}
+    return rows
+
+
+def shard_sph_scene(sph, name, device):
+    if name == "base_dam":
+        return sph.scenes.base_dam(sph.cfg, device=device), sph.cfg
+    cfg = sph.ucfg.replace(**SHARD_UNIDYN)
+    return sph.scenes.unidyn_tank(cfg, device=device), cfg
+
+
+def run_sharded_sph_world1(sph, shard, dev):
+    """make_sharded_step on a world of 1: base_dam and the tank, 10 steps
+    bit for bit against the dense card step; then base_dam timed beside
+    the dense step, the counts reset before and read after.  Returns the
+    counts."""
+    mesh = shard.make_mesh(device="cuda")
+    p = shard.particles
+    for name, cfg in (("base_dam", sph.cfg), ("tank", sph.ucfg)):
+        st = (sph_scene(sph, name, dev) if name == "base_dam"
+              else unidyn_scene(sph, "tank", dev))
+        local = p.distribute(st, mesh, cfg)
+        out, m = p.make_sharded_step(mesh, cfg, n_steps=SHARD_SPH_STEPS)(
+            local)
+        ref, rm = sph.step.run_python(local, cfg, SHARD_SPH_STEPS)
+        same = all(torch.equal(getattr(out, f), getattr(ref, f))
+                   for f in sph.state.FIELDS)
+        log(f"sharded SPH, world 1, {name} ({int(st.alive.sum())} "
+            f"particles, {local.capacity} slots), {SHARD_SPH_STEPS} steps: "
+            f"bitwise equal to the dense card step: {same}; n_alive "
+            f"{int(m.n_alive)}, overflow (halo, migrate, bin) "
+            f"{int(m.halo_overflow)}, {int(m.migrate_overflow)}, "
+            f"{int(m.bin_overflow)}")
+        check(same and int(m.n_alive) == int(rm.n_alive), f"sharded SPH "
+              f"world 1, {name}: differs from the dense step")
+        check(int(m.halo_overflow) == int(m.migrate_overflow)
+              == int(m.bin_overflow) == 0, f"world 1 {name}: overflow")
+
+    warm, timed = SHARD_SPH_TIMED
+    st = sph_scene(sph, "base_dam", dev)
+    local = p.distribute(st, mesh, sph.cfg)
+    local, _ = p.make_sharded_step(mesh, sph.cfg, n_steps=warm)(local)
+    dense, _ = sph.step.run_python(local, sph.cfg, warm)
+    step = p.make_sharded_step(mesh, sph.cfg, n_steps=timed)
+    times = {}
+    for what in ("dense", "sharded", "sharded again", "dense again"):
+        torch.cuda.synchronize()
+        sph.sph_kernels.reset_launches()
+        t0 = time.perf_counter()
+        if what.startswith("dense"):
+            out, _ = sph.step.run_python(dense, sph.cfg, timed)
+        else:
+            out, m = step(local)
+        torch.cuda.synchronize()
+        times[what] = (time.perf_counter() - t0) / timed * 1e3
+        if what == "sharded":
+            counts = sph.sph_kernels.launch_counts()
+            check(counts["base_forces_rowblock"] == timed,
+                  f"sharded base_dam world 1: launches {counts}")
+            check(int(m.n_alive) == 8000, "sharded base_dam world 1: n_alive")
+    log(f"sharded SPH, world 1, base_dam, {timed} timed steps after {warm}: "
+        f"{times['sharded']:.4f} and {times['sharded again']:.4f} ms/step; "
+        f"the dense step in this run {times['dense']:.4f} and "
+        f"{times['dense again']:.4f} ms/step; launches {counts} "
+        f"({card_line()})")
+    return counts
+
+
+def shard_sph_rank(legs, out_dir):
+    """A rank of a world that shares the card over gloo: each leg runs
+    SHARD_SPH_WORLD_STEPS' warm-up and timed sharded steps from its dense
+    scene, the halo and migration capacities twice the fullest
+    cut-adjacent plane's population, rounded up to 64; every overflow
+    counter must be 0 and each timed step must launch the leg's slab
+    kernel.  Rank 0 collects the pools and holds them by particle id
+    against as many dense card steps at SPH_TOLS or UNIDYN_TOLS.  Each
+    rank writes the timed steps' launch counts."""
+    import types
+
+    from tpufluids_torch import (binning, config, convert, scenes,
+                                 sph_kernels, state, step)
+    from tpufluids_torch import shard
+    sph = types.SimpleNamespace(binning=binning, convert=convert,
+                                scenes=scenes, state=state,
+                                cfg=config.BASE_CONFIG,
+                                ucfg=config.UNIDYN_CONFIG)
+    mesh = shard.make_mesh(device="cuda")
+    p = shard.particles
+    warm, steps = SHARD_SPH_WORLD_STEPS
+    total = {}
+    for name, scene, changes in legs:
+        dense, cfg = shard_sph_scene(sph, scene, mesh.device)
+        cfg = cfg.replace(**changes)
+        gpd = cfg.grid_size // mesh.size
+        cx = binning.cell_coords(dense.pos, cfg)[:, 0][dense.alive]
+        planes = [int((cx == c).sum()) for r in range(mesh.size)
+                  for c in (r * gpd, r * gpd + gpd - 1)]
+        cap = -(-2 * max(planes) // 64) * 64
+        local = p.distribute(dense, mesh, cfg)
+        local, wm = p.make_sharded_step(mesh, cfg, halo_capacity=cap,
+                                        migrate_capacity=cap,
+                                        n_steps=warm)(local)
+        run = p.make_sharded_step(mesh, cfg, halo_capacity=cap,
+                                  migrate_capacity=cap, n_steps=steps)
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        staged = mesh.staged_bytes
+        sph_kernels.reset_launches()
+        t0 = time.perf_counter()
+        local, m = run(local)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = sph_kernels.launch_counts()
+        kernel = ("base_forces_" if cfg.variant == "base"
+                  else "unidyn_forces_") + (
+            "column" if cfg.pallas_kernel == "column" else "rowblock")
+        check(counts[kernel] == steps and sum(counts.values()) == steps,
+              f"{name}: rank {mesh.rank} launches {counts}")
+        add_counts(total, counts)
+        metrics = {k: float(v) for k, v in m._asdict().items()}
+        for ms in (wm, m):
+            check(int(ms.halo_overflow) == int(ms.migrate_overflow)
+                  == int(ms.bin_overflow) == 0, f"{name}: overflow {ms}")
+        full = p.collect(local, mesh)
+        if mesh.rank:
+            continue
+        ref, rm = step.run_python(dense, cfg, warm + steps)
+        log(f"sharded SPH {name}, world {mesh.size} on one shared card (gloo, "
+            f"host-staged; a correctness run, not scaling): "
+            f"{seconds / steps * 1e3:.4f} ms/step over {steps} steps after "
+            f"{warm}, "
+            f"{(mesh.staged_bytes - staged) / steps:.0f} staged bytes a step "
+            f"on rank 0; halo and migrate capacity {cap} (fullest "
+            f"cut-adjacent plane {max(planes)}), {local.capacity} slots a "
+            f"rank; metrics {metrics}; launches on rank 0 {counts}")
+        check(int(m.n_alive) == int(rm.n_alive), f"{name}: n_alive")
+        compare_by_pid(sph, full, ref, SPH_TOLS if cfg.variant == "base"
+                       else UNIDYN_TOLS,
+                       f"sharded SPH {name}, world {mesh.size}, "
+                       f"{warm + steps} steps", against="the dense card step")
+    with open(f"{out_dir}/counts_{mesh.rank}.json", "w") as f:
+        json.dump(total, f)
+
+
+def run_sharded_sph_worlds(shard):
+    """Worlds 2 and 4 of the sharded SPH step as processes on the one card
+    over gloo; returns the slab kernels' launches, summed over the ranks."""
+    import tempfile
+    total = {}
+    for world in (2, 4):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_sph_") as tmp:
+            t0 = time.perf_counter()
+            shard.spawn(world, shard_sph_rank, SHARD_SPH_LEGS, tmp,
+                        backend="gloo")
+            log(f"sharded SPH world {world}: {time.perf_counter() - t0:.1f} "
+                f"s in all, process start-up included")
+            for rank in range(world):
+                with open(f"{tmp}/counts_{rank}.json") as f:
+                    add_counts(total, json.load(f))
+    return total
+
+
+def check_subbin_xla(sph, dev):
+    """base_dam with subbin_parity: the JAX package's XLA pair path, torch
+    ops on the card and no kernel, 10 steps against the CPU by particle
+    id; its ms/step."""
+    cfg = sph.cfg.replace(subbin_parity=True)
+    before = sph.sph_kernels.launch_counts()
+    st = sph_scene(sph, "base_dam", dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gpu, gm = sph.step.run_python(st, cfg, SUBBIN_STEPS)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / SUBBIN_STEPS * 1e3
+    check(sph.sph_kernels.launch_counts() == before,
+          "the sub-binned base step launched a kernel")
+    cpu, cm = sph.step.run_python(sph_scene(sph, "base_dam", "cpu"), cfg,
+                                  SUBBIN_STEPS)
+    log(f"base_dam with subbin_parity (the XLA pair path, torch ops), "
+        f"{SUBBIN_STEPS} steps on the card: {ms:.4f} ms/step; bin_overflow "
+        f"{int(gm.bin_overflow)}, n_alive {int(gm.n_alive)}")
+    compare_by_pid(sph, gpu, cpu, SPH_TOLS,
+                   f"base_dam, subbin_parity, {SUBBIN_STEPS} steps")
+    check(int(gm.bin_overflow) == int(cm.bin_overflow), "sub-binned base_dam:"
+          " bin_overflow differs from the CPU's")
+    check(int(gm.n_alive) == 8000, "sub-binned base_dam: n_alive")
+
+
 def add_counts(total, counts):
     for name, c in counts.items():
         total[name] = total.get(name, 0) + c
@@ -3446,6 +3792,11 @@ def main():
             f"under torch.profiler, idle share {idle:.3f} ({card})")
     run_shared_card_worlds(shard)
 
+    checked.update(check_slab_kernels(sph, dev))
+    add_counts(counts, run_sharded_sph_world1(sph, shard, dev))
+    slab_counts = run_sharded_sph_worlds(shard)
+    check_subbin_xla(sph, dev)
+
     rows = []
     for name, (source, replaces, _) in {**KERNELS, **SPH_KERNELS,
                                         **UNIDYN_KERNELS,
@@ -3453,6 +3804,12 @@ def main():
         check(counts[name] > 0, f"{name} was not launched on the main path")
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": counts[name],
+                     **checked[name]})
+    for name, (wrapper, source, replaces) in SLAB_KERNELS.items():
+        check(slab_counts.get(wrapper, 0) > 0,
+              f"{name} was not launched on the sharded SPH path")
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": slab_counts[wrapper],
                      **checked[name]})
     log(card_line())
     log(json.dumps({"kernels": rows}))

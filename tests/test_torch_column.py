@@ -111,11 +111,12 @@ def test_permute_pool_and_sort_by_cell_equal_jax():
         np.testing.assert_array_equal(got[f], ref[f], err_msg=f)
 
     tcfg = config.UNIDYN_CONFIG
-    sorted_t, bt = binning.sort_by_cell(tst, tcfg)
+    sorted_t, bt, perm = binning.sort_by_cell(tst, tcfg)
     sorted_j, jbt = jbinning.sort_by_cell(jst, jcfg, runs=False)
     got, ref = convert.state_to_numpy(sorted_t), state_to_dict(sorted_j)
     for f in ref:
         np.testing.assert_array_equal(got[f], ref[f], err_msg=f)
+    np.testing.assert_array_equal(perm.numpy(), np.asarray(jbt.order))
     order, fresh = binning.sort_tables(tst, tcfg)
     np.testing.assert_array_equal(order.numpy(), np.asarray(jbt.order))
     np.testing.assert_array_equal(bt.order.numpy(), np.arange(320))
@@ -166,7 +167,7 @@ def test_column_plain_matches_pallas_interpret(n, span, cap, w_chunk, stale):
         jst, jbt = jbinning.sort_by_cell(jst, jcfg, runs=False)
         jst = jst.replace(pos=jnp.asarray(moved)[jbt.order])
         jorder = None
-        tst, bt = binning.sort_by_cell(tst, tcfg)
+        tst, bt, _ = binning.sort_by_cell(tst, tcfg)
         tst = tst.replace(pos=torch.tensor(moved[np.asarray(jbt.order)]))
     else:
         jorder, jbt = jbinning.sort_tables(jst, jcfg)

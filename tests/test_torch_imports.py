@@ -30,7 +30,8 @@ def test_port_has_sources():
             "tpufluids_torch/sph_kernels.py",
             "tpufluids_torch/adapt.py", "tpufluids_torch/shard/__init__.py",
             "tpufluids_torch/shard/mesh.py",
-            "tpufluids_torch/shard/grid_sharded.py"} <= names
+            "tpufluids_torch/shard/grid_sharded.py",
+            "tpufluids_torch/shard/particles.py"} <= names
     csrc = {p.name for p in (REPO / "tpufluids_torch" / "csrc").iterdir()}
     assert {"grid_common.cuh", "advect.cuh", "advect.cu", "forcing.cuh",
             "forcing.cu", "divgrad.cuh", "divgrad.cu", "jacobi.cuh",
@@ -55,6 +56,11 @@ def test_chip_smoke_imports_no_jax():
 def test_ab_solves_imports_no_jax():
     """The solves' A/B timing script runs on the card's machine too."""
     assert not _imported_roots(REPO / "ab_solves.py") & FORBIDDEN
+
+
+def test_ab_sph_imports_no_jax():
+    """The SPH kernels' A/B script runs on the card's machine too."""
+    assert not _imported_roots(REPO / "ab_sph.py") & FORBIDDEN
 
 
 GPU_TEST_FILES = sorted(
@@ -83,6 +89,7 @@ def test_importing_the_port_loads_no_jax():
         "import tpufluids_torch.integrate, tpufluids_torch.sph_kernels\n"
         "import tpufluids_torch.step, tpufluids_torch.scenes\n"
         "import tpufluids_torch.adapt, tpufluids_torch.shard\n"
+        "import tpufluids_torch.shard.particles\n"
         f"bad = sorted(m for m in set(sys.modules) - before\n"
         f"             if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "print(bad)\n"

@@ -1,21 +1,33 @@
-"""The sharded step's kernels against their plain PyTorch versions on the
+"""The sharded steps' kernels against their plain PyTorch versions on the
 card: the slab modes of the four stencil kernels and the sharded
 red-black solve (lin_solve3d_rb_shard) at 15^3 and 48^3, on x-slabs cut
 from a set_bnd-consistent grid at a domain face and inside it, in one
-pass and in several with the pad refreshed between them.  Marked
-``gpu`` and skipped without a CUDA device; on the card:
+pass and in several with the pad refreshed between them; the SPH force
+kernels (#13-#16) on the x-slab tables of the sharded SPH step; and that
+step on a world of 1.  Marked ``gpu`` and skipped without a CUDA device;
+on the card:
 
     python -m pytest --noconftest -m gpu tests/test_torch_shard_gpu.py
 
-The kernels are built with -fmad=false and take 1/h from Python, so
-every check here is bit for bit; the slabs' owned rows must also equal
-the dense kernels' rows of the same global cells."""
+The grid kernels are built with -fmad=false and take 1/h from Python, so
+every check of them is bit for bit; the slabs' owned rows must also equal
+the dense kernels' rows of the same global cells.  The SPH kernels on a
+slab are held as on the cube (tests/test_torch_sph_gpu.py,
+tests/test_torch_unidyn_gpu.py): 1e-5 * max|plain| a column against
+their plain versions, bit for bit against their lane emulations, and a
+row whose neighbourhood lies inside the slab bit for bit against the
+cube kernel's."""
 
 import numpy as np
 import pytest
 import torch
 
+from torch_base_inputs import randomised
+from torch_unidyn_inputs import held
+from tpufluids_torch import binning, forces, scenes, sph_kernels, step
+from tpufluids_torch.config import BASE_CONFIG, UNIDYN_CONFIG, column_caps
 from tpufluids_torch.grid import kernels, stam
+from tpufluids_torch.shard import make_mesh, particles
 
 pytestmark = pytest.mark.gpu
 
@@ -203,3 +215,120 @@ def test_rb_shard_passes_equal_the_dense_solve_at_world_1(cuda):
                                                    20)[1:-1])
     assert torch.equal(got, kernels.lin_solve3d_rb_shard_plain(
         0, None, x0p, 1.0, 6.0, 20, gx0=1 - halo, fuse=fuse, exchange=seed))
+
+
+# --- the SPH force kernels on x-slabs (tpufluids_torch.shard.particles) ----
+
+# base_dam's grid of 40 cut at its middle as world 2's rank 1 cuts it: 20
+# owned planes and a halo plane a side, GridSpec(g, g/2 + 2, g/2 - 1)
+SLAB_BASE = binning.GridSpec(g=40, x_planes=22, x_offset=19)
+# the JAX package's sharded unidyn configuration and world 2's rank 0 slab
+SHARD_UNIDYN = UNIDYN_CONFIG.replace(grid_size=16, cell_size=0.125)
+SLAB_UNIDYN = binning.GridSpec(g=16, x_planes=10, x_offset=-1)
+SPH_FIELDS = ("sum_w", "dpress", "diffusion", "vel_grad", "stress_accel",
+              "solid_drift", "fluid_drift", "mixture_accel", "delsolid",
+              "delfluid")
+
+
+def _inner(st, cfg, slab):
+    """Rows whose 27-cell neighbourhood lies inside ``slab``."""
+    cx = binning.cell_coords(st.pos, cfg)[:, 0]
+    return st.alive & (cx > slab.x_offset) & (
+        cx < slab.x_offset + slab.x_planes - 1)
+
+
+def halo_fix(st, cfg, slab):
+    """A drift_fix that changes the drifts of the rows in the slab's two
+    halo planes (pool order), as the sharded step's owners' values do."""
+    cx = binning.cell_coords(st.pos, cfg)[:, 0]
+    halo = ((cx == slab.x_offset)
+            | (cx == slab.x_offset + slab.x_planes - 1))[:, None]
+
+    def fix(s, f):
+        return torch.where(halo, 0.5 * s, s), torch.where(halo, -f, f)
+    return fix
+
+
+@pytest.mark.parametrize("capped", [False, True], ids=["rowblock", "column"])
+def test_slab_base_kernels_match_plain_and_lanes(cuda, capped):
+    cfg = BASE_CONFIG.replace(pallas_col_cap=32) if capped else BASE_CONFIG
+    st = randomised(scenes.base_dam(cfg, device=cuda), 8)
+    order, bt = binning.sort_tables(st, cfg, SLAB_BASE)
+    assert 0 < int(bt.in_dom.sum()) < st.capacity
+    name = "base_forces_column" if capped else "base_forces_rowblock"
+    kern = getattr(sph_kernels, name)
+    before = kern.launches
+    got = kern(st, bt, cfg, order)
+    want = getattr(sph_kernels, name + "_plain")(st, bt, cfg, order)
+    assert kern.launches == before + 1
+    assert int(got[2]) == int(want[2])
+    assert (int(got[2]) > 0) == capped
+    caps = column_caps(cfg) if capped else None
+    lanes = forces.base_lane_pass(st, bt, cfg, sph_kernels.BASE_LANES, caps)
+    for g, w, e in zip([got[0], *got[1].unbind(1)],
+                       [want[0], *want[1].unbind(1)],
+                       [lanes[0], *lanes[1].unbind(1)]):
+        assert float(w.abs().max()) > 0.0
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+        assert torch.equal(g, e)
+    # outside the slab: zeros; inside its owned planes: the cube's bits
+    assert not bool(got[0][~bt.in_dom[torch.argsort(order)]].any())
+    order_c, bt_c = binning.sort_tables(st, cfg)
+    cube = kern(st, bt_c, cfg, order_c)
+    inner = _inner(st, cfg, SLAB_BASE)
+    assert int(inner.sum()) > 1000
+    assert torch.equal(got[0][inner], cube[0][inner])
+    assert torch.equal(got[1][inner], cube[1][inner])
+
+
+@pytest.mark.parametrize("capped", [False, True], ids=["rowblock", "column"])
+def test_slab_unidyn_kernels_match_plain_and_lanes(cuda, capped):
+    """Passes A and B on a slab with a drift fix of the halo rows between
+    them; the resident kernel takes no hook."""
+    cfg = SHARD_UNIDYN.replace(pallas_col_cap=48) if capped else SHARD_UNIDYN
+    st = scenes.mixed_phase(scenes.random_blob(
+        3000, seed=4, cfg=cfg, span=0.5, boundary_frac=0.1, device=cuda), 5)
+    order, bt = binning.sort_tables(st, cfg, SLAB_UNIDYN)
+    assert 0 < int(bt.in_dom.sum()) < st.capacity
+    fix = halo_fix(st, cfg, SLAB_UNIDYN)
+    th = cfg.subbin_threshold
+    name = "unidyn_forces_column" if capped else "unidyn_forces_rowblock"
+    kern = getattr(sph_kernels, name)
+    before = kern.launches
+    got = kern(st, bt, cfg, order, drift_fix=fix, subbin_threshold=th)
+    assert kern.launches == before + 1
+    want = getattr(sph_kernels, name + "_plain")(
+        st, bt, cfg, order, drift_fix=fix, subbin_threshold=th)
+    held(got, want, SPH_FIELDS, 1e-5)
+    caps = column_caps(cfg) if capped else None
+    lanes = forces.unidyn_lane_pass(st, bt, cfg, sph_kernels.UNIDYN_LANES,
+                                    th, fix, caps)
+    _, same, cols = held(got, lanes, SPH_FIELDS, 1e-6)
+    assert same == cols
+    assert torch.equal(got["has_pair"], lanes["has_pair"])
+    assert torch.equal(got["merge_partner"], lanes["merge_partner"])
+    if capped:
+        assert int(got["overflow"]) == int(want["overflow"]) > 0
+    unfixed = kern(st, bt, cfg, order, subbin_threshold=th)
+    assert not torch.equal(unfixed["mixture_accel"], got["mixture_accel"])
+    assert torch.equal(unfixed["sum_w"], got["sum_w"])
+
+
+@pytest.mark.parametrize("variant", ["base", "unidyn"])
+def test_sharded_sph_world_of_one_is_the_dense_step(cuda, variant):
+    """make_sharded_step on a world of 1 equals the dense card step bit
+    for bit over 10 steps: base_dam and the cut tank."""
+    if variant == "base":
+        cfg, st = BASE_CONFIG, scenes.base_dam(BASE_CONFIG, device=cuda)
+    else:
+        cfg = UNIDYN_CONFIG
+        st = scenes.unidyn_tank(cfg, nf=2000, nb=808, device=cuda)
+    mesh = make_mesh(device=cuda.type)
+    local = particles.distribute(st, mesh, cfg)
+    out, m = particles.make_sharded_step(mesh, cfg, n_steps=10)(local)
+    ref, rm = step.run_python(local, cfg, 10)
+    for f in ("pos", "vel", "acc", "dens", "press", "solid", "stress",
+              "alive", "pid"):
+        assert torch.equal(getattr(out, f), getattr(ref, f)), f
+    assert int(m.n_alive) == int(rm.n_alive) == int(st.alive.sum())
+    assert int(m.bin_overflow) == int(m.halo_overflow) == 0

@@ -126,7 +126,7 @@ def test_stale_passes_meet_the_fresh_and_uncapped_ones():
                                       dtype=torch.float32),
                     press=torch.tensor(rng.normal(0, 3e4, 400),
                                        dtype=torch.float32))
-    st, bt = binning.sort_by_cell(st, cfg)
+    st, bt, _ = binning.sort_by_cell(st, cfg)
     big = cfg.replace(pallas_col_cap=400)
     fresh = sph_kernels.base_forces_rowblock_plain(st, bt, cfg, bt.order)
     sorted_stale = sph_kernels.base_forces_rowblock_plain(st, bt, cfg,

@@ -276,9 +276,10 @@ def test_update_matches_jax():
 
 
 @pytest.mark.parametrize("cfg,kw,error,match", [
-    (CFG.replace(subbin_parity=True), {}, NotImplementedError,
-     "Queue 1 item 4"),
-    (CFG, dict(subbin_parity=True), NotImplementedError, "Queue 1 item 4"),
+    (CFG.replace(subbin_parity=True, sort_every=2), {}, ValueError,
+     "Pallas"),
+    (CFG.replace(sort_every=2), dict(subbin_parity=True), ValueError,
+     "Pallas"),
     (config.UNIDYN_CONFIG.replace(sort_every=3), {}, ValueError,
      "base variant"),
 ], ids=["subbin_cfg", "subbin_call", "unidyn_sort_every"])
@@ -334,13 +335,20 @@ def test_auto_above_rowblock_pool_and_slabs_raise():
     assert step.resolve_unidyn_kernel(
         unidyn.replace(pallas_kernel="resident"), 200000) == "column"
     assert step.resolve_unidyn_kernel(unidyn, 262145) == "column"
+    # a slab bins the rows of its planes, local ids, and the sub-binned
+    # base pass runs on its tables (held against JAX in test_torch_sph_xla
+    # and test_torch_particles_sharded)
     st = scenes.random_blob(20, seed=0, device="cpu")
-    slab = binning.GridSpec(g=CFG.grid_size, x_planes=10, x_offset=5)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        binning.sort_tables(st, CFG, grid=slab)
-    _, bt = binning.sort_tables(st, CFG, grid=binning.full_grid(CFG))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        forces.compute_forces(st, bt, CFG, subbin_parity=True)
+    slab = binning.GridSpec(g=CFG.grid_size, x_planes=10, x_offset=15)
+    _, bt = binning.sort_tables(st, CFG, grid=slab, subbin=True)
+    cx = binning.cell_coords(st.pos, CFG)[:, 0]
+    inside = int(((cx >= 15) & (cx < 25)).sum())
+    assert 0 < inside < 20 and int(bt.in_dom.sum()) == inside
+    assert bt.grid == slab and bt.cell_start.shape == (slab.num_cells + 2,)
+    acc = forces.compute_forces(st, bt, CFG, subbin_parity=True)
+    assert bool(torch.isfinite(acc.dpress).all())
+    with pytest.raises(ValueError, match="grid_size"):
+        binning.sort_tables(st, CFG, grid=slab._replace(g=8))
 
 
 def test_kernel_wrapper_rejects_other_devices():

@@ -84,7 +84,7 @@ def _close(got, want):
 def _sorted_and_moved(st, cfg, seed):
     """(the pool sorted into cell order, its tables, the pool moved by up
     to 0.4 of a cell): a stale step's inputs."""
-    st, bt = binning.sort_by_cell(st, cfg)
+    st, bt, _ = binning.sort_by_cell(st, cfg)
     rng = np.random.default_rng(seed)
     dev = st.pos.device
     shift = torch.from_numpy(rng.uniform(-0.02, 0.02, (st.capacity, 3))

@@ -48,7 +48,7 @@ def blob_state(device, seed=3):
 def sorted_and_moved(st, cfg, seed, far=False):
     """(the pool sorted into cell order, its tables, the pool moved since):
     a stale step's inputs."""
-    st, bt = binning.sort_by_cell(st, cfg)
+    st, bt, _ = binning.sort_by_cell(st, cfg)
     n = st.capacity
     rng = np.random.default_rng(seed)
     shift = rng.uniform(-0.02, 0.02, (n, 3))

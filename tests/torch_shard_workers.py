@@ -102,3 +102,31 @@ def steps(out_dir, inputs, cases):
             out[f"{name}/backend"] = np.array(step.backend)
     if mesh.rank == 0:
         np.savez(f"{out_dir}/steps.npz", **out)
+
+
+def particle_steps(out_dir, inputs, cases):
+    """The sharded SPH step (tpufluids_torch.shard.particles) of each case
+    (name, SPHConfig, scene, steps, capacity a rank, keywords of
+    make_sharded_step) on this rank's pool of the dense scene in
+    ``inputs`` (its fields under "<scene>/<field>"); rank 0 saves the
+    collected pools and the metrics under "<name>/..."."""
+    mesh = _mesh()
+    from tpufluids_torch import convert
+    from tpufluids_torch.shard import particles
+    data = np.load(inputs)
+    out = {}
+    for name, cfg, scene, n_steps, cap, kw in cases:
+        dense = convert.state_from_numpy(
+            {k.split("/", 1)[1]: data[k] for k in data.files
+             if k.startswith(scene + "/")}, device="cpu")
+        local = particles.distribute(dense, mesh, cfg, cap)
+        local, m = particles.make_sharded_step(mesh, cfg, n_steps=n_steps,
+                                               **kw)(local)
+        full = particles.collect(local, mesh)
+        if full is not None:
+            out.update({f"{name}/{k}": v for k, v in
+                        convert.state_to_numpy(full).items()})
+            out.update({f"{name}/m_{k}": v.numpy()
+                        for k, v in m._asdict().items()})
+    if mesh.rank == 0:
+        np.savez(f"{out_dir}/particles.npz", **out)

@@ -53,13 +53,13 @@ SIGNATURES = {
     "tf_barrier_probe": [_INT] * 3 + [_P],
     "tf_lin_solve2d": [_P] * 4 + [_INT] * 9 + [_F] * 2 + [_P],
     "tf_step2d_whole": [_P] * 9 + [_INT] * 14 + [_F] * 15 + [_P],
-    "tf_sph_base_forces": [_P] * 8 + [_INT] * 2 + [_F] * 9 + [_P],
-    "tf_sph_base_column": [_P] * 8 + [_INT] * 4 + [_F] * 9 + [_P],
-    "tf_sph_base_pack": [_P] * 12 + [_INT] * 2 + [_F] * 4 + [_P],
-    "tf_unidyn_pass_a": [_P] * 10 + [_INT] * 3 + [_F] * 19 + [_P],
-    "tf_unidyn_pass_b": [_P] * 7 + [_INT] * 3 + [_F] * 3 + [_P],
-    "tf_unidyn_column_a": [_P] * 10 + [_INT] * 5 + [_F] * 19 + [_P],
-    "tf_unidyn_column_b": [_P] * 7 + [_INT] * 5 + [_F] * 3 + [_P],
+    "tf_sph_base_forces": [_P] * 8 + [_INT] * 3 + [_F] * 9 + [_P],
+    "tf_sph_base_column": [_P] * 8 + [_INT] * 5 + [_F] * 9 + [_P],
+    "tf_sph_base_pack": [_P] * 12 + [_INT] * 3 + [_F] * 4 + [_P],
+    "tf_unidyn_pass_a": [_P] * 10 + [_INT] * 4 + [_F] * 19 + [_P],
+    "tf_unidyn_pass_b": [_P] * 7 + [_INT] * 4 + [_F] * 3 + [_P],
+    "tf_unidyn_column_a": [_P] * 10 + [_INT] * 6 + [_F] * 19 + [_P],
+    "tf_unidyn_column_b": [_P] * 7 + [_INT] * 6 + [_F] * 3 + [_P],
 }
 
 

@@ -10,7 +10,7 @@
 
 The JAX package scatters with ``.at[idx].set(..., mode="drop")`` and the
 out-of-range index ``n``; on a CUDA tensor that index is a device-side
-assert, so ``_scatter_drop`` scatters into an ``n + 1``-row buffer and
+assert, so ``scatter_drop`` scatters into an ``n + 1``-row buffer and
 drops its last row.  Nothing here synchronises the host.
 """
 
@@ -54,13 +54,15 @@ def apply_merges(state: ParticleState, merge_partner: torch.Tensor,
     return resolve_merges(state, merge_partner, pick_pid, cfg)
 
 
-def _scatter_drop(dst: torch.Tensor, idx: torch.Tensor,
-                  src: torch.Tensor) -> torch.Tensor:
-    """``dst`` with ``dst[idx[i]] = src[i]`` for every ``idx[i] < n``; the
-    rows with ``idx[i] == n`` are dropped (JAX's ``mode="drop"``)."""
+def scatter_drop(dst: torch.Tensor, idx: torch.Tensor,
+                 src: torch.Tensor) -> torch.Tensor:
+    """``dst`` with ``dst[idx[i]] = src[i]`` for every ``idx[i] < n``
+    (``src`` broadcast to the indexed rows); the rows with ``idx[i] == n``
+    are dropped (JAX's ``mode="drop"``).  The indices below n are
+    distinct."""
     n = dst.shape[0]
     out = torch.cat([dst, dst[:1]])
-    out.index_put_((idx,), src.expand_as(dst))
+    out.index_put_((idx,), src)
     return out[:n]
 
 
@@ -82,7 +84,7 @@ def apply_splits(state: ParticleState, cfg: SPHConfig) -> ParticleState:
     served = want & (want_rank < torch.sum(free.to(i32)))
     rows = torch.arange(n, dtype=torch.int64, device=free.device)
     # slot_of_rank[r] = the r-th free slot
-    slot_of_rank = _scatter_drop(torch.full_like(rows, n),
+    slot_of_rank = scatter_drop(torch.full_like(rows, n),
                                  torch.where(free, free_rank.long(), n), rows)
     child = torch.where(served,
                         slot_of_rank[torch.clamp(want_rank.long(), 0, n - 1)],
@@ -97,7 +99,7 @@ def apply_splits(state: ParticleState, cfg: SPHConfig) -> ParticleState:
         pos=state.pos + offset, mass=torch.ones((), device=dev),
         delpress=zero, diffusion=zero, stress=zero, boundary=no, alive=yes,
         split=no, pid=state.pid + n)
-    new = {f: _scatter_drop(getattr(state, f), child,
+    new = {f: scatter_drop(getattr(state, f), child,
                             child_values.get(f, getattr(state, f)))
            for f in FIELDS}
     new["mass"] = torch.where(served, 1.0, new["mass"])

@@ -4,15 +4,22 @@ in PyTorch.
 Per step the pool is sorted by linear cell id (z fastest).  The pool
 itself is not permuted: ``sort_tables`` returns the permutation
 ``order`` and the sorted tables, and the force pass gathers what it
-needs by ``order``.  Only the sort cadence (``sort_every > 1``)
-permutes it, with ``sort_by_cell``, so that the steps between two
-sorts read the pool in the sorted order of their stale tables.  Dead
+needs by ``order``.  ``sort_by_cell`` permutes it: the sort cadence
+(``sort_every > 1``), so that the steps between two sorts read the pool
+in the sorted order of their stale tables, the XLA pair path and the
+sharded step, as the JAX package's do.  Dead
 and out-of-domain particles get the sentinel id ``num_cells`` and sort
 to the end, so no neighbour run holds them.
 
 One (x, y) column of the grid, g consecutive cells, is one contiguous
 range of sorted rows from ``column_start``; the column force family
 caps the rows it takes of each column (``config.column_caps``).
+
+The grid is the full cube or, under x-slab sharding
+(``shard.particles``), a ``GridSpec`` of ``x_planes`` planes from global
+plane ``x_offset``: cell ids are local to it, and rows outside it take
+the sentinel.  The tables carry their grid (``BinTable.grid``), so the
+neighbour runs and the force kernels read its extent from them.
 
 Cell coordinates truncate toward zero, like the reference's ``int()``
 cast (FluidGPU.cu:419) and the JAX package's binning.  (The JAX
@@ -21,9 +28,10 @@ one-cell band just below a low face, ROADMAP Queue 3.)  A NaN
 coordinate becomes cell 0, as XLA's and CUDA's float-to-int casts make
 it.
 
-The unidyn variant also gets each sorted row's home-cell population
-and sub-bin octant (``home_count``, ``octant``), which its two-level
-binning reads; the base step computes neither.
+The unidyn variant, and the base variant when sub-binning is asked for,
+also get each sorted row's home-cell population and sub-bin octant
+(``home_count``, ``octant``), which the two-level binning reads; the
+base step computes neither.
 
 Nothing here synchronises the host with the device: the tables stay
 device tensors of static shape.
@@ -44,8 +52,9 @@ RUN_OFFSETS = [(dx, dy) for dx in (-1, 0, 1) for dy in (-1, 0, 1)]
 
 
 class GridSpec(NamedTuple):
-    """Binning-grid extent: the full cube, or an x-slab under domain
-    decomposition (not ported: ROADMAP Queue 1 item 8)."""
+    """Binning-grid extent: the full cube, or a local x-slab (its owned
+    planes and one halo plane a side) under the domain decomposition of
+    ``shard.particles``."""
     g: int          # y/z extent (= cfg.grid_size)
     x_planes: int   # number of x planes covered
     x_offset: int   # global cx of local plane 0
@@ -60,12 +69,14 @@ def full_grid(cfg: SPHConfig) -> GridSpec:
 
 
 def _check_grid(cfg: SPHConfig, grid: Optional[GridSpec]) -> GridSpec:
-    full = full_grid(cfg)
-    if grid is not None and tuple(grid) != tuple(full):
-        raise NotImplementedError(
-            "a binning grid other than the full cube (x-slab sharding) is "
-            "not ported to tpufluids_torch yet (ROADMAP.md Queue 1 item 8)")
-    return full
+    """``grid``, or the full cube for None; a slab's y/z extent must be
+    the configuration's."""
+    if grid is None:
+        return full_grid(cfg)
+    if grid.g != cfg.grid_size or grid.x_planes < 1:
+        raise ValueError(f"{grid}: a slab of grid_size {cfg.grid_size} "
+                         f"needs g = {cfg.grid_size} and x_planes >= 1")
+    return grid
 
 
 def _shifted(pos: torch.Tensor, cfg: SPHConfig):
@@ -111,13 +122,16 @@ def octant(pos: torch.Tensor, cfg: SPHConfig) -> torch.Tensor:
 
 def cell_id(pos: torch.Tensor, alive: torch.Tensor, cfg: SPHConfig,
             grid: Optional[GridSpec] = None):
-    """(linear cell id, in_dom): int32 ids, z fastest; dead or
-    out-of-domain particles get the sentinel ``num_cells``."""
+    """(linear cell id, in_dom): int32 ids local to ``grid``, z fastest;
+    dead particles and those outside the grid get the sentinel
+    ``num_cells``."""
     grid = _check_grid(cfg, grid)
     g = grid.g
     c = cell_coords(pos, cfg)
-    in_dom = ((c >= 0) & (c < g)).all(dim=1)
-    lin = (c[:, 0] * g + c[:, 1]) * g + c[:, 2]
+    lx = c[:, 0] - grid.x_offset
+    in_dom = ((lx >= 0) & (lx < grid.x_planes)
+              & ((c[:, 1:] >= 0) & (c[:, 1:] < g)).all(dim=1))
+    lin = (lx * g + c[:, 1]) * g + c[:, 2]
     return torch.where(in_dom & alive, lin, grid.num_cells), in_dom
 
 
@@ -127,13 +141,14 @@ class BinTable(NamedTuple):
     cid: torch.Tensor         # (N,) int32 sorted ids (sentinel num_cells)
     in_dom: torch.Tensor      # (N,) bool, sorted: alive and in the domain
     cell_start: torch.Tensor  # (num_cells + 2,) int32 first row of cell c
-    # unidyn only (None for the base variant), sorted:
+    grid: GridSpec            # the extent the ids are local to
+    # unidyn or sub-binned only (else None), sorted:
     home_count: Optional[torch.Tensor] = None  # (N,) int32 own-cell rows
     octant: Optional[torch.Tensor] = None      # (N,) int32, see octant()
 
 
 def sort_tables(state: ParticleState, cfg: SPHConfig,
-                grid: Optional[GridSpec] = None):
+                grid: Optional[GridSpec] = None, subbin: bool = False):
     """Sorted-order binning tables without permuting the pool; returns
     (order, BinTable), as ``tpufluids.binning.sort_tables``.
 
@@ -144,7 +159,8 @@ def sort_tables(state: ParticleState, cfg: SPHConfig,
     below c, from a binary search of the sorted ids (equal to the JAX
     package's histogram and cumsum; ``torch.bincount`` would synchronise
     the host on a CUDA device).  ``home_count`` and ``octant`` are
-    filled for the unidyn variant only."""
+    filled for the unidyn variant, and for the base variant with
+    ``subbin`` (its sub-binned pair pass)."""
     grid = _check_grid(cfg, grid)
     cid, _ = cell_id(state.pos, state.alive, cfg, grid)
     n = cid.shape[0]
@@ -156,8 +172,8 @@ def sort_tables(state: ParticleState, cfg: SPHConfig,
     cell_start = torch.searchsorted(scid, cells, out_int32=True)
     in_dom = scid < grid.num_cells
     bt = BinTable(order=order, cid=scid, in_dom=in_dom,
-                  cell_start=cell_start)
-    if cfg.variant != "base":
+                  cell_start=cell_start, grid=grid)
+    if cfg.variant != "base" or subbin:
         cc = torch.clamp(scid, max=grid.num_cells).to(torch.int64)
         home_count = torch.where(in_dom, cell_start[cc + 1] - cell_start[cc],
                                  0)
@@ -167,16 +183,19 @@ def sort_tables(state: ParticleState, cfg: SPHConfig,
 
 
 def sort_by_cell(state: ParticleState, cfg: SPHConfig,
-                 grid: Optional[GridSpec] = None):
-    """The pool permuted into cell order, and its tables: (state,
-    BinTable), as ``tpufluids.binning.sort_by_cell(..., runs=False)``.
-    The tables are those of ``sort_tables`` (the port builds neighbour
-    runs on demand, ``run_table``), with ``order`` the identity: pool
-    row and sorted row are now one."""
-    order, bt = sort_tables(state, cfg, grid)
-    return permute_pool(state, order), bt._replace(
+                 grid: Optional[GridSpec] = None, subbin: bool = False):
+    """The pool permuted into cell order, its tables and the permutation:
+    (state, BinTable, perm), as ``tpufluids.binning.sort_by_cell``.  The
+    tables are those of ``sort_tables`` (the port builds neighbour runs
+    on demand, ``run_table``, or clipped as the JAX package builds them,
+    ``clipped_runs``), with ``order`` the identity: pool row and sorted
+    row are now one.  ``perm`` (int64) is the sort's own order, row r of
+    the new pool being row perm[r] of ``state``: the sharded step takes
+    values back to its pre-sort rows by it."""
+    perm, bt = sort_tables(state, cfg, grid, subbin)
+    return permute_pool(state, perm), bt._replace(
         order=torch.arange(state.capacity, dtype=torch.int64,
-                           device=order.device))
+                           device=perm.device)), perm
 
 
 def permute_pool(state: ParticleState, order: torch.Tensor) -> ParticleState:
@@ -186,9 +205,9 @@ def permute_pool(state: ParticleState, order: torch.Tensor) -> ParticleState:
 
 
 def column_start(bt: BinTable, cfg: SPHConfig) -> torch.Tensor:
-    """(g*g + 1,) first sorted row of each (x, y) column, and the end."""
-    g = cfg.grid_size
-    return bt.cell_start[0:g ** 3 + 1:g]
+    """(x_planes*g + 1,) first sorted row of each (x, y) column of the
+    tables' grid, and the end."""
+    return bt.cell_start[0:bt.grid.num_cells + 1:bt.grid.g]
 
 
 def column_overflow(bt: BinTable, cfg: SPHConfig, b: int) -> torch.Tensor:
@@ -238,19 +257,20 @@ def run_table(bt: BinTable, cfg: SPHConfig, caps=None, whole=False,
     """(run_start, run_len), each (N, 9) int64 in sorted order: the 9
     (dx, dy) neighbour runs of cells (z-1, z, z+1) of every sorted row,
     in RUN_OFFSETS order, as ``tpufluids.binning.build_bins`` builds
-    them but without its ``3 * max_per_cell`` clip.  Rows outside the
-    domain have runs of length 0.  Used by the plain force versions.
+    them but without its ``3 * max_per_cell`` clip (``clipped_runs``
+    adds it), over the tables' grid (a slab's runs end at its x
+    planes).  Rows outside the grid have runs of length 0.  Used by the
+    plain force versions.
 
     ``whole``: each run is the whole neighbour column (the stale
     passes, which mask pairs by their current cells instead).
-    ``window`` = (cz (N,) the sorted rows' current z-cells, shift (g*g,)
-    each column's z-cell shift): each run is the ``stale_window`` of its
-    column, the stale force kernels' walk.
+    ``window`` = (cz (N,) the sorted rows' current z-cells, shift
+    (x_planes*g,) each column's z-cell shift): each run is the
+    ``stale_window`` of its column, the stale force kernels' walk.
     ``caps`` = (b, w_cap): the column family's pair set.  A row at rank b
     or more in its column gets no runs, and a run ends at rank w_cap of
     its column."""
-    g = cfg.grid_size
-    num_cells = g ** 3
+    g, gx, num_cells = bt.grid.g, bt.grid.x_planes, bt.grid.num_cells
     cid = bt.cid.to(torch.int64)
     valid_home = cid < num_cells
     cc = torch.clamp(cid, max=num_cells - 1)
@@ -264,13 +284,13 @@ def run_table(bt: BinTable, cfg: SPHConfig, caps=None, whole=False,
     off = torch.tensor(RUN_OFFSETS, dtype=torch.int64, device=cid.device)
     nx = cx[:, None] + off[:, 0]
     ny = cy[:, None] + off[:, 1]
-    valid = ((nx >= 0) & (nx < g) & (ny >= 0) & (ny < g)
+    valid = ((nx >= 0) & (nx < gx) & (ny >= 0) & (ny < g)
              & valid_home[:, None])
     base = nx * (g * g) + ny * g
     if whole:
         lo_cell, hi_cell = base, base + g
     elif window is not None:
-        col = torch.clamp(nx * g + ny, 0, g * g - 1)
+        col = torch.clamp(nx * g + ny, 0, gx * g - 1)
         z0, z1 = stale_window(window[0][:, None],
                               window[1].to(torch.int64)[col], g)
         valid = valid & (z0 <= z1)
@@ -284,3 +304,15 @@ def run_table(bt: BinTable, cfg: SPHConfig, caps=None, whole=False,
         end = cs[torch.clamp(base, 0, num_cells)] + caps[1]
         lo, hi = torch.minimum(lo, end), torch.minimum(hi, end)
     return lo, torch.where(valid, hi - lo, 0)
+
+
+def clipped_runs(bt: BinTable, cfg: SPHConfig):
+    """(run_start, run_len, overflow): the runs of ``run_table`` with the
+    clip of ``tpufluids.binning.build_bins``, each run cut to its first
+    ``3 * max_per_cell`` rows (the highest sorted rows dropped), and the
+    slots dropped, summed over the runs, as an int32 device scalar.  The
+    XLA pair path reads these."""
+    k3 = 3 * cfg.max_per_cell
+    run_start, run_len = run_table(bt, cfg)
+    overflow = torch.clamp(run_len - k3, min=0).sum().to(torch.int32)
+    return run_start, torch.clamp(run_len, max=k3), overflow

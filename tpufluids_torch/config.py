@@ -12,8 +12,10 @@ kernel (``tpufluids_torch.sph_kernels``).  ``pallas_kernel`` names the
 kernel family (``tpufluids_torch.step``).  The column family reads
 ``pallas_col_cap``, ``pallas_w_chunk`` and ``pallas_h_chunk`` through
 ``column_caps``, because its capacity caps decide which pairs are
-dropped.  ``force_backend`` is read only by ``step.use_sort_every``
-(``"xla"`` refuses the sort cadence, as in the JAX package).
+dropped.  ``force_backend`` is read by ``step.use_kernels``: ``"xla"``
+takes the JAX package's XLA pair path (torch ops, runs clipped at
+``3 * max_per_cell`` rows) and refuses the sort cadence, as in the JAX
+package; ``"auto"`` and ``"pallas"`` take the kernels.
 ``pallas_z_skip`` and the banded sweep's settings change no result
 (``tpufluids/sph_pallas.py:223-242``, ``:329-346``); they are kept so
 that a config round-trips, and the port does not read them.
@@ -127,8 +129,9 @@ class SPHConfig:
     pallas_z_skip: int = -1
     pallas_kernel: str = "auto"
     sort_every: int = 1
-    # run capacity of the JAX package's gather path; the port's runs
-    # are uncapped, so nothing overflows
+    # run capacity of the XLA pair path: a neighbour run keeps its first
+    # 3 * max_per_cell rows and the rest count in bin_overflow (the
+    # kernels' runs are uncapped)
     max_per_cell: int = 16
 
     @property

@@ -32,8 +32,10 @@ __device__ __forceinline__ float spiky_over_ds(float ds, float h,
 
 // Calls f(j) for the sorted rows j that lane ``lane`` of a home row's
 // kLanes lanes takes of the 9 (dx, dy) runs around column (cx, cy), in
-// binning.RUN_OFFSETS order.  Run (dx, dy) is the contiguous rows of
-// cells z0..z1 of its column col = (cx + dx) g + cy + dy, where
+// binning.RUN_OFFSETS order, on a grid of gx x planes (the cube, gx = g,
+// or a rank's x-slab: cx is local to it) of g x g columns.  Run (dx, dy)
+// is the contiguous rows of cells z0..z1 of its column
+// col = (cx + dx) g + cy + dy, where
 // zrange(dx, dy, col, z0, z1) sets them and returns false to skip the
 // run (z0 <= z1 within [0, g - 1] when it returns true); capped, only the
 // first w_cap rows of each column.  The t-th walked slot, counted over
@@ -41,14 +43,14 @@ __device__ __forceinline__ float spiky_over_ds(float ds, float h,
 // the bin tables, not the positions.
 template <int kLanes, bool kCapped, class Z, class F>
 __device__ __forceinline__ void for_each_candidate(
-    const int* __restrict__ cell_start, int cx, int cy, int g, int w_cap,
-    int lane, Z&& zrange, F&& f) {
+    const int* __restrict__ cell_start, int cx, int cy, int gx, int g,
+    int w_cap, int lane, Z&& zrange, F&& f) {
   static_assert(kLanes > 0 && (kLanes & (kLanes - 1)) == 0,
                 "kLanes is a power of two");
   int t = 0;  // slots walked in the runs before this one
   for (int dx = -1; dx <= 1; ++dx) {
     const int nx = cx + dx;
-    if (nx < 0 || nx >= g) continue;
+    if (nx < 0 || nx >= gx) continue;
     for (int dy = -1; dy <= 1; ++dy) {
       const int ny = cy + dy;
       if (ny < 0 || ny >= g) continue;

@@ -122,10 +122,11 @@ struct PairConsts {
 };
 
 // Lane ``lane``'s sums (sum_w, dpress x, y, z) of sorted row i over its
-// candidates; c is the row's (stale) cell id, below the sentinel, so row
-// i is alive and in the domain.  rows: n x 12 floats as 3 float4 per
-// row: (x, y, z, vx), (vy, vz, dens, press), (boundary, alive,
-// press / dens^2, 0); see forces.pack_rows: the pack kernel computes
+// candidates; c is the row's (stale) cell id on a grid of gx x planes of
+// g x g columns, below the sentinel, so row i is alive and in the
+// domain.  rows: n x 12 floats as 3 float4 per row: (x, y, z, vx),
+// (vy, vz, dens, press), (boundary, alive, press / dens^2, 0); see
+// forces.pack_rows: the pack kernel computes
 // each row's press / dens^2, the same IEEE operations the pair body
 // would repeat for every pair.  Stale: cells, the rows' current cells,
 // and shift, the stale columns' z-cell shifts, both from the pack
@@ -134,7 +135,7 @@ template <bool kCapped, bool kStale>
 __device__ __forceinline__ void home_sums(
     const float4* __restrict__ rows, const float4* __restrict__ cells,
     const int* __restrict__ cell_start, const int* __restrict__ shift, int i,
-    int c, int g, int lane, const PairConsts& k, const Caps& caps,
+    int c, int gx, int g, int lane, const PairConsts& k, const Caps& caps,
     float (&acc)[4]) {
   const int cz = c % g, cy = (c / g) % g, cx = c / (g * g);
   const float4 ha = rows[3 * i], hb = rows[3 * i + 1], hc = rows[3 * i + 2];
@@ -142,7 +143,7 @@ __device__ __forceinline__ void home_sums(
   const float di = hb.z, pi_term = hc.z;
   const bool fluid_i = !(hc.x > 0.5f);
   tf_sph::for_each_candidate<kLanes, kCapped>(
-      cell_start, cx, cy, g, caps.w_cap, lane,
+      cell_start, cx, cy, gx, g, caps.w_cap, lane,
       [&](int, int, int col, int& z0, int& z1) {
         if (kStale) return tf_sph::stale_window(ci.z, shift[col], g, z0, z1);
         z0 = max(cz - 1, 0);
@@ -188,16 +189,16 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) base_forces_kernel(
     const int* __restrict__ cid, const int* __restrict__ cell_start,
     const int* __restrict__ shift, const long long* __restrict__ order,
     float* __restrict__ sum_w, float* __restrict__ dpress, int n, int g,
-    PairConsts k, Caps caps) {
+    int gx, PairConsts k, Caps caps) {
   const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
   const int i = (int)(tid / kLanes);
   const int lane = (int)(threadIdx.x % kLanes);
-  const int ncells = g * g * g;
+  const int ncells = gx * g * g;
   const int c = i < n ? cid[i] : ncells;
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
   if (c < ncells && !(kCapped && i - cell_start[c - c % g] >= caps.b)) {
-    home_sums<kCapped, kStale>(rows, cells, cell_start, shift, i, c, g, lane,
-                               k, caps, acc);
+    home_sums<kCapped, kStale>(rows, cells, cell_start, shift, i, c, gx, g,
+                               lane, k, caps, acc);
   }
 #pragma unroll
   for (int off = kLanes / 2; off > 0; off /= 2) {
@@ -228,7 +229,7 @@ __global__ void __launch_bounds__(kPackThreads) base_pack_kernel(
     const long long* __restrict__ order,
     const unsigned char* __restrict__ in_dom, const int* __restrict__ cid,
     float4* __restrict__ rows, float4* __restrict__ cells,
-    int* __restrict__ shift, int n, int g, Domain dom) {
+    int* __restrict__ shift, int n, int g, int gx, Domain dom) {
   const int i = blockIdx.x * kPackThreads + threadIdx.x;
   if (i >= n) return;
   const long long p = order[i];
@@ -243,7 +244,7 @@ __global__ void __launch_bounds__(kPackThreads) base_pack_kernel(
   const float4 now = cells_now(x, y, z, dom);
   cells[i] = now;
   const int c = cid[i];
-  if (c >= g * g * g || !(live > 0.5f) || isnan(now.z)) return;
+  if (c >= gx * g * g || !(live > 0.5f) || isnan(now.z)) return;
   const int dz = (int)fminf(fabsf(now.z - (float)(c % g)), (float)g);
   if (dz > 0) atomicMax(&shift[c / g], dz);
 }
@@ -251,8 +252,8 @@ __global__ void __launch_bounds__(kPackThreads) base_pack_kernel(
 template <bool kCapped, bool kStale>
 int launch(const float* rows, const float* cells, const int* cid,
            const int* cell_start, const int* shift, const long long* order,
-           float* sum_w, float* dpress, int n, int g, const PairConsts& k,
-           const Caps& caps, void* stream) {
+           float* sum_w, float* dpress, int n, int g, int gx,
+           const PairConsts& k, const Caps& caps, void* stream) {
   if (n == 0) return 0;
   const unsigned blocks =
       (unsigned)(((long long)n * kLanes + kThreads - 1) / kThreads);
@@ -260,7 +261,7 @@ int launch(const float* rows, const float* cells, const int* cid,
       <<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
           reinterpret_cast<const float4*>(rows),
           reinterpret_cast<const float4*>(cells), cid, cell_start, shift,
-          order, sum_w, dpress, n, g, k, caps);
+          order, sum_w, dpress, n, g, gx, k, caps);
   return (int)cudaGetLastError();
 }
 
@@ -269,24 +270,26 @@ int launch(const float* rows, const float* cells, const int* cid,
 #define TF_BASE_ARGS                                                        \
   const float *rows, const float *cells, const int *cid,                    \
       const int *cell_start, const int *shift, const long long *order,      \
-      float *sum_w, float *dpress, int n, int g
+      float *sum_w, float *dpress, int n, int g, int gx
 #define TF_BASE_CONSTS                                                      \
   float h, float two_h, float w_norm, float spiky, float mu_eps,            \
       float visc_a, float visc_q, float alpha_b, float bdens
 #define TF_BASE_K                                                           \
   PairConsts { h, two_h, w_norm, spiky, mu_eps, visc_a, visc_q, alpha_b, bdens }
 
-// cells and shift: the current cells and z-cell shifts of tf_sph_base_pack
-// when the tables are an earlier step's (stale; see above), else null.
+// g: the grid's y/z extent; gx: its x planes (g for the cube, a rank's
+// slab under sharding), the cell ids local to it.  cells and shift: the
+// current cells and z-cell shifts of tf_sph_base_pack when the tables are
+// an earlier step's (stale; see above), else null.
 extern "C" int tf_sph_base_forces(TF_BASE_ARGS, TF_BASE_CONSTS,
                                   void* stream) {
   const Caps caps{0, 0};
   return cells ? launch<false, true>(rows, cells, cid, cell_start, shift,
-                                     order, sum_w, dpress, n, g, TF_BASE_K,
-                                     caps, stream)
+                                     order, sum_w, dpress, n, g, gx,
+                                     TF_BASE_K, caps, stream)
                : launch<false, false>(rows, cells, cid, cell_start, shift,
-                                      order, sum_w, dpress, n, g, TF_BASE_K,
-                                      caps, stream);
+                                      order, sum_w, dpress, n, g, gx,
+                                      TF_BASE_K, caps, stream);
 }
 
 // b, w_cap: the column caps of config.column_caps.
@@ -294,15 +297,15 @@ extern "C" int tf_sph_base_column(TF_BASE_ARGS, int b, int w_cap,
                                   TF_BASE_CONSTS, void* stream) {
   const Caps caps{b, w_cap};
   return cells ? launch<true, true>(rows, cells, cid, cell_start, shift,
-                                    order, sum_w, dpress, n, g, TF_BASE_K,
-                                    caps, stream)
+                                    order, sum_w, dpress, n, g, gx,
+                                    TF_BASE_K, caps, stream)
                : launch<true, false>(rows, cells, cid, cell_start, shift,
-                                     order, sum_w, dpress, n, g, TF_BASE_K,
-                                     caps, stream);
+                                     order, sum_w, dpress, n, g, gx,
+                                     TF_BASE_K, caps, stream);
 }
 
 // The rows (n x 12 floats) of the pool fields in sorted order, and, when
-// cells is not null (n x 4 floats; shift: g*g int32, zeroed by the
+// cells is not null (n x 4 floats; shift: gx*g int32, zeroed by the
 // caller), each row's current cells and each column's z-cell shift for
 // the stale walk.
 extern "C" int tf_sph_base_pack(const float* pos, const float* vel,
@@ -312,15 +315,15 @@ extern "C" int tf_sph_base_pack(const float* pos, const float* vel,
                                 const long long* order,
                                 const unsigned char* in_dom, const int* cid,
                                 float* rows, float* cells, int* shift, int n,
-                                int g, float xmin, float ymin, float zmin,
-                                float cs, void* stream) {
+                                int g, int gx, float xmin, float ymin,
+                                float zmin, float cs, void* stream) {
   if (n == 0) return 0;
   const Domain dom{xmin, ymin, zmin, cs};
   base_pack_kernel<<<(unsigned)((n + kPackThreads - 1) / kPackThreads),
                      kPackThreads, 0, (cudaStream_t)stream>>>(
       pos, vel, dens, press, boundary, alive, order, in_dom, cid,
       reinterpret_cast<float4*>(rows), reinterpret_cast<float4*>(cells),
-      shift, n, g, dom);
+      shift, n, g, gx, dom);
   return (int)cudaGetLastError();
 }
 

@@ -108,14 +108,15 @@ __device__ __forceinline__ Row load_row(const float4* __restrict__ rows,
 }
 
 // Calls f(j) for the sorted rows j of the 27-cell stencil of cell c that
-// lane ``lane`` of the row's kLanes takes (tf_sph::for_each_candidate):
+// lane ``lane`` of the row's kLanes takes (tf_sph::for_each_candidate) on
+// a grid of gx x planes (the cube, or a rank's x-slab) of g x g columns:
 // each run the cells z-1..z+1 of its column.  With sub-binning on
 // (threshold >= 0) and more than threshold rows in cell c, only the cells
 // at offsets {0, dir} per axis.  Capped (the column family): only the
 // first w_cap rows of each neighbour column.
 template <bool kCapped, class F>
 __device__ __forceinline__ void for_each_candidate(
-    const int* __restrict__ cell_start, int c, int g, int threshold,
+    const int* __restrict__ cell_start, int c, int gx, int g, int threshold,
     int octant, int w_cap, int lane, F&& f) {
   const int cz = c % g, cy = (c / g) % g, cx = c / (g * g);
   const bool sub =
@@ -126,7 +127,7 @@ __device__ __forceinline__ void for_each_candidate(
   const int z0 = max(sub ? min(cz, cz + dirz) : cz - 1, 0);
   const int z1 = min(sub ? max(cz, cz + dirz) : cz + 1, g - 1);
   tf_sph::for_each_candidate<kLanes, kCapped>(
-      cell_start, cx, cy, g, w_cap, lane,
+      cell_start, cx, cy, gx, g, w_cap, lane,
       [&](int dx, int dy, int, int& lo, int& hi) {
         if (sub && ((dx != 0 && dx != dirx) || (dy != 0 && dy != diry))) {
           return false;
@@ -142,8 +143,8 @@ __device__ __forceinline__ void for_each_candidate(
 // forces: in the domain and, capped, at rank below b in its column.
 template <bool kCapped>
 __device__ __forceinline__ bool is_home(const int* __restrict__ cell_start,
-                                        int i, int c, int g, int b) {
-  if (c >= g * g * g) return false;
+                                        int i, int c, int gx, int g, int b) {
+  if (c >= gx * g * g) return false;
   return !kCapped || i - cell_start[c - c % g] < b;
 }
 
@@ -213,7 +214,7 @@ __global__ void __launch_bounds__(kThreads) unidyn_pass_a_kernel(
     const int* __restrict__ cell_start, const long long* __restrict__ order,
     const int* __restrict__ octant, float* __restrict__ out_a,
     long long* __restrict__ partner, float4* __restrict__ drift_sorted,
-    int n, int g, int threshold, int b, int w_cap, UnidynConsts k) {
+    int n, int g, int gx, int threshold, int b, int w_cap, UnidynConsts k) {
   const Lane ln = this_lane(n);
   const int i = ln.i;
   const int c = ln.in ? cid[i] : 0;
@@ -222,7 +223,7 @@ __global__ void __launch_bounds__(kThreads) unidyn_pass_a_kernel(
   for (int m = 0; m < kACols; ++m) acc[m] = 0.f;
   float best_d = INFINITY;
   int best_j = INT_MAX;
-  if (ln.in && is_home<kCapped>(cell_start, i, c, g, b)) {
+  if (ln.in && is_home<kCapped>(cell_start, i, c, gx, g, b)) {
     const long long p = order[i];
     const Row hi = load_row(rows, i);
     const float vi[3] = {hi.a.w, hi.b.x, hi.b.y};
@@ -255,8 +256,8 @@ __global__ void __launch_bounds__(kThreads) unidyn_pass_a_kernel(
                             b150 * delpress[3 * p + 2] + k.gravity};
     const int oct = octant != nullptr ? octant[i] : 0;
 
-    for_each_candidate<kCapped>(cell_start, c, g, threshold, oct, w_cap,
-                                ln.lane, [&](int j) {
+    for_each_candidate<kCapped>(cell_start, c, gx, g, threshold, oct,
+                                w_cap, ln.lane, [&](int j) {
       const Row hj = load_row(rows, j);
       Geom q;
       if (!pair_geom(hi, hj, k, q)) return;
@@ -364,13 +365,13 @@ __global__ void __launch_bounds__(kThreads) unidyn_pass_b_kernel(
     const float4* __restrict__ rows, const float4* __restrict__ drift_sorted,
     const int* __restrict__ cid, const int* __restrict__ cell_start,
     const long long* __restrict__ order, const int* __restrict__ octant,
-    float* __restrict__ out_b, int n, int g, int threshold, int b, int w_cap,
-    UnidynConsts k) {
+    float* __restrict__ out_b, int n, int g, int gx, int threshold, int b,
+    int w_cap, UnidynConsts k) {
   const Lane ln = this_lane(n);
   const int i = ln.i;
   const int c = ln.in ? cid[i] : 0;
   float acc[kBCols] = {0.f, 0.f, 0.f, 0.f, 0.f};
-  if (ln.in && is_home<kCapped>(cell_start, i, c, g, b)) {
+  if (ln.in && is_home<kCapped>(cell_start, i, c, gx, g, b)) {
     const Row hi = load_row(rows, i);
     const float4 e0 = drift_sorted[2 * i], e1 = drift_sorted[2 * i + 1];
     const float sdi[3] = {e0.x, e0.y, e0.z}, fdi[3] = {e0.w, e1.x, e1.y};
@@ -378,8 +379,8 @@ __global__ void __launch_bounds__(kThreads) unidyn_pass_b_kernel(
     const bool bi = hi.c.x > 0.5f;
     const int oct = octant != nullptr ? octant[i] : 0;
 
-    for_each_candidate<kCapped>(cell_start, c, g, threshold, oct, w_cap,
-                                ln.lane, [&](int j) {
+    for_each_candidate<kCapped>(cell_start, c, gx, g, threshold, oct,
+                                w_cap, ln.lane, [&](int j) {
       const Row hj = load_row(rows, j);
       Geom q;
       if (!pair_geom(hi, hj, k, q)) return;
@@ -428,23 +429,23 @@ template <bool kCapped>
 int launch_a(const float* rows, const float* delpress, const float* stress,
              const int* cid, const int* cell_start, const long long* order,
              const int* octant, float* out_a, long long* partner,
-             float* drift_sorted, int n, int g, int threshold, int b,
+             float* drift_sorted, int n, int g, int gx, int threshold, int b,
              int w_cap, const UnidynConsts& k, void* stream) {
   if (n == 0) return 0;
   unidyn_pass_a_kernel<kCapped>
       <<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
           reinterpret_cast<const float4*>(rows), delpress, stress, cid,
           cell_start, order, octant, out_a, partner,
-          reinterpret_cast<float4*>(drift_sorted), n, g, threshold, b, w_cap,
-          k);
+          reinterpret_cast<float4*>(drift_sorted), n, g, gx, threshold, b,
+          w_cap, k);
   return (int)cudaGetLastError();
 }
 
 template <bool kCapped>
 int launch_b(const float* rows, const float* drift_sorted, const int* cid,
              const int* cell_start, const long long* order, const int* octant,
-             float* out_b, int n, int g, int threshold, int b, int w_cap,
-             float h, float two_h, float spiky, void* stream) {
+             float* out_b, int n, int g, int gx, int threshold, int b,
+             int w_cap, float h, float two_h, float spiky, void* stream) {
   if (n == 0) return 0;
   UnidynConsts k{};
   k.h = h;
@@ -454,7 +455,7 @@ int launch_b(const float* rows, const float* drift_sorted, const int* cid,
       <<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
           reinterpret_cast<const float4*>(rows),
           reinterpret_cast<const float4*>(drift_sorted), cid, cell_start,
-          order, octant, out_b, n, g, threshold, b, w_cap, k);
+          order, octant, out_b, n, g, gx, threshold, b, w_cap, k);
   return (int)cudaGetLastError();
 }
 
@@ -464,7 +465,7 @@ int launch_b(const float* rows, const float* drift_sorted, const int* cid,
   const float *rows, const float *delpress, const float *stress,             \
       const int *cid, const int *cell_start, const long long *order,         \
       const int *octant, float *out_a, long long *partner,                   \
-      float *drift_sorted, int n, int g, int threshold
+      float *drift_sorted, int n, int g, int gx, int threshold
 #define TF_UNIDYN_A_CONSTS                                                   \
   float h, float two_h, float w_norm, float spiky, float mu_eps,             \
       float alpha_fluid, float sound, float visc_q, float alpha_sb,          \
@@ -478,21 +479,23 @@ int launch_b(const float* rows, const float* drift_sorted, const int* cid,
         mixbrownian, gravity, merge_dist                                     \
   }
 
+// g: the grid's y/z extent; gx: its x planes (g for the cube, a rank's
+// slab under sharding), the cell ids local to it.
 extern "C" int tf_unidyn_pass_a(TF_UNIDYN_A_ARGS, TF_UNIDYN_A_CONSTS,
                                 void* stream) {
   return launch_a<false>(rows, delpress, stress, cid, cell_start, order,
-                         octant, out_a, partner, drift_sorted, n, g,
+                         octant, out_a, partner, drift_sorted, n, g, gx,
                          threshold, 0, 0, TF_UNIDYN_A_K, stream);
 }
 
 extern "C" int tf_unidyn_pass_b(const float* rows, const float* drift_sorted,
                                 const int* cid, const int* cell_start,
                                 const long long* order, const int* octant,
-                                float* out_b, int n, int g, int threshold,
-                                float h, float two_h, float spiky,
-                                void* stream) {
+                                float* out_b, int n, int g, int gx,
+                                int threshold, float h, float two_h,
+                                float spiky, void* stream) {
   return launch_b<false>(rows, drift_sorted, cid, cell_start, order, octant,
-                         out_b, n, g, threshold, 0, 0, h, two_h, spiky,
+                         out_b, n, g, gx, threshold, 0, 0, h, two_h, spiky,
                          stream);
 }
 
@@ -502,7 +505,7 @@ extern "C" int tf_unidyn_pass_b(const float* rows, const float* drift_sorted,
 extern "C" int tf_unidyn_column_a(TF_UNIDYN_A_ARGS, int b, int w_cap,
                                   TF_UNIDYN_A_CONSTS, void* stream) {
   return launch_a<true>(rows, delpress, stress, cid, cell_start, order,
-                        octant, out_a, partner, drift_sorted, n, g,
+                        octant, out_a, partner, drift_sorted, n, g, gx,
                         threshold, b, w_cap, TF_UNIDYN_A_K, stream);
 }
 
@@ -510,11 +513,11 @@ extern "C" int tf_unidyn_column_b(const float* rows,
                                   const float* drift_sorted, const int* cid,
                                   const int* cell_start,
                                   const long long* order, const int* octant,
-                                  float* out_b, int n, int g, int threshold,
-                                  int b, int w_cap, float h, float two_h,
-                                  float spiky, void* stream) {
+                                  float* out_b, int n, int g, int gx,
+                                  int threshold, int b, int w_cap, float h,
+                                  float two_h, float spiky, void* stream) {
   return launch_b<true>(rows, drift_sorted, cid, cell_start, order, octant,
-                        out_b, n, g, threshold, b, w_cap, h, two_h, spiky,
+                        out_b, n, g, gx, threshold, b, w_cap, h, two_h, spiky,
                         stream);
 }
 

@@ -27,10 +27,12 @@ gather the fields the pair passes read into sorted order with one row
 gather; the sums come back to pool order through the permutation.  The
 candidates are the 9 neighbour runs of ``binning.run_table`` (uncapped,
 or capped for the column family; whole columns masked by current cells
-for the stale passes), padded to the longest run present (reading that
-length is this plain path's one host sync), and the home rows go in
-chunks so a 524288-particle pool fits in memory.  The CUDA kernels of
-``tpufluids_torch.sph_kernels`` compute the same sums on the card.
+for the stale passes; clipped at ``3 * max_per_cell`` rows on the JAX
+package's XLA pair path, ``compute_forces``), padded to the longest run
+present (reading that length is this plain path's one host sync), and
+the home rows go in chunks so a 524288-particle pool fits in memory.
+The CUDA kernels of ``tpufluids_torch.sph_kernels`` compute the same
+sums on the card.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from tpufluids_torch import binning
 from tpufluids_torch.binning import (RUN_OFFSETS, BinTable, cell_trunc,
                                      run_table)
 from tpufluids_torch.config import SPHConfig
@@ -152,27 +155,30 @@ def near_cells(cells_i: torch.Tensor, cells_j: torch.Tensor) -> torch.Tensor:
 
 def column_shift(rows: torch.Tensor, bt: BinTable,
                  cfg: SPHConfig) -> torch.Tensor:
-    """(g*g,) int32: for each (x, y) column of the stale tables ``bt``,
+    """(x_planes*g,) int32: for each (x, y) column of the stale tables
+    ``bt``,
     the largest |current - stale| z-cell of its rows, capped at g (0 for
     an empty column).  Rows count that are in the column, alive in
     ``rows`` (pack_rows) and whose current z-cell (``cell_trunc``) is not
     NaN: a dead or NaN row keeps no pair.  The stale force kernels walk
     ``binning.stale_window`` of each column by it; their pack kernel
     computes it with integer atomicMax."""
-    g = cfg.grid_size
+    g = bt.grid.g
+    cols = bt.grid.x_planes * g
     cid = bt.cid.to(torch.int64)
     cz = cell_trunc(rows[:, _X:_X + 3], cfg)[:, 2]
     d = torch.clamp(torch.abs(cz - (cid % g).to(cz.dtype)), max=float(g))
-    keep = (cid < g ** 3) & (rows[:, _ALIVE] > 0.5) & ~torch.isnan(cz)
+    keep = ((cid < bt.grid.num_cells) & (rows[:, _ALIVE] > 0.5)
+            & ~torch.isnan(cz))
     d = torch.where(keep, d, 0.0).to(torch.int32)
-    return torch.zeros(g * g, dtype=torch.int32, device=rows.device
+    return torch.zeros(cols, dtype=torch.int32, device=rows.device
                        ).scatter_reduce(0, torch.clamp(cid // g,
-                                                       max=g * g - 1),
+                                                       max=cols - 1),
                                         d, "amax")
 
 
 def pair_sums(rows: torch.Tensor, bt: BinTable, cfg: SPHConfig, caps=None,
-              stale: bool = False):
+              stale: bool = False, runs=None, subbin_threshold=None):
     """(sum_w (N,), dpress (N, 3)) of the sorted ``rows`` (pack_rows),
     over the uncapped 27-cell stencil runs; rows outside the domain get
     zeros.  ``caps`` = (b, w_cap): the column family's capped pair set
@@ -181,9 +187,13 @@ def pair_sums(rows: torch.Tensor, bt: BinTable, cfg: SPHConfig, caps=None,
     the rows' current cells (``near_cells``).  The kernels walk only each
     column's ``binning.stale_window`` (``column_shift``), which holds
     every candidate this mask keeps: this whole-column walk is the
-    independent reference of their pair set."""
+    independent reference of their pair set.  ``runs``: (run_start,
+    run_len) to walk instead, such as ``binning.clipped_runs``'s (the XLA
+    pair path), with the octant rule of ``_subbin_ok`` on the home rows
+    of cells over ``subbin_threshold`` rows, when given."""
     n = rows.shape[0]
-    run_start, run_len = run_table(bt, cfg, caps, whole=stale)
+    run_start, run_len = (runs if runs is not None
+                          else run_table(bt, cfg, caps, whole=stale))
     k = int(run_len.max()) if n else 0       # the plain path's host sync
     sum_w = rows.new_zeros(n)
     dpress = rows.new_zeros((n, 3))
@@ -195,7 +205,10 @@ def pair_sums(rows: torch.Tensor, bt: BinTable, cfg: SPHConfig, caps=None,
     for a in range(0, n, step):
         b = min(n, a + step)
         idx = run_start[a:b, :, None] + slot                   # (c, 9, k)
-        valid = (slot < run_len[a:b, :, None]).reshape(b - a, -1)
+        valid = slot < run_len[a:b, :, None]
+        if subbin_threshold is not None:
+            valid = valid & _subbin_ok(bt, cfg, a, b, idx, subbin_threshold)
+        valid = valid.reshape(b - a, -1)
         idx = torch.clamp(idx, 0, n - 1).reshape(b - a, -1)
         if stale:
             valid = valid & near_cells(cells[a:b], cells[idx])
@@ -432,7 +445,7 @@ def unidyn_result(res_a, res_b, merge_partner, dens, solid_drift,
 
 def unidyn_pair_pass(state: ParticleState, bt: BinTable, cfg: SPHConfig,
                      subbin_threshold=None, drift_fix=None,
-                     caps=None) -> dict:
+                     caps=None, runs=None) -> dict:
     """Both unidyn pair passes in plain PyTorch, on any device: ``state``
     in pool order, ``bt`` from ``binning.sort_tables`` (unidyn); returns
     the result dict of ``unidyn_result`` in pool order.
@@ -440,13 +453,15 @@ def unidyn_pair_pass(state: ParticleState, bt: BinTable, cfg: SPHConfig,
     full stencil.  ``drift_fix`` maps (solid_drift, fluid_drift), in pool
     order, to the arrays pass B reads.  ``caps`` = (b, w_cap): the column
     family's capped pair set (``binning.run_table``); a row over the home
-    cap gets zeros, so pass B reads zero drift for it."""
+    cap gets zeros, so pass B reads zero drift for it.  ``runs``:
+    (run_start, run_len) to walk instead (``binning.clipped_runs``)."""
     n = state.capacity
     order = bt.order
     rows = pack_unidyn_rows(state, order, bt.in_dom, cfg)
     hx = torch.cat([state.delpress, state.stress.reshape(n, 9)],
                    dim=1)[order]
-    run_start, run_len = run_table(bt, cfg, caps)
+    run_start, run_len = runs if runs is not None else run_table(bt, cfg,
+                                                                 caps)
     k = int(run_len.max()) if n else 0       # the plain path's host sync
     out_a = rows.new_zeros((n, A_COLS))
     out_b = rows.new_zeros((n, B_COLS))
@@ -757,21 +772,24 @@ def accum_from_sums(state: ParticleState, r: dict,
 
 def compute_forces(state: ParticleState, bt: BinTable, cfg: SPHConfig,
                    subbin_parity: bool = False, subbin_threshold: int = 6,
-                   drift_fix=None) -> ForceAccum:
-    """The pair passes in plain PyTorch, on any device, as
-    ``tpufluids.forces.compute_forces``: ``state`` in pool order, ``bt``
-    from ``binning.sort_tables``; returns the sums in pool order.
-    ``subbin_parity`` (unidyn) restricts the stencil of overfull cells to
-    their octant; ``drift_fix`` (unidyn) maps the drift velocities
-    between the passes."""
+                   drift_fix=None, runs=None) -> ForceAccum:
+    """The XLA pair path of the JAX package in plain PyTorch, on any
+    device, as ``tpufluids.forces.compute_forces``: ``state`` in pool
+    order, ``bt`` from ``binning.sort_tables`` or ``sort_by_cell`` (with
+    ``subbin`` for the base variant when ``subbin_parity``); returns the
+    sums in pool order.  The pairs are those of ``binning.clipped_runs``
+    (``runs``, computed when None): each run cut to ``3 * max_per_cell``
+    rows, as ``build_bins`` cuts it.  ``subbin_parity`` restricts the
+    stencil of a home cell over ``subbin_threshold`` rows to its octant
+    (``binning.neighbor_candidates``), in both variants; ``drift_fix``
+    (unidyn) maps the drift velocities between the passes."""
+    if runs is None:
+        runs = binning.clipped_runs(bt, cfg)[:2]
+    threshold = subbin_threshold if subbin_parity else None
     if cfg.variant != "base":
         return accum_from_sums(state, unidyn_pair_pass(
-            state, bt, cfg, subbin_threshold if subbin_parity else None,
-            drift_fix), cfg)
-    if subbin_parity:
-        raise NotImplementedError(
-            "the base variant with subbin_parity is not ported to "
-            "tpufluids_torch yet (ROADMAP.md Queue 1 item 4)")
+            state, bt, cfg, threshold, drift_fix, runs=runs), cfg)
     rows = pack_rows(state, bt.order, bt.in_dom)
-    sum_w, dpress = pair_sums(rows, bt, cfg)
+    sum_w, dpress = pair_sums(rows, bt, cfg, runs=runs,
+                              subbin_threshold=threshold)
     return ForceAccum(to_pool(sum_w, bt.order), to_pool(dpress, bt.order))

@@ -1,7 +1,7 @@
 """A 1-D mesh of ranks over torch.distributed: the port's counterpart of
 ``tpufluids.shard.mesh.make_mesh`` and of the collectives the sharded
-grid step calls inside ``shard_map`` (``ppermute``, ``psum_scatter``,
-``pmax``).
+grid and SPH steps call inside ``shard_map`` (``ppermute``,
+``psum_scatter``, ``psum``, ``pmax``).
 
 A world of 1 needs no process group: its collectives are the identity,
 as JAX's 1-device mesh skips them.  A larger world needs an initialised
@@ -100,12 +100,19 @@ class Mesh:
 
     def max(self, t: torch.Tensor) -> torch.Tensor:
         """The elementwise maximum of ``t`` over the ranks (``pmax``)."""
+        return self._all_reduce(t, dist.ReduceOp.MAX)
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise sum of ``t`` over the ranks (``psum``)."""
+        return self._all_reduce(t, dist.ReduceOp.SUM)
+
+    def _all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
         if self.size == 1:
             return t
         buf = self._out(t)
         if buf is t:                    # not staged: reduce into a copy
             buf = t.clone()
-        dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=self.group)
+        dist.all_reduce(buf, op=op, group=self.group)
         return self._back(buf)
 
     def gather(self, t: torch.Tensor) -> Optional[list]:

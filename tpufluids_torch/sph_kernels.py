@@ -28,7 +28,12 @@ PyTorch versions: the counterpart of ``tpufluids/sph_pallas.py``.
   hook on pass A's drifts in pool order and gathers them by ``order``
   for pass B, as ``tpufluids/sph_pallas.py:1674-1684`` does.
 * ``unidyn_forces_column`` replaces ``unidyn_forces_pallas``: the
-  resident passes, capped as the column family caps them.
+  resident passes, capped as the column family caps them, with the
+  row-block wrapper's ``drift_fix`` hook between them when one is given.
+
+Every kernel takes the grid of its tables (``BinTable.grid``): the full
+cube, or the x-slab of one rank of the sharded step
+(``shard.particles``), whose walks stop at its ``x_planes`` planes.
 
 Each wrapper counts its launches in ``<wrapper>.launches``.  It runs the
 plain version when its tensors lie on the CPU; any other device raises,
@@ -63,7 +68,7 @@ def _on_cuda(state: ParticleState, bt: BinTable, order: torch.Tensor,
             ("bt.cid", bt.cid, torch.int32, (n,)),
             ("bt.in_dom", bt.in_dom, torch.bool, (n,)),
             ("bt.cell_start", bt.cell_start, torch.int32,
-             (cfg.num_cells + 2,)), *extra):
+             (bt.grid.num_cells + 2,)), *extra):
         if t.device != dev:
             raise ValueError(f"{name} on {t.device}, the pool on {dev}")
         if t.dtype != dtype or tuple(t.shape) != shape:
@@ -121,17 +126,17 @@ def _base_on_cuda(state: ParticleState, bt: BinTable, order: torch.Tensor,
 def _pack_launch(state: ParticleState, bt: BinTable, cfg: SPHConfig,
                  order: torch.Tensor, stale: bool):
     n = state.capacity
-    g = cfg.grid_size
+    g, gx = bt.grid.g, bt.grid.x_planes
     dev = state.pos.device
     rows = torch.empty((n, forces.ROW_WIDTH), dtype=torch.float32,
                        device=dev)
     cells = shift = None
     if stale:
         cells = torch.empty((n, 4), dtype=torch.float32, device=dev)
-        shift = torch.zeros(g * g, dtype=torch.int32, device=dev)
+        shift = torch.zeros(gx * g, dtype=torch.int32, device=dev)
     _build.launch("tf_sph_base_pack", state.pos, state.vel, state.dens,
                   state.press, state.boundary, state.alive, order, bt.in_dom,
-                  bt.cid, rows, cells, shift, n, g, cfg.xmin, cfg.ymin,
+                  bt.cid, rows, cells, shift, n, g, gx, cfg.xmin, cfg.ymin,
                   cfg.zmin, cfg.cell_size)
     return rows, cells, shift
 
@@ -165,8 +170,9 @@ def _base_launch(entry: str, state: ParticleState, bt: BinTable,
     sum_w = torch.empty(n, dtype=torch.float32, device=rows.device)
     dpress = torch.empty((n, 3), dtype=torch.float32, device=rows.device)
     _build.launch(entry, rows, cells, bt.cid, bt.cell_start, shift, order,
-                  sum_w, dpress, n, cfg.grid_size, *caps, h, 2 * h,
-                  PI_REF * h ** 3, -45.0 / (PI_REF * h ** 6), 0.01 * h * h,
+                  sum_w, dpress, n, bt.grid.g, bt.grid.x_planes, *caps, h,
+                  2 * h, PI_REF * h ** 3, -45.0 / (PI_REF * h ** 6),
+                  0.01 * h * h,
                   cfg.alpha_fluid * cfg.sound,
                   cfg.visc_quadratic / cfg.sound, cfg.alpha_boundary,
                   cfg.bdensfactor)
@@ -306,7 +312,8 @@ def _unidyn_pass_a(state: ParticleState, bt: BinTable, cfg: SPHConfig,
         "tf_unidyn_column_a" if caps else "tf_unidyn_pass_a", rows,
         state.delpress, state.stress, bt.cid, bt.cell_start, order,
         bt.octant if sub else None, out_a, partner if merge else None,
-        drift_sorted, n, cfg.grid_size, subbin_threshold if sub else -1,
+        drift_sorted, n, bt.grid.g, bt.grid.x_planes,
+        subbin_threshold if sub else -1,
         *caps, h, 2 * h, PI_REF * h ** 3,
         -45.0 / (PI_REF * h ** 6), 0.01 * h * h, cfg.alpha_fluid, cfg.sound,
         cfg.visc_quadratic / cfg.sound, cfg.alpha_sand_boundary,
@@ -326,8 +333,9 @@ def _unidyn_pass_b(rows, drift_sorted, bt: BinTable, cfg: SPHConfig, order,
                         device=rows.device)
     _build.launch("tf_unidyn_column_b" if caps else "tf_unidyn_pass_b", rows,
                   drift_sorted, bt.cid, bt.cell_start, order,
-                  bt.octant if sub else None, out_b, n, cfg.grid_size,
-                  subbin_threshold if sub else -1, *caps, h, 2 * h,
+                  bt.octant if sub else None, out_b, n, bt.grid.g,
+                  bt.grid.x_planes, subbin_threshold if sub else -1, *caps,
+                  h, 2 * h,
                   -45.0 / (PI_REF * h ** 6))
     return out_b
 
@@ -393,34 +401,45 @@ def unidyn_forces_rowblock(state: ParticleState, bt: BinTable,
     if not _unidyn_on_cuda(state, bt, order, cfg, subbin_threshold):
         return unidyn_forces_rowblock_plain(state, bt, cfg, order, drift_fix,
                                             subbin_threshold)
+    r = _unidyn_hooked(state, bt, cfg, order, drift_fix, subbin_threshold)
+    unidyn_forces_rowblock.launches += 1
+    return r
+
+
+def _unidyn_hooked(state: ParticleState, bt: BinTable, cfg: SPHConfig,
+                   order, drift_fix, subbin_threshold, caps=()) -> dict:
+    """Pass A, ``drift_fix`` on its drifts in pool order (none: the
+    identity), the fixed drifts gathered by ``order`` into sorted order,
+    then pass B; returns the result dict of ``forces.unidyn_result``."""
     n = state.capacity
     rows, out_a, partner = _unidyn_pass_a(state, bt, cfg, order,
-                                          subbin_threshold, None)
+                                          subbin_threshold, None, caps)
     sdv = out_a[:, forces.A_SDV:forces.A_SDV + 3]
     fdv = out_a[:, forces.A_FDV:forces.A_FDV + 3]
     if drift_fix is not None:
         sdv, fdv = drift_fix(sdv, fdv)
     drift = torch.cat([sdv, fdv, sdv.new_zeros((n, 2))], dim=1)[order]
-    out_b = _unidyn_pass_b(rows, drift, bt, cfg, order, subbin_threshold)
-    unidyn_forces_rowblock.launches += 1
+    out_b = _unidyn_pass_b(rows, drift, bt, cfg, order, subbin_threshold,
+                           caps)
     return forces.unidyn_result(out_a, out_b, partner, state.dens, sdv, fdv)
 
 
 def unidyn_forces_column_plain(state: ParticleState, bt: BinTable,
                                cfg: SPHConfig, order: torch.Tensor,
-                               subbin_threshold=None) -> dict:
+                               subbin_threshold=None, drift_fix=None) -> dict:
     """The plain version: ``forces.unidyn_pair_pass`` over the capped
-    column pair set, with the column overflow."""
+    column pair set, with ``drift_fix`` between the passes and the
+    column overflow."""
     caps = column_caps(cfg)
     r = forces.unidyn_pair_pass(state, bt._replace(order=order), cfg,
-                                subbin_threshold, caps=caps)
+                                subbin_threshold, drift_fix, caps=caps)
     r["overflow"] = binning.column_overflow(bt, cfg, caps[0])
     return r
 
 
 def unidyn_forces_column(state: ParticleState, bt: BinTable,
                          cfg: SPHConfig, order: torch.Tensor,
-                         subbin_threshold=None) -> dict:
+                         subbin_threshold=None, drift_fix=None) -> dict:
     """Both unidyn pair passes of the column family, as the JAX package's
     ``unidyn_forces_pallas``: the pairs of ``unidyn_forces_resident``
     capped by ``config.column_caps``.  A row at rank b or more in its
@@ -428,29 +447,36 @@ def unidyn_forces_column(state: ParticleState, bt: BinTable,
     only the first w_cap rows of each neighbour column are candidates.
     Returns the result dict of ``forces.unidyn_result`` in pool order,
     with the overflow (rows over the home cap, summed over the columns)
-    as an int32 device scalar.
+    as an int32 device scalar.  ``drift_fix``, as the JAX package's,
+    maps pass A's drifts (pool order) to those pass B reads.
 
     Replaces unidyn_forces_pallas (tpufluids/sph_pallas.py), whose two
     column kernels sweep capped VMEM window tiles and splice pass A's
     drifts into the packed pool for pass B.  On the card pass A
     (``UNIDYN_LANES`` lanes a sorted row) writes the drifts in sorted
     order and pass B, launched right after it, reads them there
-    (csrc/sph_unidyn.cu, the resident passes with the caps)."""
+    (csrc/sph_unidyn.cu, the resident passes with the caps); with a
+    hook, the drifts go to pool order, through it, and back by
+    ``order``, as the row-block wrapper takes them."""
     if not _unidyn_on_cuda(state, bt, order, cfg, subbin_threshold):
         return unidyn_forces_column_plain(state, bt, cfg, order,
-                                          subbin_threshold)
+                                          subbin_threshold, drift_fix)
     caps = column_caps(cfg)
-    drift = torch.empty((state.capacity, 8), dtype=torch.float32,
-                        device=state.pos.device)
-    rows, out_a, partner = _unidyn_pass_a(state, bt, cfg, order,
-                                          subbin_threshold, drift, caps)
-    out_b = _unidyn_pass_b(rows, drift, bt, cfg, order, subbin_threshold,
-                           caps)
+    if drift_fix is not None:
+        r = _unidyn_hooked(state, bt, cfg, order, drift_fix,
+                           subbin_threshold, caps)
+    else:
+        drift = torch.empty((state.capacity, 8), dtype=torch.float32,
+                            device=state.pos.device)
+        rows, out_a, partner = _unidyn_pass_a(state, bt, cfg, order,
+                                              subbin_threshold, drift, caps)
+        out_b = _unidyn_pass_b(rows, drift, bt, cfg, order, subbin_threshold,
+                               caps)
+        r = forces.unidyn_result(
+            out_a, out_b, partner, state.dens,
+            out_a[:, forces.A_SDV:forces.A_SDV + 3],
+            out_a[:, forces.A_FDV:forces.A_FDV + 3])
     unidyn_forces_column.launches += 1
-    r = forces.unidyn_result(
-        out_a, out_b, partner, state.dens,
-        out_a[:, forces.A_SDV:forces.A_SDV + 3],
-        out_a[:, forces.A_FDV:forces.A_FDV + 3])
     r["overflow"] = binning.column_overflow(bt, cfg, caps[0])
     return r
 

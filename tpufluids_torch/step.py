@@ -10,12 +10,18 @@ package's does: the row-block or column family of the base variant,
 the resident, row-block or column family of the unidyn variant.  With
 ``sort_every`` k > 1 (base only), ``run_python`` sorts the pool into
 cell order every k-th step and runs the steps between on the stale
-tables (``sph_sort_step``, ``sph_step_stale``).  Nothing in a step
-synchronises the host with the device: the metrics stay device
-tensors, so ``run_python`` enqueues steps back to back.
+tables (``sph_sort_step``, ``sph_step_stale``).
 
-The base variant with ``subbin_parity`` raises ``NotImplementedError``
-naming the ROADMAP.md item that will port it.
+``use_kernels`` is the JAX package's ``use_pallas_forces``: the base
+variant with ``subbin_parity`` and ``force_backend="xla"`` take the JAX
+package's XLA pair path instead, in torch ops on either device, as the
+JAX package computes it outside any Pallas kernel: the pool permuted
+into cell order (``binning.sort_by_cell``), the pair passes of
+``forces.compute_forces`` over neighbour runs clipped at
+``3 * max_per_cell`` rows, whose dropped slots count in
+``bin_overflow``.  Nothing in a kernel step synchronises the host with
+the device: the metrics stay device tensors, so ``run_python`` enqueues
+steps back to back (the XLA path reads its longest run once a step).
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import torch
 
 from tpufluids_torch import adapt, binning, sph_kernels
 from tpufluids_torch.config import SPHConfig
-from tpufluids_torch.forces import ForceAccum, accum_from_sums
+from tpufluids_torch.forces import ForceAccum, accum_from_sums, compute_forces
 from tpufluids_torch.integrate import update
 from tpufluids_torch.state import ParticleState
 
@@ -61,13 +67,14 @@ def resolve_subbin(cfg: SPHConfig, subbin_parity) -> bool:
     return cfg.subbin_parity if subbin_parity is None else subbin_parity
 
 
-def resolve_unidyn_kernel(cfg: SPHConfig, capacity: int) -> str:
+def resolve_unidyn_kernel(cfg: SPHConfig, capacity: int,
+                          hooked: bool = False) -> str:
     """"resident", "rowblock" or "column": the unidyn force kernel of the
-    JAX package's ``dispatch_forces`` (``step.py:153-175``).  Its
-    ``drift_fix`` hook, which sends the sharded step to the row-block
-    kernel, comes with x-slab sharding (ROADMAP Queue 1 item 8)."""
+    JAX package's ``dispatch_forces`` (``step.py:153-175``).  ``hooked``:
+    a ``drift_fix`` hook goes between the passes (the sharded step), and
+    the resident kernel, which runs them back to back, is never picked."""
     pad = max(128, cfg.pallas_w_chunk or 32)
-    if (cfg.pallas_kernel in ("auto", "resident")
+    if (cfg.pallas_kernel in ("auto", "resident") and not hooked
             and (capacity + pad) * 128 * 4 <= RESIDENT_MAX_BYTES):
         return "resident"
     if resolve_kernel_family(cfg, capacity) == "rowblock":
@@ -75,49 +82,54 @@ def resolve_unidyn_kernel(cfg: SPHConfig, capacity: int) -> str:
     return "column"
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to tpufluids_torch yet (ROADMAP.md {item})")
+def use_kernels(cfg: SPHConfig, subbin_parity=None) -> bool:
+    """Whether the force kernels (their plain versions on the CPU) take
+    this configuration, as the JAX package's ``use_pallas_forces``
+    (``tpufluids/step.py:63-73``): "auto" and "pallas" mean the kernels;
+    ``force_backend="xla"`` and the base variant with sub-binning (not a
+    reference combination) take the XLA pair path."""
+    return cfg.force_backend != "xla" and not (
+        cfg.variant == "base" and resolve_subbin(cfg, subbin_parity))
 
 
 def use_sort_every(cfg: SPHConfig, subbin_parity=None) -> bool:
     """Whether ``run_python`` runs the sort cadence (``sort_every > 1``),
     as the JAX package's ``use_sort_every``: the base variant on the
     kernels only.  The unidyn sub-bin and merge state lives in the tables
-    and would go stale; the JAX package's XLA backend has no stale pass.
-    The port's "auto" backend is the kernels (the plain versions on the
-    CPU); the base variant with ``subbin_parity`` runs on none of them."""
+    and would go stale; the XLA pair path has no stale pass."""
     if cfg.sort_every <= 1:
         return False
     if cfg.variant != "base":
         raise ValueError("sort_every > 1 supports the base variant only "
                          "(unidyn sub-bin/merge state would go stale "
                          "between sorts)")
-    if cfg.force_backend == "xla" or resolve_subbin(cfg, subbin_parity):
+    if not use_kernels(cfg, subbin_parity):
         raise ValueError("sort_every > 1 requires the Pallas force backend "
                          "(the port's kernels)")
     return True
 
 
-def _check_slice(cfg: SPHConfig, subbin_parity):
-    """Raise for a configuration outside the ported slice, or one that
-    the JAX package refuses (``use_sort_every``)."""
-    if cfg.variant == "base" and resolve_subbin(cfg, subbin_parity):
-        raise _not_ported("the base variant with subbin_parity=True",
-                          "Queue 1 item 4")
-    use_sort_every(cfg, subbin_parity)
-
-
 def dispatch_forces(state: ParticleState, bt: binning.BinTable,
-                    cfg: SPHConfig, subbin_parity=None, stale=False):
+                    cfg: SPHConfig, subbin_parity=None, stale=False,
+                    drift_fix=None):
     """The force pass of the JAX package's ``dispatch_forces``
-    (``tpufluids/step.py:76-180``): the kernel family by
-    ``resolve_kernel_family`` for the base variant (the row-block kernel,
-    or the column kernel for "column" and "resident" alike), by
-    ``resolve_unidyn_kernel`` for the unidyn variant.  ``state`` in pool
-    order and ``bt`` from ``binning.sort_tables`` (or ``sort_by_cell``);
-    ``stale``: ``bt`` is an earlier step's (base only).  Returns
-    (ForceAccum, kernel overflow)."""
+    (``tpufluids/step.py:76-180``) on the grid of ``bt`` (the cube, or a
+    rank's x-slab): off the kernels (``use_kernels``), the XLA pair path
+    of ``forces.compute_forces`` over ``binning.clipped_runs``; else the
+    kernel family by ``resolve_kernel_family`` for the base variant (the
+    row-block kernel, or the column kernel for "column" and "resident"
+    alike), by ``resolve_unidyn_kernel`` for the unidyn variant.
+    ``state`` in pool order and ``bt`` from ``binning.sort_tables`` (or
+    ``sort_by_cell``, which the XLA path needs for the base variant with
+    sub-binning: its tables carry ``octant``); ``stale``: ``bt`` is an
+    earlier step's (base only).  ``drift_fix`` (unidyn) maps pass A's
+    drift velocities, in pool order, to those pass B reads.  Returns
+    (ForceAccum, overflow: the clip's dropped slots or the kernel's)."""
+    sp = resolve_subbin(cfg, subbin_parity)
+    if not use_kernels(cfg, sp):
+        start, length, overflow = binning.clipped_runs(bt, cfg)
+        return compute_forces(state, bt, cfg, sp, cfg.subbin_threshold,
+                              drift_fix, runs=(start, length)), overflow
     order = bt.order
     if cfg.variant == "base":
         if resolve_kernel_family(cfg, state.capacity) == "rowblock":
@@ -126,19 +138,34 @@ def dispatch_forces(state: ParticleState, bt: binning.BinTable,
             fn = sph_kernels.base_forces_column
         sum_w, dpress, overflow = fn(state, bt, cfg, order, stale)
         return ForceAccum(sum_w, dpress), overflow
-    threshold = (cfg.subbin_threshold if resolve_subbin(cfg, subbin_parity)
-                 else None)
-    fn = getattr(sph_kernels,
-                 f"unidyn_forces_{resolve_unidyn_kernel(cfg, state.capacity)}")
-    r = fn(state, bt, cfg, order, subbin_threshold=threshold)
+    threshold = cfg.subbin_threshold if sp else None
+    kernel = resolve_unidyn_kernel(cfg, state.capacity, drift_fix is not None)
+    fn = getattr(sph_kernels, f"unidyn_forces_{kernel}")
+    hook = {} if drift_fix is None else {"drift_fix": drift_fix}
+    r = fn(state, bt, cfg, order, subbin_threshold=threshold, **hook)
     return accum_from_sums(state, r, cfg), r["overflow"]
+
+
+def sort_for_forces(state: ParticleState, cfg: SPHConfig, subbin_parity=None,
+                    grid=None):
+    """(state, tables) for ``dispatch_forces``: on the kernels the pool as
+    it is and ``binning.sort_tables``; on the XLA pair path the pool
+    permuted into cell order by ``binning.sort_by_cell`` (with the
+    sub-bin tables when sub-binning), as the JAX package's ``sph_step``
+    takes them."""
+    sp = resolve_subbin(cfg, subbin_parity)
+    if use_kernels(cfg, sp):
+        return state, binning.sort_tables(state, cfg, grid)[1]
+    return binning.sort_by_cell(state, cfg, grid, subbin=sp)[:2]
 
 
 def sph_step(state: ParticleState, cfg: SPHConfig, subbin_parity=None
              ) -> tuple[ParticleState, StepMetrics]:
-    """One physics step; returns the new state and its metrics."""
-    _check_slice(cfg, subbin_parity)
-    _, bt = binning.sort_tables(state, cfg)
+    """One physics step; returns the new state and its metrics.  On the
+    XLA pair path the state comes back in cell order, as the JAX
+    package's does."""
+    use_sort_every(cfg, subbin_parity)
+    state, bt = sort_for_forces(state, cfg, subbin_parity)
     acc, overflow = dispatch_forces(state, bt, cfg, subbin_parity)
     return _finish_step(state, acc, overflow, cfg)
 
@@ -158,7 +185,7 @@ def sph_sort_step(state: ParticleState, cfg: SPHConfig):
     the pool permuted into cell order, then one stale step on the fresh
     tables.  Returns (state, tables, metrics); ``sph_sort_step.calls``
     counts the calls."""
-    state, bt = binning.sort_by_cell(state, cfg)
+    state, bt, _ = binning.sort_by_cell(state, cfg)
     state, metrics = sph_step_stale(state, bt, cfg)
     sph_sort_step.calls += 1
     return state, bt, metrics
@@ -199,7 +226,6 @@ def run_python(state: ParticleState, cfg: SPHConfig, n_steps: int,
     steps on its tables, as the JAX package's ``run_python`` runs them;
     otherwise every step is one ``sph_step`` call.  The JAX package's
     tunnel fence (``FENCE_EVERY``) has no counterpart here."""
-    _check_slice(cfg, subbin_parity)
     metrics = None
     if use_sort_every(cfg, subbin_parity):
         bt = None
