@@ -230,6 +230,27 @@
     a step, held by particle id against the dense card step.  Then
     base_dam with subbin_parity (the JAX package's XLA pair path: torch
     ops, no kernel), 10 steps on the card against the CPU.
+15. The CLI (tpufluids_torch.cli.main in this process, stdout captured,
+    the kernel counts reset before and read after each run), none with
+    --cpu: base_dam for 300 steps with --out (a frame every 100 steps),
+    --metrics and --checkpoint, without them, and at --sort-every 8;
+    unidyn_tank for 100; smoke2d at 128^2 for 100 with --out; plume3d
+    at 64^3 for 20 and plume3d --mac for 10; grid3d at 256^3 (DCT,
+    red-black, vorticity 2) for 10; grid3d_sharded at 256^3 (red-black,
+    stencil advection, --backend pallas) on a world of 1 for 3, and at
+    128^3 on a spawned world of 2 gloo processes sharing the card for 2.
+    Each summary line must carry the JAX CLI's keys; the DCT residual
+    must be at most 1e-8, plume3d's below 1, the MAC's max |div u| the
+    same command's on the CPU within 1e-3; bin_overflow 0, 8000
+    particles for the dam, and for the tank run_python's n_alive after
+    the same 100 steps; every run in this process launches a kernel.
+    The frames and the metrics record must be the JAX CLI's names and
+    keys, and the native VTK writer's bytes the Python writer's on the
+    dam's last frame.  10 steps with --checkpoint must equal 6, a
+    checkpoint and 4 resumed, bit for bit; python -m tpufluids_torch.cli
+    base_dam --steps 50 must exit 0 with its summary last.  Logs each
+    summary and its launches, and base_dam through the CLI (step.run),
+    with and without --out, beside step.run_python in the same run.
 
 Prints the kernels' JSON line, with each kernel's least time on the card
 (its bound: the bytes it must move at 3.35 TB/s, or its float32
@@ -674,7 +695,7 @@ SPH_KERNEL_NAMES = ("base_forces_kernel", "unidyn_pass_a_kernel",
 
 
 def kernel_alone_ms(fn, names=SPH_KERNEL_NAMES, reps=TIME_REPS, warm=3,
-                    tries=3):
+                    tries=6):
     """The device time a call of ``fn`` spends in the kernels whose names
     hold one of ``names`` (by default the SPH force kernels) alone,
     without the wrapper's torch ops or host work around them:
@@ -682,11 +703,17 @@ def kernel_alone_ms(fn, names=SPH_KERNEL_NAMES, reps=TIME_REPS, warm=3,
     ms a call.  The profiler may miss the first kernels it traces, so the
     warm-up calls run under it too and a spin kernel
     (torch.cuda._sleep) on the stream marks where the timed calls
-    start; a run with fewer events than calls is made again, up to
-    ``tries`` runs."""
+    start; a run with fewer events than calls is made again, after a
+    second's pause and with the host's activity traced too, up to
+    ``tries`` runs (a run of the full script has traced no device event
+    at all three times in a row)."""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for attempt in range(tries):
+        if attempt:
+            time.sleep(1.0)
+        activities = [ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if attempt else [])
+        with profile(activities=activities) as prof:
             for _ in range(warm):
                 fn()
             torch.cuda._sleep(1000)
@@ -3694,6 +3721,203 @@ def check_subbin_xla(sph, dev):
     check(int(gm.n_alive) == 8000, "sub-binned base_dam: n_alive")
 
 
+# the JAX CLI's summary keys (tpufluids/cli.py:174-180, :266-277) and its
+# metrics logger's record keys (tpufluids/diagnostics.py:34-42 over
+# tpufluids/step.py:29-37), copied: this script imports no JAX
+CLI_SPH_KEYS = ["scene", "steps", "wall_s", "steps_per_sec", "particles",
+                "particle_updates_per_sec", "max_speed", "bin_overflow"]
+CLI_GRID_KEYS = ["scene", "steps", "wall_s", "steps_per_sec",
+                 "cell_updates_per_sec", "poisson_residual", "residual_kind"]
+CLI_METRICS_KEYS = ["step", "wall_s", "n_alive", "max_speed", "total_mass",
+                    "dens_residual", "bin_overflow", "n_split"]
+# (name, argv with {tmp} for the phase's directory); none with --cpu.  The
+# dam runs first with --out and --checkpoint (its last frame's state for
+# the native writer), then without --out, beside step.run_python
+CLI_RUNS = (
+    ("base_dam --out", ["base_dam", "--steps", "300", "--out", "{tmp}/dam",
+                        "--snapshot-every", "100", "--metrics",
+                        "{tmp}/m.jsonl", "--checkpoint", "{tmp}/dam.npz"]),
+    ("base_dam", ["base_dam", "--steps", "300"]),
+    ("base_dam --sort-every 8", ["base_dam", "--steps", "300",
+                                 "--sort-every", "8"]),
+    ("unidyn_tank", ["unidyn_tank", "--steps", "100"]),
+    ("smoke2d", ["smoke2d", "--steps", "100", "--out", "{tmp}/smoke"]),
+    ("plume3d", ["plume3d", "--steps", "20"]),
+    ("plume3d --mac", ["plume3d", "--mac", "--steps", "10"]),
+    ("grid3d 256 dct", ["grid3d", "--size", "256", "--projection", "dct",
+                        "--red-black", "--vorticity", "2", "--steps", "10"]),
+    ("grid3d_sharded 256, world 1", ["grid3d_sharded", "--size", "256",
+                                     "--red-black", "--advect-mode",
+                                     "stencil", "--backend", "pallas",
+                                     "--devices", "1", "--steps", "3"]),
+    # spawned ranks over gloo on the one card; the plain slab step (gather
+    # advection: no kernel), whose ranks count launches in their own
+    # processes
+    ("grid3d_sharded 128, world 2", ["grid3d_sharded", "--size", "128",
+                                     "--devices", "2", "--steps", "2"]),
+)
+CLI_SPAWNED = ("grid3d_sharded 128, world 2",)
+CLI_RESUME_STEPS = (10, 6, 4)    # straight; then a checkpoint and the rest
+CLI_PROGRAM_STEPS = 50
+
+
+def cli_run(cli, sph, kernels, argv):
+    """(summary, the launches of the grid and SPH kernels, host seconds)
+    of ``cli.main(argv)`` in this process, stdout captured; the counts
+    are reset just before and read just after."""
+    import io
+    kernels.reset_launches()
+    sph.sph_kernels.reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    seconds = time.perf_counter() - t0
+    counts = {**kernels.launch_counts(), **sph.sph_kernels.launch_counts()}
+    lines = buf.getvalue().strip().splitlines()
+    check(bool(lines), f"cli {argv}: no output")
+    return json.loads(lines[-1]), counts, seconds
+
+
+def check_cli(sph, kernels, dev):
+    """Every scene of the port's CLI on the card through cli.main, each
+    summary held to the JAX CLI's keys; the dam's frames and metrics,
+    the native writer against the Python writer on the dam's last frame,
+    a checkpointed run resumed bit for bit, the CLI against
+    step.run_python, and the CLI as a program.  Returns the launches."""
+    import os
+    import tempfile
+
+    from tpufluids_torch import cli
+    from tpufluids_torch.io import checkpoint, native, vtk
+    t_phase = time.perf_counter()
+    card = card_line()
+    total, recs = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        for name, argv in CLI_RUNS:
+            argv = [a.format(tmp=tmp) for a in argv]
+            rec, counts, seconds = cli_run(cli, sph, kernels, argv)
+            recs[name] = rec
+            launched = {k: c for k, c in counts.items() if c}
+            log(f"cli {name}: {json.dumps(rec)}; {seconds:.3f} s in "
+                f"cli.main; launches {launched} ({card})")
+            sph_run = argv[0] in cli.SPH_SCENES
+            check(list(rec) == (CLI_SPH_KEYS if sph_run else CLI_GRID_KEYS),
+                  f"cli {name}: summary keys {list(rec)}")
+            if sph_run:
+                check(rec["bin_overflow"] == 0, f"cli {name}: bin_overflow")
+                check(np.isfinite(rec["max_speed"]), f"cli {name}: speed")
+            elif "dct" in argv:
+                check(rec["poisson_residual"] <= MAX_RESIDUAL,
+                      f"cli {name}: residual {rec['poisson_residual']}")
+            elif rec["residual_kind"] == "mac_max_divergence":
+                # max |div u| after 20 Jacobi sweeps at 64^3 is about 3 in
+                # the JAX CLI too: held to the same command on the CPU
+                cpu = cli_run(cli, sph, kernels, argv + ["--cpu"])[0]
+                err = abs(rec["poisson_residual"] - cpu["poisson_residual"])
+                log(f"cli {name}: max |div u| {rec['poisson_residual']}, "
+                    f"on the CPU {cpu['poisson_residual']}")
+                check(err <= RESIDUAL_RTOL * abs(cpu["poisson_residual"]),
+                      f"cli {name}: max |div u| differs from the CPU's")
+            elif argv[0] != "smoke2d":
+                check(np.isfinite(rec["poisson_residual"])
+                      and rec["poisson_residual"] < 1.0,
+                      f"cli {name}: residual {rec['poisson_residual']}")
+            if name not in CLI_SPAWNED:
+                check(sum(counts.values()) > 0,
+                      f"cli {name}: no kernel was launched")
+            add_counts(total, counts)
+        for name in ("base_dam --out", "base_dam", "base_dam --sort-every 8"):
+            check(recs[name]["particles"] == 8000, f"cli {name}: particles")
+        _, m = sph.step.run_python(unidyn_scene(sph, "tank", dev), sph.ucfg,
+                                   100)
+        check(recs["unidyn_tank"]["particles"] == int(m.n_alive),
+              f"cli unidyn_tank: {recs['unidyn_tank']['particles']} "
+              f"particles, run_python leaves {int(m.n_alive)}")
+
+        frames = {}
+        for name, folder, prefix in (("base_dam --out", "dam", "base_dam_"),
+                                     ("smoke2d", "smoke", "smoke_")):
+            argv = dict(CLI_RUNS)[name]
+            every = (int(argv[argv.index("--snapshot-every") + 1])
+                     if "--snapshot-every" in argv else 20)
+            frames[folder] = sorted(
+                f"{prefix}{i}.vtk"
+                for i in range(int(argv[argv.index("--steps") + 1]) // every))
+        for folder, names in frames.items():
+            got = sorted(os.listdir(f"{tmp}/{folder}"))
+            check(got == names, f"cli frames in {folder}: {got}")
+            for frame in names:
+                with open(f"{tmp}/{folder}/{frame}", "rb") as f:
+                    check(f.read(64).startswith(
+                        b"# vtk DataFile Version 2.0\nWritten using VisIt "
+                        b"writer\nASCII\n"), f"cli frame {frame}: header")
+        # the dam's last frame from the final checkpoint's state
+        st, _ = checkpoint.load(f"{tmp}/dam.npz", device="cpu")
+        native.write_point_mesh(f"{tmp}/native", 0, *vtk.particle_snapshot_args(
+            st, sph.cfg, ("dens", "cellnumber")))
+        with open(f"{tmp}/native.vtk", "rb") as f, \
+                open(f"{tmp}/dam/{frames['dam'][-1]}", "rb") as g:
+            same = f.read() == g.read()
+        log(f"cli base_dam: the native writer's bytes equal the Python "
+            f"writer's last frame ({frames['dam'][-1]}): {same}")
+        check(same, "cli: the native VTK writer differs from the Python one")
+        with open(f"{tmp}/m.jsonl") as f:
+            records = [json.loads(line) for line in f]
+        check(len(records) == 1 and list(records[0]) == CLI_METRICS_KEYS,
+              f"cli metrics records {records}")
+
+        a, b, c = (f"{tmp}/{x}.npz" for x in "abc")
+        steps, first, rest = CLI_RESUME_STEPS
+        base = ["base_dam", "--steps"]
+        cli_run(cli, sph, kernels, base + [str(steps), "--checkpoint", a])
+        cli_run(cli, sph, kernels, base + [str(first), "--checkpoint", b])
+        cli_run(cli, sph, kernels, base + [str(rest), "--resume", b,
+                                           "--checkpoint", c])
+        sa, _ = checkpoint.load(a, device="cuda")
+        sc, _ = checkpoint.load(c, device="cuda")
+        same = all(torch.equal(getattr(sa, f), getattr(sc, f))
+                   for f in sph.state.FIELDS)
+        log(f"cli base_dam: {first} steps, a checkpoint and {rest} resumed "
+            f"equal {steps} straight steps bit for bit: {same}")
+        check(same, "cli: the resumed run differs from the straight run")
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpufluids_torch.cli", "base_dam", "--steps",
+         str(CLI_PROGRAM_STEPS)], capture_output=True, text=True,
+        timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0, f"python -m tpufluids_torch.cli: exit "
+          f"{proc.returncode}\n{proc.stderr[-2000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(list(rec) == CLI_SPH_KEYS and rec["particles"] == 8000,
+          f"python -m tpufluids_torch.cli: {rec}")
+    log(f"python -m tpufluids_torch.cli base_dam --steps {CLI_PROGRAM_STEPS}:"
+        f" exit 0 in {time.perf_counter() - t0:.1f} s, process start-up "
+        f"included; {json.dumps(rec)}")
+
+    # the dam through the CLI (run: per-step metrics, with and without
+    # snapshots) against step.run_python, in this run
+    warm, timed = SPH_STEPS["base_dam"]
+    loop = []
+    for _ in range(2):
+        st = sph_scene(sph, "base_dam", dev)
+        st, _ = sph.step.run_python(st, sph.cfg, warm)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sph.step.run_python(st, sph.cfg, timed)
+        torch.cuda.synchronize()
+        loop.append((time.perf_counter() - t0) / timed * 1e3)
+    def per_step(name):
+        return recs[name]["wall_s"] / recs[name]["steps"] * 1e3
+    log(f"base_dam, {timed} steps: cli (step.run) {per_step('base_dam'):.4f}"
+        f" ms/step, with --out (3 frames) and --metrics "
+        f"{per_step('base_dam --out'):.4f}; step.run_python after {warm} "
+        f"warm-up steps {loop[0]:.4f} and {loop[1]:.4f} ms/step ({card})")
+    log(f"cli phase: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def add_counts(total, counts):
     for name, c in counts.items():
         total[name] = total.get(name, 0) + c
@@ -3796,6 +4020,7 @@ def main():
     add_counts(counts, run_sharded_sph_world1(sph, shard, dev))
     slab_counts = run_sharded_sph_worlds(shard)
     check_subbin_xla(sph, dev)
+    add_counts(counts, check_cli(sph, kernels, dev))
 
     rows = []
     for name, (source, replaces, _) in {**KERNELS, **SPH_KERNELS,

@@ -9,9 +9,10 @@ import numpy as np
 import pytest
 import torch
 
-from tpufluids_torch import convert, scenes, state
+from tpufluids_torch import cli, convert, scenes, state
 from tpufluids_torch.grid import convert as grid_convert
 from tpufluids_torch.grid import mac, stam
+from tpufluids_torch.io import checkpoint
 from tpufluids_torch.shard import make_mesh
 
 ENTRY_POINTS = {
@@ -27,6 +28,7 @@ ENTRY_POINTS = {
     "scenes.random_blob": scenes.random_blob,
     "convert.state_from_numpy": convert.state_from_numpy,
     "shard.make_mesh": make_mesh,
+    "io.checkpoint.load": checkpoint.load,
 }
 
 
@@ -51,3 +53,25 @@ def test_no_card_raises_instead_of_running_on_the_cpu():
             continue
         with pytest.raises((AssertionError, RuntimeError)):
             call()
+
+
+def test_checkpoint_load_without_a_device_goes_to_the_card(tmp_path):
+    path = str(tmp_path / "ck.npz")
+    checkpoint.save(path, scenes.random_blob(10, seed=0, device="cpu"))
+    if torch.cuda.is_available():
+        assert checkpoint.load(path)[0].pos.device.type == "cuda"
+        return
+    with pytest.raises((AssertionError, RuntimeError)):
+        checkpoint.load(path)
+
+
+def test_cli_without_cpu_runs_on_the_card(capsys):
+    """Without --cpu every scene runs on the card; with none, it raises."""
+    argv = ["base_dam", "--steps", "1", "--particles", "50"]
+    if torch.cuda.is_available():
+        assert cli.main(argv)["particles"] == 50
+        return
+    with pytest.raises((AssertionError, RuntimeError)):
+        cli.main(argv)
+    with pytest.raises((AssertionError, RuntimeError)):
+        cli.main(["smoke2d", "--size", "8", "--steps", "1"])

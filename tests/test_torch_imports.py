@@ -31,7 +31,14 @@ def test_port_has_sources():
             "tpufluids_torch/adapt.py", "tpufluids_torch/shard/__init__.py",
             "tpufluids_torch/shard/mesh.py",
             "tpufluids_torch/shard/grid_sharded.py",
-            "tpufluids_torch/shard/particles.py"} <= names
+            "tpufluids_torch/shard/particles.py",
+            "tpufluids_torch/cli.py", "tpufluids_torch/diagnostics.py",
+            "tpufluids_torch/io/__init__.py",
+            "tpufluids_torch/io/checkpoint.py", "tpufluids_torch/io/vtk.py",
+            "tpufluids_torch/io/snapshots.py",
+            "tpufluids_torch/io/native/__init__.py"} <= names
+    assert (REPO / "tpufluids_torch" / "io" / "native" /
+            "vtkwriter.cc").is_file()
     csrc = {p.name for p in (REPO / "tpufluids_torch" / "csrc").iterdir()}
     assert {"grid_common.cuh", "advect.cuh", "advect.cu", "forcing.cuh",
             "forcing.cu", "divgrad.cuh", "divgrad.cu", "jacobi.cuh",
@@ -90,10 +97,33 @@ def test_importing_the_port_loads_no_jax():
         "import tpufluids_torch.step, tpufluids_torch.scenes\n"
         "import tpufluids_torch.adapt, tpufluids_torch.shard\n"
         "import tpufluids_torch.shard.particles\n"
+        "import tpufluids_torch.cli, tpufluids_torch.diagnostics\n"
+        "import tpufluids_torch.io.checkpoint, tpufluids_torch.io.vtk\n"
+        "import tpufluids_torch.io.native, tpufluids_torch.io.snapshots\n"
         f"bad = sorted(m for m in set(sys.modules) - before\n"
         f"             if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_package_surface_builds_nothing_on_import():
+    """``import tpufluids_torch`` exports the JAX package's names and
+    imports no triton and builds no kernel library (lazy builds)."""
+    code = (
+        "import sys\n"
+        "import tpufluids_torch as t\n"
+        "import tpufluids_torch.cli, tpufluids_torch.io.native\n"
+        "from tpufluids_torch import _build\n"
+        "from tpufluids_torch.io import native\n"
+        "assert t.__version__ == '0.1.0'\n"
+        "assert t.SPHConfig and t.BASE_CONFIG and t.UNIDYN_CONFIG\n"
+        "assert t.ParticleState.__name__ == 'ParticleState'\n"
+        "assert 'triton' not in sys.modules\n"
+        "assert _build.build.cache_info().currsize == 0\n"
+        "assert native._lib is None\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -37,8 +37,18 @@ class ParticleState:
     def capacity(self) -> int:
         return self.pos.shape[0]
 
+    def num_alive(self) -> torch.Tensor:
+        """The alive rows, a 0-d int32 tensor on the state's device."""
+        return torch.sum(self.alive, dtype=torch.int32)
+
     def replace(self, **kw) -> "ParticleState":
         return dataclasses.replace(self, **kw)
+
+    def to(self, device) -> "ParticleState":
+        """The state with every field on ``device`` (a copy where it
+        moves)."""
+        return ParticleState(**{f: getattr(self, f).to(device)
+                                for f in FIELDS})
 
 
 FIELDS = tuple(f.name for f in dataclasses.fields(ParticleState))

@@ -10,7 +10,10 @@ package's does: the row-block or column family of the base variant,
 the resident, row-block or column family of the unidyn variant.  With
 ``sort_every`` k > 1 (base only), ``run_python`` sorts the pool into
 cell order every k-th step and runs the steps between on the stale
-tables (``sph_sort_step``, ``sph_step_stale``).
+tables (``sph_sort_step``, ``sph_step_stale``).  ``run`` and
+``run_chunk`` are the JAX package's drivers: per-step metrics stacked
+along a leading axis, and ``run``'s snapshots at the JAX package's
+cadence.
 
 ``use_kernels`` is the JAX package's ``use_pallas_forces``: the base
 variant with ``subbin_parity`` and ``force_backend="xla"`` take the JAX
@@ -218,15 +221,13 @@ def _finish_step(state: ParticleState, acc: ForceAccum, overflow,
     return state, metrics
 
 
-def run_python(state: ParticleState, cfg: SPHConfig, n_steps: int,
-               subbin_parity=None):
-    """``n_steps`` steps with no host sync; returns (state, last-step
-    metrics).  With ``sort_every`` k > 1 (``use_sort_every``) every k-th
-    step, the first included, is a sort step and the others are stale
-    steps on its tables, as the JAX package's ``run_python`` runs them;
-    otherwise every step is one ``sph_step`` call.  The JAX package's
-    tunnel fence (``FENCE_EVERY``) has no counterpart here."""
-    metrics = None
+def _steps(state: ParticleState, cfg: SPHConfig, n_steps: int,
+           subbin_parity=None):
+    """Yield (step number from 1, state, metrics) of ``n_steps`` steps
+    with no host sync.  With ``sort_every`` k > 1 (``use_sort_every``)
+    every k-th step, the first included, is a sort step and the others
+    are stale steps on its tables, as the JAX package's ``run_python``
+    runs them; otherwise every step is one ``sph_step`` call."""
     if use_sort_every(cfg, subbin_parity):
         bt = None
         for i in range(n_steps):
@@ -234,7 +235,72 @@ def run_python(state: ParticleState, cfg: SPHConfig, n_steps: int,
                 state, bt, metrics = sph_sort_step(state, cfg)
             else:
                 state, metrics = sph_step_stale(state, bt, cfg)
-        return state, metrics
-    for _ in range(n_steps):
+            yield i + 1, state, metrics
+        return
+    for i in range(n_steps):
         state, metrics = sph_step(state, cfg, subbin_parity)
+        yield i + 1, state, metrics
+
+
+def stack_metrics(metrics) -> StepMetrics:
+    """A StepMetrics of (len(metrics),) tensors from 0-d per-step
+    ones."""
+    return StepMetrics(*(torch.stack(f) for f in zip(*metrics)))
+
+
+def run_python(state: ParticleState, cfg: SPHConfig, n_steps: int,
+               subbin_parity=None):
+    """``n_steps`` steps with no host sync (``_steps``: the sort cadence
+    with ``sort_every`` > 1); returns (state, last-step metrics).  The
+    JAX package's tunnel fence (``FENCE_EVERY``) has no counterpart
+    here."""
+    metrics = None
+    for _, state, metrics in _steps(state, cfg, n_steps, subbin_parity):
+        pass
     return state, metrics
+
+
+def run_chunk(state: ParticleState, cfg: SPHConfig, n_steps: int,
+              subbin_parity=None):
+    """``n_steps`` calls of ``sph_step`` with no host sync, as the JAX
+    package's ``lax.scan`` chunk (no sort cadence); returns (state,
+    StepMetrics of (n_steps,) tensors)."""
+    metrics = []
+    for _ in range(n_steps):
+        state, m = sph_step(state, cfg, subbin_parity)
+        metrics.append(m)
+    return state, stack_metrics(metrics)
+
+
+def run(state: ParticleState, cfg: SPHConfig, n_steps: int,
+        snapshot_every: int = 0, snapshot_fn=None, subbin_parity=None):
+    """Drive ``n_steps`` steps, as the JAX package's ``run``; returns
+    (state, StepMetrics of (n_steps,) tensors, stacked once at the end).
+
+    ``snapshot_fn(step, host_state)`` receives the state as CPU tensors,
+    the only host sync the driver adds.  On the kernels (``use_kernels``) the steps
+    go one at a time (``_steps``, the sort cadence included) and
+    ``snapshot_fn`` runs after every step that is a multiple of
+    ``snapshot_every``.  On the XLA pair path the steps go in
+    ``run_chunk`` chunks of ``snapshot_every`` (all ``n_steps`` when it
+    is 0) and ``snapshot_fn`` runs after every chunk, the last partial
+    one included, as the JAX package's scan branch does."""
+    snap = snapshot_fn is not None and snapshot_every > 0
+    if use_kernels(cfg, subbin_parity):
+        metrics = []
+        for i, state, m in _steps(state, cfg, n_steps, subbin_parity):
+            metrics.append(m)
+            if snap and i % snapshot_every == 0:
+                snapshot_fn(i, state.to("cpu"))
+        return state, stack_metrics(metrics)
+    use_sort_every(cfg, subbin_parity)
+    chunk = snapshot_every if snapshot_every > 0 else n_steps
+    chunks, done = [], 0
+    while done < n_steps:
+        this = min(chunk, n_steps - done)
+        state, m = run_chunk(state, cfg, this, subbin_parity)
+        chunks.append(m)
+        done += this
+        if snap:
+            snapshot_fn(done, state.to("cpu"))
+    return state, StepMetrics(*(torch.cat(f) for f in zip(*chunks)))
