@@ -1,0 +1,135 @@
+"""BENCHMARK.json against the benchmark's contract: every name resolves
+to its files, and every name, unit and text keeps to its characters."""
+
+import re
+
+import pytest
+
+from fluidbench import common
+
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+PATH = re.compile(r"^[A-Za-z0-9_./-]{1,200}$")
+MAN = common.manifest()
+KEYS = {"command", "paths", "run_seconds", "configs", "workloads",
+        "end_to_end", "per_layer"}
+
+
+def text_ok(s):
+    return isinstance(s, str) and 1 <= len(s) <= 200 and "\n" not in s \
+        and "\t" not in s
+
+
+def test_top_level_keys_and_command():
+    assert set(MAN) == KEYS
+    assert 1 <= len(MAN["paths"]) <= 16
+    for p in MAN["paths"]:
+        assert PATH.match(p) and not p.startswith("/") and ".." not in p
+        assert (common.ROOT / p).is_dir()
+    assert 1 <= len(MAN["command"]) <= 32
+    assert all(text_ok(word) for word in MAN["command"])
+    script = common.ROOT / MAN["command"][1]
+    assert script.is_file() and common.HERE in script.parents
+    assert isinstance(MAN["run_seconds"], int)
+    assert 1 <= MAN["run_seconds"] <= 51
+
+
+def test_run_seconds_fits_a_full_check():
+    runs = 2 + 14 * 24
+    need = runs * (MAN["run_seconds"] + 60) + 24 * 2 * 90 + 1200
+    assert need <= 43200
+
+
+@pytest.mark.parametrize("c", MAN["configs"], ids=lambda c: c["name"])
+def test_config_resolves(c):
+    assert set(c) == {"name", "source", "file", "reduced", "why"}
+    assert NAME.match(c["name"]) and text_ok(c["source"]) and text_ok(c["why"])
+    assert c["file"] == f"fluidbench/configs/{c['name']}.json"
+    data = common.load_json(common.ROOT / c["file"])
+    assert data["name"] == c["name"] and data["reduced"] == c["reduced"]
+    assert (common.HERE / "drivers" / f"{data['driver']}.py").is_file()
+    assert any(w["config"] == c["name"] for w in MAN["workloads"])
+    assert len(c["reduced"]) <= 16
+    assert all(NAME.match(k) for k in c["reduced"])
+
+
+@pytest.mark.parametrize("w", MAN["workloads"], ids=lambda w: w["name"])
+def test_workload_resolves(w):
+    assert set(w) == {"name", "config", "traffic", "chips", "why"}
+    for key in ("name", "config", "traffic"):
+        assert NAME.match(w[key])
+    assert text_ok(w["why"]) and w["chips"] in (1, 4)
+    assert w["config"] in {c["name"] for c in MAN["configs"]}
+    config, traffic, limits = common.cell_files(w)
+    assert traffic["name"] == w["traffic"]
+    assert {"field_gap", "residual_gap", "control"} <= set(limits)
+    reported = [m["name"] for m in common.end_to_end(MAN, w)]
+    assert "setup_s" in reported and len(reported) >= 2
+    layers = common.per_layer(MAN, w)
+    assert layers and all(m["moves"] in reported for m in layers)
+
+
+def test_names_are_unique():
+    for group in ("configs", "workloads"):
+        names = [x["name"] for x in MAN[group]]
+        assert len(names) == len(set(names))
+    metrics = [m["name"] for m in MAN["end_to_end"] + MAN["per_layer"]]
+    assert len(metrics) == len(set(metrics))
+    pairs = [(w["config"], w["traffic"]) for w in MAN["workloads"]]
+    assert len(pairs) == len(set(pairs))
+
+
+@pytest.mark.parametrize("m", MAN["end_to_end"], ids=lambda m: m["name"])
+def test_end_to_end_metric(m):
+    assert set(m) - {"workloads"} == {"name", "unit", "better", "bound",
+                                      "source"}
+    assert NAME.match(m["name"]) and UNIT.match(m["unit"])
+    assert m["better"] in ("lower", "higher")
+    assert m["source"] in ("host_clock", "device_trace")
+    assert 0.01 <= m["bound"] <= 0.25
+
+
+@pytest.mark.parametrize("m", MAN["per_layer"], ids=lambda m: m["name"])
+def test_per_layer_metric_has_its_reader(m):
+    assert set(m) - {"workloads"} == {"name", "unit", "better", "source",
+                                      "layer", "moves"}
+    assert NAME.match(m["name"]) and UNIT.match(m["unit"])
+    assert m["better"] in ("lower", "higher") and text_ok(m["layer"])
+    assert m["source"] in ("device_trace", "program_span", "program_counter",
+                           "host_clock")
+    assert m["moves"] in {e["name"] for e in MAN["end_to_end"]}
+    assert callable(common.reader(m["name"]))
+    names = {w["name"] for w in MAN["workloads"]}
+    assert set(m.get("workloads", names)) <= names
+    if m["name"].endswith("_roofline") or "mfu" in m["name"]:
+        assert m["unit"] == "%"
+
+
+def test_manifest_is_small():
+    assert common.MANIFEST.stat().st_size <= 64 * 1024
+    assert 1 <= len(MAN["configs"]) <= 24
+    assert 1 <= len(MAN["workloads"]) <= 24
+    assert 1 <= len(MAN["end_to_end"]) <= 16
+    assert 1 <= len(MAN["per_layer"]) <= 128
+
+
+def test_metrics_of_a_cell():
+    """A metric with no "workloads" is every cell's (end-to-end), or every
+    cell's that reports the metric it moves (per-layer); a split
+    quantity reads its quantity's reader."""
+    man = {"end_to_end": [
+        {"name": "rate", "workloads": ["a"]},
+        {"name": "rate.host_paced", "workloads": ["b"]},
+        {"name": "setup_s"}],
+        "per_layer": [
+            {"name": "x", "moves": "rate"},
+            {"name": "x.host_paced", "moves": "rate.host_paced"},
+            {"name": "y", "moves": "rate", "workloads": ["b"]}]}
+    names = lambda ms: [m["name"] for m in ms]
+    assert names(common.end_to_end(man, {"name": "a"})) == ["rate", "setup_s"]
+    assert names(common.end_to_end(man, {"name": "b"})) == [
+        "rate.host_paced", "setup_s"]
+    assert names(common.per_layer(man, {"name": "a"})) == ["x"]
+    assert names(common.per_layer(man, {"name": "b"})) == ["x.host_paced", "y"]
+    assert common.quantity("rate.host_paced") == "rate"
+    assert common.reader("step_mfu.host_paced") is not None
