@@ -24,6 +24,8 @@ from pathlib import Path
 
 import torch
 
+from tpufluids_torch.diagnostics import span
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "kernels"
 
@@ -106,14 +108,21 @@ def _run_all(cmds) -> list[str]:
 
 
 @functools.cache
-def build() -> Build:
-    """Compile ``csrc/*.cu`` unless a library of the same hash exists."""
-    sources = sorted(CSRC.glob("*.cu"))
+def _library() -> Path:
+    """The shared library's path: named by a hash of the sources and
+    flags."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sorted(CSRC.glob("*.cu*")):
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
-    lib = BUILD_DIR / f"libtpufluids_torch_{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libtpufluids_torch_{digest.hexdigest()[:16]}.so"
+
+
+@functools.cache
+def build() -> Build:
+    """Compile ``csrc/*.cu`` unless a library of the same hash exists."""
+    sources = sorted(CSRC.glob("*.cu"))
+    lib = _library()
     log = lib.with_suffix(".log")
     if lib.is_file():
         return Build(lib, 0.0, log.read_text() if log.is_file() else "")
@@ -138,8 +147,14 @@ def build() -> Build:
 @functools.cache
 def load() -> ctypes.CDLL:
     """The kernels' shared library, built first if needed, with the
-    argument types of every C entry set."""
-    lib = ctypes.CDLL(str(build().path))
+    argument types of every C entry set.  Its span, ``kernels.load``
+    (detail ``build`` when nvcc runs), opens once a process."""
+    with span("kernels.load", "" if _library().is_file() else "build"):
+        return _load(build().path)
+
+
+def _load(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -7,7 +7,14 @@
   FluidGPU.cuh:34-41);
 * ``profile`` times a region, fenced by ``torch.cuda.synchronize`` on
   the devices of the tensors it is given, and can record a
-  ``torch.profiler`` trace.
+  ``torch.profiler`` trace;
+* spans: ``span(name, detail)`` marks a region of the host's work (the
+  grid step opens them at its layer boundaries: frame, step, stage,
+  solve).  Off by default, when a span costs one flag test; after
+  ``tracing(True)`` each span appends a ``SpanRecord`` to ``spans()``,
+  and while ``torch.profiler`` records it is also a host range on the
+  profiler's timeline, named ``name`` or ``name:detail``, that puts no
+  event on the device's timeline.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ import time
 
 import numpy as np
 import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _autograd_profiler
 
 
 def _host(v) -> np.ndarray:
@@ -78,6 +87,109 @@ def check_state(state, cfg, max_speed: float = 1e3,
         raise BlowUpError("; ".join(bad))
 
 
+FRAME = "grid.frame"      # the span whose index the spans inside it share
+
+_tracing = False
+_records: list = []       # every SpanRecord since the last clear_spans()
+_open: list = []          # the open spans' records, innermost last
+_frames = 0               # FRAME spans opened since the last clear_spans()
+
+
+class SpanRecord:
+    """One span, and the context manager that records it.  ``index``:
+    its place in ``spans()``; ``parent``: the index of the span open
+    around it (-1: none); ``frame``: the index of the FRAME span it lies
+    in, counted from the last ``clear_spans()`` (-1: none);
+    ``start_ns``, ``end_ns``: ``time.perf_counter_ns()`` (end 0 while
+    the span is open)."""
+
+    __slots__ = ("name", "detail", "index", "parent", "frame", "start_ns",
+                 "end_ns", "_range")
+
+    def __init__(self, name: str, detail: str = ""):
+        self.name, self.detail, self.end_ns = name, detail, 0
+
+    @property
+    def label(self) -> str:
+        """The span's name on the profiler's timeline."""
+        return f"{self.name}:{self.detail}" if self.detail else self.name
+
+    @property
+    def seconds(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e9
+
+    def __enter__(self):
+        global _frames
+        if _open:
+            top = _open[-1]
+            self.parent, self.frame = top.index, top.frame
+        else:
+            self.parent = self.frame = -1
+        if self.name == FRAME:
+            self.frame, _frames = _frames, _frames + 1
+        self.index = len(_records)
+        _records.append(self)
+        _open.append(self)
+        self._range = None
+        if _autograd_profiler._is_profiler_enabled:
+            self._range = _RecordFunctionFast(self.label)
+            self._range.__enter__()
+        self.start_ns = time.perf_counter_ns()
+
+    def __exit__(self, exc_type, exc, tb):
+        self.end_ns = time.perf_counter_ns()
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+        _open.pop()
+
+
+class _NoSpan:
+    """The span handed out while tracing is off: it does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        pass
+
+    def __exit__(self, exc_type, exc, tb):
+        pass
+
+
+_NO_SPAN = _NoSpan()
+
+
+def span(name: str, detail: str = ""):
+    """A context manager around one region of the host's work: the
+    shared no-op while tracing is off, else a span recorded as a
+    ``SpanRecord`` (closed even when its body raises).  Spans nest by
+    the order they open in; open them from one thread."""
+    if not _tracing:
+        return _NO_SPAN
+    return SpanRecord(name, detail)
+
+
+def tracing(on: bool) -> bool:
+    """Switch span recording on or off; returns the previous setting."""
+    global _tracing
+    was, _tracing = _tracing, bool(on)
+    return was
+
+
+def spans() -> list:
+    """The SpanRecords since the last ``clear_spans()``, in the order
+    they opened."""
+    return list(_records)
+
+
+def clear_spans():
+    """Forget every record.  Raises while a span is open."""
+    global _frames
+    if _open:
+        raise RuntimeError(f"{len(_open)} spans are open")
+    _records.clear()
+    _frames = 0
+
+
 @contextlib.contextmanager
 def profile(name: str, arrays=(), trace_dir: str | None = None):
     """Wall-time a region; the time ends after ``torch.cuda.synchronize``
@@ -95,6 +207,7 @@ def profile(name: str, arrays=(), trace_dir: str | None = None):
             if torch.cuda.is_available():
                 activities.append(ProfilerActivity.CUDA)
             prof = stack.enter_context(torch_profile(activities=activities))
+        stack.enter_context(span(name))
         t0 = time.perf_counter()
         holder = {}
         yield holder

@@ -32,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from tpufluids_torch.diagnostics import span
 from tpufluids_torch.grid import kernels
 
 
@@ -657,47 +658,53 @@ def _dct_solve_interior(xi, precision="highest", radix_min=0,
         if not any(radix):
             lam = 0.0
             invs = []
-            for ax, n in enumerate(xi.shape):
-                C, Ci, lam1 = _dct_mats(n, xi.device)
-                xi = _dct_axis(xi, C, ax)
-                lam = lam + lam1.reshape((-1,) + (1,) * (nd - 1 - ax))
-                invs.append(Ci)
-            coef = xi / torch.where(lam == 0.0, 1.0, lam)
-            coef[(0,) * nd] = 0.0                  # pressure gauge
-            for ax, Ci in enumerate(invs):
-                coef = _dct_axis(coef, Ci, ax)
+            with span("grid.dct", "forward"):
+                for ax, n in enumerate(xi.shape):
+                    C, Ci, lam1 = _dct_mats(n, xi.device)
+                    xi = _dct_axis(xi, C, ax)
+                    lam = lam + lam1.reshape((-1,) + (1,) * (nd - 1 - ax))
+                    invs.append(Ci)
+            with span("grid.dct", "scale"):
+                coef = xi / torch.where(lam == 0.0, 1.0, lam)
+                coef[(0,) * nd] = 0.0              # pressure gauge
+            with span("grid.dct", "inverse"):
+                for ax, Ci in enumerate(invs):
+                    coef = _dct_axis(coef, Ci, ax)
             return coef
 
         pieces = [(xi, [])]
-        for ax, n in enumerate(xi.shape):
-            if radix[ax]:
-                pieces = _radix_fwd_axis(pieces, ax, radix_levels)
-            else:
-                C, _, lam1 = _dct_mats(n, xi.device)
-                pieces = [(_dct_axis(a, C, ax), lams + [lam1])
-                          for a, lams in pieces]
+        with span("grid.dct", "forward"):
+            for ax, n in enumerate(xi.shape):
+                if radix[ax]:
+                    pieces = _radix_fwd_axis(pieces, ax, radix_levels)
+                else:
+                    C, _, lam1 = _dct_mats(n, xi.device)
+                    pieces = [(_dct_axis(a, C, ax), lams + [lam1])
+                              for a, lams in pieces]
 
         # the all-even piece 0 holds the gauge mode at its origin; every
         # other piece has an odd-block eigenvalue component, all > 0
         solved = []
-        for k, (a, lams) in enumerate(pieces):
-            lam = 0.0
-            for ax, l1 in enumerate(lams):
-                lam = lam + l1.reshape((-1,) + (1,) * (nd - 1 - ax))
-            if k == 0:
-                a = a / torch.where(lam == 0.0, 1.0, lam)
-                a[(0,) * nd] = 0.0                 # pressure gauge
-            else:
-                a = a / lam
-            solved.append(a)
+        with span("grid.dct", "scale"):
+            for k, (a, lams) in enumerate(pieces):
+                lam = 0.0
+                for ax, l1 in enumerate(lams):
+                    lam = lam + l1.reshape((-1,) + (1,) * (nd - 1 - ax))
+                if k == 0:
+                    a = a / torch.where(lam == 0.0, 1.0, lam)
+                    a[(0,) * nd] = 0.0             # pressure gauge
+                else:
+                    a = a / lam
+                solved.append(a)
         pieces = solved
 
-        for ax in reversed(range(nd)):
-            if radix[ax]:
-                pieces = _radix_inv_axis(pieces, ax, radix_levels)
-            else:
-                Ci = _dct_mats(xi.shape[ax], xi.device)[1]
-                pieces = [_dct_axis(a, Ci, ax) for a in pieces]
+        with span("grid.dct", "inverse"):
+            for ax in reversed(range(nd)):
+                if radix[ax]:
+                    pieces = _radix_inv_axis(pieces, ax, radix_levels)
+                else:
+                    Ci = _dct_mats(xi.shape[ax], xi.device)[1]
+                    pieces = [_dct_axis(a, Ci, ax) for a in pieces]
         return pieces[0]
 
 
@@ -765,24 +772,39 @@ def project3d(u, v, w, cfg: StamConfig, with_residual: bool = False,
     a zero guess in ``cfg.solver_dtype``; ``with_residual`` also returns
     the max-norm residual of the Poisson system it solved.  A float32
     Jacobi projection of fields inside the whole tier, without the
-    residual, is one fused call (kernels.project3d_whole)."""
+    residual, is one fused call (kernels.project3d_whole).
+
+    Spans: ``grid.project`` (detail ``fused``, ``first`` or ``final``)
+    around the whole projection, ``grid.solve`` (detail ``dct``,
+    ``multigrid``, ``rb``, ``jacobi``, ``rb_bf16`` or ``jacobi_bf16``)
+    around the solve alone and ``grid.residual`` around the residual."""
     jacobi = cfg.projection not in ("multigrid", "dct")
     if (jacobi and cfg.solver_dtype == "float32" and not with_residual
             and kernels.solve_whole_ok(u, torch.float32)):
-        return kernels.project3d_whole(u, v, w, cfg.jacobi_iters,
-                                       cfg.red_black)
-    div = kernels.div3d(u, v, w)
-    if cfg.projection == "multigrid":
-        p = mg_solve3d(div, cfg)
-    elif jacobi:
-        p = _lin_solve3d(0, None, div, 1.0, 6.0, cfg.jacobi_iters,
-                         red_black=cfg.red_black, dtype=cfg.solver_dtype)
-    else:
-        p = dct_solve3d(div, cfg, final=final)
-    u, v, w = kernels.gradsub3d(p, u, v, w)
-    if with_residual:
-        return u, v, w, poisson_residual3d(p, div)
-    return u, v, w
+        with span("grid.project", "fused"):
+            return kernels.project3d_whole(u, v, w, cfg.jacobi_iters,
+                                           cfg.red_black)
+    with span("grid.project", "final" if final else "first"):
+        div = kernels.div3d(u, v, w)
+        if cfg.projection == "multigrid":
+            with span("grid.solve", "multigrid"):
+                p = mg_solve3d(div, cfg)
+        elif jacobi:
+            kind = "rb" if cfg.red_black else "jacobi"
+            if cfg.solver_dtype != "float32":
+                kind += "_bf16"
+            with span("grid.solve", kind):
+                p = _lin_solve3d(0, None, div, 1.0, 6.0, cfg.jacobi_iters,
+                                 red_black=cfg.red_black,
+                                 dtype=cfg.solver_dtype)
+        else:
+            with span("grid.solve", "dct"):
+                p = dct_solve3d(div, cfg, final=final)
+        u, v, w = kernels.gradsub3d(p, u, v, w)
+        if with_residual:
+            with span("grid.residual"):
+                return u, v, w, poisson_residual3d(p, div)
+        return u, v, w
 
 
 # ---------------------------------------------------------------------------
@@ -941,23 +963,26 @@ def run2d_python(state: GridState2D, cfg: StamConfig, n_steps: int,
 
 def run_each_residual(step, state, cfg, n_steps: int):
     """``n_steps`` calls of ``step(state, cfg, with_residual=True)``, as
-    the reference's run scans; returns (state, residuals as an
-    (n_steps,) tensor)."""
-    res = []
-    for _ in range(n_steps):
-        state, r = step(state, cfg, with_residual=True)
-        res.append(r)
-    return state, torch.stack(res)
+    the reference's run scans, in one ``grid.frame`` span; returns
+    (state, residuals as an (n_steps,) tensor)."""
+    with span("grid.frame"):
+        res = []
+        for _ in range(n_steps):
+            state, r = step(state, cfg, with_residual=True)
+            res.append(r)
+        return state, torch.stack(res)
 
 
 def run_last_residual(step, state, cfg, n_steps: int):
     """Run ``n_steps`` calls of ``step`` (at least one), queued on the
-    device without a host sync; the residual of the final step only.
-    Returns (state, residual as a (1,) tensor)."""
-    for _ in range(max(n_steps - 1, 0)):
-        state = step(state, cfg)
-    state, res = step(state, cfg, with_residual=True)
-    return state, res.reshape(1)
+    device without a host sync, in one ``grid.frame`` span; the residual
+    of the final step only.  Returns (state, residual as a (1,)
+    tensor)."""
+    with span("grid.frame"):
+        for _ in range(max(n_steps - 1, 0)):
+            state = step(state, cfg)
+        state, res = step(state, cfg, with_residual=True)
+        return state, res.reshape(1)
 
 
 def run2d(state: GridState2D, cfg: StamConfig, n_steps: int):
@@ -979,27 +1004,36 @@ def step3d(state: GridState3D, cfg: StamConfig,
     gate that does not report the residual is one fused call
     (kernels.step3d_whole), as the reference's step3d_whole_pallas;
     every other step, gather advection's and a bfloat16 solver's
-    included, is step3d_multi."""
+    included, is step3d_multi.  Its span is ``grid.step``, detail
+    ``whole`` or ``multi``."""
     s = _with_sources(state, cfg, sources)
     if (cfg.advect_mode == "stencil" and cfg.projection == "jacobi"
             and cfg.solver_dtype == "float32" and not with_residual
             and kernels.step_whole_ok(s.u)):
-        return GridState3D(*kernels.step3d_whole(s.u, s.v, s.w, s.dens,
-                                                 s.temp, cfg))
-    return step3d_multi(s, cfg, with_residual)
+        with span("grid.step", "whole"):
+            return GridState3D(*kernels.step3d_whole(s.u, s.v, s.w, s.dens,
+                                                     s.temp, cfg))
+    with span("grid.step", "multi"):
+        return step3d_multi(s, cfg, with_residual)
 
 
 def step3d_multi(state: GridState3D, cfg: StamConfig,
                  with_residual: bool = False):
     """step3d without sources, each stage through its own kernel (gather
-    advection as torch ops)."""
+    advection as torch ops), each in its span: ``grid.forcing``,
+    ``grid.diffuse`` and ``grid.advect`` (detail ``velocity`` or
+    ``scalars``), and project3d's."""
     u, v, w, dens, temp = state.u, state.v, state.w, state.dens, state.temp
     if cfg.buoyancy_alpha or cfg.buoyancy_beta or cfg.vorticity_eps:
-        u, v, w = kernels.forcing3d(u, v, w, dens, temp, cfg)
+        with span("grid.forcing"):
+            u, v, w = kernels.forcing3d(u, v, w, dens, temp, cfg)
     if cfg.visc:
-        u, v, w = _diffuse_fields((u, v, w), (1, 2, 3), (cfg.visc,) * 3, cfg)
+        with span("grid.diffuse", "velocity"):
+            u, v, w = _diffuse_fields((u, v, w), (1, 2, 3),
+                                      (cfg.visc,) * 3, cfg)
     u, v, w = project3d(u, v, w, cfg, final=False)
-    u, v, w = _advect_fields((u, v, w), (1, 2, 3), (u, v, w), cfg)
+    with span("grid.advect", "velocity"):
+        u, v, w = _advect_fields((u, v, w), (1, 2, 3), (u, v, w), cfg)
     if with_residual:
         u, v, w, res = project3d(u, v, w, cfg, with_residual=True)
     else:
@@ -1008,11 +1042,13 @@ def step3d_multi(state: GridState3D, cfg: StamConfig,
               if c}
     if coeffs:
         fields = {"dens": dens, "temp": temp}
-        fields.update(zip(coeffs, _diffuse_fields(
-            [fields[f] for f in coeffs], (0,) * len(coeffs),
-            list(coeffs.values()), cfg)))
+        with span("grid.diffuse", "scalars"):
+            fields.update(zip(coeffs, _diffuse_fields(
+                [fields[f] for f in coeffs], (0,) * len(coeffs),
+                list(coeffs.values()), cfg)))
         dens, temp = fields["dens"], fields["temp"]
-    dens, temp = _advect_fields((dens, temp), (0, 0), (u, v, w), cfg)
+    with span("grid.advect", "scalars"):
+        dens, temp = _advect_fields((dens, temp), (0, 0), (u, v, w), cfg)
     out = GridState3D(u=u, v=v, w=w, dens=dens, temp=temp)
     return (out, res) if with_residual else out
 
