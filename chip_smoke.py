@@ -79,10 +79,11 @@
    and bfloat16), at the bytes of their storage type.  Then the blocked
    kernels themselves: ptxas's registers, stack frame and spills of the
    red-black and Jacobi kernels' shipped instances in float32 and in
-   bfloat16 (a stack frame or a spill fails), their shared memory a
-   block and resident blocks, and their pass times by levels a pass:
-   the float32 passes at 256^3, the bfloat16 passes at 512^3, by
-   half-sweeps and by sweeps.
+   bfloat16 (the red-black kernel's one a half-sweep count, 1 to k; a
+   stack frame or a spill fails), their shared memory a block and
+   resident blocks, and their pass times by levels a pass: the float32
+   passes at 256^3, the bfloat16 passes at 512^3, by half-sweeps and by
+   sweeps, and the red-black level's cost (the slope).
 3. Runs 4 steps of the bench.py scene and of BASELINE configs 2 and 4
    at 16^3, and of BASELINE config 1 at 32^2, on the card and on the CPU
    (plain versions) and compares them.
@@ -265,6 +266,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -846,7 +848,7 @@ def log_solve_floors(kernels, name, x0, iters, bound_ms):
         tile = kernels.jacobi_tile(dtype)
         return jacobi_floor(kernels, name, x0, tile,
                             kernels._jacobi_chunks_on(x0), iters, bound_ms)
-    tile = kernels.rb_tile(dtype)
+    tile = kernels.rb_tile(dtype, n)
     passes = [(p.half_sweeps, not p.first)
               for p in kernels.rb_passes(2 * iters, tile.k)]
     ghosts = x0.numel() - n ** 3
@@ -869,13 +871,22 @@ def jacobi_floor(kernels, name, x0, tile, chunks, iters, bound_ms):
 
 # the blocked kernels' instantiations in ptxas's output: name -> (the
 # mangled entry holds each of these, and not these); the float32 Jacobi
-# kernel's shipped instance is told from the probe's by its shape
+# kernel's shipped instance is told from the probe's by its shape, as are
+# the red-black kernel's two float32 shapes (check_blocked adds those),
+# and the red-black kernel's instances, one a half-sweep count 1 .. k, by
+# that count
 BLOCKED_ENTRIES = {
-    "rb_blocked float32": (("rb_blocked_kernel",), ("__nv_bfloat16",)),
     "rb_blocked bfloat16": (("rb_blocked_kernel", "__nv_bfloat16"), ()),
     "jacobi_blocked bfloat16": (("jacobi_blocked_kernel", "__nv_bfloat16"),
                                 ()),
 }
+
+
+def rb_levels(entry):
+    """The half-sweep count of a red-black instance's mangled name
+    (rb_blocked_kernel<Tile<...>, H>), or None."""
+    m = re.search(r"EELi(\d+)EEEv", entry)
+    return int(m.group(1)) if m else None
 
 
 def probe_label(shape):
@@ -883,6 +894,11 @@ def probe_label(shape):
     return (f"F {t.k}, {t.ty}x{t.tz}, {shape.threads} threads, "
             f"{shape.cells} cells a slot"
             f"{' (shipped)' if shape.shipped else ''}")
+
+
+def rb_mangled(tile):
+    """The mangled (k, ty, tz) of a red-black Tile in ptxas's lines."""
+    return f"ILi{tile.k}ELi{tile.ty}ELi{tile.tz}E"
 
 
 def jacobi_mangled(shape):
@@ -896,22 +912,46 @@ def jacobi_mangled(shape):
 def check_blocked(stam, kernels, dev, build_log):
     """The blocked kernels' builds (ptxas: registers, stack frame, spills
     of the red-black and Jacobi kernels' shipped instances in float32 and
-    bfloat16; a stack frame or a spill fails) and shared memory per
-    block, then their pass times by levels a pass: the float32 passes at
-    the main path's 256^3 by half-sweeps and sweeps, and the bfloat16
-    passes at 512^3 (config 3 with the bf16 solver): what one level
-    costs.  (The solves themselves are held bit for bit against the plain
-    ones and timed in check_kernels; the float32 Jacobi probe's instances
-    in check_jacobi_probe.)"""
+    bfloat16, the red-black kernel's one a half-sweep count 1 .. k of
+    each of its shapes, the float32 ones for n above and up to
+    kernels.RB_SMALL_N, which the kernel picks as kernels.rb_tile does; a
+    stack frame or a spill fails) and shared memory per block, then their
+    pass times by levels a pass: the float32 passes at the main path's
+    256^3 by half-sweeps and sweeps, and the bfloat16 passes at 512^3
+    (config 3 with the bf16 solver): what one level costs (the small
+    shape's passes, a few microseconds, are timed by rb_probe.py).  (The solves
+    themselves are held bit for bit against the plain ones and timed in
+    check_kernels; the float32 Jacobi probe's instances in
+    check_jacobi_probe.)"""
     found = {entry: {"registers": regs, "stack_spill": stack_spill}
              for entry, regs, stack_spill in ptxas_entries(build_log,
                                                            "blocked_kernel")}
     cur = torch.cuda.current_device()
     probe = kernels.jacobi_probe_shapes(cur)
-    check(len(found) == len(BLOCKED_ENTRIES) + len(probe),
+    rb_shapes = {"rb_blocked float32": (kernels.RB_TILE, torch.float32,
+                                        N_BIG),
+                 "rb_blocked float32 small": (kernels.RB_TILE_SMALL,
+                                              torch.float32,
+                                              kernels.RB_SMALL_N),
+                 "rb_blocked bfloat16": (kernels.RB_TILE_BF16,
+                                         torch.bfloat16, N_512)}
+    for tile, dtype, n in rb_shapes.values():
+        check(kernels.rb_tile(dtype, n) == tile,
+              f"kernels.rb_tile({dtype}, {n}) is not {tile}")
+    # the kernel takes the small float32 shape up to the same n as
+    # kernels.rb_tile: the shapes differ in shared memory a block
+    f32 = [kernels.rb_tile_info(cur, torch.float32, n) for n in (
+        kernels.RB_SMALL_N, kernels.RB_SMALL_N + 1, N_BIG)]
+    check(f32[0] != f32[1] == f32[2], f"tf_rb_blocked_info's float32 "
+          f"(resident blocks, shared memory) at n {kernels.RB_SMALL_N}, "
+          f"{kernels.RB_SMALL_N + 1} and {N_BIG}: {f32}")
+    rb_instances = sum(tile.k for tile, _, _ in rb_shapes.values())
+    others = sum(1 for kind in BLOCKED_ENTRIES
+                 if not kind.startswith("rb_blocked"))
+    check(len(found) == others + rb_instances + len(probe),
           f"ptxas lines of {len(found)} blocked kernels, expected "
-          f"{len(BLOCKED_ENTRIES)} and the {len(probe)} float32 Jacobi "
-          f"instances")
+          f"{rb_instances} red-black instances, the bfloat16 Jacobi one "
+          f"and the {len(probe)} float32 Jacobi instances")
     jt = kernels.JACOBI_TILE_BF16
     shipped = [s for s in probe if s.shipped]
     check(len(shipped) == 1 and shipped[0].tile == kernels.JACOBI_TILE,
@@ -919,10 +959,11 @@ def check_blocked(stam, kernels, dev, build_log):
           f"kernels.JACOBI_TILE")
     entries = {**BLOCKED_ENTRIES, "jacobi_blocked float32": (
         ("jacobi_blocked_kernel", jacobi_mangled(shipped[0])), ())}
-    infos = {"rb_blocked float32": (kernels.RB_TILE,
-                                    kernels.rb_tile_info(cur)),
-             "rb_blocked bfloat16": (kernels.RB_TILE_BF16, kernels.rb_tile_info(
-                 cur, torch.bfloat16)),
+    for kind in ("rb_blocked float32", "rb_blocked float32 small"):
+        entries[kind] = (("rb_blocked_kernel", rb_mangled(rb_shapes[kind][0])),
+                         ("__nv_bfloat16",))
+    infos = {**{kind: (tile, kernels.rb_tile_info(cur, dtype, n))
+                for kind, (tile, dtype, n) in rb_shapes.items()},
              "jacobi_blocked bfloat16": (jt, kernels.jacobi_tile_info(
                  cur, torch.bfloat16)),
              "jacobi_blocked float32": (kernels.JACOBI_TILE,
@@ -930,30 +971,47 @@ def check_blocked(stam, kernels, dev, build_log):
     for kind, (has, lacks) in entries.items():
         names = [e for e in found if all(k in e for k in has)
                  and not any(k in e for k in lacks)]
-        check(len(names) == 1, f"{kind}: ptxas entries {names}")
-        info = found[names[0]]
         tile, (slots, smem) = infos[kind]
-        check(f"ILi{tile.k}ELi{tile.ty}ELi{tile.tz}E" in names[0],
-              f"the compiled {kind} kernel {names[0]} is not {tile}")
-        log(f"{kind} (k {tile.k}, {tile.ty}x{tile.tz}): "
-            f"{info['registers']} registers, stack frame, spill stores, "
-            f"spill loads {info['stack_spill']} B; {smem} B shared memory a "
-            f"block, {slots} resident blocks")
-        check(not any(info["stack_spill"]),
-              f"{kind}: stack frame or spill {info['stack_spill']}")
+        red_black = kind.startswith("rb_blocked")
+        if red_black:
+            # one instance a half-sweep count
+            check(sorted(map(rb_levels, names)) == list(
+                range(1, tile.k + 1)), f"{kind}: ptxas entries {names}")
+        else:
+            check(len(names) == 1, f"{kind}: ptxas entries {names}")
+        for name in sorted(names, key=lambda e: rb_levels(e) or 0):
+            info = found[name]
+            check(rb_mangled(tile) in name,
+                  f"the compiled {kind} kernel {name} is not {tile}")
+            h = rb_levels(name) if red_black else None
+            log(f"{kind} (k {tile.k}, {tile.ty}x{tile.tz}"
+                f"{f', H {h}' if h else ''}): "
+                f"{info['registers']} registers, stack frame, spill stores, "
+                f"spill loads {info['stack_spill']} B; {smem} B shared memory "
+                f"a block, {slots} resident blocks")
+            check(not any(info["stack_spill"]),
+                  f"{kind}: stack frame or spill {info['stack_spill']}")
     rng = np.random.default_rng(SEED + 10)
     for n, dtype in ((N_BIG, torch.float32), (N_512, torch.bfloat16)):
         p = stam.set_bnd3d(0, torch.from_numpy(rng.uniform(
             0.0, 1.0, (n + 2,) * 3).astype(np.float32)).to(dev)).to(dtype)
         out = torch.empty_like(p)
         chunks = kernels._rb_chunks_on(p, 0)
-        for h in range(1, kernels.rb_tile(dtype).k + 1):
+        k = kernels.rb_tile(dtype, n).k
+        times = []
+        for h in range(1, k + 1):
             ms = time_ms(lambda h=h: kernels._rb_pass(
                 p, p, out, 0, chunks, kernels.RbPass(h, 0, False), 0, 1.0,
                 1 / 6))
+            times.append(ms)
             log(f"rb_blocked {str(dtype).removeprefix('torch.')} pass @ "
                 f"{n}^3, {h} half-sweeps: {ms:.4f} ms ({ms / h:.4f} ms a "
                 f"half-sweep)")
+        # a level's cost: the least-squares slope of time on half-sweeps
+        hs = np.arange(1, k + 1)
+        slope = np.polyfit(hs, np.array(times), 1)[0]
+        log(f"rb_blocked {str(dtype).removeprefix('torch.')} @ {n}^3: a "
+            f"level costs {slope:.4f} ms ({card_line()})")
         chunks = kernels._jacobi_chunks_on(p)
         for h in range(1, kernels.jacobi_tile(dtype).k + 1):
             ms = time_ms(lambda h=h: kernels._jacobi_pass(
@@ -3240,7 +3298,8 @@ def check_rb_shard(stam, kernels, shard, dev):
     nbytes = x0p.nbytes + got.nbytes
     bound_ms, bound_by = bound(nbytes, 8 * iters * n ** 3)
     passes = [p for sp in range(iters // fuse)
-              for p in kernels.rb_passes(2 * fuse, kernels.RB_TILE.k,
+              for p in kernels.rb_passes(2 * fuse,
+                                         kernels.rb_tile(x0p.dtype, n).k,
                                          first=sp == 0)]
     log(f"kernel lin_solve3d_rb_shard timed @ {n}^3 (world 1, {x0p.shape[0]} "
         f"padded rows, {iters} iterations, fuse {fuse}: {iters // fuse} "
@@ -3250,8 +3309,8 @@ def check_rb_shard(stam, kernels, shard, dev):
         f"({bound_by}: {nbytes} B, {8 * iters * n ** 3} operations)")
     # the finish pass reads the owned rows and writes them with ghosts
     chunks = kernels._rb_chunks_on(x0p, 1 - halo)
-    log_blocked_floors("lin_solve3d_rb_shard", x0p, kernels.RB_TILE, chunks,
-                       kernels.RB_TILE.k,
+    tile = kernels.rb_tile(x0p.dtype, n)
+    log_blocked_floors("lin_solve3d_rb_shard", x0p, tile, chunks, tile.k,
                        [(p.half_sweeps, not p.first) for p in passes],
                        (chunks.r_hi - chunks.r_lo + 1) * n * n,
                        2 * got.nbytes, 2 * iters, bound_ms)

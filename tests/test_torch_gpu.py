@@ -186,9 +186,15 @@ def _raw(dev, n, seed, count):
 # (n, red_black): the Jacobi solve at 15^3-131^3 (n + 2 odd and even;
 # at 131 a tile other than the first ends in the last slot before the
 # face); the red-black solve from n = 4 (multigrid's coarsest) up, odd
-# n, n below the kernel's tile and n not a multiple of it
+# n, n below the kernel's tile and n not a multiple of it, the main
+# path's 256, and the last tile ending inside a slot (two cells of a
+# colour, four z cells; 77: its last slot holds one cell of the tile) or
+# at its end (100); red-black on both sides of kernels.RB_SMALL_N (64,
+# 65), where the float32 shape changes, and 33 (the small shape's last
+# tile one cell wide)
 SOLVE_CASES = ([(n, False) for n in (15, 16, 64, 131)]
-               + [(n, True) for n in (4, 7, 8, 15, 16, 64, 130)])
+               + [(n, True) for n in (4, 7, 8, 15, 16, 33, 64, 65, 77, 100,
+                                      130, 256)])
 
 
 @pytest.mark.parametrize("n,red_black", SOLVE_CASES,
@@ -212,6 +218,39 @@ def test_solve_kernels_match_plain(cuda, n, red_black):
                     got = kern(b, guess, x0, *coeffs, iters)
                     want = plain(b, guess, x0, *coeffs, iters)
                     assert torch.equal(got, want), (iters, b, coeffs)
+
+
+@pytest.mark.parametrize("n", [15, 77])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_rb_passes_of_every_length_are_bitwise_plain(cuda, n, dtype):
+    """Each half-sweep count the blocked red-black kernel is compiled for
+    (1 to k), in passes that add up to two iterations, then the ghost
+    pass: bit for bit against the plain solve, every b, a raw guess."""
+    from tpufluids_torch import _build
+    x, x0 = _raw(cuda, n, 47, 2)
+    k = kernels.rb_tile(dtype, n).k
+    splits = [(1, 3), (3, 1), (2, 2), (4,), (1, 1, 1, 1), (1, 2, 1)]
+    assert {h for s in splits for h in s} == set(range(1, k + 1))
+    for b in range(4):
+        if dtype == torch.bfloat16:
+            xs, x0s, a, c_inv = kernels._bf16_operands(x, x0, 1.0, 6.0)
+            want = kernels.lin_solve3d_rb_bf16_plain(b, x, x0, 1.0, 6.0, 2)
+        else:
+            xs, x0s, a, c_inv = x, x0, 1.0, 1.0 / 6.0
+            want = kernels.lin_solve3d_rb_plain(b, x, x0, 1.0, 6.0, 2)
+        chunks = kernels._rb_chunks_on(x0s, 0)
+        for split in splits:
+            src, done = xs, 0
+            for h in split:
+                dst = torch.empty_like(x0s)
+                kernels._rb_pass(src, x0s, dst, 0, chunks,
+                                 kernels.RbPass(h, done % 2, done == 0), b,
+                                 a, c_inv)
+                src, done = dst, done + h
+            _build.launch("tf_rb_ghosts", src, n, b,
+                          int(dtype == torch.bfloat16))
+            assert torch.equal(src.float(), want), (b, split)
 
 
 @pytest.mark.parametrize("n", [15, 16, 131])

@@ -159,9 +159,10 @@ def _load(path: Path) -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    for info in ("tf_rb_blocked_info", "tf_jacobi_blocked_info"):
-        getattr(lib, info).argtypes = [_INT] + [ctypes.POINTER(_INT)] * 2
-        getattr(lib, info).restype = ctypes.c_int
+    lib.tf_rb_blocked_info.argtypes = [_INT] * 2 + [ctypes.POINTER(_INT)] * 2
+    lib.tf_rb_blocked_info.restype = ctypes.c_int
+    lib.tf_jacobi_blocked_info.argtypes = [_INT] + [ctypes.POINTER(_INT)] * 2
+    lib.tf_jacobi_blocked_info.restype = ctypes.c_int
     lib.tf_jacobi_probe_info.argtypes = [_INT] + [ctypes.POINTER(_INT)] * 3
     lib.tf_jacobi_probe_info.restype = ctypes.c_int
     for info in ("tf_lin_solve3d_whole_info", "tf_lin_solve2d_info"):

@@ -530,7 +530,7 @@ __device__ __forceinline__ void jacobi_pass(const JArgs<typename Tl::T>& g) {
 #pragma unroll
     for (int h = 0; h < Tl::F; ++h) {
       // plane s + 3 comes into registers a share at a time between the
-      // levels (as rb_blocked.cu)
+      // levels
       fetch_plane<Tl>(next, g, L, s + 3, h * Tl::SLOTS / Tl::F,
                       (h + 1) * Tl::SLOTS / Tl::F);
       if (h < H) {

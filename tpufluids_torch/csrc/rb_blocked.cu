@@ -1,4 +1,4 @@
-// The temporally blocked red-black pass: up to K red-black half-sweeps of
+// The temporally blocked red-black pass: H <= K red-black half-sweeps of
 // (x0 + a * sum of the six neighbours) / c in one launch, on a cubic
 // (n+2)^3 field or on a deep-padded x-slab of the sharded step.  The
 // route of both float32 red-black solves and of the bfloat16 one.
@@ -12,37 +12,47 @@
 // (jacobi.cu), the slab solve with tf_rb_shard_finish (jacobi_shard.cu).
 //
 // What bounds it on the H100.  A half-sweep does 8 flops a cell and has
-// to see x and x0.  At one device-memory pass per half-sweep (the design
-// this replaces) that is 3 fields, 12 B a cell, per half-sweep, and those
-// kernels ran at 1.3x that floor, 76-80x above the bound of the whole
-// solve.  Only several half-sweeps per pass close that gap, as the TPU
-// kernels did in VMEM.  Here a pass reads x and x0 once, each with its
-// halo, and writes the result once, for H <= K half-sweeps: (2 * halo
-// overhead + 1) / H field passes a half-sweep.  With the bytes cut that
-// far the pass is bound by the multiprocessor, not by device memory: each
-// level is a barrier-separated phase of shared-memory stencil work that
-// costs about as much whether or not device loads are in flight (PERF.md).
-// So K is 4, the least this design takes, and the tile, 16 x 64, keeps
-// two blocks on each multiprocessor, so that one block's barrier is the
-// other's work (larger tiles and K of 6 and 8 were slower, PERF.md).  A
-// wavefront skewed by two planes a level needs one barrier a step, not
-// K + 1, but a ring of 2K + 3 planes, one block a multiprocessor, and its
-// device loads then wait: it was no faster.
+// to see x and x0.  At one device-memory pass per half-sweep that is 3
+// fields, 12 B a cell, per half-sweep.  Here a pass reads x and x0 once,
+// each with its halo, and writes the result once, for H half-sweeps:
+// (2 * halo overhead + 1) / H field passes a half-sweep.  With the bytes
+// cut that far the pass is bound by the multiprocessor's work a level:
+// each level is a barrier-separated phase of shared-memory stencil work
+// whose cost is the latency of its shared loads and stores and of the
+// barrier, not its arithmetic (without the arithmetic a level of the
+// 256^3 pass still cost 0.038 of 0.041 ms; bf16x2 halving it did not move
+// the level either) nor its instruction count (four cells a slot, a
+// 16-byte word, cost 0.046-0.049 ms a level where pairs cost 0.040: half
+// the warps hide less latency).  What pays is more warps a barrier, fewer
+// barriers and device loads long in flight: a 32 x 64 tile with 768
+// threads, one block a multiprocessor (not 16 x 64 with 512, two), no
+// barrier after a step's last level, the pass compiled for its
+// half-sweep count H (tf_rb_blocked_pass picks the instance by h), a
+// plane's loads all issued as the plane before leaves the registers, and
+// each slot's x + 1 neighbours taken from the level before, in
+// registers.  A pass of 4 half-sweeps at 256^3 then takes 0.194 ms
+// against 0.227, a level 0.034-0.037 ms against 0.040 (PERF.md, with the
+// probe's other tiles, threads, slots, K and staging).  Where the grid is
+// too small for the large tile to fill the card (n <= 64), a pass is the
+// latency of one block's steps, and a 16 x 32 tile of 256 threads takes
+// it from 0.0145 to 0.0083 ms at 32^3 and from 0.0151 to 0.0138 at 64^3
+// (2 iterations).  A wavefront skewed by two planes a level needs one
+// barrier a step, not K, but a ring of 2K + 3 planes, and its device
+// loads then wait: it was no faster.
 //
 // Design.  A block owns a (y, z) tile of TY x TZ cells and a chunk of x
 // rows [c0, c1), and streams along x.  Its shared memory holds a ring of
-// K + 3 planes of x and of x0, each the tile with a K-deep y/z halo
+// K + 4 planes of x and of x0, each the tile with a K-deep y/z halo
 // (zeros outside the array).  At streaming step s, plane s + 2 is stored
-// from registers into the ring, a barrier publishes plane s + 1, and
-// level h = 0 .. H-1 updates plane s - h in place, with a barrier after
-// each level; between the levels the block reads plane s + 3 from device
-// memory into registers, a share at a time.  Then plane s - (H-1), final,
-// is written to dst if the chunk owns it.  The levels of the last step
+// from registers into the ring and plane s + 3 is read from device
+// memory into the same registers; a barrier publishes plane s + 1 (and
+// plane s - H, final at the step before, goes to dst if the chunk owns
+// it); then level h = 0 .. H-1 updates plane s - h in place, with a
+// barrier after each level but the last.  The levels of the last step
 // read plane s_end + 1 at most, yet the last two steps fetch planes
-// s_end + 2 and s_end + 3 (those inside the array): a test that skips
-// them needs a register past the 64 that two blocks a multiprocessor
-// allow, and spills, to save about 3% of a pass's bytes at 256^3
-// (kernels.RbChunks.rows; chip_smoke.py counts these planes).
+// s_end + 2 and s_end + 3 (those inside the array), about 3% of a pass's
+// bytes at 256^3 (kernels.RbChunks.rows; chip_smoke.py counts these
+// planes).
 //
 // Why in place is right.  Level h updates the cells of parity p_h =
 // parity + h and reads only cells of parity 1 - p_h (its six neighbours;
@@ -52,6 +62,10 @@
 // written by level h-1 earlier in this step (plane s - h + 1), and plane
 // q-1's by level h-1 at step s-2, while level h+1 rewrites them only after
 // level h in this step.  So no second buffer is needed inside the ring.
+// Without a barrier after the last level a warp may store plane s + 3 at
+// step s + 1 while a slower one still reads planes s - H .. s - H + 2 (and
+// stores plane s - H) at step s: plane s + 3 takes the ring slot of plane
+// s - K - 1, so the ring holds K + 4 planes.
 //
 // The halo cone.  Level h updates the tile widened by e = H-1-h cells in
 // y and z, and the chunk widened by e rows, clipped to the cells a
@@ -80,7 +94,10 @@
 // thread owns slots of two neighbouring active cells, read and written as
 // one float2 or __nv_bfloat162 and updated together (tf::Pair); which of
 // a slot's cells lie in each level's cone, and whether it may touch a
-// face, is worked out once per launch.
+// face, is worked out once per launch.  A slot's x + 1 neighbours at
+// level h are its own cells on plane q + 1, which this thread updated at
+// level h-1 earlier in the step (unless q is the last row): they come
+// from registers, not from the ring.
 //
 // Loads go through registers (__ldg, then a store into the ring), not
 // cp.async or TMA: a row of n + 2 floats starts 16-byte aligned only when
@@ -88,18 +105,16 @@
 // cp.async per cell was no faster.
 //
 // Storage.  The kernel is compiled for float and for __nv_bfloat16 (the
-// reference's bfloat16 solve), one Tile a type.  In bfloat16 a slot is
+// reference's bfloat16 solve): two Tiles for float (by n), one for
+// bfloat16.  In bfloat16 a slot is
 // one 4-byte word, so a warp's slots are 32 consecutive banks; a level
 // does each of its 8 operations as one bf16x2 instruction for two cells
 // (tf::cell_update on __nv_bfloat162), rounded as the plain version
 // rounds; of a slot's two z taps one is a word and the other straddles
 // two words (a byte permute).  A ring plane takes half the float32
-// bytes, and the bfloat16 tile spends them on twice the rows (32 x 64,
-// 256 threads): the schedule, the chunks and the halo cone are the
-// float32 ones.  Measured, the bf16x2 arithmetic did not move a level's
-// cost, and loads, shared stores and the store of a step cost as many
-// instructions a cell as in float32, so the bfloat16 pass is about as
-// fast as the float32 one on half the bytes (PERF.md).
+// bytes, and the bfloat16 tile spends them on more rows (48 x 64, 1024
+// threads, one block a multiprocessor): the schedule, the chunks and the
+// halo cone are the float32 ones.
 #include "jacobi.cuh"
 
 namespace {
@@ -118,9 +133,9 @@ struct Tile {
       ((ROWS * HW / EPW + 16 + 31) / 32 * 32 - 16) * EPW;
   static constexpr int PLANE = 2 * CS;
   // planes in the ring: at step s, s - K .. s + 1 being updated, read or
-  // written out, s + 2 going in (a warp still on the step before reads
-  // s - K at most)
-  static constexpr int RING = K + 3;
+  // written out, s + 2 going in, and s - K - 1, which a warp still on the
+  // step before may read (no barrier follows a step's last level)
+  static constexpr int RING = K + 4;
   static constexpr int SMEM = 2 * RING * PLANE * (int)sizeof(T);
   // a slot (two cells) and the y neighbours' slots are whole words
   static_assert(HW % 2 == 0 && ROWS * HW % EPW == 0, "pairs straddle words");
@@ -139,7 +154,7 @@ struct PassArgs {
   const T* src;  // NULL: a zero guess (first pass only)
   const T* x0;
   T* dst;
-  int rows, gx0, n, r_lo, r_hi, chunk, h, parity, first;
+  int rows, gx0, n, r_lo, r_hi, chunk, parity, first;
   float sx, sy, sz, a, c_inv;
 };
 
@@ -223,13 +238,12 @@ struct Staged {
   typename Tl::T x[Tl::LOADS], x0[Tl::LOADS];
 };
 
-// Reads cells [lo, hi) of this thread's share of plane q of x and x0 (the
-// tile and its halo; zeros outside the array) into registers.
+// Reads this thread's share of plane q of x and x0 (the tile and its
+// halo; zeros outside the array) into registers.
 template <class Tl>
 __device__ __forceinline__ void fetch_plane(Staged<Tl>& r,
                                             const PassArgs<typename Tl::T>& g,
-                                            const Lanes<Tl>& L, int q,
-                                            int lo, int hi) {
+                                            const Lanes<Tl>& L, int q) {
   using T = typename Tl::T;
   const T zero = tf::Store<T>::round(0.0f);
   const int N = g.n + 2;
@@ -238,7 +252,6 @@ __device__ __forceinline__ void fetch_plane(Staged<Tl>& r,
   const T* x0q = g.x0 + (size_t)q * N * N;
 #pragma unroll
   for (int i = 0; i < Tl::LOADS; ++i) {
-    if (i < lo || i >= hi) continue;
     const int off = L.load[i];
     const bool ok = in && off >= 0;
     r.x[i] = ok && xq ? __ldg(xq + off) : zero;
@@ -271,12 +284,15 @@ __device__ __forceinline__ void put_plane(typename Tl::T* xr,
 // words of each.  A slot is two cells, read and written as one word
 // (float2, or __nv_bfloat162) and updated by the paired cell_update; a
 // slot with no cell on a face of the grid (nearly all) takes no ghost
-// select.
+// select.  ``last`` holds each slot's result of the level before, on
+// plane q + 1: its x + 1 neighbours where ``chained``; the level leaves
+// its own there.
 template <class Tl>
 __device__ __forceinline__ void update_plane(
     typename Tl::T* xr, const typename Tl::T* x0r,
-    const PassArgs<typename Tl::T>& g, const Lanes<Tl>& L, int h, int q,
-    int at, int act, bool first, int ys, int zs) {
+    const PassArgs<typename Tl::T>& g, const Lanes<Tl>& L,
+    typename tf::Pair<typename Tl::T>::V (&last)[Tl::SLOTS], bool chained,
+    int h, int q, int at, int act, bool first, int ys, int zs) {
   using T = typename Tl::T;
   using P = tf::Pair<T>;
   using V = typename P::V;
@@ -297,7 +313,8 @@ __device__ __forceinline__ void update_plane(
     // cell (jy, m) has kz = 2 m + b
     const int b = (act + (L.cone[i] >> Lanes<Tl>::ROW)) & 1;
     const V x0c = P::load(X0 + c);
-    const V xm = P::load(Am + c), xp = P::load(Ap + c);
+    const V xm = P::load(Am + c);
+    const V xp = chained ? last[i] : P::load(Ap + c);
     const V ym = P::load(B + c - HW), yp = P::load(B + c + HW);
     // the z neighbours B[c - 1 + b], B[c + b] (shared) and B[c + 1 + b]
     V zm, zp;
@@ -317,6 +334,7 @@ __device__ __forceinline__ void update_plane(
                           P::tap(zp, own, g.sz, K0 == n, K1 == n), g.a,
                           g.c_inv);
     }
+    last[i] = v;
     if (ok == 3u)
       P::store(A + c, v);
     else if (ok == 1u)
@@ -342,14 +360,14 @@ __device__ __forceinline__ void store_plane(const typename Tl::T* xr,
   }
 }
 
-template <class Tl>
+// A pass of H half-sweeps, compiled for that count.
+template <class Tl, int H>
 __global__ void __launch_bounds__(Tl::NT, Tl::MIN_BLOCKS)
     rb_blocked_kernel(const PassArgs<typename Tl::T> g) {
   using T = typename Tl::T;
   extern __shared__ __align__(16) unsigned char smem[];
   T* xr = reinterpret_cast<T*>(smem);
   T* x0r = xr + Tl::RING * Tl::PLANE;
-  const int H = g.h;
   const int ty0 = 1 + blockIdx.y * Tl::TY, tz0 = 1 + blockIdx.x * Tl::TZ;
   const int ys = ty0 - Tl::K, zs = tz0 - Tl::K;  // halo cell (0, 0)
   const int c0 = g.r_lo + blockIdx.z * g.chunk;
@@ -361,93 +379,148 @@ __global__ void __launch_bounds__(Tl::NT, Tl::MIN_BLOCKS)
   // planes s0 - 1 .. s0 + 1 in ring slots 0 .. 2, s0 + 2 in registers
   Staged<Tl> next;
   for (int i = 0; i < 3; ++i) {
-    fetch_plane<Tl>(next, g, L, s0 - 1 + i, 0, Tl::LOADS);
+    fetch_plane<Tl>(next, g, L, s0 - 1 + i);
     put_plane<Tl>(xr, x0r, next, L, i);
   }
-  fetch_plane<Tl>(next, g, L, s0 + 2, 0, Tl::LOADS);
-  for (int s = s0, at = 1; s <= s_end; ++s, at = ring<Tl>(at, 1)) {
-    // plane s + 2 goes in (no level of this step reads it); the barrier
-    // publishes plane s + 1
+  fetch_plane<Tl>(next, g, L, s0 + 2);
+  // each slot's cells as the level before left them on plane s - h + 1
+  typename tf::Pair<T>::V last[Tl::SLOTS];
+  int at = 1;  // plane s's ring slot
+  for (int s = s0; s <= s_end; ++s, at = ring<Tl>(at, 1)) {
+    // plane s + 2 goes in (no level of this step reads it), and plane
+    // s + 3 comes into the registers it left, all of its loads in flight
+    // while the block waits at the barrier and runs the levels; the
+    // barrier publishes plane s + 1, and plane s - H, final at the step
+    // before, which goes to dst now
     put_plane<Tl>(xr, x0r, next, L, ring<Tl>(at, 2));
+    fetch_plane<Tl>(next, g, L, s + 3);
     __syncthreads();
+    if (s - H >= c0) store_plane<Tl>(xr, g, s - H, ring<Tl>(at, -H), ty0, tz0);
     // level h updates parity parity + h on row gx0 + s - h: in halo
     // coordinates one colour for every level of the step
     const int act = (g.parity + g.gx0 + s + ys + zs + 1) & 1;
 #pragma unroll
-    for (int h = 0; h < Tl::K; ++h) {
-      // plane s + 3 comes into registers a share at a time between the
-      // levels, so that loads waiting for room in the memory pipeline
-      // wait between updates, not before all of them
-      fetch_plane<Tl>(next, g, L, s + 3, h * Tl::LOADS / Tl::K,
-                      (h + 1) * Tl::LOADS / Tl::K);
-      if (h < H) {
-        const int q = s - h, e = H - 1 - h;
-        if (q >= max(c0 - e, g.r_lo) && q <= min(c1 - 1 + e, g.r_hi))
-          update_plane<Tl>(xr, x0r, g, L, h, q, ring<Tl>(at, -h), act,
-                           g.first && h == 0, ys, zs);
-        __syncthreads();
-      }
+    for (int h = 0; h < H; ++h) {
+      const int q = s - h, e = H - 1 - h;
+      // level h-1 updated plane q + 1 in this step unless q is the last
+      // row (then plane q + 1 is the input's)
+      if (q >= max(c0 - e, g.r_lo) && q <= min(c1 - 1 + e, g.r_hi))
+        update_plane<Tl>(xr, x0r, g, L, last, h > 0 && q < g.r_hi, h, q,
+                         ring<Tl>(at, -h), act, g.first && h == 0, ys, zs);
+      // the next step's first barrier follows the last level
+      if (h < H - 1) __syncthreads();
     }
-    const int q = s - (H - 1);
-    if (q >= c0) store_plane<Tl>(xr, g, q, ring<Tl>(at, 1 - H), ty0, tz0);
   }
+  __syncthreads();
+  if (s_end - (H - 1) >= c0)
+    store_plane<Tl>(xr, g, s_end - (H - 1), ring<Tl>(at, -H), ty0, tz0);
 }
 
 using bf16 = __nv_bfloat16;
 
-// The compiled shape of each storage type (kernels.RB_TILE and
-// RB_TILE_BF16 name them to the Python side): in bfloat16, whose ring
-// takes half the shared memory, a tile of twice the rows with 256
-// threads (two blocks a multiprocessor, 122 registers, no spill), faster
-// at 512^3 than 16 x 64 or 512 threads (PERF.md).
+// The compiled shapes of each storage type (kernels.RB_TILE,
+// RB_TILE_SMALL and RB_TILE_BF16 name them to the Python side): the
+// fastest of the probe's shapes at 256^3 in float32 and at 512^3 in
+// bfloat16, each one block a multiprocessor with no spill, and for
+// float32 fields of n <= SMALL_N (multigrid's coarse levels, the 64^3
+// plume) a 16 x 32 tile of 256 threads, three blocks a multiprocessor:
+// there the large tile leaves most multiprocessors idle and a pass is
+// the latency of a block's steps, which a smaller block shortens
+// (PERF.md).
 template <typename T>
 struct ShapeOf {
-  using type = Tile<4, 16, 64, 512, float>;
+  using type = Tile<4, 32, 64, 768, float>;
+  using small = Tile<4, 16, 32, 256, float>;
 };
 template <>
 struct ShapeOf<bf16> {
-  using type = Tile<4, 32, 64, 256, bf16>;
+  using type = Tile<4, 48, 64, 1024, bf16>;
+  using small = type;
 };
 template <typename T>
 using Shape = typename ShapeOf<T>::type;
+template <typename T>
+using SmallShape = typename ShapeOf<T>::small;
+constexpr int SMALL_N = 64;  // kernels.RB_SMALL_N
+
+// The instances of H = 1 .. K half-sweeps: each sets its shared-memory
+// attribute (allow_smem), or the one of ``h`` launches (launch_levels).
+template <class Tl, int H = 1>
+cudaError_t allow_smem() {
+  if constexpr (H > Tl::K) {
+    return cudaSuccess;
+  } else {
+    const cudaError_t e = cudaFuncSetAttribute(
+        rb_blocked_kernel<Tl, H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Tl::SMEM);
+    return e != cudaSuccess ? e : allow_smem<Tl, H + 1>();
+  }
+}
+
+template <class Tl, int H = 1>
+int launch_levels(int h, dim3 grid, const PassArgs<typename Tl::T>& g,
+                  cudaStream_t stream) {
+  if constexpr (H > Tl::K) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (h != H) return launch_levels<Tl, H + 1>(h, grid, g, stream);
+    rb_blocked_kernel<Tl, H><<<grid, Tl::NT, Tl::SMEM, stream>>>(g);
+    return tf::launch_status();
+  }
+}
+
+template <class Tl>
+int pass_of(const void* src, const void* x0, void* dst, int rows, int gx0,
+            int n, int r_lo, int r_hi, int chunk, int chunks, int h,
+            int parity, int first, int b, float a, float c_inv,
+            cudaStream_t stream) {
+  using T = typename Tl::T;
+  if (h < 1 || h > Tl::K || chunks < 1 || chunk < 1)
+    return (int)cudaErrorInvalidValue;
+  const tf::Signs s = tf::signs_for(b);
+  const PassArgs<T> g{(const T*)src, (const T*)x0, (T*)dst, rows, gx0, n,
+                      r_lo, r_hi, chunk, parity, first, s.x, s.y, s.z, a,
+                      c_inv};
+  const dim3 grid((n + Tl::TZ - 1) / Tl::TZ, (n + Tl::TY - 1) / Tl::TY,
+                  chunks);
+  return launch_levels<Tl>(h, grid, g, stream);
+}
 
 template <typename T>
 int blocked_pass(const void* src, const void* x0, void* dst, int rows,
                  int gx0, int n, int r_lo, int r_hi, int chunk, int chunks,
                  int h, int parity, int first, int b, float a, float c_inv,
                  cudaStream_t stream) {
-  using Tl = Shape<T>;
-  if (h < 1 || h > Tl::K || chunks < 1 || chunk < 1)
-    return (int)cudaErrorInvalidValue;
-  const tf::Signs s = tf::signs_for(b);
-  const PassArgs<T> g{(const T*)src, (const T*)x0, (T*)dst, rows,  gx0,
-                      n,  r_lo,  r_hi,  chunk, h,  parity, first, s.x, s.y,
-                      s.z, a,   c_inv};
-  const dim3 grid((n + Tl::TZ - 1) / Tl::TZ, (n + Tl::TY - 1) / Tl::TY,
-                  chunks);
-  rb_blocked_kernel<Tl><<<grid, Tl::NT, Tl::SMEM, stream>>>(g);
-  return tf::launch_status();
+  return n <= SMALL_N
+             ? pass_of<SmallShape<T>>(src, x0, dst, rows, gx0, n, r_lo,
+                                      r_hi, chunk, chunks, h, parity, first,
+                                      b, a, c_inv, stream)
+             : pass_of<Shape<T>>(src, x0, dst, rows, gx0, n, r_lo, r_hi,
+                                 chunk, chunks, h, parity, first, b, a,
+                                 c_inv, stream);
 }
 
-template <typename T>
-int blocked_info(int* slots, int* smem) {
-  using Tl = Shape<T>;
+template <class Tl>
+int info_of(int* slots, int* smem) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(rb_blocked_kernel<Tl>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             Tl::SMEM);
+  if (e == cudaSuccess) e = allow_smem<Tl>();
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, rb_blocked_kernel<Tl>, Tl::NT, Tl::SMEM);
+        &per_sm, rb_blocked_kernel<Tl, Tl::K>, Tl::NT, Tl::SMEM);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   *slots = sms * per_sm;
   *smem = Tl::SMEM;
   return 0;
+}
+
+template <typename T>
+int blocked_info(int n, int* slots, int* smem) {
+  return n <= SMALL_N ? info_of<SmallShape<T>>(slots, smem)
+                      : info_of<Shape<T>>(slots, smem);
 }
 
 }  // namespace
@@ -456,10 +529,10 @@ int blocked_info(int* slots, int* smem) {
 // src (NULL: zeros) into dst, over local rows r_lo .. r_hi of a (rows,
 // n+2, n+2) field at global row gx0, in ``chunks`` x-chunks of ``chunk``
 // rows; ``first``: the first half-sweep is the solve's first.  The fields
-// hold float, or bfloat16 when ``bf16_storage``.  The shared-memory
-// attribute it needs is set by tf_rb_blocked_info for the same storage
-// type, which must have run on the device first (a launch without it is
-// refused).
+// hold float, or bfloat16 when ``bf16_storage``; the shape follows the
+// storage type and n.  The shared-memory attribute it needs is set by
+// tf_rb_blocked_info for the same storage type and n, which must have run
+// on the device first (a launch without it is refused).
 extern "C" int tf_rb_blocked_pass(const void* src, const void* x0,
                                   void* dst, int rows, int gx0, int n,
                                   int r_lo, int r_hi, int chunk, int chunks,
@@ -477,10 +550,11 @@ extern "C" int tf_rb_blocked_pass(const void* src, const void* x0,
 }
 
 // Sets the kernel's dynamic shared memory attribute on the current
-// device for the storage type (bfloat16 when ``bf16_storage``); gives the
-// blocks the card keeps resident at once and the dynamic shared memory of
-// one.
-extern "C" int tf_rb_blocked_info(int bf16_storage, int* slots, int* smem) {
-  return bf16_storage ? blocked_info<bf16>(slots, smem)
-                      : blocked_info<float>(slots, smem);
+// device for the shape of the storage type (bfloat16 when
+// ``bf16_storage``) and n, on each of its instances; gives the blocks the
+// card keeps resident at once and the dynamic shared memory of one.
+extern "C" int tf_rb_blocked_info(int bf16_storage, int n, int* slots,
+                                  int* smem) {
+  return bf16_storage ? blocked_info<bf16>(n, slots, smem)
+                      : blocked_info<float>(n, slots, smem);
 }

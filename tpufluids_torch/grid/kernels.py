@@ -812,16 +812,23 @@ class RbTile:
         return -(-n // self.ty) * -(-n // self.tz)
 
 
-# The shapes csrc/rb_blocked.cu compiles (its ``Shape``), in float32 and
+# The shapes csrc/rb_blocked.cu compiles (its ``ShapeOf``), in float32 and
 # in bfloat16: the fastest at the main path's shapes on the H100 of those
-# measured (PERF.md).
-RB_TILE = RbTile(4, 16, 64)
-RB_TILE_BF16 = RbTile(4, 32, 64)
+# measured, and in float32 for fields of n <= RB_SMALL_N, where the large
+# tile leaves most of the card idle, the fastest at multigrid's coarse
+# levels (PERF.md).
+RB_TILE = RbTile(4, 32, 64)
+RB_TILE_SMALL = RbTile(4, 16, 32)
+RB_SMALL_N = 64
+RB_TILE_BF16 = RbTile(4, 48, 64)
 
 
-def rb_tile(dtype: torch.dtype) -> RbTile:
-    """The blocked red-black kernel's shape in storage ``dtype``."""
-    return RB_TILE_BF16 if dtype == torch.bfloat16 else RB_TILE
+def rb_tile(dtype: torch.dtype, n: int) -> RbTile:
+    """The blocked red-black kernel's shape in storage ``dtype`` on a
+    field of n^2 cells a plane."""
+    if dtype == torch.bfloat16:
+        return RB_TILE_BF16
+    return RB_TILE_SMALL if n <= RB_SMALL_N else RB_TILE
 
 
 @dataclasses.dataclass(frozen=True)
@@ -860,7 +867,7 @@ class RbChunks:
     def rows(self, i: int, h: int):
         """(c0, c1, lo, hi) of chunk i in a pass of h half-sweeps: it
         owns rows [c0, c1) and its levels read rows lo .. hi (h more a
-        side, clipped below at r_lo - 1).  The kernel also fetches rows
+        side, clipped below at r_lo - 1).  The kernels also fetch rows
         hi + 1 and hi + 2 where they exist, which no level reads."""
         c0 = self.r_lo + i * self.length
         c1 = min(c0 + self.length, self.r_hi + 1)
@@ -908,12 +915,12 @@ def _tile_info(entry: str, device_index: int, *args):
 
 
 @functools.cache
-def rb_tile_info(device_index: int, dtype: torch.dtype = torch.float32):
-    """_tile_info of the blocked red-black kernel in storage ``dtype``
-    (float32 or bfloat16, one instantiation each): once a device and
-    type."""
+def rb_tile_info(device_index: int, dtype: torch.dtype, n: int):
+    """_tile_info of the blocked red-black kernel's shape in storage
+    ``dtype`` (float32 or bfloat16) for n (rb_tile), each shape compiled
+    for every half-sweep count 1 .. k: once a device, type and n."""
     return _tile_info("tf_rb_blocked_info", device_index,
-                      int(dtype == torch.bfloat16))
+                      int(dtype == torch.bfloat16), n)
 
 
 def _device_index(t) -> int:
@@ -929,9 +936,9 @@ def _rb_pass(src, x0, dst, gx0, chunks, p: RbPass, b, a, c_inv):
 
 
 def _rb_chunks_on(x0, gx0):
-    slots, _ = rb_tile_info(_device_index(x0), x0.dtype)
-    return rb_chunks(x0.shape[0], gx0, x0.shape[1] - 2, rb_tile(x0.dtype),
-                     slots)
+    n = x0.shape[1] - 2
+    slots, _ = rb_tile_info(_device_index(x0), x0.dtype, n)
+    return rb_chunks(x0.shape[0], gx0, n, rb_tile(x0.dtype, n), slots)
 
 
 def _rb_solve(b, x, x0, a, c_inv, iters):
@@ -940,7 +947,7 @@ def _rb_solve(b, x, x0, a, c_inv, iters):
     scratch buffer so that the last lands in out, then the ghost pass."""
     out, tmp = torch.empty_like(x0), torch.empty_like(x0)
     chunks = _rb_chunks_on(x0, 0)
-    passes = rb_passes(2 * iters, rb_tile(x0.dtype).k)
+    passes = rb_passes(2 * iters, rb_tile(x0.dtype, x0.shape[1] - 2).k)
     src = x
     for i, p in enumerate(passes):
         dst = out if rb_lands_in_out(i, len(passes)) else tmp
@@ -1078,7 +1085,8 @@ def lin_solve3d_rb_shard(b, x, x0, a, c, iters, *, gx0, fuse,
     for sp in range(iters // fuse):
         if sp:
             exchange(src)
-        for p in rb_passes(2 * fuse, RB_TILE.k, first=sp == 0):
+        for p in rb_passes(2 * fuse, rb_tile(x0.dtype, x0.shape[1] - 2).k,
+                           first=sp == 0):
             dst = bufs[launches % 2]
             _rb_pass(src, x0, dst, gx0, chunks, p, b, a, 1.0 / c)
             src, launches = dst, launches + 1
