@@ -1,8 +1,8 @@
 """Readings for a cell's correctness limits: the numbers compared, from
 sound runs of the program on many seeds, from its control (the program
 on the lower-precision path that limits/<cell>.json names under
-"control") and from the faults of faults.py, each through a whole run's
-window, all in one process.
+"control") and from the faults of the cell's driver (its FAULTS), each
+through a whole run's window, all in one process.
 
     python3 fluidbench/calibrate.py --workload stam3d-256.dct \
         --seeds 1-12 --control-seeds 101-103 --fault-seeds 201-203 \
@@ -19,7 +19,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from fluidbench import common, faults, run  # noqa: E402
+from fluidbench import common, run  # noqa: E402
 
 
 def seeds(text: str) -> list[int]:
@@ -37,11 +37,13 @@ def main(argv=None):
     p.add_argument("--out", default=str(common.ROOT / "build" / "calibrate"))
     a = p.parse_args(argv)
     w = common.workload(common.manifest(), a.workload)
-    control = common.cell_files(w)[2]["control"]
+    config, _, limits = common.cell_files(w)
+    driver = common.module("drivers", config["driver"])
+    control = limits["control"]
     out_dir = Path(a.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     sides = [("program", a.seeds, None), ("control", a.control_seeds, None)]
-    sides += [(f.__name__, a.fault_seeds, f.__name__) for f in faults.ALL
+    sides += [(name, a.fault_seeds, name) for name in driver.FAULTS
               if a.fault_seeds]
     readings = {side: {} for side, _, _ in sides}
     with open(out_dir / f"calibrate_{a.workload}.jsonl", "a") as log:
@@ -49,7 +51,7 @@ def main(argv=None):
             for seed in seeds(group) if group else []:
                 args = run.parse(["--workload", a.workload, "--seed",
                                   str(seed), "--seconds", str(a.seconds)])
-                restore = faults.plant(fault) if fault else None
+                restore = driver.plant(fault) if fault else None
                 try:
                     res = run.run(args, overrides=control
                                   if side == "control" else None)

@@ -6,20 +6,26 @@ the harness then reads that frame's Poisson residual, the one host sync
 of a frame.  The driver makes the scene from the seed, keeps what the
 check needs (the seed state, and the input and output of the first
 frame, of one frame drawn from the seed and of the last frame) and,
-after the window, runs the plain reference (reference/stam3d.py) over
-each of those frames from the same input and compares."""
+after the window, runs the configuration's reference (reference/<its
+"reference">.py) over each of those frames from the same input and
+compares.  The faults are faults.py's."""
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 import random
 
 import torch
 
-from fluidbench.reference import stam3d as reference
+from fluidbench import common, faults
+from fluidbench.reference import stam3d
 
-FIELDS = reference.FIELDS
+FIELDS = stam3d.FIELDS
+CHECKS = ("field_gap", "residual_gap")
+FAULTS = tuple(f.__name__ for f in faults.ALL)
+plant = faults.plant
 
 
 def grid_keywords(config: dict, traffic: dict, overrides=None) -> dict:
@@ -40,14 +46,14 @@ def seed_state(config: dict, kw: dict, seed: int, device) -> dict:
     vel = torch.rand((3,) + (n + 2,) * 3, generator=gen, device=device,
                      dtype=torch.float32)
     vel = vel.mul_(2.0 * vmax).sub_(vmax)
-    state = {f: reference.set_bnd(b, vel[b - 1].clone())
+    state = {f: stam3d.set_bnd(b, vel[b - 1].clone())
              for b, f in ((1, "u"), (2, "v"), (3, "w"))}
     box = tuple(slice(*scene["blob"][a]) for a in "xyz")
     for f in ("dens", "temp"):
         q = torch.full((n + 2,) * 3, kw.get("ambient_temp", 0.0) if f == "temp"
                        else 0.0, dtype=torch.float32, device=device)
         q[box] = scene[f]
-        state[f] = reference.set_bnd(0, q)
+        state[f] = stam3d.set_bnd(0, q)
     return state
 
 
@@ -78,6 +84,7 @@ class Sim:
         self.warmup_steps = traffic["warmup_steps"]
         self.trace_frames = traffic["trace_frames"]
         self.limits = limits
+        self.reference = common.module("reference", config["reference"])
         self.updates_per_frame = self.kw["n"] ** 3 * self.frame_steps
         self.inputs = seed_state(config, self.kw, seed, device)
         # the frame drawn from the seed whose input and output are kept
@@ -151,7 +158,7 @@ class Sim:
               for f in dataclasses.fields(self.cfg)}
         for i in sorted(frames):
             before, after, res = frames.pop(i)
-            want, want_res, want_div = reference.run(
+            want, want_res, want_div = self.reference.run(
                 {f: t.clone() for f, t in before.items()}, kw,
                 self.frame_steps)
             fg = gaps(after, want)
@@ -172,7 +179,57 @@ class Sim:
                    for _, fg, rg, _, _ in self.detail)
         return self.nonfinite + over
 
+    def describe(self) -> list[str]:
+        """One line a checked frame: its gaps, its residual and the
+        reference's."""
+        return [f"frame {i}: field gap {fg:.6e}, residual gap {rg:.6e} "
+                f"(residual {res:.6e}, reference {want:.6e})"
+                for i, fg, rg, res, want in self.detail]
+
 
 def setup(config: dict, traffic: dict, limits: dict, seed: int, device,
           overrides=None) -> Sim:
     return Sim(config, traffic, limits, seed, device, overrides)
+
+
+def small(config: dict, traffic: dict, limits, n: int):
+    """The cell at n^3: dt scaled as 0.5 / n where the configuration ties
+    it to n, the blob scaled with the grid, a slice of two frames and
+    the sampled frame among the first three; the limits as they are."""
+    config = json.loads(json.dumps(config))
+    full = config["stam"]["n"]
+    if config["stam"]["dt"] * full == 0.5:
+        config["stam"]["dt"] = 0.5 / n
+    config["stam"]["n"] = n
+    config["scene"]["blob"] = {
+        a: [max(1, lo * n // full), max(2, hi * n // full)]
+        for a, (lo, hi) in config["scene"]["blob"].items()}
+    traffic = dict(traffic, trace_frames=2, check_frame_max=3)
+    return config, traffic, limits
+
+
+def follows_reference(config: dict, traffic: dict, n: int, seed: int):
+    """One frame of the program on the CPU at n^3 against the
+    configuration's reference from the same seed state: (the field gap,
+    its tolerance, the residual gap).  The sweep solves agree bit for
+    bit (tolerance 0), the DCT solve within float32 rounding (1e-5: the
+    port splits and orders its transforms otherwise).  Raises
+    ValueError where the reference leaves w at 0, since a scene that
+    does not move compares nothing."""
+    from tpufluids_torch.grid import stam
+    config, traffic, _ = small(config, traffic, None, n)
+    reference = common.module("reference", config["reference"])
+    kw = grid_keywords(config, traffic)
+    cfg = stam.StamConfig(**kw)
+    inputs = seed_state(config, kw, seed, "cpu")
+    steps = traffic["frame_steps"]
+    got, res = stam.run3d_python(stam.GridState3D(
+        **{f: t.clone() for f, t in inputs.items()}), cfg, steps)
+    want, want_res, want_div = reference.run(
+        {f: t.clone() for f, t in inputs.items()},
+        dataclasses.asdict(cfg), steps)
+    if not float(want["w"].abs().max()) > 0.0:
+        raise ValueError("the reference left w at 0: the scene is still")
+    gap = gaps({f: getattr(got, f) for f in FIELDS}, want)
+    tol = 1e-5 if kw["projection"] == "dct" else 0.0
+    return gap, tol, abs(float(res[0]) - want_res) / max(want_div, 1e-30)

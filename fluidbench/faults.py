@@ -1,4 +1,5 @@
-"""Faults planted under the timed path, for the tests that show the check
+"""The grid driver's faults (drivers/grid3d.py gives them as FAULTS and
+plant), planted under the timed path, for the tests that show the check
 fails them and for calibrate.py's readings of them on the card.  Each
 takes the program's ``run3d_python`` and returns a broken one."""
 

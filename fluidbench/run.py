@@ -237,9 +237,8 @@ def run(args, device="cuda", require=True, overrides=None) -> dict:
         dev["window_s"] = win.slice.window_s
 
     checks = sim.check()
-    for i, fg, rg, res, want in sim.detail:
-        common.say(f"frame {i}: field gap {fg:.6e}, residual gap {rg:.6e} "
-                   f"(residual {res:.6e}, reference {want:.6e})")
+    for line in sim.describe():
+        common.say(line)
     correct = all(value <= limit for _, value, limit in checks)
     out = {"correct": correct, "attempted": len(win.spans),
            "failed": sim.failed_frames(), "metrics": metrics, "device": dev}

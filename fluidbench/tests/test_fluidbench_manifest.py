@@ -1,5 +1,7 @@
 """BENCHMARK.json against the benchmark's contract: every name resolves
-to its files, and every name, unit and text keeps to its characters."""
+to its files, and every name, unit and text keeps to its characters.
+Each check takes the manifest, so that another one (a test's own) can be
+held to it too."""
 
 import re
 
@@ -40,47 +42,49 @@ def test_run_seconds_fits_a_full_check():
     assert need <= 43200
 
 
-@pytest.mark.parametrize("c", MAN["configs"], ids=lambda c: c["name"])
-def test_config_resolves(c):
+def check_config(man, c):
     assert set(c) == {"name", "source", "file", "reduced", "why"}
     assert NAME.match(c["name"]) and text_ok(c["source"]) and text_ok(c["why"])
     assert c["file"] == f"fluidbench/configs/{c['name']}.json"
     data = common.load_json(common.ROOT / c["file"])
     assert data["name"] == c["name"] and data["reduced"] == c["reduced"]
     assert (common.HERE / "drivers" / f"{data['driver']}.py").is_file()
-    assert any(w["config"] == c["name"] for w in MAN["workloads"])
+    assert any(w["config"] == c["name"] for w in man["workloads"])
     assert len(c["reduced"]) <= 16
     assert all(NAME.match(k) for k in c["reduced"])
 
 
-@pytest.mark.parametrize("w", MAN["workloads"], ids=lambda w: w["name"])
-def test_workload_resolves(w):
+def check_workload(man, w):
+    """The cell's files resolve; its limits file holds a limit for each
+    number its driver checks, and its control; its configuration's
+    reference is there."""
     assert set(w) == {"name", "config", "traffic", "chips", "why"}
     for key in ("name", "config", "traffic"):
         assert NAME.match(w[key])
     assert text_ok(w["why"]) and w["chips"] in (1, 4)
-    assert w["config"] in {c["name"] for c in MAN["configs"]}
+    assert w["config"] in {c["name"] for c in man["configs"]}
     config, traffic, limits = common.cell_files(w)
     assert traffic["name"] == w["traffic"]
-    assert {"field_gap", "residual_gap", "control"} <= set(limits)
-    reported = [m["name"] for m in common.end_to_end(MAN, w)]
+    driver = common.module("drivers", config["driver"])
+    assert {*driver.CHECKS, "control"} <= set(limits)
+    assert (common.HERE / "reference" / f"{config['reference']}.py").is_file()
+    reported = [m["name"] for m in common.end_to_end(man, w)]
     assert "setup_s" in reported and len(reported) >= 2
-    layers = common.per_layer(MAN, w)
+    layers = common.per_layer(man, w)
     assert layers and all(m["moves"] in reported for m in layers)
 
 
-def test_names_are_unique():
+def check_names_are_unique(man):
     for group in ("configs", "workloads"):
-        names = [x["name"] for x in MAN[group]]
+        names = [x["name"] for x in man[group]]
         assert len(names) == len(set(names))
-    metrics = [m["name"] for m in MAN["end_to_end"] + MAN["per_layer"]]
+    metrics = [m["name"] for m in man["end_to_end"] + man["per_layer"]]
     assert len(metrics) == len(set(metrics))
-    pairs = [(w["config"], w["traffic"]) for w in MAN["workloads"]]
+    pairs = [(w["config"], w["traffic"]) for w in man["workloads"]]
     assert len(pairs) == len(set(pairs))
 
 
-@pytest.mark.parametrize("m", MAN["end_to_end"], ids=lambda m: m["name"])
-def test_end_to_end_metric(m):
+def check_end_to_end_metric(m):
     assert set(m) - {"workloads"} == {"name", "unit", "better", "bound",
                                       "source"}
     assert NAME.match(m["name"]) and UNIT.match(m["unit"])
@@ -89,28 +93,69 @@ def test_end_to_end_metric(m):
     assert 0.01 <= m["bound"] <= 0.25
 
 
-@pytest.mark.parametrize("m", MAN["per_layer"], ids=lambda m: m["name"])
-def test_per_layer_metric_has_its_reader(m):
+def check_per_layer_metric(man, m):
     assert set(m) - {"workloads"} == {"name", "unit", "better", "source",
                                       "layer", "moves"}
     assert NAME.match(m["name"]) and UNIT.match(m["unit"])
     assert m["better"] in ("lower", "higher") and text_ok(m["layer"])
     assert m["source"] in ("device_trace", "program_span", "program_counter",
                            "host_clock")
-    assert m["moves"] in {e["name"] for e in MAN["end_to_end"]}
+    assert m["moves"] in {e["name"] for e in man["end_to_end"]}
     assert callable(common.reader(m["name"]))
-    names = {w["name"] for w in MAN["workloads"]}
+    names = {w["name"] for w in man["workloads"]}
     assert set(m.get("workloads", names)) <= names
     if m["name"].endswith("_roofline") or "mfu" in m["name"]:
         assert m["unit"] == "%"
 
 
-def test_manifest_is_small():
+def check_manifest_is_small(man):
     assert common.MANIFEST.stat().st_size <= 64 * 1024
-    assert 1 <= len(MAN["configs"]) <= 24
-    assert 1 <= len(MAN["workloads"]) <= 24
-    assert 1 <= len(MAN["end_to_end"]) <= 16
-    assert 1 <= len(MAN["per_layer"]) <= 128
+    assert 1 <= len(man["configs"]) <= 24
+    assert 1 <= len(man["workloads"]) <= 24
+    assert 1 <= len(man["end_to_end"]) <= 16
+    assert 1 <= len(man["per_layer"]) <= 128
+
+
+def check_manifest(man):
+    """Every check of this file that does not concern the command."""
+    for c in man["configs"]:
+        check_config(man, c)
+    for w in man["workloads"]:
+        check_workload(man, w)
+    check_names_are_unique(man)
+    for m in man["end_to_end"]:
+        check_end_to_end_metric(m)
+    for m in man["per_layer"]:
+        check_per_layer_metric(man, m)
+    check_manifest_is_small(man)
+
+
+@pytest.mark.parametrize("c", MAN["configs"], ids=lambda c: c["name"])
+def test_config_resolves(c):
+    check_config(MAN, c)
+
+
+@pytest.mark.parametrize("w", MAN["workloads"], ids=lambda w: w["name"])
+def test_workload_resolves(w):
+    check_workload(MAN, w)
+
+
+def test_names_are_unique():
+    check_names_are_unique(MAN)
+
+
+@pytest.mark.parametrize("m", MAN["end_to_end"], ids=lambda m: m["name"])
+def test_end_to_end_metric(m):
+    check_end_to_end_metric(m)
+
+
+@pytest.mark.parametrize("m", MAN["per_layer"], ids=lambda m: m["name"])
+def test_per_layer_metric_has_its_reader(m):
+    check_per_layer_metric(MAN, m)
+
+
+def test_manifest_is_small():
+    check_manifest_is_small(MAN)
 
 
 def test_metrics_of_a_cell():

@@ -1,7 +1,7 @@
-"""The harness's plain reference against the port's CPU path, for each
-cell's step at 16^3 and 24^3: the Jacobi and red-black cells bit for
-bit, the DCT cell within float32 rounding (the port splits and orders
-its transforms otherwise)."""
+"""Each cell's program against its configuration's reference, at 16^3
+and 24^3 through the cell's driver (``follows_reference``: for the grid
+cells, the Jacobi and red-black cells bit for bit, the DCT cell within
+float32 rounding), and the grid driver's scene and gaps."""
 
 import dataclasses
 
@@ -14,28 +14,26 @@ from fluidbench.reference import stam3d as reference
 from fluidbench.tests.conftest import small_files
 
 CELLS = [w["name"] for w in common.manifest()["workloads"]]
+SEED = 2 ** 31 + 11
+
+
+def assert_follows(name: str, n: int):
+    """The cell's program follows its reference at n^3: the gap within
+    the driver's tolerance, the residual's within that or 1e-6 of the
+    reference's scale, whichever is larger."""
+    w = common.workload(common.manifest(), name)
+    config, traffic, _ = common.cell_files(w)
+    driver = common.module("drivers", config["driver"])
+    gap, tol, residual_gap = driver.follows_reference(config, traffic, n,
+                                                      SEED)
+    assert gap <= tol
+    assert residual_gap <= max(tol, 1e-6)
 
 
 @pytest.mark.parametrize("n", [16, 24])
 @pytest.mark.parametrize("name", CELLS)
 def test_reference_follows_the_port(name, n):
-    from tpufluids_torch.grid import stam
-    w = common.workload(common.manifest(), name)
-    config, traffic, _ = small_files(w, n)
-    kw = grid3d.grid_keywords(config, traffic)
-    cfg = stam.StamConfig(**kw)
-    inputs = grid3d.seed_state(config, kw, 2 ** 31 + 11, "cpu")
-    steps = traffic["frame_steps"]
-    got, res = stam.run3d_python(stam.GridState3D(
-        **{f: t.clone() for f, t in inputs.items()}), cfg, steps)
-    want, want_res, want_div = reference.run(
-        {f: t.clone() for f, t in inputs.items()},
-        dataclasses.asdict(cfg), steps)
-    gap = grid3d.gaps({f: getattr(got, f) for f in reference.FIELDS}, want)
-    tol = 1e-5 if kw["projection"] == "dct" else 0.0
-    assert gap <= tol
-    assert abs(float(res[0]) - want_res) <= max(tol, 1e-6) * want_div
-    assert float(want["w"].abs().max()) > 0.0
+    assert_follows(name, n)
 
 
 def test_reference_leaves_its_inputs_alone():
